@@ -1,0 +1,50 @@
+"""SceneDiffusionModel configuration of the port.
+
+The fields the port reads from the JAX package's ``SDMConfig``
+(``lsdm_tpu/config.py``), with the same names and defaults, and its
+``sdm_proxd`` / ``sdm_humanise`` presets (reference
+``util/model_util.py:26-73``).  A copy, so that the port imports nothing
+of the JAX package; ``tests/test_torch_weights.py`` holds it to the
+original field by field.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class SDMConfig:
+    """SceneDiffusionModel hyper-parameters (reference ``model/sdm.py:
+    19-22`` overridden by ``util/model_util.py:26-73``)."""
+
+    clip_dim: int = 512
+    n_head: int = 8
+    cat_emb: int = 32
+    latent_dim: int = 128
+    vert_dims: int = 655
+    pcd_points: int = 1024
+    pcd_dim: int = 3
+    xyz_dim: int = 3
+    max_cats: int = 13
+    translation_params: int = 12
+    max_objs: int = 9  # 8 scene objects + slot 0 = human
+    pcd_backbone_type: str = "PNT2"  # the port builds PNT2 only
+    human_backbone_type: str = "POSA"  # the port builds POSA only
+    # "auto" skips FPS where it would select every point (sa1 at N=1024);
+    # "exact" always runs it
+    fps_mode: str = "auto"
+    # "auto" / "pallas": the hand-written selection kernels for CUDA
+    # tensors, their plain versions for CPU tensors; "topk": the plain
+    # versions on any device (models/pointnet2.py)
+    ball_impl: str = "auto"
+
+
+def sdm_proxd() -> SDMConfig:
+    """PRO-teXt preset (reference ``get_default_model_proxd``)."""
+    return SDMConfig(max_cats=13)
+
+
+def sdm_humanise() -> SDMConfig:
+    """HUMANISE preset (reference ``get_default_model_humanise``)."""
+    return SDMConfig(max_cats=11)

@@ -1,0 +1,259 @@
+"""The whole-loop denoise chain (K6): CUDA kernel and plain version.
+
+Replaces ``lsdm_tpu/ops/denoise_pallas.py:fused_denoise_chain``: the ENTIRE
+T-step DDPM/DDIM sampling loop in one call, with the same inputs and
+outputs.  Per step t (reference graph ``model/sdm.py:141-142,164-167,
+204-212``):
+
+  upsampling MLP on the step's (timestep, text) row e2_t (gelu x3)
+  -> combine_extraction (gelu)                                [t only]
+  x_t + cond_pcd -> input_process (sigmoid x4) -> output_process (gelu x2)
+  -> x0 (optionally clipped to [-1, 1])                       [x_t too]
+  x_{t-1} = c1 * x0 + c2 * x_t + c3 * noise_t
+
+One coefficient table serves DDPM and DDIM (``models/sampling.py``).  The
+CUDA version (``csrc/denoise_chain.cu``) splits the step at the bracket:
+the t-only embedding (and its half of the first combination_extraction
+layer) does not depend on the sample, so a first pass builds it for a
+chunk of steps at once as batched GEMMs over the whole card, and a second
+pass carries each tile of point rows through the chunk's steps; rows
+never exchange data, so tiles need no synchronisation between them.
+GELU is the exact erf form (the Pallas kernel approximates erf only
+because Mosaic has no erf).  :func:`denoise_chain_tables` runs the first
+pass alone, so a check can see its numerics, which the chain's output
+all but hides.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from lsdm_tpu_torch import kernels
+
+# Scratch of the kernel's first pass, in float32 elements (512 MiB): it
+# holds the per-step tables of one chunk of steps.
+CHAIN_SCRATCH_FLOATS = 1 << 27
+
+
+class DenoiseStepParams(NamedTuple):
+    """Weights of the per-step tail in the layout of the JAX
+    ``DenoiseStepParams``: ``*_t`` members are ``weight.T`` (in, out),
+    biases are (out, 1) columns for the upsampling layers and (1, out)
+    rows elsewhere."""
+
+    w_up0: torch.Tensor   # (128, 1)   upsampling_layer.0 weight (out, in=1)
+    b_up0: torch.Tensor   # (128, 1)
+    w_up2: torch.Tensor   # (512, 128)
+    b_up2: torch.Tensor   # (512, 1)
+    w_up4: torch.Tensor   # (N, 512)
+    b_up4: torch.Tensor   # (N, 1)
+    wc_t: torch.Tensor    # (2D, D)    combine_extraction.0
+    bc: torch.Tensor      # (1, D)
+    wp0_t: torch.Tensor   # (3, D/2)   input_process.pose_embedding.0
+    bp0: torch.Tensor     # (1, D/2)
+    wp2_t: torch.Tensor   # (D/2, D)
+    bp2: torch.Tensor     # (1, D)
+    wx0_t: torch.Tensor   # (2D, 1.5D) input_process.combination_extraction.0
+    bx0: torch.Tensor     # (1, 1.5D)
+    wx2_t: torch.Tensor   # (1.5D, D)
+    bx2: torch.Tensor     # (1, D)
+    wo0_t: torch.Tensor   # (D, D/2)   output_process.pose_final.0
+    bo0: torch.Tensor     # (1, D/2)
+    wo2_t: torch.Tensor   # (D/2, 3)
+    bo2: torch.Tensor     # (1, 3)
+
+
+def extract_step_params(model) -> DenoiseStepParams:
+    """The per-step tail weights of a port ``SceneDiffusionModel``,
+    detached, contiguous, in the kernel's layout."""
+    up = model.upsampling_layer
+    comb = model.combine_extraction[0]
+    pose = model.input_process.pose_embedding
+    cext = model.input_process.combination_extraction
+    out = model.output_process.pose_final
+
+    def t(lin):
+        return lin.weight.detach().t().contiguous()
+
+    def col(lin):
+        return lin.bias.detach()[:, None].contiguous()
+
+    def row(lin):
+        return lin.bias.detach()[None, :].contiguous()
+
+    return DenoiseStepParams(
+        w_up0=up[0].weight.detach().contiguous(), b_up0=col(up[0]),
+        w_up2=up[2].weight.detach().contiguous(), b_up2=col(up[2]),
+        w_up4=up[4].weight.detach().contiguous(), b_up4=col(up[4]),
+        wc_t=t(comb), bc=row(comb),
+        wp0_t=t(pose[0]), bp0=row(pose[0]),
+        wp2_t=t(pose[2]), bp2=row(pose[2]),
+        wx0_t=t(cext[0]), bx0=row(cext[0]),
+        wx2_t=t(cext[2]), bx2=row(cext[2]),
+        wo0_t=t(out[0]), bo0=row(out[0]),
+        wo2_t=t(out[2]), bo2=row(out[2]),
+    )
+
+
+def _emb_plain(e2: torch.Tensor, p: DenoiseStepParams) -> torch.Tensor:
+    """The t-only embedding (..., N, D) of step rows e2 (..., 2D): the
+    upsampling MLP, then combine_extraction."""
+    e2 = e2[..., None, :]                                    # (..., 1, 2D)
+    u0 = F.gelu(p.w_up0 * e2 + p.b_up0)                      # (..., 128, 2D)
+    u2 = F.gelu(p.w_up2 @ u0 + p.b_up2)                      # (..., 512, 2D)
+    u4 = F.gelu(p.w_up4 @ u2 + p.b_up4)                      # (..., N, 2D)
+    return F.gelu(u4 @ p.wc_t + p.bc)                        # (..., N, D)
+
+
+def denoise_chain_plain(
+    x_init: torch.Tensor,     # (B, N, 3)
+    noise_tab: torch.Tensor,  # (B, T, N, 3)
+    cond_pcd: torch.Tensor,   # (B, N, 3)
+    e2_tab: torch.Tensor,     # (B, T, 2D)
+    coef_tab: torch.Tensor,   # (T, 3)
+    p: DenoiseStepParams,
+    clip_denoised: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K6: the Pallas kernel body as a loop of torch ops.
+    Returns (final sample, input of the last step), both (B, N, 3)."""
+    T = noise_tab.shape[1]
+    x = x_init
+    last_in = x_init
+    for t in range(T):
+        last_in = x
+        emb = _emb_plain(e2_tab[:, t], p)                    # (B, N, D)
+        h = torch.sigmoid((x + cond_pcd) @ p.wp0_t + p.bp0)
+        h = torch.sigmoid(h @ p.wp2_t + p.bp2)
+        h = torch.sigmoid(torch.cat([h, emb], dim=-1) @ p.wx0_t + p.bx0)
+        h = torch.sigmoid(h @ p.wx2_t + p.bx2)
+        h = F.gelu(h @ p.wo0_t + p.bo0)
+        x0 = F.gelu(h @ p.wo2_t + p.bo2)
+        if clip_denoised:
+            x0 = x0.clamp(-1.0, 1.0)
+        c = coef_tab[t]
+        x = c[0] * x0 + c[1] * x + c[2] * noise_tab[:, t]
+    return x, last_in
+
+
+def fused_denoise_chain(
+    x_init: torch.Tensor,     # (B, N, 3) initial noise image
+    noise_tab: torch.Tensor,  # (B, T, N, 3) per-step gaussian draws
+    cond_pcd: torch.Tensor,   # (B, N, 3)
+    e2_tab: torch.Tensor,     # (B, T, 2D) per-step (timestep, text) embedding
+    coef_tab: torch.Tensor,   # (T, 3) per-step [c1, c2, c3]
+    p: DenoiseStepParams,
+    clip_denoised: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6: the whole sampling loop.  Returns (final sample, input of the
+    last step), both (B, N, 3) float32.  CUDA kernel for CUDA tensors,
+    plain version for CPU tensors."""
+    if kernels.on_cpu(x_init, noise_tab, cond_pcd, e2_tab, coef_tab, *p):
+        return denoise_chain_plain(x_init, noise_tab, cond_pcd, e2_tab,
+                                   coef_tab, p, clip_denoised)
+    B, T, N, _ = noise_tab.shape
+    dims = (B, T) + _check(p, N, {
+        "x_init": (x_init, (B, N, 3)), "noise_tab": (noise_tab, (B, T, N, 3)),
+        "cond_pcd": (cond_pcd, (B, N, 3)), "coef_tab": (coef_tab, (T, 3)),
+        "e2_tab": (e2_tab, (B, T, p.wc_t.shape[0]))})
+    per_step = _per_step(dims)
+    # (the first pass grids its batch of B * tc GEMMs on gridDim.z <= 65535)
+    tc = max(1, min(T, CHAIN_SCRATCH_FLOATS // (B * per_step), 65535 // B))
+    dev = x_init.device
+    scratch = torch.empty(B * tc * per_step, dtype=torch.float32, device=dev)
+    final = torch.empty_like(x_init)
+    last_in = torch.empty_like(x_init)
+    lib = kernels.load()
+    with torch.cuda.device(dev):
+        rc = lib.lsdm_denoise_chain(
+            x_init.data_ptr(), noise_tab.data_ptr(), cond_pcd.data_ptr(),
+            e2_tab.data_ptr(), coef_tab.data_ptr(), _pointers(p),
+            final.data_ptr(), last_in.data_ptr(), scratch.data_ptr(),
+            (ctypes.c_int * 11)(*dims[:10], tc),
+            int(bool(clip_denoised)), kernels.stream(dev))
+    kernels.check(rc, "denoise_chain")
+    kernels.LAUNCHES["denoise_chain"] += 1
+    return final, last_in
+
+
+def denoise_chain_tables_plain(e2_tab: torch.Tensor, p: DenoiseStepParams
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`denoise_chain_tables`."""
+    emb = _emb_plain(e2_tab, p)
+    D = p.wc_t.shape[1]
+    return emb, emb @ p.wx0_t[D:] + p.bx0
+
+
+def denoise_chain_tables(e2_tab: torch.Tensor, p: DenoiseStepParams
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6's first pass alone, for every step row of e2_tab (B, T, 2D):
+    the embedding emb (B, T, N, D) and its half of the first
+    combination_extraction layer, g = emb @ wx0_t[D:] + bx0
+    (B, T, N, 1.5D).  CUDA kernels for CUDA tensors, plain version for
+    CPU tensors."""
+    if kernels.on_cpu(e2_tab, *p):
+        return denoise_chain_tables_plain(e2_tab, p)
+    B, T, _ = e2_tab.shape
+    N = p.w_up4.shape[0]
+    if B * T > 65535:
+        raise ValueError(f"B * T = {B * T} tables exceed one grid (65535)")
+    dims = (B, T) + _check(p, N, {"e2_tab": (e2_tab, (B, T, p.wc_t.shape[0]))})
+    U0, U2, D, D15 = dims[4], dims[5], dims[6], dims[8]
+    dev = e2_tab.device
+    scratch = torch.empty(B * T * _per_step(dims), dtype=torch.float32,
+                          device=dev)
+    lib = kernels.load()
+    with torch.cuda.device(dev):
+        rc = lib.lsdm_denoise_chain_tables(
+            e2_tab.data_ptr(), _pointers(p), scratch.data_ptr(),
+            (ctypes.c_int * 11)(*dims[:10], T), kernels.stream(dev))
+    kernels.check(rc, "denoise_chain")
+    kernels.LAUNCHES["denoise_chain"] += 1
+    # scratch: u0, u2, u4, emb, g of every (scene, step), one after another
+    o_emb = B * T * (U0 * 2 * D + U2 * 2 * D + N * 2 * D)
+    o_g = o_emb + B * T * N * D
+    return (scratch[o_emb:o_g].view(B, T, N, D),
+            scratch[o_g:o_g + B * T * N * D15].view(B, T, N, D15))
+
+
+def _per_step(dims) -> int:
+    """Floats of the first pass's tables per (scene, step): u0, u2, u4,
+    emb, g (csrc/denoise_chain.cu:chain_tables)."""
+    _, _, N, D2, U0, U2, D, _, D15, _ = dims[:10]
+    return U0 * D2 + U2 * D2 + N * D2 + N * D + N * D15
+
+
+def _pointers(p: DenoiseStepParams):
+    return (ctypes.c_void_p * len(p))(*[w.data_ptr() for w in p])
+
+
+def _check(p: DenoiseStepParams, N: int, data: dict) -> Tuple[int, ...]:
+    """Check the kernel's inputs (``data``: name -> (tensor, shape) of the
+    step tensors, all on the device of the first) and return the dims
+    {N, 2D, U0, U2, D, DH, D15, DH2} of ``csrc/denoise_chain.cu``."""
+    D2 = p.wc_t.shape[0]
+    U0, U2 = p.w_up0.shape[0], p.w_up2.shape[0]
+    D, DH, D15, DH2 = (p.wc_t.shape[1], p.wp0_t.shape[1], p.wx0_t.shape[1],
+                       p.wo0_t.shape[1])
+    shapes = {
+        **data,
+        "w_up0": (p.w_up0, (U0, 1)), "b_up0": (p.b_up0, (U0, 1)),
+        "w_up2": (p.w_up2, (U2, U0)), "b_up2": (p.b_up2, (U2, 1)),
+        "w_up4": (p.w_up4, (N, U2)), "b_up4": (p.b_up4, (N, 1)),
+        "wc_t": (p.wc_t, (D2, D)), "bc": (p.bc, (1, D)),
+        "wp0_t": (p.wp0_t, (3, DH)), "bp0": (p.bp0, (1, DH)),
+        "wp2_t": (p.wp2_t, (DH, D)), "bp2": (p.bp2, (1, D)),
+        "wx0_t": (p.wx0_t, (2 * D, D15)), "bx0": (p.bx0, (1, D15)),
+        "wx2_t": (p.wx2_t, (D15, D)), "bx2": (p.bx2, (1, D)),
+        "wo0_t": (p.wo0_t, (D, DH2)), "bo0": (p.bo0, (1, DH2)),
+        "wo2_t": (p.wo2_t, (DH2, 3)), "bo2": (p.bo2, (1, 3)),
+    }
+    device = next(iter(data.values()))[0].device
+    for name, (t, shape) in shapes.items():
+        kernels.require(name, t, torch.float32, shape, device)
+    if data["e2_tab"][0].shape[1] < 1:
+        raise ValueError("the chain needs at least one step")
+    return N, D2, U0, U2, D, DH, D15, DH2

@@ -1,0 +1,140 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs an NVIDIA GPU and skips without one.  The shapes are
+small and deliberately awkward (rows that are not multiples of a warp or a
+tile, k < 3, empty balls, several chunks of the denoise chain), the edge
+cases ``chip_smoke.py`` does not reach at the flagship shapes.  On a
+machine with a GPU and no JAX, run them without the JAX test conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lsdm_tpu_torch import kernels
+from lsdm_tpu_torch.ops import ballquery, denoise, fps
+from lsdm_tpu_torch.ops.denoise import DenoiseStepParams
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    return torch.device("cuda", 0)
+
+
+def _cloud(seed, *shape, scale=1.0):
+    return torch.from_numpy(
+        (np.random.RandomState(seed).randn(*shape) * scale).astype(np.float32))
+
+
+@pytest.mark.parametrize("n,s,radius,nsample", [
+    (64, 64, 0.3, 32), (100, 13, 0.5, 16), (37, 5, 0.05, 8), (1024, 256, 0.2, 32)])
+def test_ball_query_kernel_equals_plain(dev, n, s, radius, nsample):
+    xyz = _cloud(n, 3, n, 3).to(dev)
+    new_xyz = _cloud(s, 3, s, 3).to(dev)
+    new_xyz[0, 0] = 50.0  # a ball with no point in it
+    before = kernels.LAUNCHES["ball_query"]
+    got = ballquery.query_ball_point_kernel(radius, nsample, xyz, new_xyz)
+    assert kernels.LAUNCHES["ball_query"] == before + 1
+    want = ballquery.query_ball_point_plain(radius, nsample, xyz, new_xyz)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert (got[0, 0] == n - 1).all()
+
+
+@pytest.mark.parametrize("n,s,k", [(64, 16, 3), (50, 50, 3), (33, 2, 2), (7, 1, 1)])
+def test_three_nn_kernel_equals_plain(dev, n, s, k):
+    xyz1 = _cloud(n, 2, n, 3).to(dev)
+    xyz2 = xyz1[:, :s].contiguous() if s == n else _cloud(s + 1, 2, s, 3).to(dev)
+    gd, gi = ballquery.three_nn_kernel(xyz1, xyz2, k)
+    wd, wi = ballquery.three_nn_plain(xyz1, xyz2, k)
+    torch.cuda.synchronize()
+    assert torch.equal(gi, wi)
+    assert torch.equal(gd, wd)  # same float32 ops: same bits
+
+
+def test_three_nn_ties_go_to_the_lowest_index(dev):
+    xyz2 = torch.tensor([[[1.0, 0, 0], [0, 1.0, 0], [-1.0, 0, 0], [0, -1.0, 0]]],
+                        device=dev)
+    xyz1 = torch.zeros(1, 1, 3, device=dev)
+    _, idx = ballquery.three_nn_kernel(xyz1, xyz2, 3)
+    assert idx.tolist() == [[[0, 1, 2]]]
+
+
+@pytest.mark.parametrize("n,npoint", [(64, 16), (1000, 250), (1024, 256), (3, 3)])
+def test_fps_kernel_equals_plain(dev, n, npoint):
+    xyz = _cloud(n + 7, 5, n, 3).to(dev)
+    start = torch.tensor([0, 1, 2, n - 1, n // 2], dtype=torch.int32, device=dev)
+    got = fps.farthest_point_sample_kernel(xyz, npoint, start)
+    want = fps.farthest_point_sample_plain(xyz, npoint, start)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _chain_inputs(dev, B, T, N, D, seed=0):
+    rs = np.random.RandomState(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rs.randn(*shape) * scale).astype(np.float32)).to(dev)
+
+    dh, d15 = D // 2, int(D * 1.5)
+    p = DenoiseStepParams(
+        w_up0=t(128, 1), b_up0=t(128, 1, scale=0.1),
+        w_up2=t(512, 128, scale=128 ** -0.5), b_up2=t(512, 1, scale=0.1),
+        w_up4=t(N, 512, scale=512 ** -0.5), b_up4=t(N, 1, scale=0.1),
+        wc_t=t(2 * D, D, scale=(2 * D) ** -0.5), bc=t(1, D, scale=0.1),
+        wp0_t=t(3, dh, scale=0.5), bp0=t(1, dh, scale=0.1),
+        wp2_t=t(dh, D, scale=dh ** -0.5), bp2=t(1, D, scale=0.1),
+        wx0_t=t(2 * D, d15, scale=(2 * D) ** -0.5), bx0=t(1, d15, scale=0.1),
+        wx2_t=t(d15, D, scale=d15 ** -0.5), bx2=t(1, D, scale=0.1),
+        wo0_t=t(D, dh, scale=D ** -0.5), bo0=t(1, dh, scale=0.1),
+        wo2_t=t(dh, 3, scale=dh ** -0.5), bo2=t(1, 3, scale=0.1))
+    coef = torch.from_numpy(np.stack(
+        [np.linspace(0.2, 0.9, T), np.linspace(0.9, 0.5, T),
+         np.linspace(0.3, 0.0, T)], -1).astype(np.float32)).to(dev)
+    return (t(B, N, 3), t(B, T, N, 3), t(B, N, 3), t(B, T, 2 * D), coef, p)
+
+
+@pytest.mark.parametrize("clip", [False, True])
+def test_denoise_chain_kernel_matches_plain(dev, clip, monkeypatch):
+    # a small scratch budget forces several chunks of steps
+    monkeypatch.setattr(denoise, "CHAIN_SCRATCH_FLOATS", 1 << 16)
+    args = _chain_inputs(dev, B=2, T=7, N=37, D=16)
+    got = denoise.fused_denoise_chain(*args, clip_denoised=clip)
+    want = denoise.denoise_chain_plain(*args, clip_denoised=clip)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        # float32 sums in another order, through 7 recurrent steps
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=0)
+
+
+def test_denoise_chain_tables_kernel_matches_plain(dev):
+    *_, e2, _, p = _chain_inputs(dev, B=2, T=5, N=37, D=16)
+    got = denoise.denoise_chain_tables(e2, p)
+    want = denoise.denoise_chain_tables_plain(e2, p)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        # float32 sums in another order, no recurrence
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
+
+
+def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
+    xyz = _cloud(0, 2, 16, 3).to(dev)
+    with pytest.raises(ValueError):
+        ballquery.query_ball_point_kernel(0.2, 4, xyz.double(), xyz.double())
+    with pytest.raises(ValueError):
+        ballquery.query_ball_point_kernel(0.2, 4, xyz, xyz.cpu())
+    with pytest.raises(ValueError):
+        ballquery.three_nn_kernel(xyz.transpose(0, 1), xyz, 3)
+    with pytest.raises(ValueError):
+        fps.farthest_point_sample_kernel(
+            xyz, 4, torch.tensor([0, 16], dtype=torch.int32, device=dev))
+    x, noise, cpcd, e2, coef, p = _chain_inputs(dev, B=1, T=3, N=8, D=16)
+    with pytest.raises(ValueError):  # one step row short
+        denoise.fused_denoise_chain(x, noise, cpcd, e2[:, :2].contiguous(), coef, p)
