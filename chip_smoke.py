@@ -4,18 +4,32 @@
 Run from the repository root:  python3 chip_smoke.py
 
 1. Requires a CUDA device and prints its name and power limit.
-2. Builds the CUDA kernels from ``lsdm_tpu_torch/csrc`` (nvcc, sm_90a).
+2. Builds the CUDA kernels from ``lsdm_tpu_torch/csrc`` (nvcc, sm_90a, one
+   nvcc per source, in parallel).
 3. Holds each kernel against its plain PyTorch version on the card at the
-   shapes of the flagship sampling path: ball query (K1), 3-NN (K2) and
-   FPS (K3) must give equal indices; the denoise chain (K6, N=1024, D=128,
-   T=1000) must agree to CHAIN_ATOL, and its first pass's tables to
-   TABLE_ATOL.  Prints both times.
-4. Samples one object at full width (``sdm_proxd()``: 9 objects x 1024
-   points, T=1000 DDPM, batch 1, seeded random weights and inputs) once
-   through the kernels and once on the plain path with the same draws;
-   checks the sample is finite and agrees to CHAIN_ATOL, and that every
-   kernel of the path was launched during the kernel run.
-5. Prints one JSON line of kernel records, then, as its last line,
+   shapes of the flagship sampling paths: ball query (K1), 3-NN (K2) and
+   FPS (K3) must give equal indices; the fused SA stage (K7, sa1-sa4 and a
+   center with an empty ball) and FP stage (K8, fp4-fp1 with the head)
+   must agree to STAGE_ATOL, the rank-1 attention (K4) to ATTN_ATOL; the
+   denoise chain (K6, N=1024, D=128, T=1000) to CHAIN_ATOL, and its first
+   pass's tables to TABLE_ATOL.  Prints both times.
+4. The "pallas" path: samples one object at full width (``sdm_proxd()``:
+   9 objects x 1024 points, T=1000 DDPM, batch 1, seeded random weights
+   and inputs) with ``ball_impl="pallas"`` through the kernels (K1, K2,
+   K3, K6) and once on the plain path with the same draws; checks the
+   sample is finite and agrees to CHAIN_ATOL, and that each of its kernels
+   was launched during the kernel run.
+5. The "fused" path, what ``resolve_fast_path`` gives on CUDA
+   (``ball_impl="fused"``, ``fused_step="chain"``): the same sample through
+   the kernels (K3, K7, K8, K4, K6; no K1 or K2) and through the plain
+   versions of the same configuration, agreeing to FUSED_ATOL; the fused
+   encode's ``cond_pcd`` against the composed ("pallas") encode at the
+   JAX package's fused-vs-composed bound COND_RTOL / COND_ATOL.  Prints
+   ms/scene and peak memory of both paths.
+6. The CLI: ``lsdm_tpu_torch.run.test_sdm`` on a synthetic proxd test
+   split (4 sequences x 1024 points, batch 2, T=1000) on CUDA; checks the
+   output files and that the fused kernels ran.
+7. Prints one JSON line of kernel records, then, as its last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is non-zero and no result line is
@@ -24,10 +38,14 @@ printed; without a CUDA device it exits with code 2.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import importlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
@@ -47,15 +65,59 @@ TABLE_ATOL = 1e-6
 TABLE_STEPS = 64  # the last steps of the chain, as their own batch
 # K2 distances: kernel and plain version round the same float32 ops.
 DIST_ATOL = 1e-6
-KERNELS = {  # name: (source, the TPU kernel it replaces)
+# K7 and K8 on outputs of order 1: the same selection (equal distance
+# bits), float32 sums of up to 768 products in another order (FMA chains
+# against cuBLAS).  H100 readings: K7 <= 4.2e-07, K8 <= 6.0e-07.
+STAGE_ATOL = 2e-6
+# K4: the kernel's compensated sums over 1024 keys against the plain
+# version's rounded weights and its 1024-term products.  H100 reading
+# 7.2e-07 with these seeded inputs, which is the plain version's own
+# rounding: it reads 7.3e-07 from a float64 evaluation on the CPU.
+ATTN_ATOL = 1e-6
+# The fused path's sample against the plain versions of the same
+# configuration: the encode's rounding differences pass through T steps.
+# H100 reading 1.3e-07.
+FUSED_ATOL = 1e-6
+# The fused encode against the composed one: the JAX package's own bound
+# (tests/test_sdm_model.py), BatchNorm folded against applied.
+COND_RTOL, COND_ATOL = 2e-4, 2e-5
+KERNELS = {  # name: (source, the TPU kernel it replaces, path it is counted on)
     "ball_query": ("lsdm_tpu_torch/csrc/ballquery.cu",
-                   "lsdm_tpu/ops/ballquery_pallas.py:65"),
+                   "lsdm_tpu/ops/ballquery_pallas.py:65", "pallas"),
     "three_nn": ("lsdm_tpu_torch/csrc/ballquery.cu",
-                 "lsdm_tpu/ops/ballquery_pallas.py:133"),
-    "fps": ("lsdm_tpu_torch/csrc/fps.cu", "lsdm_tpu/ops/fps_pallas.py:62"),
+                 "lsdm_tpu/ops/ballquery_pallas.py:133", "pallas"),
+    "fps": ("lsdm_tpu_torch/csrc/fps.cu", "lsdm_tpu/ops/fps_pallas.py:62",
+            "fused"),
     "denoise_chain": ("lsdm_tpu_torch/csrc/denoise_chain.cu",
-                      "lsdm_tpu/ops/denoise_pallas.py:278"),
+                      "lsdm_tpu/ops/denoise_pallas.py:278", "fused"),
+    "rank1_attn": ("lsdm_tpu_torch/csrc/rank1_attn.cu",
+                   "lsdm_tpu/ops/attn_pallas.py:60", "fused"),
+    "sa_fused": ("lsdm_tpu_torch/csrc/sa_fused.cu",
+                 "lsdm_tpu/ops/sa_fused_pallas.py:134", "fused"),
+    "fp_fused": ("lsdm_tpu_torch/csrc/fp_fused.cu",
+                 "lsdm_tpu/ops/fp_fused_pallas.py:93", "fused"),
 }
+PATH_KERNELS = {"pallas": ("ball_query", "three_nn", "fps", "denoise_chain"),
+                "fused": ("fps", "sa_fused", "fp_fused", "rank1_attn",
+                          "denoise_chain")}
+# (module, the name it calls a kernel wrapper by, module, plain version):
+# swapped in to run a path through the plain versions of its kernels
+PLAIN_VERSIONS = (
+    ("lsdm_tpu_torch.ops.pointcloud", "farthest_point_sample_kernel",
+     "lsdm_tpu_torch.ops.fps", "farthest_point_sample_plain"),
+    ("lsdm_tpu_torch.ops.pointcloud", "query_ball_point_kernel",
+     "lsdm_tpu_torch.ops.ballquery", "query_ball_point_plain"),
+    ("lsdm_tpu_torch.ops.pointcloud", "three_nn_kernel",
+     "lsdm_tpu_torch.ops.ballquery", "three_nn_plain"),
+    ("lsdm_tpu_torch.models.pointnet2", "sa_stage_fused_kernel",
+     "lsdm_tpu_torch.ops.sa_fused", "sa_stage_fused_plain"),
+    ("lsdm_tpu_torch.models.pointnet2", "fp_stage_fused_kernel",
+     "lsdm_tpu_torch.ops.fp_fused", "fp_stage_fused_plain"),
+    ("lsdm_tpu_torch.ops.attention", "rank1_mha_kernel",
+     "lsdm_tpu_torch.ops.attn", "rank1_mha_plain"),
+    ("lsdm_tpu_torch.models.sampling", "fused_denoise_chain",
+     "lsdm_tpu_torch.ops.denoise", "denoise_chain_plain"),
+)
 
 
 def _sync(dev) -> None:
@@ -93,6 +155,23 @@ def _card() -> str:
     return res.stdout.strip()
 
 
+@contextlib.contextmanager
+def plain_versions():
+    """Run every kernel wrapper of the sampling paths as its plain version,
+    on any device, for the duration of the block (this script's yardstick;
+    the package itself never falls back)."""
+    saved = []
+    for mod, name, pmod, pname in PLAIN_VERSIONS:
+        m = importlib.import_module(mod)
+        saved.append((m, name, getattr(m, name)))
+        setattr(m, name, getattr(importlib.import_module(pmod), pname))
+    try:
+        yield
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+
+
 def _record(rec, name, err, ms, pms, line):
     print(f"{line}; kernel {ms:.4f} ms, plain {pms:.4f} ms")
     r = rec.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
@@ -109,12 +188,13 @@ def kernel_checks(dev, model, T: int = T_STEPS) -> dict:
     import torch
 
     from lsdm_tpu_torch.diffusion.schedule import make_schedule
+    from lsdm_tpu_torch.models.pointnet2 import HEAD_ACTS, fold_mlp
     from lsdm_tpu_torch.models.sampling import chain_coefficients
-    from lsdm_tpu_torch.ops import ballquery, denoise, fps
+    from lsdm_tpu_torch.ops import attn, ballquery, denoise, fp_fused, fps, sa_fused
     from lsdm_tpu_torch.ops.pointcloud import index_points
 
-    sa = model.pcd_backbone
-    stages = (sa.sa1, sa.sa2, sa.sa3, sa.sa4)
+    bb = model.pcd_backbone
+    stages = (bb.sa1, bb.sa2, bb.sa3, bb.sa4)
     N, D = model.cfg.pcd_points, model.cfg.latent_dim
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     start = torch.zeros(9, dtype=torch.int32, device=dev)
@@ -160,6 +240,81 @@ def kernel_checks(dev, model, T: int = T_STEPS) -> dict:
                 f"K2 3-NN N={xyz1.shape[1]} S={xyz2.shape[1]}: equal indices, "
                 f"max distance error {derr:.3g}")
 
+    # K7 at sa1..sa4 with the model's folded weights: base = [xyz, features]
+    # (sa1's features are the xyz themselves), features of order 1
+    feats = [levels[0]]
+    for st, xyz, new_xyz in zip(stages, levels[:4], levels[1:5]):
+        folded = fold_mlp(st)
+        base = torch.cat([xyz, feats[-1]], -1).contiguous()
+        r, ns = st.radius, min(st.nsample, xyz.shape[1])
+        cases = [(new_xyz, "")]
+        if st is stages[1]:  # a center far from the cloud: an empty ball
+            far = new_xyz.clone()
+            far[0, 0] = 50.0
+            cases.append((far, ", one empty ball"))
+        for q, note in cases:
+            got = sa_fused.sa_stage_fused_kernel(r, ns, xyz, q, base, folded)
+            want = sa_fused.sa_stage_fused_plain(r, ns, xyz, q, base, folded)
+            err = (got - want).abs().max().item()
+            line = (f"K7 fused SA N={xyz.shape[1]} S={q.shape[1]} K={ns} "
+                    f"{tuple(w.shape[1] for w, _ in folded)}{note}: max error "
+                    f"{err:.3g} (tolerance {STAGE_ATOL})")
+            if not (torch.isfinite(got).all() and err <= STAGE_ATOL):
+                raise AssertionError(line)
+            if note:  # not a call of the path: its error counts, its time not
+                if not (ballquery.query_ball_point_plain(r, ns, xyz, q, empty=0)[0, 0] == 0).all():
+                    raise AssertionError("the empty ball did not select point 0")
+                rec["sa_fused"]["max_abs_err"] = max(rec["sa_fused"]["max_abs_err"], err)
+                print(line)
+                continue
+            _record(rec, "sa_fused", err,
+                    _time_ms(lambda: sa_fused.sa_stage_fused_kernel(r, ns, xyz, q, base, folded), 20, dev),
+                    _time_ms(lambda: sa_fused.sa_stage_fused_plain(r, ns, xyz, q, base, folded), 5, dev),
+                    line)
+        feats.append(torch.randn(9, new_xyz.shape[1], folded[-1][0].shape[1],
+                                 generator=g, device=dev))
+
+    # K8 at fp4..fp1; fp1 carries the head (ReLU) and conv2 (none)
+    for i, fp in zip((3, 2, 1, 0), (bb.fp4, bb.fp3, bb.fp2, bb.fp1)):
+        folded = fold_mlp(fp)
+        acts = ["relu"] * len(folded)
+        p1 = feats[i] if i > 0 else None  # the SA output at the targets
+        if fp is bb.fp1:
+            folded += bb.head_folded()
+            acts += HEAD_ACTS
+        xyz1, xyz2 = levels[i], levels[i + 1]
+        d2 = folded[0][0].shape[0] - (0 if p1 is None else p1.shape[2])
+        p2 = torch.randn(9, xyz2.shape[1], d2, generator=g, device=dev)
+        args = (xyz1, xyz2, p1, p2, folded, acts)
+        got = fp_fused.fp_stage_fused_kernel(*args)
+        want = fp_fused.fp_stage_fused_plain(*args)
+        err = (got - want).abs().max().item()
+        if not (torch.isfinite(got).all() and err <= STAGE_ATOL):
+            raise AssertionError(f"fused FP N={xyz1.shape[1]} S={xyz2.shape[1]}: "
+                                 f"max error {err} > {STAGE_ATOL}")
+        _record(rec, "fp_fused", err,
+                _time_ms(lambda: fp_fused.fp_stage_fused_kernel(*args), 20, dev),
+                _time_ms(lambda: fp_fused.fp_stage_fused_plain(*args), 5, dev),
+                f"K8 fused FP N={xyz1.shape[1]} S={xyz2.shape[1]} in {folded[0][0].shape[0]} "
+                f"{tuple(w.shape[1] for w, _ in folded)}: max error {err:.3g} "
+                f"(tolerance {STAGE_ATOL})")
+
+    # K4 at pcd_attention's shapes: 9 clouds, L = S = N, 12 heads
+    H = model.cfg.translation_params
+    q = torch.randn(9, N, H, generator=g, device=dev)
+    k = torch.randn(9, N, H, generator=g, device=dev)
+    v = torch.randn(9, N, H, generator=g, device=dev)
+    got = attn.rank1_mha_kernel(q, k, v)
+    want = attn.rank1_mha_plain(q, k, v)
+    err = (got - want).abs().max().item()
+    if not (torch.isfinite(got).all() and err <= ATTN_ATOL):
+        raise AssertionError(f"rank-1 attention: max error {err} > {ATTN_ATOL}")
+    _record(rec, "rank1_attn", err,
+            _time_ms(lambda: attn.rank1_mha_kernel(q, k, v), 20, dev),
+            _time_ms(lambda: attn.rank1_mha_plain(q, k, v), 5, dev),
+            f"K4 rank-1 attention (9,{N},{H}): max error {err:.3g} "
+            f"(tolerance {ATTN_ATOL})")
+
     # K6 at batch 1 with the model's own tail weights
     p = denoise.extract_step_params(model)
     args = (torch.randn(1, N, 3, generator=g, device=dev),
@@ -193,7 +348,8 @@ def kernel_checks(dev, model, T: int = T_STEPS) -> dict:
 def full_path(dev, cfg, model, plain, T: int = T_STEPS):
     """Phase 4: one batch-1 sample through the kernels and one through the
     plain path, same draws.  Returns (launch counts of the kernel run,
-    max |kernel - plain| per output, seconds of each run)."""
+    max |kernel - plain| per output, seconds of each run, peak GiB of the
+    kernel run)."""
     import torch
 
     from lsdm_tpu_torch import kernels
@@ -201,7 +357,7 @@ def full_path(dev, cfg, model, plain, T: int = T_STEPS):
     from lsdm_tpu_torch.models.sampling import resolve_fast_path, sample_sdm
     from lsdm_tpu_torch.profile_sampling import seeded_inputs
 
-    fused_step = resolve_fast_path(None, dev)
+    _, fused_step = resolve_fast_path("pallas", None, dev)
     B, N = 1, cfg.pcd_points
     mask, objs, cats, text, x_init, noise = seeded_inputs(cfg, B, T, SEED, dev)
     schedule = make_schedule("cosine", T, device=dev)
@@ -215,9 +371,11 @@ def full_path(dev, cfg, model, plain, T: int = T_STEPS):
         return out, time.perf_counter() - t0
 
     run(model, fused_step)  # warm-up
+    peak = _reset_peak(dev)
     kernels.reset_launches()
     (s_k, o_k), sec_k = run(model, fused_step)
     launches = dict(kernels.LAUNCHES)
+    peak = peak()
     run(plain, None)  # warm-up
     (s_p, o_p), sec_p = run(plain, None)
     if s_k.shape != (B, N, 3) or not torch.isfinite(s_k).all():
@@ -226,7 +384,119 @@ def full_path(dev, cfg, model, plain, T: int = T_STEPS):
             "x0": (o_k.x0 - o_p.x0).abs().max().item(),
             "guiding": (o_k.guiding - o_p.guiding).abs().max().item(),
             "cat": (o_k.cat - o_p.cat).abs().max().item()}
-    return launches, errs, (sec_k, sec_p)
+    return launches, errs, (sec_k, sec_p), peak
+
+
+def _reset_peak(dev):
+    """Reset the device's peak-memory count; returns a function that reads
+    it in GiB (nan off the card)."""
+    import torch
+
+    if dev.type != "cuda":
+        return lambda: float("nan")
+    torch.cuda.reset_peak_memory_stats(dev)
+    return lambda: torch.cuda.max_memory_allocated(dev) / 2 ** 30
+
+
+def fused_path(dev, cfg, model, composed, T: int = T_STEPS):
+    """Phase 5: the configuration ``resolve_fast_path`` gives on CUDA, one
+    batch-1 sample through the kernels and one through the plain versions
+    of the same configuration, same draws; and the fused encode against the
+    composed encode of ``composed`` (same weights, ``ball_impl="pallas"``).
+    Returns (launch counts of the kernel run, max |kernel - plain| per
+    output, the cond_pcd check's worst |a - b| / (atol + rtol |b|),
+    (seconds of each run), peak GiB of the kernel run)."""
+    import torch
+
+    from lsdm_tpu_torch import kernels
+    from lsdm_tpu_torch.diffusion.schedule import make_schedule
+    from lsdm_tpu_torch.models.sampling import sample_sdm
+    from lsdm_tpu_torch.profile_sampling import seeded_inputs
+
+    B, N = 1, cfg.pcd_points
+    mask, objs, cats, text, x_init, noise = seeded_inputs(cfg, B, T, SEED, dev)
+    schedule = make_schedule("cosine", T, device=dev)
+
+    def run():
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = sample_sdm(model, schedule, mask, objs, cats, text,
+                         fused_step="chain", x_init=x_init, noise=noise)
+        _sync(dev)
+        return out, time.perf_counter() - t0
+
+    run()  # warm-up
+    peak = _reset_peak(dev)
+    kernels.reset_launches()
+    (s_k, o_k), sec_k = run()
+    launches = dict(kernels.LAUNCHES)
+    peak = peak()
+    with plain_versions():
+        run()  # warm-up
+        kernels.reset_launches()
+        (s_p, o_p), sec_p = run()
+        if any(kernels.LAUNCHES.values()):
+            raise AssertionError(f"the plain run launched kernels: {kernels.LAUNCHES}")
+    if s_k.shape != (B, N, 3) or not torch.isfinite(s_k).all():
+        raise AssertionError(f"fused-path sample is not a finite {(B, N, 3)} cloud")
+    errs = {"sample": (s_k - s_p).abs().max().item(),
+            "x0": (o_k.x0 - o_p.x0).abs().max().item(),
+            "guiding": (o_k.guiding - o_p.guiding).abs().max().item(),
+            "cat": (o_k.cat - o_p.cat).abs().max().item()}
+    with torch.no_grad():
+        fused = model.encode_conditioning(mask, objs, cats, text).cond_pcd
+        ref = composed.encode_conditioning(mask, objs, cats, text).cond_pcd
+    cond = ((fused - ref).abs() / (COND_ATOL + COND_RTOL * ref.abs())).max().item()
+    return launches, errs, cond, (sec_k, sec_p), peak
+
+
+def cli_phase(dev, points: int = 1024, T: int = T_STEPS) -> dict:
+    """Phase 6: the port's test_sdm on a synthetic proxd test split of 4
+    sequences of ``points`` points, batch 2.  Returns the launch counts of
+    the run."""
+    import numpy as np
+
+    from lsdm_tpu_torch import kernels
+    from lsdm_tpu_torch.data.synthetic import generate
+    from lsdm_tpu_torch.run import test_sdm
+
+    with tempfile.TemporaryDirectory() as root:
+        data = generate(root, "proxd", n_scenes=1, n_seqs=4, pnt_size=points,
+                        seed=SEED, split="test")
+        out = os.path.join(root, "out")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        final = test_sdm.main([data, "--objs_data_dir", os.path.join(root, "objs"),
+                               "--output_dir", out, "--batch_size", "2",
+                               "--diffusion_steps", str(T), "--pcd_points",
+                               str(points), "--device", str(dev)])
+        sec = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        with open(os.path.join(out, "results.txt")) as f:
+            tail = [line.split(":")[0] for line in f.read().splitlines()[-5:]]
+        if tail != ["Final Chamfer distance", "Final EMD", "Final F1 score",
+                    "Category accuracy", "Top 3 accuracy"]:
+            raise AssertionError(f"results.txt ends in {tail}")
+        for sub in ("predictions", "guiding_points"):
+            names = sorted(os.listdir(os.path.join(out, sub)))
+            if len(names) != 4:
+                raise AssertionError(f"{sub}: {len(names)} files, not 4")
+            for name in names:
+                a = np.load(os.path.join(out, sub, name))
+                if a.shape != (points, 3) or a.dtype != np.float32 or not np.isfinite(a).all():
+                    raise AssertionError(f"{sub}/{name}: not a finite ({points}, 3) "
+                                         "float32 array")
+    print(f"CLI test_sdm, 4 synthetic sequences, batch 2, T={T}: {final}; "
+          f"{sec:.1f} s; launches {launches}")
+    return launches
+
+
+def _check_launches(path: str, launches: dict) -> None:
+    for name in PATH_KERNELS[path]:
+        if launches[name] < 1:
+            raise AssertionError(f"kernel {name} was not launched on the {path} path")
+    if path == "fused" and launches["ball_query"] + launches["three_nn"]:
+        raise AssertionError(f"the fused path ran K1/K2: {launches}")
 
 
 def build_models(cfg, dev):
@@ -239,6 +509,18 @@ def build_models(cfg, dev):
     plain = SceneDiffusionModel(dataclasses.replace(cfg, ball_impl="topk"))
     plain.load_state_dict(model.state_dict())
     return model, plain.to(dev).eval()
+
+
+def build_fused(cfg, model, dev):
+    """``model``'s weights in the configuration that ``resolve_fast_path``
+    gives on ``dev``."""
+    from lsdm_tpu_torch.models.sampling import resolve_fast_path
+    from lsdm_tpu_torch.models.sdm import SceneDiffusionModel
+
+    ball_impl, _ = resolve_fast_path("auto", None, dev)
+    fused = SceneDiffusionModel(dataclasses.replace(cfg, ball_impl=ball_impl))
+    fused.load_state_dict(model.state_dict())
+    return fused.to(dev).eval()
 
 
 def main() -> int:
@@ -265,21 +547,43 @@ def main() -> int:
     model, plain = build_models(cfg, dev)
     records = kernel_checks(dev, model)
 
-    launches, errs, (sec_k, sec_p) = full_path(dev, cfg, model, plain)
-    print(f"full path sdm_proxd B=1 9x{cfg.pcd_points} T={T_STEPS}: launches "
-          f"{launches}; max |kernel - plain| {errs} (tolerance {CHAIN_ATOL})")
-    for name, n in launches.items():
-        if n < 1:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    launches = {}
+    path_launches, errs, (sec_k, sec_p), peak = full_path(dev, cfg, model, plain)
+    print(f"pallas path sdm_proxd B=1 9x{cfg.pcd_points} T={T_STEPS}: launches "
+          f"{path_launches}; max |kernel - plain| {errs} (tolerance {CHAIN_ATOL})")
+    _check_launches("pallas", path_launches)
+    launches["pallas"] = path_launches
     if max(errs.values()) > CHAIN_ATOL:
-        raise AssertionError("kernel path disagrees with the plain path")
-    for label, sec in (("kernel path", sec_k), ("plain path", sec_p)):
+        raise AssertionError("pallas path disagrees with the plain path")
+    ms, peaks = {"pallas": sec_k * 1e3}, {"pallas": peak}
+    for label, sec in (("pallas path, kernels", sec_k), ("pallas path, plain", sec_p)):
         print(f"{label}: {sec * 1e3:.1f} ms/scene, {T_STEPS / sec:.1f} steps/s")
+
+    fused = build_fused(cfg, model, dev)
+    path_launches, errs, cond, (sec_k, sec_p), peak = fused_path(dev, cfg, fused, model)
+    print(f"fused path sdm_proxd B=1 9x{cfg.pcd_points} T={T_STEPS}: launches "
+          f"{path_launches}; max |kernel - plain| {errs} (tolerance {FUSED_ATOL}); "
+          f"fused vs composed cond_pcd: worst |a - b| / ({COND_ATOL} + {COND_RTOL} |b|) "
+          f"= {cond:.3g} (must be <= 1)")
+    _check_launches("fused", path_launches)
+    launches["fused"] = path_launches
+    if max(errs.values()) > FUSED_ATOL:
+        raise AssertionError("fused path disagrees with its plain versions")
+    if cond > 1.0:
+        raise AssertionError("fused encode disagrees with the composed encode")
+    ms["fused"], peaks["fused"] = sec_k * 1e3, peak
+    for label, sec in (("fused path, kernels", sec_k), ("fused path, plain", sec_p)):
+        print(f"{label}: {sec * 1e3:.1f} ms/scene, {T_STEPS / sec:.1f} steps/s")
+    for path in ("pallas", "fused"):
+        print(f"kernel path {path} at b1: {ms[path]:.1f} ms/scene, peak memory "
+              f"{peaks[path]:.2f} GiB")
+
+    _check_launches("fused", cli_phase(dev))
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **records[name]}
-        for name, (src, rep) in KERNELS.items()]}))
+         "path": path, "launches": launches[path][name], **records[name]}
+        for name, (src, rep, path) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
-"""lsdm_tpu_torch — the SDM sampling path in PyTorch, with hand-written
-CUDA kernels for NVIDIA Hopper (sm_90a).
+"""lsdm_tpu_torch — SDM sampling and its evaluation entry point in PyTorch,
+with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A second package beside the JAX one (``lsdm_tpu``), which stays the
 reference: public functions keep its layouts and names (channel-last
@@ -8,8 +8,9 @@ reference: public functions keep its layouts and names (channel-last
 ``state_dict`` keys, so each counterpart is found by path and compared
 like with like.
 
-The package imports ``torch`` and ``numpy``, never ``jax`` and nothing of
-``lsdm_tpu`` (its configuration is a copy, :mod:`lsdm_tpu_torch.config`).
+The package imports ``torch``, ``numpy`` and ``scipy`` (the exact EMD),
+never ``jax`` and nothing of ``lsdm_tpu`` (its configuration is a copy,
+:mod:`lsdm_tpu_torch.config`).
 Importing it builds nothing: the CUDA kernels under ``csrc/`` are
 compiled with ``nvcc`` at their first launch (:mod:`lsdm_tpu_torch.kernels`).
 On a CPU tensor every kernel wrapper runs its plain PyTorch version

@@ -1,11 +1,11 @@
 """SceneDiffusionModel configuration of the port.
 
 The fields the port reads from the JAX package's ``SDMConfig``
-(``lsdm_tpu/config.py``), with the same names and defaults, and its
+(``lsdm_tpu/config.py``), with the same names and defaults, its
 ``sdm_proxd`` / ``sdm_humanise`` presets (reference
-``util/model_util.py:26-73``).  A copy, so that the port imports nothing
-of the JAX package; ``tests/test_torch_weights.py`` holds it to the
-original field by field.
+``util/model_util.py:26-73``) and its dataset category tables.  A copy, so
+that the port imports nothing of the JAX package;
+``tests/test_torch_weights.py`` holds it to the original.
 """
 
 from __future__ import annotations
@@ -36,7 +36,9 @@ class SDMConfig:
     fps_mode: str = "auto"
     # "auto" / "pallas": the hand-written selection kernels for CUDA
     # tensors, their plain versions for CPU tensors; "topk": the plain
-    # versions on any device (models/pointnet2.py)
+    # versions on any device; "fused": the fused eval stage kernels K7/K8
+    # and the rank-1 attention K4 (models/pointnet2.py).  Entry points
+    # resolve "auto" to "fused" on CUDA (models/sampling.py)
     ball_impl: str = "auto"
 
 
@@ -48,3 +50,41 @@ def sdm_proxd() -> SDMConfig:
 def sdm_humanise() -> SDMConfig:
     """HUMANISE preset (reference ``get_default_model_humanise``)."""
     return SDMConfig(max_cats=11)
+
+
+# Category tables (reference ``posa/dataset.py:404-422`` / ``:533-548``).
+PROXD_CATEGORIES = {
+    "chair": 1,
+    "table": 2,
+    "cabinet": 3,
+    "sofa": 4,
+    "bed": 5,
+    "chest_of_drawers": 6,
+    "chest": 6,
+    "stool": 7,
+    "tv_monitor": 8,
+    "tv": 8,
+    "lighting": 9,
+    "shelving": 10,
+    "seating": 11,
+    "furniture": 12,
+    "human": 0,
+}
+
+HUMANISE_CATEGORIES = {
+    "bed": 1,
+    "sofa": 2,
+    "table": 3,
+    "door": 4,
+    "desk": 5,
+    "refrigerator": 6,
+    "chair": 7,
+    "counter": 8,
+    "bookshelf": 9,
+    "cabinet": 10,
+    "human": 0,
+}
+
+
+def categories_for(datatype: str) -> dict:
+    return PROXD_CATEGORIES if datatype == "proxd" else HUMANISE_CATEGORIES

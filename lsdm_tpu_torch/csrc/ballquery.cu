@@ -4,10 +4,10 @@
 // three_nn_pallas.  Plain versions: lsdm_tpu_torch/ops/ballquery.py.
 //
 // Both kernels select integer indices from the squared distance
-// (-2 (q.x) + |q|^2) + |x|^2.  Every product and sum below is rounded on
-// its own (__fmul_rn/__fadd_rn are never contracted into FMAs), in the
-// order the plain version's separate torch ops use, so kernel and plain
-// version produce the same bits and the same indices.
+// (-2 (q.x) + |q|^2) + |x|^2 of pointdist.cuh, whose products and sums are
+// each rounded on their own in the order of the plain version's separate
+// torch ops, so kernel and plain version produce the same bits and the
+// same indices.
 //
 // What bounds them on an H100: neither moves much memory (a 1024-point
 // cloud is 12 KB; the outputs are at most 9 x 1024 x 32 int32) nor does
@@ -34,36 +34,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "pointdist.cuh"
+
 namespace {
 
 constexpr int kBallWarps = 8;       // query rows per block
 constexpr int kNnThreads = 256;     // targets per block
-
-__device__ __forceinline__ float sq_norm(float a0, float a1, float a2) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(a0, a0), __fmul_rn(a1, a1)),
-                   __fmul_rn(a2, a2));
-}
-
-// (-2 (q.x) + |q|^2) + |x|^2 with q.x = (q0 x0 + q1 x1) + q2 x2
-__device__ __forceinline__ float sq_dist(float q0, float q1, float q2, float qq,
-                                         float x0, float x1, float x2,
-                                         float xx) {
-  const float dot = __fadd_rn(__fadd_rn(__fmul_rn(q0, x0), __fmul_rn(q1, x1)),
-                              __fmul_rn(q2, x2));
-  return __fadd_rn(__fadd_rn(__fmul_rn(-2.0f, dot), qq), xx);
-}
-
-// Stage cloud (n, 3) into shared memory as x[], y[], z[], |p|^2[].
-__device__ __forceinline__ void stage_cloud(const float* __restrict__ cloud,
-                                            int n, float* s) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float a0 = cloud[3 * i], a1 = cloud[3 * i + 1], a2 = cloud[3 * i + 2];
-    s[i] = a0;
-    s[n + i] = a1;
-    s[2 * n + i] = a2;
-    s[3 * n + i] = sq_norm(a0, a1, a2);
-  }
-}
 
 __global__ void __launch_bounds__(kBallWarps * 32)
 ball_query_kernel(const float* __restrict__ xyz,

@@ -1,11 +1,13 @@
 """Build, load and launch-count the port's CUDA kernels.
 
 Every ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into ONE shared library with a plain C interface, loaded with
-``ctypes``.  The build happens at the first kernel launch, never at import
-time, into ``build/lsdm_tpu_torch/`` beside the package (listed in
-``.gitignore``); the library name carries a hash of the sources and flags,
-so an edited source is rebuilt and an unchanged one is reused.
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+the objects are linked into ONE shared library with a plain C interface,
+loaded with ``ctypes``.  The build happens at the first kernel launch,
+never at import time, into ``build/lsdm_tpu_torch/`` beside the package
+(listed in ``.gitignore``); the library name carries a hash of the sources,
+the headers they share (``csrc/*.cuh``) and the flags, so an edited source
+is rebuilt and an unchanged one is reused.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
@@ -33,10 +35,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "lsdm_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES = {"ball_query": 0, "three_nn": 0, "fps": 0, "denoise_chain": 0}
+LAUNCHES = {"ball_query": 0, "three_nn": 0, "fps": 0, "denoise_chain": 0,
+            "rank1_attn": 0, "sa_fused": 0, "fp_fused": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,6 +56,15 @@ _SIGNATURES = {
     "lsdm_denoise_chain": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
     # (e2, weights[20], scratch, dims[11], stream)
     "lsdm_denoise_chain_tables": (_P, _P, _P, _P, _P),
+    # (q, k, v, B, L, S, H, out, stream)
+    "lsdm_rank1_attn": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
+    # (xyz, new_xyz, z1, w1x, params[2(L-1)], widths[L], L, B, N, S,
+    #  radius2, nsample, out, stream)
+    "lsdm_sa_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P),
+    # (xyz1, xyz2, points1, points2, params[2L], widths[L], relu[L], L, B, N,
+    #  S, D1, D2, out, stream)
+    "lsdm_fp_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                      _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -78,24 +90,46 @@ def build() -> Path:
     and return the library's path."""
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sources:
+    for f in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
         h.update(f.name.encode())
         h.update(f.read_bytes())
     out = BUILD_DIR / f"liblsdm_kernels_{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {res.returncode}:\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}")
-    if res.stderr.strip():
-        print(res.stderr.strip())  # compiler warnings
-    os.replace(tmp, out)  # atomic: a concurrent process never sees half a file
+    work = BUILD_DIR / f"{out.stem}.{os.getpid()}.tmp"
+    work.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    # one nvcc per source, all at once: the build takes as long as the
+    # slowest source, not the sum
+    objects = [str(work / f"{src.stem}.o") for src in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+            for src, obj in zip(sources, objects)]
+    jobs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True))
+            for cmd in cmds]
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(work / out.name), *objects]
+    try:
+        for cmd, proc in jobs:
+            _finish(cmd, *proc.communicate(), proc.returncode)
+        res = subprocess.run(link, capture_output=True, text=True)
+        _finish(link, res.stdout, res.stderr, res.returncode)
+        # atomic: a concurrent process never sees half a file
+        os.replace(work / out.name, out)
+    finally:
+        for _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
     return out
+
+
+def _finish(cmd, stdout: str, stderr: str, returncode: int) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed with code {returncode}:\n"
+                           f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+    if stderr.strip():
+        print(stderr.strip())  # compiler warnings
 
 
 def load() -> ctypes.CDLL:

@@ -3,10 +3,11 @@
 Counterpart of ``lsdm_tpu/models/sampling.py`` (``resolve_fast_path`` and
 ``sample_sdm``).  Only the t/x_t-dependent tail of the model runs inside
 the loop; the conditioning (both backbones, both attentions) is encoded
-once per sample.  With ``fused_step="chain"`` the whole loop is the K6
-kernel (``ops/denoise.py``); with ``None`` it is the composed Python loop
-of ``diffusion/sampler.py`` calling :meth:`SceneDiffusionModel.
-denoise_from_cond` each step.
+once per sample, through the fused encode kernels when the model's
+``ball_impl`` is ``"fused"``.  With ``fused_step="chain"`` the whole loop
+is the K6 kernel (``ops/denoise.py``); with ``None`` it is the composed
+Python loop of ``diffusion/sampler.py`` calling
+:meth:`SceneDiffusionModel.denoise_from_cond` each step.
 """
 
 from __future__ import annotations
@@ -22,27 +23,34 @@ from lsdm_tpu_torch.models.sdm import CondCache, SceneDiffusionModel
 from lsdm_tpu_torch.ops.denoise import extract_step_params, fused_denoise_chain
 
 
-def resolve_fast_path(fused_step: Optional[str] = None,
-                      device: Optional[torch.device] = None) -> Optional[str]:
-    """Resolve the eval-time ``fused_step`` for ``device``.
+def resolve_fast_path(ball_impl: str = "auto",
+                      fused_step: Optional[str] = None,
+                      device: Optional[torch.device] = None
+                      ) -> Tuple[str, Optional[str]]:
+    """Resolve the eval-time (``ball_impl``, ``fused_step``) for ``device``,
+    as the JAX resolver does for its backend.
 
-    ``None``/``"auto"`` resolve to ``"chain"`` (the whole-loop kernel) on
-    CUDA and to the composed loop (``None``) on the CPU; ``"none"`` forces
-    the composed loop; ``"chain"`` passes through.  The JAX resolver also
-    resolves ``ball_impl``; here the selection wrappers decide by the
-    tensors' device (``ops/ballquery.py``, ``ops/fps.py``), so ``"auto"``
-    needs no resolving.
+    On CUDA, ``ball_impl="auto"`` resolves to ``"fused"`` (the fused encode:
+    K7, K8, K4, with K3) and ``fused_step`` ``None``/``"auto"`` to
+    ``"chain"`` (the whole-loop kernel K6).  On the CPU they resolve to
+    ``"auto"`` (the composed encode, selection by the plain versions) and
+    ``None`` (the composed loop).  ``fused_step="none"`` forces the
+    composed loop; explicit choices pass through.  Entry points resolve
+    before they build the model's config; ``SDMConfig(ball_impl="auto")``
+    inside the model keeps meaning the ``"pallas"`` selection.
     """
+    on_cuda = device is not None and torch.device(device).type == "cuda"
+    if ball_impl == "auto" and on_cuda:
+        ball_impl = "fused"
     if fused_step in (None, "auto"):
-        on_cuda = device is not None and torch.device(device).type == "cuda"
-        return "chain" if on_cuda else None
-    if fused_step == "none":
-        return None
-    if fused_step != "chain":
+        fused_step = "chain" if on_cuda else None
+    elif fused_step == "none":
+        fused_step = None
+    elif fused_step != "chain":
         raise NotImplementedError(
             f"fused_step={fused_step!r} is not ported (only 'chain' and "
             "the composed loop)")
-    return fused_step
+    return ball_impl, fused_step
 
 
 def _encode(model: SceneDiffusionModel, mask, given_objs, given_cats,

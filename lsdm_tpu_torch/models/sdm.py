@@ -17,8 +17,10 @@ Reference quirks reproduced on purpose (trained weights depend on them):
   * ``OutputProcess`` ends in GELU and ``predict_cat`` in Softmax.
 
 Module and parameter names follow the reference ``state_dict``.  Only the
-configuration of this slice is built: the PointNet++ object backbone, the
-POSA human backbone and float32 compute.
+configuration of the sampling slices is built: the PointNet++ object
+backbone, the POSA human backbone and float32 compute.  ``ball_impl``
+"fused" makes the eval encode the fused kernels' (K7, K8 in the backbone,
+K4 in ``pcd_attention``).
 """
 
 from __future__ import annotations
@@ -120,8 +122,10 @@ class SceneDiffusionModel(nn.Module):
         pcd_out = pcd_out.transpose(1, 2) * attn_w  # (B, N*pcd_dim, num_obj)
         pcd_out = pcd_out.reshape(B, num_obj, num_points, cfg.pcd_dim)
         pcd_trans = pcd_out.reshape(B * num_obj, cfg.pcd_points, cfg.xyz_dim)
-        pcd_trans, _ = self.pcd_attention(translation, pcd_trans, pcd_trans,
-                                          need_weights=False)
+        # head_dim 1: with ball_impl "fused" the K4 kernel (eval only)
+        pcd_trans, _ = self.pcd_attention(
+            translation, pcd_trans, pcd_trans, need_weights=False,
+            fused=(cfg.ball_impl == "fused" and not self.training))
         pcd_trans = pcd_trans.reshape(B, num_obj, num_points,
                                       cfg.translation_params)
         pcd_out = self.point_wise_trans_layer(

@@ -25,7 +25,7 @@ tensors; it never falls back from one to the other.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,8 +58,11 @@ def _radius2(radius: float) -> float:
 
 
 def query_ball_point_plain(radius: float, nsample: int, xyz: torch.Tensor,
-                           new_xyz: torch.Tensor) -> torch.Tensor:
-    """Plain version of K1: (B, S, nsample) int32 indices."""
+                           new_xyz: torch.Tensor,
+                           empty: Optional[int] = None) -> torch.Tensor:
+    """Plain version of K1: (B, S, nsample) int32 indices.  A row with no
+    point in radius is all ``N - 1`` (K1's rule) or, given ``empty``, all
+    ``empty`` (K7 gathers point 0)."""
     B, N, _ = xyz.shape
     if nsample > N:
         raise ValueError(f"nsample {nsample} exceeds the {N} points")
@@ -67,7 +70,10 @@ def query_ball_point_plain(radius: float, nsample: int, xyz: torch.Tensor,
     iota = torch.arange(N, device=xyz.device, dtype=torch.int32)
     cand = torch.where(d <= _radius2(radius), iota, N)
     idx = torch.sort(cand, dim=-1).values[..., :nsample]
-    idx = torch.where(idx == N, idx[..., :1], idx)
+    first = idx[..., :1]
+    if empty is not None:
+        first = torch.where(first == N, empty, first)
+    idx = torch.where(idx == N, first, idx)
     return idx.clamp(0, N - 1).to(torch.int32)
 
 

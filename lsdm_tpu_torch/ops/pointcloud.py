@@ -27,7 +27,7 @@ from lsdm_tpu_torch.ops.fps import (
     farthest_point_sample_kernel, farthest_point_sample_plain)
 
 __all__ = ["square_distance", "index_points", "farthest_point_sample",
-           "query_ball_point", "three_nn_interpolate"]
+           "query_ball_point", "three_nn_interpolate", "chamfer_distance"]
 
 IMPLS = ("pallas", "topk")
 
@@ -86,3 +86,14 @@ def three_nn_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
     weight = dist_recip / dist_recip.sum(dim=2, keepdim=True)
     gathered = index_points(points2, idx)  # (B, N, k, C)
     return (gathered * weight[..., None]).sum(dim=2)
+
+
+def chamfer_distance(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Bidirectional chamfer distance with ``pytorch3d.loss.chamfer_distance``
+    reductions (point "mean", batch "mean", both directions summed): the
+    reference's eval metric (``run/test_sdm.py:186``).  x (B, N, 3),
+    y (B, M, 3) -> scalar.  The JAX function's optional point masks are not
+    ported: evaluation passes none."""
+    d = square_distance(x.float(), y.float())  # (B, N, M)
+    return (d.min(dim=2).values.mean(dim=1)
+            + d.min(dim=1).values.mean(dim=1)).mean()

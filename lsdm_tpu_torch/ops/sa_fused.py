@@ -1,0 +1,125 @@
+"""The fused eval SetAbstraction stage (K7): CUDA kernel and plain version.
+
+Replaces ``lsdm_tpu/ops/sa_fused_pallas.py`` (``fold_conv_bn`` and
+``sa_stage_fused``); the kernel lives in ``csrc/sa_fused.cu``.
+
+One stage of the eval backbone without the grouped (B, S, K, C) tensor:
+ball query around each center, then, per selected point, the stage's MLP
+with its BatchNorms folded into the weights and a max over the K points.
+Layer 1 is hoisted to the N points, as in the TPU kernel: with
+``Z1 = base @ W1' + b1'`` (computed outside the kernel, a plain matrix
+product in full float32), ``layer1(grouped - center)`` is
+``relu(Z1[idx] - center @ W1'[:3])``.
+
+Selection is K1's, on the same distance bits, with one difference that the
+TPU kernel has: a center with no point in its radius gathers point 0 in
+every slot (K1's index rule gives ``N - 1``).  In the model every center is
+one of the points, so the case arises only in tests.
+
+A wrapper runs the kernel for CUDA tensors and the plain version for CPU
+tensors; it never falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from lsdm_tpu_torch import kernels
+from lsdm_tpu_torch.ops.ballquery import _radius2, query_ball_point_plain
+from lsdm_tpu_torch.ops.pointcloud import index_points
+
+Folded = Sequence[Tuple[torch.Tensor, torch.Tensor]]
+
+MAX_LAYERS = 9  # layer 1 plus the kernel's 8 (csrc/rowmlp.cuh:kMaxLayers)
+
+
+def fold_conv_bn(conv: nn.Module, bn: nn.BatchNorm1d
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fold a 1x1 conv and its eval BatchNorm into one dense layer.
+
+    ``relu(BN(x @ W + b))`` with running statistics is
+    ``relu(x @ (W * s) + ((b - mean) * s + beta))`` with
+    ``s = gamma * rsqrt(var + eps)``.  Returns float32 (W' (Cin, F),
+    b' (F,)), contiguous."""
+    w = conv.weight.reshape(conv.weight.shape[0], -1).t()  # (Cin, F)
+    s = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+    return ((w * s).contiguous(),
+            ((conv.bias - bn.running_mean) * s + bn.bias).contiguous())
+
+
+def sa_stage_fused_plain(radius: float, nsample: int, xyz: torch.Tensor,
+                         new_xyz: torch.Tensor, base: torch.Tensor,
+                         folded: Folded) -> torch.Tensor:
+    """Plain version of K7 -> (B, S, F_last): the kernel's folded,
+    hoisted math, with gathers where the TPU kernel multiplies one-hot
+    masks."""
+    w1, b1 = folded[0]
+    z1 = torch.matmul(base, w1) + b1                         # (B, N, F1)
+    # K1's selection on the same distance bits; an empty ball gathers point 0
+    idx = query_ball_point_plain(radius, nsample, xyz, new_xyz, empty=0)
+    h = F.relu(index_points(z1, idx) - (new_xyz @ w1[:3])[:, :, None, :])
+    for w, b in folded[1:]:
+        h = F.relu(h @ w + b)
+    return h.max(dim=2).values
+
+
+def sa_stage_fused_kernel(radius: float, nsample: int, xyz: torch.Tensor,
+                          new_xyz: torch.Tensor, base: torch.Tensor,
+                          folded: Folded) -> torch.Tensor:
+    """K7: the eval SetAbstraction stage.  xyz (B, N, 3) points, new_xyz
+    (B, S, 3) centers, base (B, N, Cin) = [xyz, features], ``folded`` the
+    stage's (W' (F_{l-1}, F_l), b' (F_l,)) from :func:`fold_conv_bn`, all
+    float32 -> (B, S, F_last).  CUDA kernel for CUDA tensors, plain version
+    for CPU tensors."""
+    flat = [t for wb in folded for t in wb]
+    if kernels.on_cpu(xyz, new_xyz, base, *flat):
+        return sa_stage_fused_plain(radius, nsample, xyz, new_xyz, base, folded)
+    B, N, _ = xyz.shape
+    S = new_xyz.shape[1]
+    dev = xyz.device
+    kernels.require("xyz", xyz, torch.float32, (None, None, 3), dev)
+    kernels.require("new_xyz", new_xyz, torch.float32, (B, None, 3), dev)
+    kernels.require("base", base, torch.float32, (B, N, None), dev)
+    widths = _check_layers(folded, base.shape[2], dev)
+    if not 0 < nsample <= N:
+        raise ValueError(f"nsample {nsample} must lie in [1, {N}]")
+    if N > 3072:  # the cloud is staged in 48 KB of shared memory
+        raise ValueError(f"fused SA kernel takes at most 3072 points, got {N}")
+    if len(folded) > MAX_LAYERS:
+        raise ValueError(f"fused SA kernel takes at most {MAX_LAYERS} layers")
+    w1, b1 = folded[0]
+    z1 = torch.matmul(base, w1) + b1  # layer 1 at the N points, as on the TPU
+    w1x = w1[:3].contiguous()
+    out = torch.empty((B, S, widths[-1]), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    params = (ctypes.c_void_p * max(1, len(flat) - 2))(
+        *[t.data_ptr() for t in flat[2:]])
+    lib = kernels.load()
+    with torch.cuda.device(dev):
+        rc = lib.lsdm_sa_fused(
+            xyz.data_ptr(), new_xyz.data_ptr(), z1.data_ptr(), w1x.data_ptr(),
+            params, (ctypes.c_int * len(widths))(*widths), len(widths), B, N,
+            S, _radius2(radius), nsample, out.data_ptr(), kernels.stream(dev))
+    kernels.check(rc, "sa_fused")
+    kernels.LAUNCHES["sa_fused"] += 1
+    return out
+
+
+def _check_layers(folded: Folded, c_in: int, dev: torch.device):
+    """Check a chain of (W (F_{l-1}, F_l), b (F_l,)) starting at ``c_in``
+    channels; return the widths [F_1, ..., F_L]."""
+    if not folded:
+        raise ValueError("the stage needs at least one layer")
+    widths = []
+    for i, (w, b) in enumerate(folded):
+        kernels.require(f"W{i + 1}", w, torch.float32, (c_in, None), dev)
+        c_in = w.shape[1]
+        kernels.require(f"b{i + 1}", b, torch.float32, (c_in,), dev)
+        widths.append(c_in)
+    return widths

@@ -1,21 +1,26 @@
 """Where the time of one SDM sample goes, on a CUDA device.
 
     python -m lsdm_tpu_torch.profile_sampling [--batch 1 4 8] [--steps 1000]
+        [--ball_impl fused|pallas]
 
 Builds ``sdm_proxd()`` with seeded random weights and samples seeded
 random inputs through the kernel path (``sample_sdm`` with
-``fused_step="chain"``).  For each batch size it prints the wall time per
-scene (host clock around a synchronised call, best and all of
-``--repeats`` runs after one warm-up), the DDPM steps per second and the
-peak device memory.  For the first batch size it then traces one more
-sample with ``torch.profiler`` and prints the device time of each kernel
-and the busy share: summed kernel time over the traced wall.  The last
-line is one JSON object with all of it.
+``fused_step="chain"``): the fused encode (K7, K8, K4, K3; the default,
+what ``resolve_fast_path`` gives on CUDA) or, with ``--ball_impl pallas``,
+the composed encode over the selection kernels (K1, K2, K3).  For each
+batch size it prints the wall time per scene (host clock around a
+synchronised call, best and all of ``--repeats`` runs after one warm-up),
+the DDPM steps per second, the peak device memory and the wall time of
+the conditioning encode alone.  For the first batch size it then traces
+one more sample with ``torch.profiler`` and prints the device time of
+each kernel and the busy share: summed kernel time over the traced wall.
+The last line is one JSON object with all of it.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from collections import defaultdict
@@ -57,14 +62,15 @@ def _kernel_times(prof) -> dict:
     return dict(out)
 
 
-def profile(batches, steps: int, repeats: int, seed: int) -> dict:
+def profile(batches, steps: int, repeats: int, seed: int,
+            ball_impl: str = "fused") -> dict:
     dev = torch.device("cuda", 0)
-    cfg = sdm_proxd()
+    ball_impl, step = resolve_fast_path(ball_impl, None, dev)
+    cfg = dataclasses.replace(sdm_proxd(), ball_impl=ball_impl)
     model = init_weights(SceneDiffusionModel(cfg), seed).to(dev).eval()
     schedule = make_schedule("cosine", steps, device=dev)
-    step = resolve_fast_path(None, dev)
     result = {"card": torch.cuda.get_device_name(0), "steps": steps,
-              "fused_step": step, "batches": {}}
+              "ball_impl": ball_impl, "fused_step": step, "batches": {}}
 
     def run(inputs):
         mask, objs, cats, text, x_init, noise = inputs
@@ -75,19 +81,29 @@ def profile(batches, steps: int, repeats: int, seed: int) -> dict:
         torch.cuda.synchronize(dev)
         return time.perf_counter() - t0
 
+    def encode_ms(inputs):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        model.encode_conditioning(*inputs[:4])
+        torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) * 1e3
+
     for b in batches:
         inputs = seeded_inputs(cfg, b, steps, seed, dev)
         run(inputs)  # warm-up: kernel build, allocator
         torch.cuda.reset_peak_memory_stats(dev)
         walls = [run(inputs) for _ in range(repeats)]
         ms = [w * 1e3 / b for w in walls]
+        encode = [encode_ms(inputs) for _ in range(repeats)]
         result["batches"][b] = {
             "ms_per_scene": ms, "best_ms_per_scene": min(ms),
             "steps_per_s": steps * b / min(walls),
-            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "encode_ms": encode}
         print(f"batch {b}: ms/scene {[round(x, 3) for x in ms]}, "
               f"{steps * b / min(walls):.1f} steps/s, peak "
-              f"{result['batches'][b]['peak_mem_gib']:.2f} GiB")
+              f"{result['batches'][b]['peak_mem_gib']:.2f} GiB; encode alone "
+              f"{[round(x, 3) for x in encode]} ms")
 
     b = batches[0]
     inputs = seeded_inputs(cfg, b, steps, seed, dev)
@@ -114,12 +130,14 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=1000)
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ball_impl", default="fused", choices=["fused", "pallas"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_sampling: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     with torch.no_grad():
-        result = profile(args.batch, args.steps, args.repeats, args.seed)
+        result = profile(args.batch, args.steps, args.repeats, args.seed,
+                         args.ball_impl)
     print(json.dumps(result))
     return 0
 

@@ -1,0 +1,175 @@
+"""Evaluate the SceneDiffusionModel: the port's ``test_sdm`` entry point.
+
+Counterpart of ``lsdm_tpu/run/test_sdm.py`` (reference ``run/test_sdm.py``).
+Samples every sequence of a test split, computes CFD (chamfer), exact EMD,
+F1@0.1 and category top-1/top-3 accuracy, and writes ``results.txt``,
+``predictions/<seq>.npy`` and ``guiding_points/<seq>.npy`` in the JAX
+CLI's (and the reference's) output contract.
+
+    python -m lsdm_tpu_torch.run.test_sdm DATA_DIR --objs_data_dir OBJS \\
+        [--load_model model.pt] [--output_dir test_output] [--device cuda]
+
+On CUDA, ``--ball_impl auto`` and ``--fused_step auto`` resolve to the
+fused encode and the whole-loop chain kernel (``models/sampling.py:
+resolve_fast_path``).  ``--device`` defaults to ``cuda`` and there is no
+silent CPU run: without a GPU the CLI raises unless ``--device cpu`` is
+given.  Without ``--load_model`` the weights are seeded (seed 0), as the
+JAX CLI initialises them.  The draws (initial image and per-step noise)
+come from one ``torch.Generator`` on the device, seeded with ``--seed``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("data_dir")
+    ap.add_argument("--load_model", default=None,
+                    help="a reference torch .pt checkpoint")
+    ap.add_argument("--objs_data_dir", default=None)
+    ap.add_argument("--output_dir", default="test_output")
+    ap.add_argument("--datatype", default="proxd", choices=["proxd", "humanise"])
+    ap.add_argument("--batch_size", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--use_ddim", action="store_true")
+    ap.add_argument("--timestep_respacing", default="")
+    ap.add_argument("--diffusion_steps", type=int, default=1000)
+    ap.add_argument("--text_encoder", default="auto",
+                    choices=["auto", "CLIP", "BERT", "HASH"],
+                    help="'auto' = CLIP when a BPE merges source exists, else "
+                         "HASH; only HASH is ported")
+    ap.add_argument("--pcd_points", type=int, default=None,
+                    help="override the cloud size (tiny smoke runs)")
+    ap.add_argument("--fused_step", default="auto",
+                    choices=["auto", "chain", "none"],
+                    help="'chain' = the whole loop as one kernel; 'auto' = "
+                         "'chain' on CUDA, the composed loop on the CPU")
+    ap.add_argument("--cond_chunk", type=int, default=None,
+                    help="encode the conditioning in batch chunks (memory cap)")
+    ap.add_argument("--ball_impl", default="auto",
+                    choices=["auto", "fused", "pallas", "topk"],
+                    help="'auto' = 'fused' on CUDA (fused encode kernels), "
+                         "the composed encode on the CPU")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' must be asked for explicitly")
+    return ap.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    """Run the evaluation; returns the five final metrics."""
+    args = parse_args(argv)
+    if args.load_model and not args.load_model.endswith(".pt"):
+        raise SystemExit(f"--load_model {args.load_model}: only reference "
+                         "torch .pt checkpoints load into the port (a flax "
+                         ".ckpt needs the JAX package's test_sdm)")
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("test_sdm: no CUDA device; pass --device cpu to run "
+                         "on the CPU")
+
+    from lsdm_tpu_torch import config as cfg_lib
+    from lsdm_tpu_torch.checkpoint import load_torch_checkpoint
+    from lsdm_tpu_torch.data.dataset import DataLoader, Humanise, ProxDatasetTxt
+    from lsdm_tpu_torch.diffusion.schedule import make_schedule, spaced_schedule
+    from lsdm_tpu_torch.models.sampling import resolve_fast_path, sample_sdm
+    from lsdm_tpu_torch.models.sdm import SceneDiffusionModel
+    from lsdm_tpu_torch.models.text import TextEncoder, resolve_text_encoder
+    from lsdm_tpu_torch.ops.metrics import emd, fscore, topk_accuracy
+    from lsdm_tpu_torch.ops.pointcloud import chamfer_distance
+    from lsdm_tpu_torch.weights import init_weights
+
+    for sub in ("predictions", "guiding_points"):
+        os.makedirs(os.path.join(args.output_dir, sub), exist_ok=True)
+
+    model_cfg = (cfg_lib.sdm_proxd() if args.datatype == "proxd"
+                 else cfg_lib.sdm_humanise())
+    if args.pcd_points:
+        model_cfg = dataclasses.replace(
+            model_cfg, pcd_points=args.pcd_points,
+            vert_dims=min(model_cfg.vert_dims, args.pcd_points))
+    ball_impl, fused_step = resolve_fast_path(args.ball_impl, args.fused_step,
+                                              dev)
+    model_cfg = dataclasses.replace(model_cfg, ball_impl=ball_impl)
+    ds_cls = ProxDatasetTxt if args.datatype == "proxd" else Humanise
+    objs_kw = {"objs_data_dir": args.objs_data_dir} if args.objs_data_dir else {}
+    ds = ds_cls(args.data_dir, max_cats=model_cfg.max_cats,
+                pnt_size=model_cfg.pcd_points, **objs_kw)
+    loader = DataLoader(ds, args.batch_size, shuffle=False)
+
+    if args.timestep_respacing:
+        schedule = spaced_schedule("cosine", args.diffusion_steps,
+                                   args.timestep_respacing, device=dev)
+    else:
+        schedule = make_schedule("cosine", args.diffusion_steps, device=dev)
+
+    text_encoder = TextEncoder(resolve_text_encoder(args.text_encoder),
+                               dim=model_cfg.clip_dim)
+    model = init_weights(SceneDiffusionModel(model_cfg), 0)
+    if args.load_model:
+        extra = load_torch_checkpoint(args.load_model, model)
+        print(f"loaded torch checkpoint {args.load_model}: {extra}")
+        print("WARNING: evaluating a checkpoint with --text_encoder HASH; "
+              "prompt embeddings will not match the reference CLIP tower.")
+    model = model.to(dev).eval()
+    print(f"test_sdm: {len(ds)} sequences on {dev}, ball_impl={ball_impl}, "
+          f"fused_step={fused_step}, T={schedule.num_timesteps}")
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    chamfers, emds, f1s, accs, top3s, lines = [], [], [], [], [], []
+    for bi, batch in enumerate(loader):
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        pred, last = sample_sdm(
+            model, schedule, put(batch.mask), put(batch.given_objs),
+            put(batch.given_cats), put(text_encoder.encode(batch.text)),
+            generator=gen, use_ddim=args.use_ddim,
+            timestep_map=schedule.timestep_map if args.timestep_respacing else None,
+            cond_chunk=args.cond_chunk, fused_step=fused_step)
+        target = put(batch.target_verts)
+        nvalid = len(set(batch.seq_names))  # the padded tail repeats the last seq
+        for i, seq in enumerate(batch.seq_names[:nvalid]):
+            p, tgt = pred[i:i + 1], target[i:i + 1]
+            cfd = float(chamfer_distance(p, tgt))
+            chamfers.append(cfd)
+            emds.append(emd(p, tgt))
+            f1s.append(float(fscore(p[0], tgt[0], 0.1)[0]))
+            tcat = put(batch.target_cat[i:i + 1]).argmax(dim=1)
+            probs = last.cat[i:i + 1, 0, :]
+            (top1,) = topk_accuracy(probs, tcat, (1,))
+            (top3,) = topk_accuracy(probs, tcat, (3,))
+            accs.append(float(top1) / 100.0)
+            top3s.append(float(top3) / 100.0)
+            lines.append(f"Chamfer distance for seq {seq}: {cfd:.4f}")
+            np.save(os.path.join(args.output_dir, "predictions", seq + ".npy"),
+                    pred[i].cpu().numpy().astype(np.float32))
+            np.save(os.path.join(args.output_dir, "guiding_points", seq + ".npy"),
+                    last.guiding[i].cpu().numpy().astype(np.float32))
+        print(f"batch {bi}: cfd={np.mean(chamfers):.4f}")
+
+    final = {"cfd": float(np.mean(chamfers)), "emd": float(np.mean(emds)),
+             "f1": float(np.mean(f1s)), "acc": float(np.mean(accs)),
+             "top3": float(np.mean(top3s))}
+    with open(os.path.join(args.output_dir, "results.txt"), "w") as f:
+        for line in lines:
+            f.write(line + "\n")
+        f.write(f"Final Chamfer distance: {final['cfd']:.4f}\n")
+        f.write(f"Final EMD: {final['emd']:.4f}\n")
+        f.write(f"Final F1 score: {final['f1']:.4f}\n")
+        f.write(f"Category accuracy: {final['acc']:.4f}\n")
+        f.write(f"Top 3 accuracy: {final['top3']:.4f}\n")
+    print(f"CFD {final['cfd']:.4f} | EMD {final['emd']:.4f} | F1 "
+          f"{final['f1']:.4f} | acc {final['acc']:.4f} | top3 {final['top3']:.4f}")
+    return final
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,190 @@
+"""The port's evaluation entry point and its parts against the JAX package.
+
+The HASH text encoder, the synthetic dataset writer, the loader, the
+metrics and the ``.pt`` checkpoint loader each against their JAX
+counterparts; then ``lsdm_tpu_torch.run.test_sdm`` end to end on the CPU,
+holding the output contract of ``tests/test_e2e_cli.py``.
+"""
+
+import dataclasses
+import filecmp
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lsdm_tpu.data import dataset as jax_dataset
+from lsdm_tpu.data.synthetic import generate as jax_generate
+from lsdm_tpu.models.text import TextEncoder as JaxTextEncoder
+from lsdm_tpu.ops import metrics as jax_metrics
+from lsdm_tpu.ops.pointcloud import chamfer_distance as jax_chamfer
+from lsdm_tpu.train.checkpoint import convert_torch_state_dict
+from lsdm_tpu.train.checkpoint import load_torch_checkpoint as jax_load_torch_checkpoint
+from lsdm_tpu_torch.checkpoint import load_torch_checkpoint
+from lsdm_tpu_torch.config import SDMConfig
+from lsdm_tpu_torch.data import dataset
+from lsdm_tpu_torch.data.synthetic import generate
+from lsdm_tpu_torch.models.sdm import SceneDiffusionModel
+from lsdm_tpu_torch.models.text import TextEncoder, resolve_text_encoder
+from lsdm_tpu_torch.ops import metrics
+from lsdm_tpu_torch.ops.pointcloud import chamfer_distance
+from lsdm_tpu_torch.run import test_sdm
+from lsdm_tpu_torch.weights import init_weights
+
+PROMPTS = ["place a chair next to the person", "PUT a Sofa  in front",
+           "", "tv_monitor"]
+
+
+def test_hash_text_encoder_equals_jax_bit_for_bit():
+    got = TextEncoder("HASH", dim=512).encode(PROMPTS + PROMPTS[:1])
+    want = JaxTextEncoder("HASH", dim=512).encode(PROMPTS + PROMPTS[:1])
+    assert got.dtype == np.float32 and got.shape == (5, 512)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_text_encoder_auto_is_hash_offline_and_the_towers_raise(monkeypatch, tmp_path):
+    monkeypatch.delenv("LSDM_TPU_CLIP_BPE", raising=False)
+    monkeypatch.setenv("HF_HOME", str(tmp_path))  # an empty HuggingFace cache
+    assert resolve_text_encoder("auto") == "HASH"
+    merges = tmp_path / "merges.txt"
+    merges.write_text("#version: 0.2\n")
+    assert resolve_text_encoder("auto", str(merges)) == "CLIP"
+    assert resolve_text_encoder("HASH", str(merges)) == "HASH"
+    for tower in ("CLIP", "BERT"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+            TextEncoder(tower)
+
+
+@pytest.mark.parametrize("datatype", ["proxd", "humanise"])
+def test_synthetic_dataset_and_loader_match_jax(tmp_path, datatype):
+    a, b = tmp_path / "port", tmp_path / "jax"
+    kw = dict(n_scenes=2, n_seqs=5, pnt_size=16, seed=3, split="test")
+    data_a = generate(str(a), datatype, **kw)
+    jax_generate(str(b), datatype, **kw)
+    files = sorted(os.path.relpath(os.path.join(d, f), a)
+                   for d, _, fs in os.walk(a) for f in fs)
+    assert files == sorted(os.path.relpath(os.path.join(d, f), b)
+                           for d, _, fs in os.walk(b) for f in fs)
+    _, mismatch, errors = filecmp.cmpfiles(a, b, files, shallow=False)
+    assert not mismatch and not errors
+
+    cls = "ProxDatasetTxt" if datatype == "proxd" else "Humanise"
+    kw = dict(objs_data_dir=str(a / "objs"), pnt_size=16)
+    ds = getattr(dataset, cls)(data_a, **kw)
+    ref = getattr(jax_dataset, cls)(data_a, **kw)
+    assert len(ds) == len(ref) == 5
+    for i in range(len(ds)):
+        for got, want in zip(ds[i], ref[i]):
+            np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    # batches of 2: the last one pads by repeating its last item
+    batches = list(dataset.DataLoader(ds, 2))
+    refs = list(jax_dataset.DataLoader(ref, 2))
+    assert len(batches) == len(refs) == 3
+    for got, want in zip(batches, refs):
+        for field in ("mask", "given_objs", "given_cats", "target_verts",
+                      "target_cat", "text", "seq_names"):
+            np.testing.assert_array_equal(np.asarray(getattr(got, field)),
+                                          np.asarray(getattr(want, field)))
+    assert batches[-1].seq_names[0] == batches[-1].seq_names[1]
+
+
+def test_metrics_match_jax():
+    rs = np.random.RandomState(4)
+    pred = rs.randn(2, 48, 3).astype(np.float32)
+    gt = (rs.randn(2, 48, 3) * 0.8).astype(np.float32)
+    p, g = torch.from_numpy(pred), torch.from_numpy(gt)
+    # float32 distances rounded in another order (the port's separate
+    # products against XLA's dot): ~1e-7 relative
+    np.testing.assert_allclose(float(chamfer_distance(p, g)),
+                               float(jax_chamfer(jnp.asarray(pred), jnp.asarray(gt))),
+                               rtol=1e-6, err_msg="chamfer")
+    np.testing.assert_allclose(metrics.emd(p, g),
+                               jax_metrics.emd(jnp.asarray(pred), jnp.asarray(gt)),
+                               rtol=1e-6, err_msg="emd")
+    for th in (0.1, 0.5):  # no distance lies within 1e-3 of either threshold
+        got = metrics.fscore(p[0], g[0], th)
+        want = jax_metrics.fscore(jnp.asarray(pred[0]), jnp.asarray(gt[0]), th)
+        np.testing.assert_allclose([float(x) for x in got],
+                                   [float(x) for x in want], rtol=1e-6,
+                                   err_msg=f"fscore at {th}")
+    scores = rs.rand(6, 13).astype(np.float32)
+    labels = rs.randint(0, 13, 6)
+    got = metrics.topk_accuracy(torch.from_numpy(scores), torch.from_numpy(labels),
+                                (1, 3, 5))
+    want = jax_metrics.topk_accuracy(jnp.asarray(scores), jnp.asarray(labels),
+                                     (1, 3, 5))
+    np.testing.assert_allclose([float(x) for x in got], [float(x) for x in want],
+                               err_msg="top-k accuracy")
+
+
+TINY = SDMConfig(clip_dim=32, latent_dim=16, cat_emb=8, n_head=4, vert_dims=24,
+                 pcd_points=32)
+
+
+def test_torch_checkpoint_round_trip_with_the_jax_loader(tmp_path):
+    model = init_weights(SceneDiffusionModel(TINY), 5)
+    sd = model.state_dict()
+    path = str(tmp_path / "model.pt")
+    torch.save({"model_state_dict": {**sd, "clip_model.proj": torch.ones(2)},
+                "epoch": 7}, path)
+    port = SceneDiffusionModel(TINY)
+    extra = load_torch_checkpoint(path, port)
+    assert extra == {"epoch": 7}
+    for k, v in port.state_dict().items():
+        assert torch.equal(v, sd[k]), k
+    params, stats, _ = jax_load_torch_checkpoint(path, max_cats=TINY.max_cats)
+    want_p, want_s = convert_torch_state_dict(
+        {k: v.numpy() for k, v in port.state_dict().items()}, TINY.max_cats)
+    for got, want in ((params, want_p), (stats, want_s)):
+        got_l = jax.tree_util.tree_leaves_with_path(got)
+        want_l = dict(jax.tree_util.tree_leaves_with_path(want))
+        assert len(got_l) == len(want_l)
+        for path_, leaf in got_l:
+            np.testing.assert_array_equal(np.asarray(leaf),
+                                          np.asarray(want_l[path_]))
+    # a category head of another width fails the strict load
+    with pytest.raises(RuntimeError, match="size mismatch"):
+        load_torch_checkpoint(path, SceneDiffusionModel(
+            dataclasses.replace(TINY, max_cats=11)))
+
+
+@pytest.mark.parametrize("ball_impl", ["auto", "fused"])
+def test_test_sdm_cli_end_to_end_on_cpu(tmp_path, ball_impl):
+    root = str(tmp_path)
+    generate(root, "proxd", n_scenes=1, n_seqs=3, pnt_size=32, seed=3,
+             split="test")
+    model = init_weights(SceneDiffusionModel(SDMConfig(pcd_points=32,
+                                                       vert_dims=32)), 2)
+    ckpt = os.path.join(root, "model.pt")
+    torch.save({"model_state_dict": model.state_dict()}, ckpt)
+    out = os.path.join(root, "out")
+    final = test_sdm.main([
+        os.path.join(root, "proxd_test"), "--objs_data_dir",
+        os.path.join(root, "objs"), "--load_model", ckpt, "--output_dir", out,
+        "--diffusion_steps", "4", "--batch_size", "2", "--pcd_points", "32",
+        "--device", "cpu", "--ball_impl", ball_impl])
+    # output contract (reference run/test_sdm.py:210-232)
+    lines = open(os.path.join(out, "results.txt")).read().splitlines()
+    assert [line.split(":")[0] for line in lines[-5:]] == [
+        "Final Chamfer distance", "Final EMD", "Final F1 score",
+        "Category accuracy", "Top 3 accuracy"]
+    assert len(lines) == 3 + 5  # one line per sequence; the padded tail is not scored
+    assert all(np.isfinite(v) for v in final.values())
+    preds = sorted(os.listdir(os.path.join(out, "predictions")))
+    assert len(preds) == 3
+    for sub in ("predictions", "guiding_points"):
+        for name in preds:
+            arr = np.load(os.path.join(out, sub, name))
+            assert arr.shape == (32, 3) and arr.dtype == np.float32
+            assert np.isfinite(arr).all()
+
+
+def test_test_sdm_cli_refuses_what_the_port_cannot_run(tmp_path):
+    with pytest.raises(SystemExit, match="torch .pt"):
+        test_sdm.main([str(tmp_path), "--load_model", "model.ckpt"])
+    if not torch.cuda.is_available():  # no silent CPU run
+        with pytest.raises(SystemExit, match="--device cpu"):
+            test_sdm.main([str(tmp_path)])

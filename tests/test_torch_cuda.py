@@ -2,8 +2,9 @@
 
 Every test here needs an NVIDIA GPU and skips without one.  The shapes are
 small and deliberately awkward (rows that are not multiples of a warp or a
-tile, k < 3, empty balls, several chunks of the denoise chain), the edge
-cases ``chip_smoke.py`` does not reach at the flagship shapes.  On a
+tile, k < 3, empty balls, distance ties, several chunks of the denoise
+chain), the edge cases ``chip_smoke.py`` does not reach at the flagship
+shapes.  On a
 machine with a GPU and no JAX, run them without the JAX test conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 from lsdm_tpu_torch import kernels
-from lsdm_tpu_torch.ops import ballquery, denoise, fps
+from lsdm_tpu_torch.ops import attn, ballquery, denoise, fp_fused, fps, sa_fused
 from lsdm_tpu_torch.ops.denoise import DenoiseStepParams
 
 pytestmark = pytest.mark.cuda
@@ -124,6 +125,87 @@ def test_denoise_chain_tables_kernel_matches_plain(dev):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
 
 
+def _layers(dev, widths, seed=0):
+    """Random folded (W (F_{l-1}, F_l), b (F_l,)) layers of ``widths``."""
+    rs = np.random.RandomState(seed)
+    return [(torch.from_numpy((rs.randn(a, b) / np.sqrt(a)).astype(np.float32)).to(dev),
+             torch.from_numpy((rs.randn(b) * 0.1).astype(np.float32)).to(dev))
+            for a, b in zip(widths[:-1], widths[1:])]
+
+
+@pytest.mark.parametrize("n,s,radius,nsample,mlp", [
+    (64, 13, 0.8, 16, (8, 16)),        # 13 centers: not a multiple of a tile
+    (37, 5, 0.3, 8, (8,)),             # one layer; most balls hold < 8 points
+    (100, 24, 0.05, 32, (16, 16, 24)),  # nsample far above the in-radius count
+    (64, 16, 0.8, 32, (256, 256, 512)),  # sa4's widths: one center per block
+])
+def test_sa_fused_kernel_matches_plain(dev, n, s, radius, nsample, mlp):
+    xyz = _cloud(n, 2, n, 3).to(dev)
+    new_xyz = xyz[:, :s].clone()
+    new_xyz[1, 2] = 50.0  # a center with no point in its radius
+    base = torch.cat([xyz, _cloud(n + 1, 2, n, 5).to(dev)], -1).contiguous()
+    folded = _layers(dev, (8,) + mlp)
+    before = kernels.LAUNCHES["sa_fused"]
+    got = sa_fused.sa_stage_fused_kernel(radius, nsample, xyz, new_xyz, base, folded)
+    assert kernels.LAUNCHES["sa_fused"] == before + 1
+    want = sa_fused.sa_stage_fused_plain(radius, nsample, xyz, new_xyz, base, folded)
+    torch.cuda.synchronize()
+    assert got.shape == (2, s, mlp[-1])
+    # float32 sums in another order
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    # the plain version, which the kernel matched, gathered point 0 in every
+    # slot of the empty ball
+    assert (ballquery.query_ball_point_plain(radius, nsample, xyz, new_xyz,
+                                             empty=0)[1, 2] == 0).all()
+
+
+@pytest.mark.parametrize("n,s,d1,mlp,acts", [
+    (64, 2, 6, (8, 16), None),                     # S = 2: k = 2
+    (50, 50, 0, (16, 8, 3), ("relu", "relu", "none")),  # sources = targets (fp1)
+    (40, 16, 256, (256, 256), None),               # fp4-like widths, 40 rows
+    (33, 7, 0, (12,), ("none",)),
+])
+def test_fp_fused_kernel_matches_plain(dev, n, s, d1, mlp, acts):
+    xyz1 = _cloud(n, 2, n, 3).to(dev)
+    xyz2 = xyz1[:, :s].contiguous() if s == n else _cloud(s + 3, 2, s, 3).to(dev)
+    d2 = 512 if d1 == 256 else 10
+    p1 = _cloud(n + 5, 2, n, d1).to(dev) if d1 else None
+    p2 = _cloud(s + 9, 2, s, d2).to(dev)
+    folded = _layers(dev, (d1 + d2,) + mlp)
+    before = kernels.LAUNCHES["fp_fused"]
+    got = fp_fused.fp_stage_fused_kernel(xyz1, xyz2, p1, p2, folded, acts)
+    assert kernels.LAUNCHES["fp_fused"] == before + 1
+    want = fp_fused.fp_stage_fused_plain(xyz1, xyz2, p1, p2, folded, acts)
+    torch.cuda.synchronize()
+    assert got.shape == (2, n, mlp[-1])
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_fp_fused_ties_go_to_the_lowest_index(dev):
+    # the target at the origin is equidistant from all four sources: the
+    # three lowest indices weigh 1/3 each, the fourth source none
+    xyz2 = torch.tensor([[[1.0, 0, 0], [0, 1.0, 0], [-1.0, 0, 0], [0, -1.0, 0]]],
+                        device=dev)
+    xyz1 = torch.zeros(1, 8, 3, device=dev)
+    p2 = torch.tensor([[[1.0], [2.0], [4.0], [100.0]]], device=dev)
+    eye = [(torch.ones(1, 1, device=dev), torch.zeros(1, device=dev))]
+    got = fp_fused.fp_stage_fused_kernel(xyz1, xyz2, None, p2, eye, ("none",))
+    torch.testing.assert_close(got, torch.full((1, 8, 1), 7.0 / 3, device=dev))
+
+
+@pytest.mark.parametrize("b,l,s,h", [(2, 300, 77, 12), (1, 1024, 1024, 12), (3, 8, 5, 2)])
+def test_rank1_attention_kernel_matches_plain(dev, b, l, s, h):
+    q = _cloud(1, b, l, h, scale=2.0).to(dev)
+    k = _cloud(2, b, s, h, scale=2.0).to(dev)
+    v = _cloud(3, b, s, h).to(dev)
+    before = kernels.LAUNCHES["rank1_attn"]
+    got = attn.rank1_mha_kernel(q, k, v)
+    assert kernels.LAUNCHES["rank1_attn"] == before + 1
+    want = attn.rank1_mha_plain(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+
+
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
     xyz = _cloud(0, 2, 16, 3).to(dev)
     with pytest.raises(ValueError):
@@ -138,3 +220,11 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
     x, noise, cpcd, e2, coef, p = _chain_inputs(dev, B=1, T=3, N=8, D=16)
     with pytest.raises(ValueError):  # one step row short
         denoise.fused_denoise_chain(x, noise, cpcd, e2[:, :2].contiguous(), coef, p)
+    with pytest.raises(ValueError):  # bf16: the port computes in float32
+        attn.rank1_mha_kernel(xyz.bfloat16(), xyz.bfloat16(), xyz.bfloat16())
+    folded = _layers(dev, (6, 8))
+    with pytest.raises(ValueError):  # layer 1 takes 6 channels, base has 3
+        sa_fused.sa_stage_fused_kernel(0.2, 4, xyz, xyz, xyz, folded)
+    with pytest.raises(ValueError):
+        fp_fused.fp_stage_fused_kernel(xyz, xyz, None, xyz, _layers(dev, (3, 4)),
+                                       ("gelu",))

@@ -20,7 +20,7 @@ from lsdm_tpu.ops.denoise_pallas import fused_denoise_chain as jax_denoise_chain
 from lsdm_tpu.ops.fps_batched_pallas import farthest_point_sample_batched
 from lsdm_tpu.ops.fps_pallas import farthest_point_sample_pallas
 from lsdm_tpu_torch import kernels
-from lsdm_tpu_torch.ops import ballquery, denoise, fps
+from lsdm_tpu_torch.ops import attn, ballquery, denoise, fp_fused, fps, sa_fused
 from lsdm_tpu_torch.ops.denoise import DenoiseStepParams
 
 
@@ -159,6 +159,16 @@ def test_kernel_wrappers_on_cpu_run_the_plain_versions_and_launch_nothing():
     for a, b in zip(denoise.denoise_chain_tables(args[3], args[5]),
                     denoise.denoise_chain_tables_plain(args[3], args[5])):
         assert torch.equal(a, b)
+    base = torch.cat([xyz, xyz], -1)
+    folded = [(torch.randn(6, 8), torch.randn(8)), (torch.randn(8, 4), torch.randn(4))]
+    assert torch.equal(sa_fused.sa_stage_fused_kernel(0.5, 8, xyz, new_xyz, base, folded),
+                       sa_fused.sa_stage_fused_plain(0.5, 8, xyz, new_xyz, base, folded))
+    fargs = (xyz, new_xyz, None, torch.randn(2, 8, 6), folded, ("relu", "none"))
+    assert torch.equal(fp_fused.fp_stage_fused_kernel(*fargs),
+                       fp_fused.fp_stage_fused_plain(*fargs))
+    assert torch.equal(attn.rank1_mha_kernel(base, base, base),
+                       attn.rank1_mha_plain(base, base, base))
     assert kernels.LAUNCHES == {name: 0 for name in kernels.LAUNCHES}
     assert set(kernels.LAUNCHES) == {"ball_query", "three_nn", "fps",
-                                     "denoise_chain"}
+                                     "denoise_chain", "rank1_attn", "sa_fused",
+                                     "fp_fused"}

@@ -111,19 +111,22 @@ def test_sample_sdm_matches_jax(setup, variant):
 
 
 @pytest.mark.parametrize("device,want", [
-    ("cpu", None),        # the composed loop
-    ("cuda", "chain"),    # the whole-loop kernel
+    ("cpu", ("auto", None)),        # the composed encode and loop
+    ("cuda", ("fused", "chain")),   # the fused encode, the whole-loop kernel
 ])
 def test_resolve_fast_path_by_device(device, want):
-    assert resolve_fast_path(None, torch.device(device)) == want
-    assert resolve_fast_path("auto", torch.device(device)) == want
-    assert resolve_fast_path("none", torch.device(device)) is None
-    assert resolve_fast_path("chain", torch.device(device)) == "chain"
+    dev = torch.device(device)
+    assert resolve_fast_path("auto", None, dev) == want
+    assert resolve_fast_path("auto", "auto", dev) == want
+    assert resolve_fast_path("auto", "none", dev) == (want[0], None)
+    # explicit choices pass through
+    assert resolve_fast_path("pallas", "chain", dev) == ("pallas", "chain")
+    assert resolve_fast_path("topk", None, dev) == ("topk", want[1])
     with pytest.raises(NotImplementedError):
-        resolve_fast_path("step", torch.device(device))
+        resolve_fast_path("auto", "step", dev)
 
 
-@pytest.mark.parametrize("ball_impl", ["fused", "sg", "topk2c", "scatter"])
+@pytest.mark.parametrize("ball_impl", ["sg", "topk2c", "scatter"])
 def test_unported_ball_impls_raise(ball_impl):
     import dataclasses
 

@@ -77,6 +77,14 @@ def test_port_config_copies_the_jax_config(preset):
         assert getattr(port, f.name) == getattr(ref, f.name), f.name
 
 
+@pytest.mark.parametrize("datatype", ["proxd", "humanise"])
+def test_port_category_tables_copy_the_jax_tables(datatype):
+    from lsdm_tpu import config as jax_config
+    from lsdm_tpu_torch import config
+
+    assert config.categories_for(datatype) == jax_config.categories_for(datatype)
+
+
 def test_init_weights_is_deterministic_per_seed():
     a = init_weights(SceneDiffusionModel(PORT_TINY), 3).state_dict()
     b = init_weights(SceneDiffusionModel(PORT_TINY), 3).state_dict()
