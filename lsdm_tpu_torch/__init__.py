@@ -1,5 +1,5 @@
-"""lsdm_tpu_torch — SDM sampling and its evaluation entry point in PyTorch,
-with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+"""lsdm_tpu_torch — SDM sampling, training and their entry points in
+PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A second package beside the JAX one (``lsdm_tpu``), which stays the
 reference: public functions keep its layouts and names (channel-last

@@ -38,8 +38,36 @@ class SDMConfig:
     # tensors, their plain versions for CPU tensors; "topk": the plain
     # versions on any device; "fused": the fused eval stage kernels K7/K8
     # and the rank-1 attention K4 (models/pointnet2.py).  Entry points
-    # resolve "auto" to "fused" on CUDA (models/sampling.py)
+    # resolve "auto" to "fused" on CUDA (models/sampling.py); "sg": the
+    # train select-gather kernel K10 in the SA stages
     ball_impl: str = "auto"
+    # train-time pcd_attention: "xla" the composed formulation, "pallas"
+    # the rank-1 kernels K4/K5 (the train entry point resolves "auto")
+    attn_impl: str = "xla"
+
+
+@dataclasses.dataclass(frozen=True)
+class DiffusionConfig:
+    """The diffusion settings training reads (JAX ``DiffusionConfig``,
+    reference ``util/model_util.py:127-163``)."""
+
+    steps: int = 1000
+    noise_schedule: str = "cosine"
+    lambda_cat: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The training-loop settings the port reads (JAX ``TrainConfig``,
+    reference ``run/train_sdm.py:186-337``)."""
+
+    lr: float = 1e-3
+    # torch AdamW's default, which the reference silently uses
+    weight_decay: float = 0.01
+    epochs: int = 1000
+    eval_every: int = 50  # validate + checkpoint cadence
+    ema_rate: float = 0.0  # parameter EMA (0 = off)
+    lr_anneal_steps: int = 0  # linear LR anneal horizon (0 = constant)
 
 
 def sdm_proxd() -> SDMConfig:

@@ -39,7 +39,8 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES = {"ball_query": 0, "three_nn": 0, "fps": 0, "denoise_chain": 0,
-            "rank1_attn": 0, "sa_fused": 0, "fp_fused": 0}
+            "rank1_attn": 0, "sa_fused": 0, "fp_fused": 0,
+            "rank1_attn_bwd": 0, "select_gather": 0, "chamfer_nn": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -65,6 +66,13 @@ _SIGNATURES = {
     #  S, D1, D2, out, stream)
     "lsdm_fp_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
                       _P),
+    # (q, k, v, out, g, B, L, S, H, dq, dk, dv, stats, stream)
+    "lsdm_rank1_attn_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                            _P),
+    # (xyz, new_xyz, base, B, N, S, C, radius2, nsample, out, idx, stream)
+    "lsdm_select_gather": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P),
+    # (x, y, B, N, M, min, argmin, stream)
+    "lsdm_chamfer_nn": (_P, _P, _I, _I, _I, _P, _P, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -66,7 +66,8 @@ class InputProcess(nn.Module):
         self.combination_extraction = mlp(2 * d, (int(d * 1.5), d), "sigmoid")
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        x = self.pose_embedding(x.float())
+        # float32 points, as JAX casts them, in the weights' dtype
+        x = self.pose_embedding(x.float().to(self.pose_embedding[0].weight.dtype))
         return self.combination_extraction(torch.cat([x, emb], dim=-1))
 
 

@@ -1,4 +1,4 @@
-"""PointNet++ backbone, eval (inference) form.
+"""PointNet++ backbone, eval and train forms.
 
 Counterpart of ``lsdm_tpu/models/pointnet2.py`` (reference
 ``model/pcd_backbone/pointnet2.py:43-80`` and ``pointnet2_utils.py``):
@@ -11,8 +11,11 @@ Layouts are channel-last like the JAX package: grouped features are
 (``sa1.mlp_convs.0.weight`` is a (out, in, 1, 1) Conv2d weight, the FP and
 head convs are (out, in, 1) Conv1d weights, ``mlp_bns``/``bn1`` are
 BatchNorms); the 1x1 convolutions run as matrix products over the channel
-axis.  BatchNorm always applies its running statistics: this slice
-samples, and training (batch statistics) is a later one.
+axis.  In eval (``not training``) BatchNorm applies its running
+statistics; in training it is flax's BatchNorm (:func:`bn_train`: batch
+statistics over every axis but the channel, the fast biased variance,
+running statistics updated with momentum 0.9), and the head's
+``Dropout(0.5)`` drops with an explicit keep-mask or a given generator.
 
 ``ball_impl`` selects the neighbour selection: ``"pallas"`` (and ``"auto"``)
 use the hand-written kernels (K1 ball query, K2 3-NN, K3 FPS) for CUDA
@@ -25,6 +28,12 @@ N % 8 == 0 targets, with the backbone's head and ``conv2`` riding fp1's
 launch; a stage that declines runs the ``"pallas"`` path (and fp1 then
 applies the head and ``conv2`` as plain layers).  FPS is K3 under both.
 Fused stages fold BatchNorm and run only in eval mode (``not training``).
+``"sg"`` (train or eval) takes each SA stage's selection and gather from
+K10 (``ops/sg_fused.py``) where the stage has features and S % 8 == 0
+centers, and the ``"pallas"`` path elsewhere, as the JAX package's gate
+does.  In training an FP stage on the kernel path recomputes its 3-NN
+distances differentiably at the kernel's indices
+(``ops/pointcloud.py:three_nn_interpolate``).
 """
 
 from __future__ import annotations
@@ -39,8 +48,11 @@ from lsdm_tpu_torch.ops.fp_fused import fp_stage_fused_kernel
 from lsdm_tpu_torch.ops.pointcloud import (
     farthest_point_sample, index_points, query_ball_point, three_nn_interpolate)
 from lsdm_tpu_torch.ops.sa_fused import fold_conv_bn, sa_stage_fused_kernel
+from lsdm_tpu_torch.ops.sg_fused import select_gather_grouped
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # flax's: running = 0.9 * running + 0.1 * batch
+DROPOUT_RATE = 0.5
 HEAD_ACTS = ("relu", "none")  # the head's ReLU, then conv2 with none
 
 
@@ -67,6 +79,29 @@ def bn_eval(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
     return (x - bn.running_mean) * mul + bn.bias
 
 
+def bn_train(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
+    """flax ``BatchNorm(momentum=0.9)`` in training, over the trailing
+    channel axis: the statistics run over every other axis, the variance
+    is flax's fast one, ``max(0, E[x^2] - E[x]^2)`` (biased), and the
+    running statistics become ``0.9 * running + 0.1 * batch`` with that
+    biased variance (torch's ``batch_norm`` would take a two-pass variance
+    and update with the unbiased one).  Normalises in flax's order."""
+    dims = tuple(range(x.dim() - 1))
+    mean = x.mean(dim=dims)
+    var = torch.clamp_min((x * x).mean(dim=dims) - mean * mean, 0.0)
+    with torch.no_grad():
+        bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean
+                              + (1 - BN_MOMENTUM) * mean)
+        bn.running_var.copy_(BN_MOMENTUM * bn.running_var
+                             + (1 - BN_MOMENTUM) * var)
+        bn.num_batches_tracked += 1
+    return (x - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
+
+
+def bn_relu(bn: nn.BatchNorm1d, x: torch.Tensor, training: bool) -> torch.Tensor:
+    return F.relu(bn_train(bn, x) if training else bn_eval(bn, x))
+
+
 def fold_mlp(stage: nn.Module) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """The (W', b') of an SA or FP stage's conv + BatchNorm layers, folded
     (``ops/sa_fused.py:fold_conv_bn``), in order."""
@@ -76,12 +111,8 @@ def fold_mlp(stage: nn.Module) -> List[Tuple[torch.Tensor, torch.Tensor]]:
 def _resolve_impl(ball_impl: str) -> str:
     if ball_impl in ("auto", "pallas"):
         return "pallas"  # kernels for CUDA tensors, plain versions on the CPU
-    if ball_impl in ("topk", "fused"):
+    if ball_impl in ("topk", "fused", "sg"):
         return ball_impl
-    if ball_impl == "sg":
-        raise NotImplementedError(
-            "ball_impl='sg' needs the select-gather kernel (K10), not yet "
-            "ported: ROADMAP.md queue 2")
     raise NotImplementedError(
         f"ball_impl={ball_impl!r} is a TPU-only formulation, not ported "
         "(ROADMAP.md, 'Not ported')")
@@ -96,7 +127,7 @@ class PointNetSetAbstraction(nn.Module):
         super().__init__()
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
         self.fps_mode, self.impl = fps_mode, impl
-        self.sel = "pallas" if impl == "fused" else impl  # selection ops
+        self.sel = "pallas" if impl in ("fused", "sg") else impl  # selection ops
         self.mlp_convs = nn.ModuleList()
         self.mlp_bns = nn.ModuleList()
         last = in_channel
@@ -121,6 +152,13 @@ class PointNetSetAbstraction(nn.Module):
             base = torch.cat([xyz, points], dim=-1)
             return new_xyz, sa_stage_fused_kernel(
                 self.radius, nsample, xyz, new_xyz, base, fold_mlp(self))
+        if (self.impl == "sg" and points is not None
+                and new_xyz.shape[1] % 8 == 0):
+            # selection + gather + center-relative xyz as one kernel (K10)
+            new_points = select_gather_grouped(
+                self.radius, nsample, xyz, new_xyz,
+                torch.cat([xyz, points], dim=-1))
+            return new_xyz, self._mlp_max(new_points)
         idx = query_ball_point(self.radius, nsample, xyz, new_xyz,
                                impl=self.sel)
         if points is not None:
@@ -131,9 +169,12 @@ class PointNetSetAbstraction(nn.Module):
                 dim=-1)
         else:
             new_points = index_points(xyz, idx) - new_xyz[:, :, None, :]
+        return new_xyz, self._mlp_max(new_points)
+
+    def _mlp_max(self, new_points: torch.Tensor) -> torch.Tensor:
         for conv, bn in zip(self.mlp_convs, self.mlp_bns):
-            new_points = F.relu(bn_eval(bn, conv(new_points)))
-        return new_xyz, new_points.max(dim=2).values  # max over the K samples
+            new_points = bn_relu(bn, conv(new_points), self.training)
+        return new_points.max(dim=2).values  # max over the K samples
 
 
 class PointNetFeaturePropagation(nn.Module):
@@ -143,7 +184,7 @@ class PointNetFeaturePropagation(nn.Module):
                  impl: str = "pallas"):
         super().__init__()
         self.impl = impl
-        self.sel = "pallas" if impl == "fused" else impl  # selection ops
+        self.sel = "pallas" if impl in ("fused", "sg") else impl  # selection ops
         self.mlp_convs = nn.ModuleList()
         self.mlp_bns = nn.ModuleList()
         last = in_channel
@@ -171,11 +212,12 @@ class PointNetFeaturePropagation(nn.Module):
             interpolated = points2.expand(-1, xyz1.shape[1], -1)
         else:
             interpolated = three_nn_interpolate(xyz1, xyz2, points2,
-                                                impl=self.sel)
+                                                impl=self.sel,
+                                                diff_weights=self.training)
         new_points = (interpolated if points1 is None
                       else torch.cat([points1, interpolated], dim=-1))
         for conv, bn in zip(self.mlp_convs, self.mlp_bns):
-            new_points = F.relu(bn_eval(bn, conv(new_points)))
+            new_points = bn_relu(bn, conv(new_points), self.training)
         # the trailing layers when the gate above declined, so fused and
         # composed stages stay interchangeable
         for (w, b), act in zip(extra_folded, extra_acts):
@@ -217,7 +259,13 @@ class PointNet2Backbone(nn.Module):
         return [fold_conv_bn(self.conv1, self.bn1),
                 (w2.reshape(w2.shape[0], -1).t().contiguous(), self.conv2.bias)]
 
-    def forward(self, xyz: torch.Tensor) -> torch.Tensor:
+    def forward(self, xyz: torch.Tensor,
+                dropout_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Per-point features of clouds xyz (B, N, 3).  In training the
+        head's dropout keeps the entries where ``dropout_mask`` (bool,
+        (B, N, 128)) is true or, without one, draws the keep-mask from
+        ``generator``."""
         l0_xyz, l0_points = xyz, xyz
         l1_xyz, l1_points = self.sa1(l0_xyz, l0_points)
         l2_xyz, l2_points = self.sa2(l1_xyz, l1_points)
@@ -233,5 +281,14 @@ class PointNet2Backbone(nn.Module):
                             extra_folded=self.head_folded(),
                             extra_acts=HEAD_ACTS)
         l0_points = self.fp1(l0_xyz, l1_xyz, None, l1_points)
-        x = F.relu(bn_eval(self.bn1, self.conv1(l0_points)))
+        x = bn_relu(self.bn1, self.conv1(l0_points), self.training)
+        if self.training:  # flax Dropout: keep with 1 - rate, scale up
+            keep = 1.0 - DROPOUT_RATE
+            if dropout_mask is None:
+                dropout_mask = torch.rand(x.shape, generator=generator,
+                                          device=x.device) < keep
+            elif dropout_mask.shape != x.shape:
+                raise ValueError(f"dropout mask {tuple(dropout_mask.shape)} "
+                                 f"for activations {tuple(x.shape)}")
+            x = torch.where(dropout_mask, x / keep, 0.0)
         return self.conv2(x)  # dropout is the identity in eval

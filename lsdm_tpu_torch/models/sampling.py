@@ -53,6 +53,17 @@ def resolve_fast_path(ball_impl: str = "auto",
     return ball_impl, fused_step
 
 
+def resolve_train_attn_impl(attn_impl: str = "auto",
+                            device: Optional[torch.device] = None) -> str:
+    """The train-time ``pcd_attention`` for ``device``: ``"auto"`` becomes
+    ``"pallas"`` (K4 forward, K5 backward) on CUDA and ``"xla"`` (the
+    composed formulation) on the CPU, as the JAX resolver does."""
+    on_cuda = device is not None and torch.device(device).type == "cuda"
+    if attn_impl == "auto":
+        return "pallas" if on_cuda else "xla"
+    return attn_impl
+
+
 def _encode(model: SceneDiffusionModel, mask, given_objs, given_cats,
             text_emb, cond_chunk: Optional[int]) -> CondCache:
     B = given_objs.shape[0]
@@ -122,6 +133,10 @@ def sample_sdm(
     loop timesteps to the model's (respaced schedules).  ``cond_chunk``
     encodes the conditioning in batch chunks of that size.
     """
+    if model.training:  # JAX samples with train=False
+        raise ValueError("sample_sdm needs the model in eval mode (model.eval()): "
+                         "training mode normalises with batch statistics and "
+                         "drops out")
     B, _, N, _ = given_objs.shape
     dev = given_objs.device
     T = schedule.num_timesteps

@@ -1,4 +1,4 @@
-"""SceneDiffusionModel — the multi-conditional denoiser, inference form.
+"""SceneDiffusionModel — the multi-conditional denoiser.
 
 Counterpart of ``lsdm_tpu/models/sdm.py`` (reference ``model/sdm.py:18-218``),
 with the same interface: text arrives pre-encoded as ``text_emb``
@@ -20,12 +20,16 @@ Module and parameter names follow the reference ``state_dict``.  Only the
 configuration of the sampling slices is built: the PointNet++ object
 backbone, the POSA human backbone and float32 compute.  ``ball_impl``
 "fused" makes the eval encode the fused kernels' (K7, K8 in the backbone,
-K4 in ``pcd_attention``).
+K4 in ``pcd_attention``).  In training (``model.train()``, the JAX
+``train=True``) the backbone normalises with batch statistics and drops
+out in its head, and ``attn_impl="pallas"`` makes ``pcd_attention`` the
+rank-1 kernels K4/K5; the category head sees ``enc_text`` detached, as
+JAX's ``stop_gradient`` has it.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -89,20 +93,27 @@ class SceneDiffusionModel(nn.Module):
         given_objs: torch.Tensor,  # (B, max_objs, N, 3), slot 0 = human
         given_cats: torch.Tensor,  # (B, max_objs, max_cats) one-hot
         text_emb: torch.Tensor,  # (B, clip_dim) frozen text features
+        dropout_mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> CondCache:
         """Reference ``model/sdm.py`` :145-161 (text/category embeddings,
-        category head) and :169-204 (backbones, attentions, translation)."""
+        category head) and :169-204 (backbones, attentions, translation).
+        ``dropout_mask`` / ``generator``: the backbone head's dropout in
+        training (``PointNet2Backbone.forward``)."""
         cfg = self.cfg
         B, num_obj, num_points, xyz = given_objs.shape
         D = cfg.latent_dim
 
-        enc_text = self.embed_text(text_emb.float())[:, None, :]  # (B, 1, D)
-        out_cat = torch.softmax(self.predict_cat(enc_text), dim=2)
+        # float32 text features, as JAX casts them, in the weights' dtype
+        w = self.embed_text[0].weight
+        enc_text = self.embed_text(text_emb.float().to(w.dtype))[:, None, :]  # (B, 1, D)
+        # the category head on detached text features (reference :157)
+        out_cat = torch.softmax(self.predict_cat(enc_text.detach()), dim=2)
         emb_cat = self.embed_cat(given_cats)  # (B, num_obj, cat_emb)
 
         hm_out = self.human_backbone(given_objs[:, 0])  # (B, N, 3)
         objs_flat = given_objs.reshape(B * num_obj, num_points, xyz).contiguous()
-        pcd_out = self.pcd_backbone(objs_flat)
+        pcd_out = self.pcd_backbone(objs_flat, dropout_mask, generator)
         pcd_out = pcd_out.reshape(B, num_obj, num_points * cfg.pcd_dim)
 
         # text x category x cloud attention with the additive float mask
@@ -122,10 +133,12 @@ class SceneDiffusionModel(nn.Module):
         pcd_out = pcd_out.transpose(1, 2) * attn_w  # (B, N*pcd_dim, num_obj)
         pcd_out = pcd_out.reshape(B, num_obj, num_points, cfg.pcd_dim)
         pcd_trans = pcd_out.reshape(B * num_obj, cfg.pcd_points, cfg.xyz_dim)
-        # head_dim 1: with ball_impl "fused" the K4 kernel (eval only)
+        # head_dim 1: with ball_impl "fused" the K4 kernel in eval, with
+        # attn_impl "pallas" the K4/K5 pair in training
         pcd_trans, _ = self.pcd_attention(
             translation, pcd_trans, pcd_trans, need_weights=False,
-            fused=(cfg.ball_impl == "fused" and not self.training))
+            fused=(cfg.ball_impl == "fused" and not self.training),
+            fused_train=(cfg.attn_impl == "pallas" and self.training))
         pcd_trans = pcd_trans.reshape(B, num_obj, num_points,
                                       cfg.translation_params)
         pcd_out = self.point_wise_trans_layer(
@@ -184,7 +197,10 @@ class SceneDiffusionModel(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 timesteps: torch.Tensor, given_objs: torch.Tensor,
-                given_cats: torch.Tensor, text_emb: torch.Tensor
+                given_cats: torch.Tensor, text_emb: torch.Tensor,
+                dropout_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> DenoiserOutput:
-        cond = self.encode_conditioning(mask, given_objs, given_cats, text_emb)
+        cond = self.encode_conditioning(mask, given_objs, given_cats, text_emb,
+                                        dropout_mask, generator)
         return self.denoise_from_cond(cond, x, timesteps)

@@ -14,7 +14,8 @@ path keeps its own einsum formulation, so the port's numerics follow the
 JAX function and not a fused library attention.  With ``fused=True`` and
 the JAX package's gate (head_dim 1, no mask, L % 8 == 0) the head_dim=1
 eval path is the K4 kernel instead (``ops/attn.py``), which returns no
-weights.
+weights; with ``fused_train=True`` and the same gate it is
+``rank1_mha_train``, K4 forward and K5 backward.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from lsdm_tpu_torch.ops.attn import rank1_mha_kernel
+from lsdm_tpu_torch.ops.attn import rank1_mha_kernel, rank1_mha_train
 
 
 def multihead_attention(
@@ -101,18 +102,20 @@ class TorchMultiheadAttention(nn.Module):
         attn_mask: Optional[torch.Tensor] = None,
         need_weights: bool = True,
         fused: bool = False,
+        fused_train: bool = False,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         E = self.q_proj_weight.shape[0]
         b = self.in_proj_bias
         q = F.linear(query, self.q_proj_weight, b[:E])
         k = F.linear(key, self.k_proj_weight, b[E:2 * E])
         v = F.linear(value, self.v_proj_weight, b[2 * E:])
-        if (fused and self.num_heads == E and attn_mask is None
-                and q.shape[1] % 8 == 0):
-            # head_dim 1 eval path, the JAX module's gate
-            # (lsdm_tpu/ops/attention.py:168-185): the (B, H, L, S) planes
+        if ((fused or fused_train) and self.num_heads == E
+                and attn_mask is None and q.shape[1] % 8 == 0):
+            # head_dim 1 eval or train path, the JAX module's gates
+            # (lsdm_tpu/ops/attention.py:168-206): the (B, H, L, S) planes
             # never exist, and no weights are returned
-            return self.out_proj(rank1_mha_kernel(q, k, v)), None
+            attend = rank1_mha_train if fused_train else rank1_mha_kernel
+            return self.out_proj(attend(q, k, v)), None
         out, weights = multihead_attention(q, k, v, self.num_heads,
                                            attn_mask=attn_mask,
                                            need_weights=need_weights)

@@ -1,12 +1,15 @@
-"""Rank-1-head multi-head attention, forward (K4): CUDA kernel and plain
-version.
+"""Rank-1-head multi-head attention, forward (K4) and backward (K5): CUDA
+kernels and plain versions.
 
-Replaces ``lsdm_tpu/ops/attn_pallas.py:rank1_mha_pallas``; the kernel
-lives in ``csrc/rank1_attn.cu``.  The SDM's ``pcd_attention`` has
+Replaces ``lsdm_tpu/ops/attn_pallas.py``: ``rank1_mha_pallas`` (K4,
+``csrc/rank1_attn.cu``), ``_rank1_mha_bwd_pallas`` (K5,
+``csrc/rank1_attn_bwd.cu``) and the custom VJP ``rank1_mha_train`` that
+pairs them (:func:`rank1_mha_train`, a ``torch.autograd.Function``).  The SDM's ``pcd_attention`` has
 embed_dim == num_heads == 12, so each head is one scalar and its logits
 are the outer product ``q_h (L) x k_h (S)``, scale 1.  The kernel never
 writes the (B, H, L, S) logits or weights; the plain version does, as the
-composed path does.  Float32 only: the port has no bf16 compute mode.
+composed path does; so does the backward's plain version, which the
+kernel replaces by two passes that recompute the softmax.  Float32 only: the port has no bf16 compute mode.
 
 A wrapper runs the kernel for CUDA tensors and the plain version for CPU
 tensors; it never falls back from one to the other.
@@ -60,3 +63,85 @@ def rank1_mha_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     kernels.check(rc, "rank1_attn")
     kernels.LAUNCHES["rank1_attn"] += 1
     return out
+
+
+def rank1_mha_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, g: torch.Tensor):
+    """Plain version of K5, the JAX backward kernel's formula: the softmax
+    recomputed, ``D = g * out`` and ``dlog = w (g v - D)``; then
+    ``dq = sum_s dlog k``, ``dk = sum_l dlog q``, ``dv = sum_l w g``.
+    q, out, g (B, L, H), k and v (B, S, H) -> (dq, dk, dv)."""
+    logits = torch.einsum("blh,bsh->bhls", q, k)
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    w = e / e.sum(dim=-1, keepdim=True)                       # (B, H, L, S)
+    gh = g.transpose(1, 2)[..., None]                         # (B, H, L, 1)
+    d = (g * out).transpose(1, 2)[..., None]
+    dlog = w * (gh * v.transpose(1, 2)[:, :, None, :] - d)
+    dq = torch.einsum("bhls,bsh->blh", dlog, k)
+    dk = torch.einsum("bhls,blh->bsh", dlog, q)
+    dv = torch.einsum("bhls,blh->bsh", w, g)
+    return dq, dk, dv
+
+
+def rank1_mha_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         out: torch.Tensor, g: torch.Tensor):
+    """K5: the gradients (dq, dk, dv) of K4 at the cotangent ``g``.  q, out
+    and g (B, L, H), k and v (B, S, H), float32.  CUDA kernel (a row pass
+    and a column pass) for CUDA tensors, plain version for CPU tensors."""
+    if kernels.on_cpu(q, k, v, out, g):
+        return rank1_mha_bwd_plain(q, k, v, out, g)
+    B, L, H = q.shape
+    S = k.shape[1]
+    dev = q.device
+    kernels.require("q", q, torch.float32, (None, None, None), dev)
+    kernels.require("k", k, torch.float32, (B, None, H), dev)
+    kernels.require("v", v, torch.float32, (B, S, H), dev)
+    kernels.require("out", out, torch.float32, (B, L, H), dev)
+    kernels.require("g", g, torch.float32, (B, L, H), dev)
+    if S < 1:
+        raise ValueError("attention needs at least one key")
+    if S > 16384 or L > 8192:  # key columns / row statistics in shared memory
+        raise ValueError(f"rank-1 attention backward takes at most 16384 keys "
+                         f"and 8192 queries, got {S} and {L}")
+    if B > 65535 or H > 65535:
+        raise ValueError(f"rank-1 attention backward grids at most 65535 "
+                         f"clouds and heads, got {B} and {H}")
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if dq.numel() == 0:
+        return dq, dk, dv
+    stats = torch.empty((2, B, H, L), dtype=torch.float32, device=dev)
+    lib = kernels.load()
+    with torch.cuda.device(dev):
+        rc = lib.lsdm_rank1_attn_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            g.data_ptr(), B, L, S, H, dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), stats.data_ptr(), kernels.stream(dev))
+    kernels.check(rc, "rank1_attn_bwd")
+    kernels.LAUNCHES["rank1_attn_bwd"] += 1
+    return dq, dk, dv
+
+
+class _Rank1MHATrain(torch.autograd.Function):
+    """K4 forward, K5 backward; saves (q, k, v, out), as the JAX custom VJP
+    does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        out = rank1_mha_kernel(q, k, v)
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return rank1_mha_bwd_kernel(*ctx.saved_tensors, g.contiguous())
+
+
+def rank1_mha_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                    ) -> torch.Tensor:
+    """Differentiable rank-1 attention (the JAX ``rank1_mha_train``): K4
+    forward, K5 backward, no (L, S) plane in device memory either way.
+    q (B, L, H), k and v (B, S, H) -> (B, L, H)."""
+    return _Rank1MHATrain.apply(q, k, v)

@@ -74,14 +74,26 @@ def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,
 
 def three_nn_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
                          points2: torch.Tensor, eps: float = 1e-8,
-                         impl: str = "pallas") -> torch.Tensor:
+                         impl: str = "pallas", diff_weights: bool = False
+                         ) -> torch.Tensor:
     """Inverse-distance-weighted 3-NN interpolation of features
     points2 (B, S, C) living on xyz2 (B, S, 3) onto xyz1 (B, N, 3)
-    (reference ``pointnet2_utils.py:290-300``) -> (B, N, C)."""
+    (reference ``pointnet2_utils.py:290-300``) -> (B, N, C).
+
+    The JAX function's gate (its ``ops/pointcloud.py:671``): ``"pallas"``
+    with N % 8 == 0 takes the indices from the K2 kernel (no gradient), and
+    ``diff_weights`` (training) then recomputes the k distances at those
+    indices as ``sum((x1 - x2[idx]) ** 2)``, so the weights carry the
+    reference graph's gradients.  Every other case is the composed
+    formulation, whose selected expansion-form distances carry them."""
     _check_impl(impl)
     k = min(3, xyz2.shape[1])  # the reference always has S >= 16; tiny configs don't
-    nn3 = three_nn_plain if impl == "topk" else three_nn_kernel
-    dists, idx = nn3(xyz1, xyz2, k)
+    if impl == "pallas" and xyz1.shape[1] % 8 == 0:
+        dists, idx = three_nn_kernel(xyz1.detach(), xyz2.detach(), k)
+        if diff_weights:
+            dists = ((xyz1[:, :, None, :] - index_points(xyz2, idx)) ** 2).sum(-1)
+    else:
+        dists, idx = three_nn_plain(xyz1, xyz2, k)
     dist_recip = 1.0 / (dists + eps)
     weight = dist_recip / dist_recip.sum(dim=2, keepdim=True)
     gathered = index_points(points2, idx)  # (B, N, k, C)

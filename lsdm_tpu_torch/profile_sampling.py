@@ -53,10 +53,13 @@ def seeded_inputs(cfg: SDMConfig, batch: int, steps: int, seed: int,
 
 
 def _kernel_times(prof) -> dict:
-    """{kernel name: (device ms, calls)} of a finished profiler."""
+    """{kernel name: (device ms, calls)} of a finished profiler.  User
+    annotations on the device timeline (``Optimizer.step#AdamW.step``)
+    span kernels counted on their own and are left out."""
     out = defaultdict(lambda: [0.0, 0])
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
             out[e.name][0] += e.device_time_total / 1e3
             out[e.name][1] += 1
     return dict(out)

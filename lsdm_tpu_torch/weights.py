@@ -1,5 +1,5 @@
 """Weights of the port's SceneDiffusionModel: a seeded initialisation,
-and the bridge from the JAX package's parameter tree.
+and the bridge from the JAX package's parameter and optimizer trees.
 
 :func:`state_dict_from_jax` is the exact inverse of
 ``lsdm_tpu/train/checkpoint.py:convert_torch_state_dict``: it turns the
@@ -7,7 +7,10 @@ JAX ``params``/``batch_stats`` trees (as numpy arrays) into the port's
 ``state_dict``, whose keys are the reference torch model's.  Flax Dense
 kernels (in, out) become (out, in) conv weights with trailing 1x1 dims,
 ``scale`` becomes ``weight`` and ``mean``/``var`` become
-``running_mean``/``running_var``.
+``running_mean``/``running_var``.  :func:`load_adamw_state_from_optax`
+carries optax's Adam moments (``ScaleByAdamState``: mu, nu, count) over
+to ``torch.optim.AdamW``'s state, so both optimizers can start from the
+same point.
 """
 
 from __future__ import annotations
@@ -108,11 +111,10 @@ _STAT_RULES = (
 )
 
 
-def state_dict_from_jax(params: Mapping, batch_stats: Mapping
-                        ) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` from a JAX ``SceneDiffusionModel``'s
-    ``variables["params"]`` and ``variables["batch_stats"]`` (nested
-    mappings of arrays), ready for a strict ``load_state_dict``."""
+def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's parameters, by ``named_parameters`` name, from a tree
+    shaped like JAX's ``variables["params"]`` (the parameters themselves,
+    their gradients or an optimizer's moments)."""
     sd: Dict[str, torch.Tensor] = {}
     for path, v in _flatten(params).items():
         for pattern, repl, fn in _PARAM_RULES:
@@ -121,6 +123,15 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping
                 sd[re.sub(pattern, repl, path)] = torch.from_numpy(
                     np.ascontiguousarray(val, dtype=np.float32))
                 break
+    return sd
+
+
+def state_dict_from_jax(params: Mapping, batch_stats: Mapping
+                        ) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` from a JAX ``SceneDiffusionModel``'s
+    ``variables["params"]`` and ``variables["batch_stats"]`` (nested
+    mappings of arrays), ready for a strict ``load_state_dict``."""
+    sd = params_from_jax(params)
     for path, v in _flatten(batch_stats).items():
         for pattern, repl in _STAT_RULES:
             if re.fullmatch(pattern, path):
@@ -131,6 +142,23 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping
             raise KeyError(f"unmapped batch statistic: {path}")
     for key in [k for k in sd if k.endswith(".running_mean")]:
         sd[key[:-len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
-    D = sd["embed_timestep.time_embed.0.weight"].shape[0]
-    sd["sequence_pos_encoder.pe"] = PositionalEncoding(D).pe
+    if "embed_timestep.time_embed.0.weight" in sd:  # a whole model's tree
+        D = sd["embed_timestep.time_embed.0.weight"].shape[0]
+        sd["sequence_pos_encoder.pe"] = PositionalEncoding(D).pe
     return sd
+
+
+@torch.no_grad()
+def load_adamw_state_from_optax(optimizer: torch.optim.Optimizer,
+                                model: nn.Module, mu: Mapping, nu: Mapping,
+                                count: int) -> None:
+    """Set ``optimizer``'s (``torch.optim.AdamW`` over ``model``'s
+    parameters) state to optax's ``ScaleByAdamState(count, mu, nu)``, the
+    moment trees as numpy arrays: ``exp_avg = mu``, ``exp_avg_sq = nu``,
+    ``step = count``."""
+    m, v = params_from_jax(mu), params_from_jax(nu)
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": m[name].to(p.device).reshape(p.shape).clone(),
+            "exp_avg_sq": v[name].to(p.device).reshape(p.shape).clone()}

@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from lsdm_tpu_torch import kernels
-from lsdm_tpu_torch.ops import attn, ballquery, denoise, fp_fused, fps, sa_fused
+from lsdm_tpu_torch.ops import (
+    attn, ballquery, chamfer, denoise, fp_fused, fps, sa_fused, sg_fused)
 from lsdm_tpu_torch.ops.denoise import DenoiseStepParams
 
 pytestmark = pytest.mark.cuda
@@ -206,6 +207,74 @@ def test_rank1_attention_kernel_matches_plain(dev, b, l, s, h):
     torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("b,l,s,h", [(2, 300, 77, 12), (1, 1024, 1024, 12), (3, 8, 5, 2)])
+def test_rank1_attention_bwd_kernel_matches_plain(dev, b, l, s, h):
+    q = _cloud(4, b, l, h, scale=2.0).to(dev)
+    k = _cloud(5, b, s, h, scale=2.0).to(dev)
+    v = _cloud(6, b, s, h).to(dev)
+    g = _cloud(7, b, l, h).to(dev)
+    out = attn.rank1_mha_plain(q, k, v).contiguous()
+    before = kernels.LAUNCHES["rank1_attn_bwd"]
+    got = attn.rank1_mha_bwd_kernel(q, k, v, out, g)
+    assert kernels.LAUNCHES["rank1_attn_bwd"] == before + 1
+    want = attn.rank1_mha_bwd_plain(q, k, v, out, g)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        # compensated sums of up to 1024 terms against the plain version's
+        # rounded weights and its reductions in another order
+        torch.testing.assert_close(a, w, atol=1e-5, rtol=1e-5)
+
+
+def test_rank1_attention_train_autograd_runs_both_kernels(dev):
+    q, k, v = (_cloud(i, 2, 64, 12).to(dev).requires_grad_() for i in (8, 9, 10))
+    before = (kernels.LAUNCHES["rank1_attn"], kernels.LAUNCHES["rank1_attn_bwd"])
+    attn.rank1_mha_train(q, k, v).square().sum().backward()
+    assert (kernels.LAUNCHES["rank1_attn"], kernels.LAUNCHES["rank1_attn_bwd"]) == (
+        before[0] + 1, before[1] + 1)
+    ref = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    attn.rank1_mha_plain(*ref).square().sum().backward()
+    for a, w in zip((q, k, v), ref):
+        torch.testing.assert_close(a.grad, w.grad, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n,s,radius,nsample,c", [
+    (64, 13, 0.8, 16, 6),      # 13 centers: not a multiple of a block
+    (100, 24, 0.05, 32, 67),   # most balls hold fewer than nsample points
+    (1024, 256, 0.2, 32, 67),  # sa2's shapes
+    (37, 5, 0.3, 8, 3),        # xyz only
+])
+def test_select_gather_kernel_equals_plain(dev, n, s, radius, nsample, c):
+    xyz = _cloud(n, 2, n, 3).to(dev)
+    new_xyz = xyz[:, :s].clone()
+    new_xyz[1, 2] = 50.0  # a center with no point in its radius
+    base = torch.cat([xyz, _cloud(n + 1, 2, n, c - 3).to(dev)], -1).contiguous()
+    before = kernels.LAUNCHES["select_gather"]
+    got, gi = sg_fused.select_gather_kernel(radius, nsample, xyz, new_xyz, base)
+    assert kernels.LAUNCHES["select_gather"] == before + 1
+    want, wi = sg_fused.select_gather_plain(radius, nsample, xyz, new_xyz, base)
+    torch.cuda.synchronize()
+    assert torch.equal(gi, wi) and torch.equal(got, want)  # a copy and one subtraction
+    assert (gi[1, 2] == n - 1).all()
+
+
+@pytest.mark.parametrize("n,m", [(1024, 1024), (100, 37), (5000, 3000), (1, 1)])
+def test_chamfer_nn_kernel_equals_plain(dev, n, m):
+    x = _cloud(n, 3, n, 3).to(dev)  # M > 2048: more than one shared-memory tile
+    y = _cloud(m + 1, 3, m, 3).to(dev)
+    before = kernels.LAUNCHES["chamfer_nn"]
+    gm, ga = chamfer.directed_nn_kernel(x, y)
+    assert kernels.LAUNCHES["chamfer_nn"] == before + 1
+    wm, wa = chamfer.directed_nn_plain(x, y)
+    torch.cuda.synchronize()
+    assert torch.equal(ga, wa) and torch.equal(gm, wm)  # same float32 ops: same bits
+
+
+def test_chamfer_nn_ties_go_to_the_lowest_index(dev):
+    y = torch.tensor([[[1.0, 0, 0], [0, 1.0, 0], [-1.0, 0, 0]]], device=dev)
+    _, arg = chamfer.directed_nn_kernel(torch.zeros(1, 4, 3, device=dev), y)
+    assert arg.tolist() == [[0, 0, 0, 0]]
+
+
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
     xyz = _cloud(0, 2, 16, 3).to(dev)
     with pytest.raises(ValueError):
@@ -228,3 +297,9 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         fp_fused.fp_stage_fused_kernel(xyz, xyz, None, xyz, _layers(dev, (3, 4)),
                                        ("gelu",))
+    with pytest.raises(ValueError):  # base lacks the xyz columns
+        sg_fused.select_gather_kernel(0.2, 4, xyz, xyz, xyz[..., :2].contiguous())
+    with pytest.raises(ValueError):  # out and g disagree in length
+        attn.rank1_mha_bwd_kernel(xyz, xyz, xyz, xyz, xyz[:, :8].contiguous())
+    with pytest.raises(ValueError):
+        chamfer.directed_nn_kernel(xyz, xyz[:, :0].contiguous())

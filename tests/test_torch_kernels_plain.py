@@ -20,7 +20,8 @@ from lsdm_tpu.ops.denoise_pallas import fused_denoise_chain as jax_denoise_chain
 from lsdm_tpu.ops.fps_batched_pallas import farthest_point_sample_batched
 from lsdm_tpu.ops.fps_pallas import farthest_point_sample_pallas
 from lsdm_tpu_torch import kernels
-from lsdm_tpu_torch.ops import attn, ballquery, denoise, fp_fused, fps, sa_fused
+from lsdm_tpu_torch.ops import (
+    attn, ballquery, chamfer, denoise, fp_fused, fps, sa_fused, sg_fused)
 from lsdm_tpu_torch.ops.denoise import DenoiseStepParams
 
 
@@ -168,7 +169,18 @@ def test_kernel_wrappers_on_cpu_run_the_plain_versions_and_launch_nothing():
                        fp_fused.fp_stage_fused_plain(*fargs))
     assert torch.equal(attn.rank1_mha_kernel(base, base, base),
                        attn.rank1_mha_plain(base, base, base))
+    out = attn.rank1_mha_plain(base, base, base)
+    for a, b in zip(attn.rank1_mha_bwd_kernel(base, base, base, out, base),
+                    attn.rank1_mha_bwd_plain(base, base, base, out, base)):
+        assert torch.equal(a, b)
+    for a, b in zip(sg_fused.select_gather_kernel(0.5, 8, xyz, new_xyz, base),
+                    sg_fused.select_gather_plain(0.5, 8, xyz, new_xyz, base)):
+        assert torch.equal(a, b)
+    for a, b in zip(chamfer.directed_nn_kernel(xyz, new_xyz),
+                    chamfer.directed_nn_plain(xyz, new_xyz)):
+        assert torch.equal(a, b)
     assert kernels.LAUNCHES == {name: 0 for name in kernels.LAUNCHES}
     assert set(kernels.LAUNCHES) == {"ball_query", "three_nn", "fps",
                                      "denoise_chain", "rank1_attn", "sa_fused",
-                                     "fp_fused"}
+                                     "fp_fused", "rank1_attn_bwd", "select_gather",
+                                     "chamfer_nn"}

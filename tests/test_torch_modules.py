@@ -112,6 +112,7 @@ def test_pointnet2_backbone_matches_jax(setup, fps_mode):
     backbone.load_state_dict(
         {k[len(prefix):]: v for k, v in port.state_dict().items()
          if k.startswith(prefix)}, strict=True)
+    backbone.eval()  # JAX's train=False: running statistics, no dropout
     with torch.no_grad():
         got = backbone(_t(clouds))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)

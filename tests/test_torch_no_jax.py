@@ -1,10 +1,12 @@
 """lsdm_tpu_torch must run without JAX: the machine with the GPU has none.
 
-A fresh interpreter imports every module of the port, samples at a tiny
-size on the CPU with the composed and the fused encode, runs the
-``test_sdm`` entry point on a synthetic split, and then must hold no
-``jax``, ``jaxlib`` or ``flax`` module, and nothing of the JAX package
-``lsdm_tpu``.
+A fresh interpreter imports every module of the port (``train/``,
+``utils/logger.py``, ``run/train_sdm.py`` and ``profile_train.py``
+included) and ``chip_smoke.py``, samples at a tiny size on the CPU with
+the composed and the fused encode, runs the ``test_sdm`` and
+``train_sdm`` entry points on a synthetic split, and then must hold no
+``jax``, ``jaxlib``, ``flax`` or ``optax`` module, and nothing of the JAX
+package ``lsdm_tpu``.
 """
 
 import subprocess
@@ -17,6 +19,7 @@ import torch
 import lsdm_tpu_torch
 for m in pkgutil.walk_packages(lsdm_tpu_torch.__path__, "lsdm_tpu_torch."):
     importlib.import_module(m.name)
+import chip_smoke
 
 from lsdm_tpu_torch import SDMConfig
 from lsdm_tpu_torch.diffusion.schedule import make_schedule
@@ -48,8 +51,15 @@ with tempfile.TemporaryDirectory() as d:
                    "--output_dir", os.path.join(d, "out"), "--device", "cpu",
                    "--pcd_points", "32", "--diffusion_steps", "2",
                    "--ball_impl", "fused"])
+from lsdm_tpu_torch.run import train_sdm
+with tempfile.TemporaryDirectory() as d:
+    data = generate(d, "proxd", n_scenes=1, n_seqs=2, pnt_size=32, split="train")
+    train_sdm.main(["--train_data_dir", data, "--objs_data_dir", os.path.join(d, "objs"),
+                    "--save_dir", os.path.join(d, "out"), "--device", "cpu",
+                    "--pcd_points", "32", "--diffusion_steps", "2", "--epochs", "1",
+                    "--batch_size", "2", "--ball_impl", "sg", "--attn_impl", "pallas"])
 frameworks = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
 assert not frameworks, frameworks
 ours = sorted(m for m in sys.modules if m.split(".")[0] == "lsdm_tpu")
 assert not ours, ours

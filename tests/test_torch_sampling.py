@@ -126,7 +126,8 @@ def test_resolve_fast_path_by_device(device, want):
         resolve_fast_path("auto", "step", dev)
 
 
-@pytest.mark.parametrize("ball_impl", ["sg", "topk2c", "scatter"])
+# "sg" (K10) is ported with the training slice; these TPU formulations are not
+@pytest.mark.parametrize("ball_impl", ["topk_p", "topk2c", "scatter"])
 def test_unported_ball_impls_raise(ball_impl):
     import dataclasses
 

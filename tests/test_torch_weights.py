@@ -63,7 +63,8 @@ def test_state_dict_from_jax_roundtrips_through_the_converter(max_cats):
                 err_msg=jax.tree_util.keystr(path))
 
 
-@pytest.mark.parametrize("preset", ["SDMConfig", "sdm_proxd", "sdm_humanise"])
+@pytest.mark.parametrize("preset", ["SDMConfig", "sdm_proxd", "sdm_humanise",
+                                    "DiffusionConfig", "TrainConfig"])
 def test_port_config_copies_the_jax_config(preset):
     """The port's configuration is a copy (it may not import the JAX
     package): every field it has, the JAX one has with the same value."""
