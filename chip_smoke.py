@@ -31,21 +31,41 @@ Run from the repository root:  python3 chip_smoke.py
 6. The CLI: ``lsdm_tpu_torch.run.test_sdm`` on a synthetic proxd test
    split (4 sequences x 1024 points, batch 2, T=1000) on CUDA; checks the
    output files and that the fused kernels ran.
-7. The training kernels at the train step's shapes (batch 6 = 54 clouds
+7. The one-step denoise kernel K9 against its plain version at N=1024,
+   D=128, batch 1 and 8, clip off and on, to STEP_ATOL; its time per
+   launch is taken with the launches queued behind a sleep on the card,
+   so that the host's pace between them does not count (the host-paced
+   time and the host's own time per call are printed beside it).
+8. The "step" path: ``sdm_proxd()`` at full width, batch 1, T=1000,
+   ``ball_impl="fused"``, ``fused_step="step"`` (K9 once per step from
+   the host): through the kernels and through the plain versions with the
+   same draws (FUSED_ATOL), and against the chain path with the same draws
+   (CHAIN_ATOL); K9 launched T times and K6 never.  Prints ms/scene and
+   peak memory.
+9. ``test_sdm --fused_step step`` on the synthetic split, and
+   ``lsdm_tpu_torch.run.scene_edit`` on a synthetic proxd test split (2
+   sequences x 1024 points, T=1000) whose prompts hit the keyword table:
+   checks the output files, the ICP lines and that K1, K2, K3 (the
+   composed encode) and K11 (the ICP's nearest neighbours) ran.  Then the
+   ICP alone: K11 against its plain version at the ICP's shapes (64 tries
+   of 1024 points against the 1024-point target), and a 64-try ICP from
+   fixed rotations through the kernels and through the plain versions,
+   agreeing to ICP_ATOL with equal inlier counts.
+10. The training kernels at the train step's shapes (batch 6 = 54 clouds
    of 1024 points): the rank-1 attention backward (K5) to ATTN_BWD_ATOL,
    with SDPA's backward timed beside it; the select-gather (K10, sa1-sa4
    and an empty ball) and the chamfer nearest neighbour (K11, each way)
    equal to their plain versions.
-8. The train step of ``sdm_proxd()`` at batch 6 (fp32, T=1000, seeded
+11. The train step of ``sdm_proxd()`` at batch 6 (fp32, T=1000, seeded
    weights and batch) in the configuration ``train_sdm`` runs by default
    on CUDA (K1-K5), with ``ball_impl="sg"`` (K10) and with the K11 chamfer:
    each through the kernels and through the plain versions from the same
    weights, t, noise and dropout keep-mask, agreeing in the loss, the
    gradients and the parameters after one AdamW step; prints ms/step and
    peak memory.
-9. ``lsdm_tpu_torch.run.train_sdm`` on a synthetic split (one epoch of
+12. ``lsdm_tpu_torch.run.train_sdm`` on a synthetic split (one epoch of
    two steps, validation on the fused path), its ``final.pt`` read back.
-10. Prints one JSON line of kernel records, then, as its last line,
+13. Prints one JSON line of kernel records, then, as its last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is non-zero and no result line is
@@ -103,6 +123,12 @@ COND_RTOL, COND_ATOL = 2e-4, 2e-5
 ATTN_BWD_ATOL = 1e-5
 # K11's minimum distances: the same float32 operations as the plain version
 CHAMFER_ATOL = 0.0
+# scene_edit's multi-start ICP, through K11 and through its plain version
+# from the same rotations: equal correspondences, then the same torch ops
+# on the same inputs, so the transformations differ by nothing but the
+# batched SVD's own run-to-run rounding.  H100 reading: 0, equal inliers.
+ICP_TRIES, ICP_ITERS = 64, 30  # scene_edit's --icp_tries and icp's iters
+ICP_ATOL = 1e-6
 # The train step, kernels against plain versions from the same weights and
 # draws: the loss, each gradient leaf's max |a - b| / max |b| (max |b| no
 # less than 1e-3 of the largest gradient of the model), and the
@@ -121,6 +147,11 @@ TRAIN_GRAD_RTOL = 1e-5
 TRAIN_PARAM_ATOL = 1e-6
 TRAIN_BATCH = 6
 TRAIN_STEPS = 3  # timed steps of each train configuration
+# K9 against its plain version, one step: float32 sums in another order
+# (FMA loops against cuBLAS) and erff against torch's erf.  H100 reading
+# 2.4e-07 at b1 and b8, clip off and on.
+STEP_ATOL = 1e-6
+STEP_REPS = 200  # launches timed per K9 case
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit): HBM
 # bytes per second and float32 operations per second outside the tensor
 # cores.  A kernel's bound counts each input byte read once and each output
@@ -149,6 +180,8 @@ KERNELS = {  # name: (source, the TPU kernel it replaces, path it is counted on)
                       "lsdm_tpu/ops/sg_fused_pallas.py:128", "train_sg"),
     "chamfer_nn": ("lsdm_tpu_torch/csrc/chamfer.cu",
                    "lsdm_tpu/ops/chamfer_pallas.py:75", "train_chamfer"),
+    "denoise_step": ("lsdm_tpu_torch/csrc/denoise_step.cu",
+                     "lsdm_tpu/ops/denoise_pallas.py:173", "step"),
 }
 PATH_KERNELS = {"pallas": ("ball_query", "three_nn", "fps", "denoise_chain"),
                 "fused": ("fps", "sa_fused", "fp_fused", "rank1_attn",
@@ -163,7 +196,13 @@ PATH_KERNELS = {"pallas": ("ball_query", "three_nn", "fps", "denoise_chain"),
                 # samples on the fused path
                 "train_cli": ("ball_query", "three_nn", "fps", "rank1_attn",
                               "rank1_attn_bwd", "sa_fused", "fp_fused",
-                              "denoise_chain")}
+                              "denoise_chain"),
+                # the fused encode, then K9 once per step
+                "step": ("fps", "sa_fused", "fp_fused", "rank1_attn",
+                         "denoise_step"),
+                # the composed encode over the selection kernels, the
+                # composed loop; K11 in the ICP
+                "scene_edit": ("ball_query", "three_nn", "fps", "chamfer_nn")}
 # (module, the name it calls a kernel wrapper by, module, plain version):
 # swapped in to run a path through the plain versions of its kernels
 PLAIN_VERSIONS = (
@@ -187,8 +226,12 @@ PLAIN_VERSIONS = (
      "lsdm_tpu_torch.ops.sg_fused", "select_gather_plain"),
     ("lsdm_tpu_torch.ops.chamfer", "directed_nn_kernel",
      "lsdm_tpu_torch.ops.chamfer", "directed_nn_plain"),
+    ("lsdm_tpu_torch.ops.icp", "directed_nn_kernel",
+     "lsdm_tpu_torch.ops.chamfer", "directed_nn_plain"),
     ("lsdm_tpu_torch.models.sampling", "fused_denoise_chain",
      "lsdm_tpu_torch.ops.denoise", "denoise_chain_plain"),
+    ("lsdm_tpu_torch.models.sampling", "make_denoise_step",
+     "lsdm_tpu_torch.ops.denoise", "make_denoise_step_plain"),
 )
 
 
@@ -220,6 +263,32 @@ def _time_ms(fn, reps: int, dev) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _time_queued_ms(fn, reps: int, dev):
+    """(device ms, host ms) per call of fn() after one warm-up: its
+    launches enqueued while the card sleeps (~0.1 s), so that they run back
+    to back whatever the host's pace, and the host's clock over the
+    enqueueing, which the card does not hold up; off the card, the
+    synchronised host clock for both."""
+    import torch
+
+    if dev.type != "cuda":
+        ms = _time_ms(fn, reps, dev)
+        return ms, ms
+    fn()
+    torch.cuda.synchronize(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e8))
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    end.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(end) / reps, host
+
+
 def _card() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -232,11 +301,14 @@ def plain_versions():
     """Run every kernel wrapper of the main paths as its plain version,
     on any device, for the duration of the block (this script's yardstick;
     the package itself never falls back)."""
-    saved = []
-    for mod, name, pmod, pname in PLAIN_VERSIONS:
-        m = importlib.import_module(mod)
-        saved.append((m, name, getattr(m, name)))
-        setattr(m, name, getattr(importlib.import_module(pmod), pname))
+    # every module imported before any name is swapped: a module imported
+    # in the block would bind the plain version for good
+    swaps = [(importlib.import_module(mod), name,
+              getattr(importlib.import_module(pmod), pname))
+             for mod, name, pmod, pname in PLAIN_VERSIONS]
+    saved = [(m, name, getattr(m, name)) for m, name, _ in swaps]
+    for m, name, fn in swaps:
+        setattr(m, name, fn)
     try:
         yield
     finally:
@@ -481,7 +553,7 @@ def kernel_checks(dev, model, T: int = T_STEPS) -> dict:
 
 
 def train_kernel_checks(dev, model, batch: int = TRAIN_BATCH) -> dict:
-    """Phase 7: the training kernels against their plain versions at the
+    """Phase 10: the training kernels against their plain versions at the
     shapes of the train step at ``batch`` scenes (``batch * max_objs``
     clouds): K5 on the pcd_attention's (clouds, N, 12), K10 at sa1-sa4 and
     on a center with an empty ball, K11 on (batch, N, 3) each way.
@@ -579,7 +651,7 @@ def train_kernel_checks(dev, model, batch: int = TRAIN_BATCH) -> dict:
 
 def train_step_check(dev, cfg, label: str, chamfer_impl: str = "xla",
                      batch: int = TRAIN_BATCH, T: int = T_STEPS, **impls):
-    """Phase 8, one configuration: a train step at ``batch`` scenes through
+    """Phase 11, one configuration: a train step at ``batch`` scenes through
     the kernels and through the plain versions, from the same weights, t,
     noise and dropout keep-mask.  Returns (launch counts of the kernel
     step, {loss, grad, param} errors, ms per kernel step over TRAIN_STEPS
@@ -655,7 +727,7 @@ def train_step_check(dev, cfg, label: str, chamfer_impl: str = "xla",
 
 
 def train_cli_phase(dev, points: int = 1024, T: int = T_STEPS) -> dict:
-    """Phase 9: the port's train_sdm on a synthetic proxd split (12 train
+    """Phase 12: the port's train_sdm on a synthetic proxd split (12 train
     sequences: 2 steps of batch 6; 2 validation sequences), one epoch with
     validation, then ``final.pt`` read back.  Returns the launch counts."""
     import torch
@@ -805,10 +877,230 @@ def fused_path(dev, cfg, model, composed, T: int = T_STEPS):
     return launches, errs, cond, (sec_k, sec_p), peak
 
 
-def cli_phase(dev, points: int = 1024, T: int = T_STEPS) -> dict:
-    """Phase 6: the port's test_sdm on a synthetic proxd test split of 4
-    sequences of ``points`` points, batch 2.  Returns the launch counts of
-    the run."""
+def step_kernel_checks(dev, model, batches=(1, 8)) -> dict:
+    """Phase 7: K9 against its plain version with the model's tail
+    weights, one step at each batch of ``batches``, clip off and on.  The
+    record holds the path's case (batch 1, no clip): time per launch, its
+    bound and the plain version's time; the other cases add their error.
+    Returns {"denoise_step": record}."""
+    import torch
+
+    from lsdm_tpu_torch.diffusion.schedule import make_schedule
+    from lsdm_tpu_torch.models.sampling import chain_coefficients
+    from lsdm_tpu_torch.ops import denoise
+
+    N, D = model.cfg.pcd_points, model.cfg.latent_dim
+    p = denoise.extract_step_params(model)
+    coef = chain_coefficients(make_schedule("cosine", T_STEPS, device=dev), False)
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    up = sum(w.numel() for w in (p.w_up0, p.w_up2, p.w_up4))  # on 2D rows
+    rows = sum(w.numel() for w in (p.wc_t, p.wp0_t, p.wp2_t, p.wx0_t, p.wx2_t,
+                                   p.wo0_t, p.wo2_t))         # on N rows
+    rec: dict = {}
+    for B in batches:
+        args = [torch.randn(B, N, 3, generator=g, device=dev),
+                torch.randn(B, N, 3, generator=g, device=dev),
+                torch.randn(B, N, 3, generator=g, device=dev),
+                torch.randn(B, 2 * D, generator=g, device=dev), coef[500], p]
+        for clip in (False, True):
+            got = denoise.fused_denoise_step(*args, clip_denoised=clip)
+            want = denoise.denoise_step_plain(*args, clip_denoised=clip)
+            err = (got - want).abs().max().item()
+            # timed as the step sampler calls it: the weights bound once
+            step = denoise.make_denoise_step(p, N, dev, clip)
+            ms, host = _time_queued_ms(lambda: step(*args[:5]), STEP_REPS, dev)
+            paced = _time_ms(lambda: step(*args[:5]), STEP_REPS, dev)
+            line = (f"K9 denoise step B={B} N={N} D={D} clip={clip}: max error "
+                    f"{err:.3g} (tolerance {STEP_ATOL}); host-paced {paced:.4f} "
+                    f"ms per launch, the host's own {host:.4f}")
+            if not (torch.isfinite(got).all() and err <= STEP_ATOL):
+                raise AssertionError(line)
+            if B != 1 or clip:  # not the path's case: its error counts
+                print(f"{line}; kernel {ms:.4f} ms per launch")
+                rec["denoise_step"]["max_abs_err"] = max(
+                    rec["denoise_step"]["max_abs_err"], err)
+                continue
+            _record(rec, "denoise_step", err, ms,
+                    _time_ms(lambda: denoise.denoise_step_plain(*args), 20, dev),
+                    line, _nbytes(*args[:5], *p, got), 2 * B * (2 * D * up + N * rows))
+    return rec
+
+
+def step_path(dev, cfg, model, T: int = T_STEPS):
+    """Phase 8: one batch-1 sample on the step path (``model`` with the
+    fused encode, ``fused_step="step"``) through the kernels, through the
+    plain versions and on the chain path, same draws.  Returns (launch
+    counts of the kernel run, max |kernel - plain| per output, max |step -
+    chain| per output, seconds of the kernel run, peak GiB of it)."""
+    import torch
+
+    from lsdm_tpu_torch import kernels
+    from lsdm_tpu_torch.diffusion.schedule import make_schedule
+    from lsdm_tpu_torch.models.sampling import sample_sdm
+    from lsdm_tpu_torch.profile_sampling import seeded_inputs
+
+    B, N = 1, cfg.pcd_points
+    mask, objs, cats, text, x_init, noise = seeded_inputs(cfg, B, T, SEED, dev)
+    schedule = make_schedule("cosine", T, device=dev)
+
+    def run(step):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = sample_sdm(model, schedule, mask, objs, cats, text,
+                         fused_step=step, x_init=x_init, noise=noise)
+        _sync(dev)
+        return out, time.perf_counter() - t0
+
+    run("step")  # warm-up
+    peak = _reset_peak(dev)
+    kernels.reset_launches()
+    (s_k, o_k), sec_k = run("step")
+    launches = dict(kernels.LAUNCHES)
+    peak = peak()
+    with plain_versions():
+        kernels.reset_launches()
+        (s_p, o_p), _ = run("step")
+        if any(kernels.LAUNCHES.values()):
+            raise AssertionError(f"the plain run launched kernels: {kernels.LAUNCHES}")
+    (s_c, o_c), _ = run("chain")
+    if s_k.shape != (B, N, 3) or not torch.isfinite(s_k).all():
+        raise AssertionError(f"step-path sample is not a finite {(B, N, 3)} cloud")
+
+    def errs(s, o):
+        return {"sample": (s_k - s).abs().max().item(),
+                "x0": (o_k.x0 - o.x0).abs().max().item(),
+                "guiding": (o_k.guiding - o.guiding).abs().max().item(),
+                "cat": (o_k.cat - o.cat).abs().max().item()}
+
+    return launches, errs(s_p, o_p), errs(s_c, o_c), sec_k, peak
+
+
+def scene_edit_phase(dev, points: int = 1024, T: int = T_STEPS) -> dict:
+    """Phase 9: the port's scene_edit on a synthetic proxd test split of
+    2 sequences of ``points`` points whose prompts name a desk, with the
+    desk's object file written: the keyword hits and ICP aligns the
+    replacement.  Returns the launch counts of the run."""
+    import numpy as np
+
+    from lsdm_tpu_torch import kernels
+    from lsdm_tpu_torch.data.synthetic import generate
+    from lsdm_tpu_torch.run import scene_edit
+
+    with tempfile.TemporaryDirectory() as root:
+        data = generate(root, "proxd", n_scenes=1, n_seqs=2, pnt_size=points,
+                        seed=SEED, split="test")
+        ctx = os.path.join(data, "context")
+        for name in os.listdir(ctx):
+            with open(os.path.join(ctx, name)) as f:
+                lines = f.readlines()
+            lines[0] = "place a desk next to the person\n"
+            with open(os.path.join(ctx, name), "w") as f:
+                f.writelines(lines)
+        os.makedirs(os.path.join(root, "objs", "N3Office"))
+        np.save(os.path.join(root, "objs", "N3Office", "table_0.npy"),
+                np.random.RandomState(SEED).rand(points, 3).astype(np.float32))
+        out = os.path.join(root, "out")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        final = scene_edit.main([data, "--objs_data_dir", os.path.join(root, "objs"),
+                                 "--output_dir", out, "--diffusion_steps", str(T),
+                                 "--pcd_points", str(points), "--device", str(dev)])
+        sec = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        with open(os.path.join(out, "results.txt")) as f:
+            tail = [line.split(":")[0] for line in f.read().splitlines()[-8:]]
+        if tail != ["Final Chamfer distance", "Final EMD", "Final F1 score",
+                    "Category accuracy", "Top 3 accuracy", "Fitness", "MSE",
+                    "Corr set"]:
+            raise AssertionError(f"results.txt ends in {tail}")
+        if not 0.0 < final["fitness"] <= 1.0:
+            raise AssertionError(f"ICP fitness {final['fitness']}")
+        for sub in ("predictions", "guiding_points"):
+            names = sorted(os.listdir(os.path.join(out, sub)))
+            if len(names) != 2:
+                raise AssertionError(f"{sub}: {len(names)} files, not 2")
+            for name in names:
+                a = np.load(os.path.join(out, sub, name))
+                if a.shape != (points, 3) or a.dtype != np.float32 or not np.isfinite(a).all():
+                    raise AssertionError(f"{sub}/{name}: not a finite ({points}, 3) "
+                                         "float32 array")
+    print(f"CLI scene_edit, 2 synthetic sequences of {points} points, a keyword "
+          f"hit, T={T}: {final}; {sec:.1f} s ({sec / 2:.2f} s per sequence); "
+          f"launches {launches}")
+    return launches
+
+
+def icp_check(dev, points: int = 1024, tries: int = ICP_TRIES) -> dict:
+    """Phase 9, the ICP of ``scene_edit`` on its own: K11 against its plain
+    version at the shapes the ICP gives it (each try's moved source,
+    (tries, points, 3), against the target repeated per try), then one
+    ``random_restart_icp`` from the same rotations through the kernels and
+    through the plain versions, agreeing to ICP_ATOL with equal inlier
+    counts.  Returns ({kernel: record}, as :func:`kernel_checks`, and K11's
+    launches in the kernel run of the ICP)."""
+    import torch
+
+    from lsdm_tpu_torch import kernels
+    from lsdm_tpu_torch.ops import chamfer
+    from lsdm_tpu_torch.ops.icp import random_restart_icp
+    from lsdm_tpu_torch.ops.rotations import quaternion_to_matrix
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    source = torch.rand(points, 3, generator=g, device=dev)
+    turn = quaternion_to_matrix(torch.randn(4, generator=g, device=dev))
+    target = (source @ turn.T + 0.5
+              + 0.01 * torch.randn(points, 3, generator=g, device=dev))
+    quats = torch.randn(tries, 4, generator=g, device=dev)
+    # the first iteration's correspondences, as ops/icp.py:_icp_batched
+    # builds them from random_restart_icp's initial poses
+    src = (source @ quaternion_to_matrix(quats).transpose(1, 2)
+           + (target.mean(0) - source.mean(0))).contiguous()
+    tgt = target.expand(tries, -1, -1).contiguous()
+    gm, ga = chamfer.directed_nn_kernel(src, tgt)
+    wm, wa = chamfer.directed_nn_plain(src, tgt)
+    err = (gm - wm).abs().max().item()
+    if not torch.equal(ga, wa) or err > CHAMFER_ATOL:
+        raise AssertionError(f"K11 at the ICP's shapes: indices differ or error {err}")
+    rec: dict = {}
+    _record(rec, "chamfer_nn", err,
+            _time_ms(lambda: chamfer.directed_nn_kernel(src, tgt), 20, dev),
+            _time_ms(lambda: chamfer.directed_nn_plain(src, tgt), 5, dev),
+            f"K11 nearest neighbour, ICP ({tries},{points},3): equal indices, "
+            f"max error {err:.3g}", _nbytes(src, tgt, gm, ga),
+            (DIST_OPS + 2) * tries * points * points)
+
+    _sync(dev)
+    kernels.reset_launches()
+    got = random_restart_icp(source, target, quats=quats, iters=ICP_ITERS)
+    _sync(dev)
+    launched = kernels.LAUNCHES["chamfer_nn"]
+    with plain_versions():
+        kernels.reset_launches()
+        want = random_restart_icp(source, target, quats=quats, iters=ICP_ITERS)
+        if any(kernels.LAUNCHES.values()):
+            raise AssertionError(f"the plain ICP launched kernels: {kernels.LAUNCHES}")
+        pms = _time_ms(lambda: random_restart_icp(source, target, quats=quats), 3, dev)
+    ms = _time_ms(lambda: random_restart_icp(source, target, quats=quats), 3, dev)
+    terr = (got.transformation - want.transformation).abs().max().item()
+    line = (f"ICP {tries} tries x {ICP_ITERS} iterations on {points} points: "
+            f"fitness {float(got.fitness):.4f} (plain {float(want.fitness):.4f}), "
+            f"{int(got.n_correspondences)} inliers (plain "
+            f"{int(want.n_correspondences)}), max transformation error {terr:.3g} "
+            f"(tolerance {ICP_ATOL}); K11 launched {launched} times; "
+            f"{ms:.3f} ms, plain {pms:.3f} ms")
+    print(line)
+    if (int(got.n_correspondences) != int(want.n_correspondences)
+            or float(got.fitness) != float(want.fitness) or terr > ICP_ATOL
+            or not 0.0 < float(got.fitness) <= 1.0):
+        raise AssertionError(line)
+    return rec, launched
+
+
+def cli_phase(dev, points: int = 1024, T: int = T_STEPS,
+              fused_step: str = "auto") -> dict:
+    """Phase 6 (and 9 with ``fused_step="step"``): the port's test_sdm on
+    a synthetic proxd test split of 4 sequences of ``points`` points,
+    batch 2.  Returns the launch counts of the run."""
     import numpy as np
 
     from lsdm_tpu_torch import kernels
@@ -824,7 +1116,8 @@ def cli_phase(dev, points: int = 1024, T: int = T_STEPS) -> dict:
         final = test_sdm.main([data, "--objs_data_dir", os.path.join(root, "objs"),
                                "--output_dir", out, "--batch_size", "2",
                                "--diffusion_steps", str(T), "--pcd_points",
-                               str(points), "--device", str(dev)])
+                               str(points), "--device", str(dev),
+                               "--fused_step", fused_step])
         sec = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
         with open(os.path.join(out, "results.txt")) as f:
@@ -841,8 +1134,8 @@ def cli_phase(dev, points: int = 1024, T: int = T_STEPS) -> dict:
                 if a.shape != (points, 3) or a.dtype != np.float32 or not np.isfinite(a).all():
                     raise AssertionError(f"{sub}/{name}: not a finite ({points}, 3) "
                                          "float32 array")
-    print(f"CLI test_sdm, 4 synthetic sequences, batch 2, T={T}: {final}; "
-          f"{sec:.1f} s; launches {launches}")
+    print(f"CLI test_sdm --fused_step {fused_step}, 4 synthetic sequences, batch 2, "
+          f"T={T}: {final}; {sec:.1f} s; launches {launches}")
     return launches
 
 
@@ -850,8 +1143,12 @@ def _check_launches(path: str, launches: dict) -> None:
     for name in PATH_KERNELS[path]:
         if launches[name] < 1:
             raise AssertionError(f"kernel {name} was not launched on the {path} path")
-    if path == "fused" and launches["ball_query"] + launches["three_nn"]:
-        raise AssertionError(f"the fused path ran K1/K2: {launches}")
+    if path in ("fused", "step") and launches["ball_query"] + launches["three_nn"]:
+        raise AssertionError(f"the {path} path ran K1/K2: {launches}")
+    if path == "fused" and launches["denoise_step"]:
+        raise AssertionError(f"the fused path ran K9: {launches}")
+    if path == "step" and launches["denoise_chain"]:
+        raise AssertionError(f"the step path ran K6: {launches}")
     if path == "train_sg" and launches["ball_query"]:
         raise AssertionError(f"the sg train step ran K1: {launches}")
 
@@ -937,9 +1234,35 @@ def main() -> int:
 
     _check_launches("fused", cli_phase(dev))
 
+    records.update(step_kernel_checks(dev, fused))
+    path_launches, errs, vs_chain, sec_k, peak = step_path(dev, cfg, fused)
+    print(f"step path sdm_proxd B=1 9x{cfg.pcd_points} T={T_STEPS}: launches "
+          f"{path_launches}; max |kernel - plain| {errs} (tolerance {FUSED_ATOL}); "
+          f"max |step - chain| {vs_chain} (tolerance {CHAIN_ATOL})")
+    _check_launches("step", path_launches)
+    launches["step"] = path_launches
+    if path_launches["denoise_step"] != T_STEPS:
+        raise AssertionError(f"K9 launched {path_launches['denoise_step']} times, "
+                             f"not {T_STEPS}")
+    if max(errs.values()) > FUSED_ATOL:
+        raise AssertionError("step path disagrees with its plain versions")
+    if max(vs_chain.values()) > CHAIN_ATOL:
+        raise AssertionError("step path disagrees with the chain path")
+    print(f"kernel path step at b1: {sec_k * 1e3:.1f} ms/scene, "
+          f"{T_STEPS / sec_k:.1f} steps/s, peak memory {peak:.2f} GiB")
+    _check_launches("step", cli_phase(dev, fused_step="step"))
+    _check_launches("scene_edit", scene_edit_phase(dev))
+    icp_rec, icp_launches = icp_check(dev)
+    if icp_launches != ICP_ITERS + 1:  # once per iteration, once for the result
+        raise AssertionError(f"the ICP launched K11 {icp_launches} times, not "
+                             f"{ICP_ITERS + 1}")
+
     from lsdm_tpu_torch.models.sampling import resolve_train_attn_impl
 
     records.update(train_kernel_checks(dev, model))
+    # K11's record keeps the train step's times; the ICP's call adds its error
+    records["chamfer_nn"]["max_abs_err"] = max(
+        records["chamfer_nn"]["max_abs_err"], icp_rec["chamfer_nn"]["max_abs_err"])
     del model, plain, fused
     # ball_impl "auto": the selection kernels K1, K2, K3
     train_cfg = dataclasses.replace(

@@ -48,15 +48,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "denoise_rows.cuh"
+
 namespace {
 
-__device__ __forceinline__ float gelu(float x) {
-  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
+using namespace denoise;
 
 enum { kNoBias = 0, kBiasRow = 1, kBiasCol = 2 };
 
@@ -215,67 +211,12 @@ cudaError_t chain_tables(cudaStream_t st, const ChainDims& d, const float* e2,
 }
 
 // ---------------------------------------------------------------- pass 2
-constexpr int kRows = 8;           // point rows per block
-constexpr int kStepThreads = 256;  // two halves of kHalf threads
-constexpr int kHalf = kStepThreads / 2;
-
+// (kRows, kCols and dense_rows: denoise_rows.cuh)
+constexpr int kStepThreads = 2 * kCols;  // dense_rows' default two k parts
 struct TailWeights {
   const float *wp0, *bp0, *wp2, *bp2, *wx0, *bx0, *wx2, *bx2, *wo0, *bo0,
       *wo2, *bo2;
 };
-
-// out[o][r] = act(sum_k in[k][r] * w[k][o] + bias) for the block's kRows
-// rows; bias is bias[o] (global) or, with kRowBias, bias[o][r] (shared).
-// in/out: shared memory, k-major ([k][kRows]); w: (k_dim, out_dim)
-// row-major, so a warp's weight loads are contiguous.  Thread t handles
-// column o0 + t % kHalf; half t / kHalf sums the even or the odd k, and
-// the odd half's partials meet the even half's in red ([kHalf][kRows]).
-// Ends with a block barrier: out is ready for every thread.
-template <bool kGelu, bool kRowBias>
-__device__ __forceinline__ void dense_rows(const float* __restrict__ w,
-                                           const float* bias, const float* in,
-                                           int k_dim, float* out, int out_dim,
-                                           float* red) {
-  static_assert(kRows == 8, "two float4 reads per k");
-  const int col = threadIdx.x % kHalf;
-  const int half = threadIdx.x / kHalf;
-  for (int o0 = 0; o0 < out_dim; o0 += kHalf) {
-    const int o = o0 + col;
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-    if (o < out_dim) {
-#pragma unroll 4
-      for (int k = half; k < k_dim; k += 2) {
-        const float wv = __ldg(w + (size_t)k * out_dim + o);
-        const float4 lo = *reinterpret_cast<const float4*>(in + k * kRows);
-        const float4 hi = *reinterpret_cast<const float4*>(in + k * kRows + 4);
-        acc[0] = fmaf(lo.x, wv, acc[0]);
-        acc[1] = fmaf(lo.y, wv, acc[1]);
-        acc[2] = fmaf(lo.z, wv, acc[2]);
-        acc[3] = fmaf(lo.w, wv, acc[3]);
-        acc[4] = fmaf(hi.x, wv, acc[4]);
-        acc[5] = fmaf(hi.y, wv, acc[5]);
-        acc[6] = fmaf(hi.z, wv, acc[6]);
-        acc[7] = fmaf(hi.w, wv, acc[7]);
-      }
-      if (half == 1) {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) red[col * kRows + r] = acc[r];
-      }
-    }
-    __syncthreads();
-    if (half == 0 && o < out_dim) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float b = kRowBias ? bias[o * kRows + r] : __ldg(bias + o);
-        const float v = (acc[r] + red[col * kRows + r]) + b;
-        out[o * kRows + r] = kGelu ? gelu(v) : sigmoid(v);
-      }
-    }
-    __syncthreads();
-  }
-}
 
 // Steps [t0, t0 + tc) of the loop for one tile of kRows rows of scene
 // blockIdx.y.  g holds the chunk's table emb @ wx0_t[D:] + bx0, shape
@@ -300,7 +241,7 @@ chain_steps_kernel(const float* x_in, float* x_out,
   float* h2 = h1 + d15 * kRows;    // [d][kRows]
   float* h3 = h2 + d * kRows;      // [dh2][kRows]
   float* x0 = h3 + dh2 * kRows;    // [3][kRows]
-  float* red = x0 + 3 * kRows;     // [kHalf][kRows] partial sums
+  float* red = x0 + 3 * kRows;     // [kCols][kRows] partial sums
 
   const int b = blockIdx.y;
   const int r0 = blockIdx.x * kRows;
@@ -326,13 +267,13 @@ chain_steps_kernel(const float* x_in, float* x_out,
       gb[j * kRows + r] = (r0 + r < n) ? grow[(size_t)r * d15 + j] : 0.0f;
     }
     __syncthreads();
-    dense_rows<false, false>(w.wp0, w.bp0, xin, 3, p1, dh, red);
-    dense_rows<false, false>(w.wp2, w.bp2, p1, dh, p2, d, red);
+    dense_rows<false, kPerOut>(w.wp0, w.bp0, xin, 3, p1, dh, red);
+    dense_rows<false, kPerOut>(w.wp2, w.bp2, p1, dh, p2, d, red);
     // the pose-feature half of combination_extraction.0 (wx0_t rows < d)
-    dense_rows<false, true>(w.wx0, gb, p2, d, h1, d15, red);
-    dense_rows<false, false>(w.wx2, w.bx2, h1, d15, h2, d, red);
-    dense_rows<true, false>(w.wo0, w.bo0, h2, d, h3, dh2, red);
-    dense_rows<true, false>(w.wo2, w.bo2, h3, dh2, x0, 3, red);
+    dense_rows<false, kPerOutRow>(w.wx0, gb, p2, d, h1, d15, red);
+    dense_rows<false, kPerOut>(w.wx2, w.bx2, h1, d15, h2, d, red);
+    dense_rows<true, kPerOut>(w.wo0, w.bo0, h2, d, h3, dh2, red);
+    dense_rows<true, kPerOut>(w.wo2, w.bo2, h3, dh2, x0, 3, red);
     if (owner) {
       float x0v = x0[my_c * kRows + my_r];
       if (clip) x0v = fminf(fmaxf(x0v, -1.0f), 1.0f);
@@ -368,7 +309,7 @@ int lsdm_denoise_chain(const float* x_init, const float* noise,
                     dims[6], dims[7], dims[8], dims[9], dims[10]};
   const size_t smem =
       sizeof(float) * kRows *
-      (size_t)(3 + 3 + d.DH + d.D + d.D15 + d.D15 + d.D + d.DH2 + 3 + kHalf);
+      (size_t)(3 + 3 + d.DH + d.D + d.D15 + d.D15 + d.D + d.DH2 + 3 + kCols);
   if (d.B <= 0 || d.T <= 0 || d.TC <= 0 || d.D2 != 2 * d.D || smem > 48 * 1024)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;

@@ -40,7 +40,8 @@ NVCC_FLAGS = (
 
 LAUNCHES = {"ball_query": 0, "three_nn": 0, "fps": 0, "denoise_chain": 0,
             "rank1_attn": 0, "sa_fused": 0, "fp_fused": 0,
-            "rank1_attn_bwd": 0, "select_gather": 0, "chamfer_nn": 0}
+            "rank1_attn_bwd": 0, "select_gather": 0, "chamfer_nn": 0,
+            "denoise_step": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,6 +58,9 @@ _SIGNATURES = {
     "lsdm_denoise_chain": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
     # (e2, weights[20], scratch, dims[11], stream)
     "lsdm_denoise_chain_tables": (_P, _P, _P, _P, _P),
+    # (x, noise, cond_pcd, e2, coefs, weights[20], out, scratch, dims[9],
+    #  clip, stream)
+    "lsdm_denoise_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
     # (q, k, v, B, L, S, H, out, stream)
     "lsdm_rank1_attn": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
     # (xyz, new_xyz, z1, w1x, params[2(L-1)], widths[L], L, B, N, S,

@@ -5,9 +5,10 @@ Counterpart of ``lsdm_tpu/models/sampling.py`` (``resolve_fast_path`` and
 the loop; the conditioning (both backbones, both attentions) is encoded
 once per sample, through the fused encode kernels when the model's
 ``ball_impl`` is ``"fused"``.  With ``fused_step="chain"`` the whole loop
-is the K6 kernel (``ops/denoise.py``); with ``None`` it is the composed
-Python loop of ``diffusion/sampler.py`` calling
-:meth:`SceneDiffusionModel.denoise_from_cond` each step.
+is the K6 kernel (``ops/denoise.py``); with ``"step"`` a host loop calls
+the K9 kernel once per step (JAX ``_sample_fused``, mode ``"step"``); with
+``None`` it is the composed Python loop of ``diffusion/sampler.py``
+calling :meth:`SceneDiffusionModel.denoise_from_cond` each step.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from lsdm_tpu_torch.diffusion.gaussian import DenoiserOutput
 from lsdm_tpu_torch.diffusion.sampler import ddim_sample_loop, p_sample_loop
 from lsdm_tpu_torch.diffusion.schedule import Schedule
 from lsdm_tpu_torch.models.sdm import CondCache, SceneDiffusionModel
-from lsdm_tpu_torch.ops.denoise import extract_step_params, fused_denoise_chain
+from lsdm_tpu_torch.ops.denoise import (
+    extract_step_params, fused_denoise_chain, make_denoise_step)
 
 
 def resolve_fast_path(ball_impl: str = "auto",
@@ -35,7 +37,8 @@ def resolve_fast_path(ball_impl: str = "auto",
     ``"chain"`` (the whole-loop kernel K6).  On the CPU they resolve to
     ``"auto"`` (the composed encode, selection by the plain versions) and
     ``None`` (the composed loop).  ``fused_step="none"`` forces the
-    composed loop; explicit choices pass through.  Entry points resolve
+    composed loop; explicit choices (``"chain"``, ``"step"``: K9 once per
+    step) pass through.  Entry points resolve
     before they build the model's config; ``SDMConfig(ball_impl="auto")``
     inside the model keeps meaning the ``"pallas"`` selection.
     """
@@ -46,10 +49,9 @@ def resolve_fast_path(ball_impl: str = "auto",
         fused_step = "chain" if on_cuda else None
     elif fused_step == "none":
         fused_step = None
-    elif fused_step != "chain":
-        raise NotImplementedError(
-            f"fused_step={fused_step!r} is not ported (only 'chain' and "
-            "the composed loop)")
+    elif fused_step not in ("chain", "step"):
+        raise ValueError(f"fused_step={fused_step!r}: expected 'auto', "
+                         "'chain', 'step' or 'none'")
     return ball_impl, fused_step
 
 
@@ -148,21 +150,37 @@ def sample_sdm(
     if noise is None:
         noise = torch.randn((T, B, N, 3), generator=generator, device=dev)
 
-    if fused_step == "chain":
+    if fused_step in ("chain", "step"):
         t_seq = torch.arange(T - 1, -1, -1, device=dev)
         tm_seq = ts_model[t_seq]
-        final, last_in = fused_denoise_chain(
-            x_init.contiguous(), noise.transpose(0, 1).contiguous(),
-            cond.cond_pcd.contiguous(),
-            model.step_emb2_table(cond, tm_seq).contiguous(),
-            chain_coefficients(schedule, use_ddim).contiguous(),
-            extract_step_params(model), clip_denoised=clip_denoised)
+        e2_tab = model.step_emb2_table(cond, tm_seq)  # (B, T, 2D)
+        coef_tab = chain_coefficients(schedule, use_ddim).contiguous()
+        cond_pcd = cond.cond_pcd.contiguous()
+        p = extract_step_params(model)
+        if fused_step == "chain":
+            final, last_in = fused_denoise_chain(
+                x_init.contiguous(), noise.transpose(0, 1).contiguous(),
+                cond_pcd, e2_tab.contiguous(), coef_tab, p,
+                clip_denoised=clip_denoised)
+        else:
+            # one K9 call per step, carrying (x, last_in) as the JAX scan
+            # does; the weights are checked once, every step's rows are
+            # contiguous views of the tables, all made before the loop, and
+            # the coefficients stay on the device
+            step = make_denoise_step(p, N, dev, clip_denoised)
+            e2_tab = e2_tab.transpose(0, 1).contiguous()  # (T, B, 2D)
+            final = last_in = x_init.contiguous()
+            for nz, e2, coefs in zip(noise.contiguous().unbind(0),
+                                     e2_tab.unbind(0), coef_tab.unbind(0)):
+                last_in = final
+                final = step(final, nz, cond_pcd, e2, coefs)
         # the DenoiserOutput at the last step's input, composed
         last_out = model.denoise_from_cond(
             cond, last_in, tm_seq[-1].expand(B))
         return final, last_out
     if fused_step is not None:
-        raise NotImplementedError(f"fused_step={fused_step!r} is not ported")
+        raise ValueError(f"fused_step={fused_step!r}: expected 'chain', "
+                         "'step' or None")
 
     def model_fn(x_t, t):
         return model.denoise_from_cond(cond, x_t, ts_model[t])

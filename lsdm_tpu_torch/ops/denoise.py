@@ -1,4 +1,5 @@
-"""The whole-loop denoise chain (K6): CUDA kernel and plain version.
+"""The denoise chain (K6) and the denoise step (K9): CUDA kernels and plain
+versions.
 
 Replaces ``lsdm_tpu/ops/denoise_pallas.py:fused_denoise_chain``: the ENTIRE
 T-step DDPM/DDIM sampling loop in one call, with the same inputs and
@@ -22,12 +23,21 @@ GELU is the exact erf form (the Pallas kernel approximates erf only
 because Mosaic has no erf).  :func:`denoise_chain_tables` runs the first
 pass alone, so a check can see its numerics, which the chain's output
 all but hides.
+
+K9 replaces ``lsdm_tpu/ops/denoise_pallas.py:fused_denoise_step``: ONE step
+of that body per call, for the step-by-step sampler
+(``sample_sdm(fused_step="step")``), which calls it T times from a host
+loop.  Its CUDA version (``csrc/denoise_step.cu``) is two launches on the
+stream: the scene's u2 table, then one block per tile of point rows that
+carries its rows from u4 to the update.  The two plain versions share the
+step body, :func:`denoise_step_plain`.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -109,6 +119,101 @@ def _emb_plain(e2: torch.Tensor, p: DenoiseStepParams) -> torch.Tensor:
     return F.gelu(u4 @ p.wc_t + p.bc)                        # (..., N, D)
 
 
+def denoise_step_plain(
+    x: torch.Tensor,         # (B, N, 3) current sample
+    noise: torch.Tensor,     # (B, N, 3) this step's gaussian draw
+    cond_pcd: torch.Tensor,  # (B, N, 3)
+    e2: torch.Tensor,        # (B, 2D) this step's (timestep, text) embedding
+    coefs: torch.Tensor,     # (3,) [c1, c2, c3]
+    p: DenoiseStepParams,
+    clip_denoised: bool = False,
+) -> torch.Tensor:
+    """Plain version of K9: one step of the Pallas kernels' body as torch
+    ops.  Returns the next sample (B, N, 3)."""
+    emb = _emb_plain(e2, p)                                  # (B, N, D)
+    h = torch.sigmoid((x + cond_pcd) @ p.wp0_t + p.bp0)
+    h = torch.sigmoid(h @ p.wp2_t + p.bp2)
+    h = torch.sigmoid(torch.cat([h, emb], dim=-1) @ p.wx0_t + p.bx0)
+    h = torch.sigmoid(h @ p.wx2_t + p.bx2)
+    h = F.gelu(h @ p.wo0_t + p.bo0)
+    x0 = F.gelu(h @ p.wo2_t + p.bo2)
+    if clip_denoised:
+        x0 = x0.clamp(-1.0, 1.0)
+    return coefs[0] * x0 + coefs[1] * x + coefs[2] * noise
+
+
+def fused_denoise_step(
+    x: torch.Tensor,         # (B, N, 3) current sample
+    noise: torch.Tensor,     # (B, N, 3) this step's gaussian draw
+    cond_pcd: torch.Tensor,  # (B, N, 3)
+    e2: torch.Tensor,        # (B, 2D) this step's (timestep, text) embedding
+    coefs: torch.Tensor,     # (3,) [c1, c2, c3], read on the device
+    p: DenoiseStepParams,
+    clip_denoised: bool = False,
+) -> torch.Tensor:
+    """K9: one DDPM/DDIM step of every scene, c1 * x0 + c2 * x + c3 * noise.
+    Returns the next sample (B, N, 3) float32.  CUDA kernels for CUDA
+    tensors (two launches, one call: one count in ``LAUNCHES``), plain
+    version for CPU tensors.  A sampler that steps T times binds the
+    weights once with :func:`make_denoise_step` instead."""
+    step = make_denoise_step(p, x.shape[1], x.device, clip_denoised)
+    return step(x, noise, cond_pcd, e2, coefs)
+
+
+def make_denoise_step(p: DenoiseStepParams, N: int, device: torch.device,
+                      clip_denoised: bool = False):
+    """K9 with ``p`` and ``clip_denoised`` bound, for a loop over the
+    steps: returns ``step(x, noise, cond_pcd, e2, coefs)``, which computes
+    :func:`fused_denoise_step` of those arguments.  On a CUDA ``device``
+    the weights (for N points) are checked and their addresses taken here,
+    once, and the launches go to the stream that is current on ``device``
+    now; each call checks its five data tensors only.  The returned step
+    runs the plain version for CPU tensors."""
+    plain = make_denoise_step_plain(p, N, device, clip_denoised)
+    if device.type != "cuda":
+        def step(x, noise, cond_pcd, e2, coefs):
+            if not kernels.on_cpu(x, noise, cond_pcd, e2, coefs):
+                raise ValueError(f"a denoise step bound on {device} was given "
+                                 "CUDA tensors")
+            return plain(x, noise, cond_pcd, e2, coefs)
+        return step
+
+    dims = _check(p, N, {}, device)
+    _, D2, _, U2 = dims[:4]
+    ptrs = _pointers(p)
+    stream = kernels.stream(device)
+    lib = kernels.load()
+
+    def step(x, noise, cond_pcd, e2, coefs):
+        if kernels.on_cpu(x, noise, cond_pcd, e2, coefs):
+            return plain(x, noise, cond_pcd, e2, coefs)
+        B = x.shape[0]
+        for name, t, shape in (("x", x, (B, N, 3)), ("noise", noise, (B, N, 3)),
+                               ("cond_pcd", cond_pcd, (B, N, 3)),
+                               ("e2", e2, (B, D2)), ("coefs", coefs, (3,))):
+            kernels.require(name, t, torch.float32, shape, device)
+        if B > 65535:
+            raise ValueError(f"the step kernels grid at most 65535 scenes, got {B}")
+        scratch = torch.empty(B * U2 * D2, dtype=torch.float32, device=device)
+        out = torch.empty_like(x)
+        with torch.cuda.device(device):
+            rc = lib.lsdm_denoise_step(
+                x.data_ptr(), noise.data_ptr(), cond_pcd.data_ptr(),
+                e2.data_ptr(), coefs.data_ptr(), ptrs, out.data_ptr(),
+                scratch.data_ptr(), (ctypes.c_int * 9)(B, *dims),
+                int(bool(clip_denoised)), stream)
+        kernels.check(rc, "denoise_step")
+        kernels.LAUNCHES["denoise_step"] += 1
+        return out
+    return step
+
+
+def make_denoise_step_plain(p: DenoiseStepParams, N: int, device: torch.device,
+                            clip_denoised: bool = False):
+    """Plain version of :func:`make_denoise_step`, on any device."""
+    return functools.partial(denoise_step_plain, p=p, clip_denoised=clip_denoised)
+
+
 def denoise_chain_plain(
     x_init: torch.Tensor,     # (B, N, 3)
     noise_tab: torch.Tensor,  # (B, T, N, 3)
@@ -125,17 +230,8 @@ def denoise_chain_plain(
     last_in = x_init
     for t in range(T):
         last_in = x
-        emb = _emb_plain(e2_tab[:, t], p)                    # (B, N, D)
-        h = torch.sigmoid((x + cond_pcd) @ p.wp0_t + p.bp0)
-        h = torch.sigmoid(h @ p.wp2_t + p.bp2)
-        h = torch.sigmoid(torch.cat([h, emb], dim=-1) @ p.wx0_t + p.bx0)
-        h = torch.sigmoid(h @ p.wx2_t + p.bx2)
-        h = F.gelu(h @ p.wo0_t + p.bo0)
-        x0 = F.gelu(h @ p.wo2_t + p.bo2)
-        if clip_denoised:
-            x0 = x0.clamp(-1.0, 1.0)
-        c = coef_tab[t]
-        x = c[0] * x0 + c[1] * x + c[2] * noise_tab[:, t]
+        x = denoise_step_plain(x, noise_tab[:, t], cond_pcd, e2_tab[:, t],
+                               coef_tab[t], p, clip_denoised)
     return x, last_in
 
 
@@ -230,10 +326,12 @@ def _pointers(p: DenoiseStepParams):
     return (ctypes.c_void_p * len(p))(*[w.data_ptr() for w in p])
 
 
-def _check(p: DenoiseStepParams, N: int, data: dict) -> Tuple[int, ...]:
+def _check(p: DenoiseStepParams, N: int, data: dict,
+           device: Optional[torch.device] = None) -> Tuple[int, ...]:
     """Check the kernel's inputs (``data``: name -> (tensor, shape) of the
-    step tensors, all on the device of the first) and return the dims
-    {N, 2D, U0, U2, D, DH, D15, DH2} of ``csrc/denoise_chain.cu``."""
+    step tensors, all on ``device``, by default that of the first) and
+    return the dims {N, 2D, U0, U2, D, DH, D15, DH2} of
+    ``csrc/denoise_chain.cu`` and ``csrc/denoise_step.cu``."""
     D2 = p.wc_t.shape[0]
     U0, U2 = p.w_up0.shape[0], p.w_up2.shape[0]
     D, DH, D15, DH2 = (p.wc_t.shape[1], p.wp0_t.shape[1], p.wx0_t.shape[1],
@@ -251,9 +349,10 @@ def _check(p: DenoiseStepParams, N: int, data: dict) -> Tuple[int, ...]:
         "wo0_t": (p.wo0_t, (D, DH2)), "bo0": (p.bo0, (1, DH2)),
         "wo2_t": (p.wo2_t, (DH2, 3)), "bo2": (p.bo2, (1, 3)),
     }
-    device = next(iter(data.values()))[0].device
+    if device is None:
+        device = next(iter(data.values()))[0].device
     for name, (t, shape) in shapes.items():
         kernels.require(name, t, torch.float32, shape, device)
-    if data["e2_tab"][0].shape[1] < 1:
+    if "e2_tab" in data and data["e2_tab"][0].shape[1] < 1:
         raise ValueError("the chain needs at least one step")
     return N, D2, U0, U2, D, DH, D15, DH2

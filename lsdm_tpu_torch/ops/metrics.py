@@ -1,9 +1,10 @@
-"""Evaluation metrics: exact EMD, F-score, top-k accuracy.
+"""Evaluation metrics: exact EMD, its Sinkhorn approximation, F-score,
+top-k accuracy.
 
 Counterpart of ``lsdm_tpu/ops/metrics.py`` (reference
 ``util/evaluation.py``): the Hungarian EMD on the host through scipy, and
-the F-score and top-k accuracy in torch.  The JAX package's Sinkhorn
-approximation (``emd_sinkhorn``), an in-training monitor, is not ported.
+the Sinkhorn EMD (an in-training monitor), the F-score and top-k accuracy
+in torch.
 """
 
 from __future__ import annotations
@@ -30,6 +31,28 @@ def emd(pred: torch.Tensor, gt: torch.Tensor) -> float:
         row, col = linear_sum_assignment(d[b])
         costs[b] = d[b][row, col].sum() / min(d.shape[1], d.shape[2])
     return float(np.mean(costs))
+
+
+def emd_sinkhorn(pred: torch.Tensor, gt: torch.Tensor, epsilon: float = 0.01,
+                 iters: int = 100) -> torch.Tensor:
+    """Entropy-regularised optimal-transport cost between pred (B, N, 3)
+    and gt (B, M, 3) with uniform marginals, averaged over the batch: a
+    device-side approximation of :func:`emd` (log-domain Sinkhorn, ``iters``
+    iterations at regularisation ``epsilon``)."""
+    B, N, _ = pred.shape
+    M = gt.shape[1]
+    d = torch.sqrt(torch.clamp(square_distance(pred, gt), min=0.0))
+    logK = -d / epsilon  # (B, N, M)
+    log_a = torch.full((B, N), -float(np.log(N)), dtype=d.dtype, device=d.device)
+    log_b = torch.full((B, M), -float(np.log(M)), dtype=d.dtype, device=d.device)
+    f = torch.zeros_like(log_a)
+    g = torch.zeros_like(log_b)
+    for _ in range(iters):
+        f = log_a - torch.logsumexp(logK + g[:, None, :], dim=2)
+        g = log_b - torch.logsumexp(logK + f[:, :, None], dim=1)
+    P = torch.exp(logK + f[:, :, None] + g[:, None, :])
+    cost = torch.sum(P * d, dim=(1, 2)) / torch.sum(P, dim=(1, 2))
+    return cost.mean()
 
 
 def fscore(pred: torch.Tensor, gt: torch.Tensor, threshold: float = 0.1

@@ -1,13 +1,16 @@
 """Where the time of one SDM sample goes, on a CUDA device.
 
     python -m lsdm_tpu_torch.profile_sampling [--batch 1 4 8] [--steps 1000]
-        [--ball_impl fused|pallas]
+        [--ball_impl fused|pallas] [--fused_step chain|step|none]
 
 Builds ``sdm_proxd()`` with seeded random weights and samples seeded
 random inputs through the kernel path (``sample_sdm`` with
-``fused_step="chain"``): the fused encode (K7, K8, K4, K3; the default,
-what ``resolve_fast_path`` gives on CUDA) or, with ``--ball_impl pallas``,
-the composed encode over the selection kernels (K1, K2, K3).  For each
+``fused_step="chain"``, the whole loop as K6; with ``--fused_step step``,
+K9 once per step; with ``none``, the composed loop): the fused encode
+(K7, K8, K4, K3; the default, what ``resolve_fast_path`` gives on CUDA)
+or, with ``--ball_impl pallas``, the composed encode over the selection
+kernels (K1, K2, K3).  ``--ball_impl pallas --fused_step none`` is how
+``scene_edit`` samples.  For each
 batch size it prints the wall time per scene (host clock around a
 synchronised call, best and all of ``--repeats`` runs after one warm-up),
 the DDPM steps per second, the peak device memory and the wall time of
@@ -66,9 +69,9 @@ def _kernel_times(prof) -> dict:
 
 
 def profile(batches, steps: int, repeats: int, seed: int,
-            ball_impl: str = "fused") -> dict:
+            ball_impl: str = "fused", fused_step: str = "chain") -> dict:
     dev = torch.device("cuda", 0)
-    ball_impl, step = resolve_fast_path(ball_impl, None, dev)
+    ball_impl, step = resolve_fast_path(ball_impl, fused_step, dev)
     cfg = dataclasses.replace(sdm_proxd(), ball_impl=ball_impl)
     model = init_weights(SceneDiffusionModel(cfg), seed).to(dev).eval()
     schedule = make_schedule("cosine", steps, device=dev)
@@ -134,13 +137,14 @@ def main(argv=None) -> int:
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ball_impl", default="fused", choices=["fused", "pallas"])
+    ap.add_argument("--fused_step", default="chain", choices=["chain", "step", "none"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_sampling: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     with torch.no_grad():
         result = profile(args.batch, args.steps, args.repeats, args.seed,
-                         args.ball_impl)
+                         args.ball_impl, args.fused_step)
     print(json.dumps(result))
     return 0
 

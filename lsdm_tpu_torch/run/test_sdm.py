@@ -11,7 +11,8 @@ CLI's (and the reference's) output contract.
 
 On CUDA, ``--ball_impl auto`` and ``--fused_step auto`` resolve to the
 fused encode and the whole-loop chain kernel (``models/sampling.py:
-resolve_fast_path``).  ``--device`` defaults to ``cuda`` and there is no
+resolve_fast_path``).  ``--fused_step step`` (or a bare ``--fused_step``)
+samples with the one-step kernel K9, called once per step from the host.  ``--device`` defaults to ``cuda`` and there is no
 silent CPU run: without a GPU the CLI raises unless ``--device cpu`` is
 given.  Without ``--load_model`` the weights are seeded (seed 0), as the
 JAX CLI initialises them.  The draws (initial image and per-step noise)
@@ -48,9 +49,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "HASH; only HASH is ported")
     ap.add_argument("--pcd_points", type=int, default=None,
                     help="override the cloud size (tiny smoke runs)")
-    ap.add_argument("--fused_step", default="auto",
-                    choices=["auto", "chain", "none"],
-                    help="'chain' = the whole loop as one kernel; 'auto' = "
+    ap.add_argument("--fused_step", nargs="?", const="step", default="auto",
+                    choices=["auto", "step", "chain", "none"],
+                    help="'step' (also a bare --fused_step) = one kernel "
+                         "launch per step; 'chain' = the whole loop as one "
+                         "kernel; 'none' = the composed loop; 'auto' = "
                          "'chain' on CUDA, the composed loop on the CPU")
     ap.add_argument("--cond_chunk", type=int, default=None,
                     help="encode the conditioning in batch chunks (memory cap)")

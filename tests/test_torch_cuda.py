@@ -3,7 +3,7 @@
 Every test here needs an NVIDIA GPU and skips without one.  The shapes are
 small and deliberately awkward (rows that are not multiples of a warp or a
 tile, k < 3, empty balls, distance ties, several chunks of the denoise
-chain), the edge cases ``chip_smoke.py`` does not reach at the flagship
+chain, the denoise step reading rows of its tables), the edge cases ``chip_smoke.py`` does not reach at the flagship
 shapes.  On a
 machine with a GPU and no JAX, run them without the JAX test conftest:
 
@@ -124,6 +124,74 @@ def test_denoise_chain_tables_kernel_matches_plain(dev):
         assert a.shape == b.shape
         # float32 sums in another order, no recurrence
         torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
+
+
+def _step_args(dev, B, N, D, seed=0, T=3):
+    """K9's arguments for step 1 of a T-step table: noise, e2 and coefs are
+    rows of (T, B, N, 3), (T, B, 2D) and (T, 3) tables, as the sampler
+    passes them."""
+    x, noise, cpcd, e2, coef, p = _chain_inputs(dev, B, T, N, D, seed)
+    noise_tab = noise.transpose(0, 1).contiguous()
+    e2_tab = e2.transpose(0, 1).contiguous()
+    return x, noise_tab[1], cpcd, e2_tab[1], coef[1], p
+
+
+@pytest.mark.parametrize("b,n,d,clip", [
+    (1, 1024, 128, False),  # the flagship widths
+    (3, 37, 16, True),      # odd N: a partial tile of rows
+    (2, 100, 128, True),
+    (1, 5, 16, False),      # fewer rows than one tile
+])
+def test_denoise_step_kernel_matches_plain(dev, b, n, d, clip):
+    args = _step_args(dev, b, n, d)
+    before = kernels.LAUNCHES["denoise_step"]
+    got = denoise.fused_denoise_step(*args, clip_denoised=clip)
+    assert kernels.LAUNCHES["denoise_step"] == before + 1  # two launches, one call
+    want = denoise.denoise_step_plain(*args, clip_denoised=clip)
+    torch.cuda.synchronize()
+    assert got.shape == (b, n, 3)
+    # float32 sums in another order, one step
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+def test_denoise_step_kernel_reads_table_rows_in_place(dev):
+    # the sampler's layout: rows of contiguous tables at an offset, the
+    # coefficients on the device; every step of a short loop equals the
+    # chain kernel's carried sample
+    x, noise, cpcd, e2, coef, p = _chain_inputs(dev, 2, 4, 37, 16)
+    noise_tab, e2_tab = noise.transpose(0, 1).contiguous(), e2.transpose(0, 1).contiguous()
+    y = x
+    for t in range(4):
+        y = denoise.fused_denoise_step(y, noise_tab[t], cpcd, e2_tab[t], coef[t], p)
+    final, _ = denoise.fused_denoise_chain(x, noise, cpcd, e2, coef, p)
+    torch.cuda.synchronize()
+    # two kernels, each float32 in its own order, through 4 steps
+    torch.testing.assert_close(y, final, atol=2e-5, rtol=0)
+    with pytest.raises(ValueError, match="contiguous"):  # a strided row
+        denoise.fused_denoise_step(x, noise_tab[0], cpcd, e2[:, 0], coef[0], p)
+
+
+def test_bound_denoise_step_checks_its_weights_once_and_its_data_each_call(dev):
+    x, noise, cpcd, e2, coef, p = _step_args(dev, 2, 37, 16)
+    with pytest.raises(ValueError):  # the weights on the host
+        denoise.make_denoise_step(denoise.DenoiseStepParams(*(w.cpu() for w in p)),
+                                  37, dev)
+    with pytest.raises(ValueError):  # weights for another N
+        denoise.make_denoise_step(p, 36, dev)
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):  # bound on the stream current now
+        step = denoise.make_denoise_step(p, 37, dev, clip_denoised=True)
+    before = kernels.LAUNCHES["denoise_step"]
+    got = step(x, noise, cpcd, e2, coef)
+    assert kernels.LAUNCHES["denoise_step"] == before + 1
+    side.synchronize()
+    # the same kernels on the same inputs
+    assert torch.equal(got, denoise.fused_denoise_step(x, noise, cpcd, e2, coef, p,
+                                                       clip_denoised=True))
+    with pytest.raises(ValueError):  # noise of another cloud size
+        step(x, noise[:, :36].contiguous(), cpcd, e2, coef)
+    with pytest.raises(ValueError):  # the data on the host, the step bound on the card
+        step(x.cpu(), noise, cpcd, e2, coef)
 
 
 def _layers(dev, widths, seed=0):
@@ -289,6 +357,16 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
     x, noise, cpcd, e2, coef, p = _chain_inputs(dev, B=1, T=3, N=8, D=16)
     with pytest.raises(ValueError):  # one step row short
         denoise.fused_denoise_chain(x, noise, cpcd, e2[:, :2].contiguous(), coef, p)
+    sx, snoise, scpcd, se2, scoef, sp = _step_args(dev, 1, 8, 16)
+    with pytest.raises(ValueError):  # e2 one column short
+        denoise.fused_denoise_step(sx, snoise, scpcd, se2[:, 1:].contiguous(), scoef, sp)
+    with pytest.raises(ValueError):  # the coefficients on the host
+        denoise.fused_denoise_step(sx, snoise, scpcd, se2, scoef.cpu(), sp)
+    with pytest.raises(ValueError):  # float64
+        denoise.fused_denoise_step(sx.double(), snoise, scpcd, se2, scoef, sp)
+    with pytest.raises(ValueError):  # cond_pcd of another scene count
+        denoise.fused_denoise_step(sx, snoise, scpcd.expand(2, -1, -1).contiguous(),
+                                   se2, scoef, sp)
     with pytest.raises(ValueError):  # bf16: the port computes in float32
         attn.rank1_mha_kernel(xyz.bfloat16(), xyz.bfloat16(), xyz.bfloat16())
     folded = _layers(dev, (6, 8))

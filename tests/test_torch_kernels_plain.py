@@ -160,6 +160,9 @@ def test_kernel_wrappers_on_cpu_run_the_plain_versions_and_launch_nothing():
     for a, b in zip(denoise.denoise_chain_tables(args[3], args[5]),
                     denoise.denoise_chain_tables_plain(args[3], args[5])):
         assert torch.equal(a, b)
+    step = (args[0], args[1][:, 0], args[2], args[3][:, 0], args[4][0], args[5])
+    assert torch.equal(denoise.fused_denoise_step(*step),
+                       denoise.denoise_step_plain(*step))
     base = torch.cat([xyz, xyz], -1)
     folded = [(torch.randn(6, 8), torch.randn(8)), (torch.randn(8, 4), torch.randn(4))]
     assert torch.equal(sa_fused.sa_stage_fused_kernel(0.5, 8, xyz, new_xyz, base, folded),
@@ -183,4 +186,4 @@ def test_kernel_wrappers_on_cpu_run_the_plain_versions_and_launch_nothing():
     assert set(kernels.LAUNCHES) == {"ball_query", "three_nn", "fps",
                                      "denoise_chain", "rank1_attn", "sa_fused",
                                      "fp_fused", "rank1_attn_bwd", "select_gather",
-                                     "chamfer_nn"}
+                                     "chamfer_nn", "denoise_step"}

@@ -1,12 +1,14 @@
 """lsdm_tpu_torch must run without JAX: the machine with the GPU has none.
 
 A fresh interpreter imports every module of the port (``train/``,
-``utils/logger.py``, ``run/train_sdm.py`` and ``profile_train.py``
-included) and ``chip_smoke.py``, samples at a tiny size on the CPU with
-the composed and the fused encode, runs the ``test_sdm`` and
-``train_sdm`` entry points on a synthetic split, and then must hold no
-``jax``, ``jaxlib``, ``flax`` or ``optax`` module, and nothing of the JAX
-package ``lsdm_tpu``.
+``utils/logger.py``, ``run/train_sdm.py``, ``run/scene_edit.py``,
+``profile_train.py`` and the editing ops included) and ``chip_smoke.py``,
+samples at a tiny size on the CPU with the composed and the fused encode,
+the chain and the step sampler, runs the ``test_sdm`` (both samplers),
+``scene_edit`` (a keyword hit: ICP) and ``train_sdm`` entry points on a
+synthetic split and the editing metrics, and then must hold no ``jax``,
+``jaxlib``, ``flax`` or ``optax`` module, and nothing of the JAX package
+``lsdm_tpu``.
 """
 
 import subprocess
@@ -15,6 +17,7 @@ from pathlib import Path
 
 _SCRIPT = r"""
 import dataclasses, importlib, os, pkgutil, sys, tempfile
+import numpy as np
 import torch
 import lsdm_tpu_torch
 for m in pkgutil.walk_packages(lsdm_tpu_torch.__path__, "lsdm_tpu_torch."):
@@ -36,7 +39,8 @@ mask[:, 1:3] = 1.0
 cats = torch.nn.functional.one_hot(torch.randint(0, 13, (1, 9), generator=g), 13)
 fused = SceneDiffusionModel(dataclasses.replace(cfg, ball_impl="fused"))
 fused.load_state_dict(model.state_dict())
-for m, step in ((model, "chain"), (model, None), (fused.eval(), "chain")):
+for m, step in ((model, "chain"), (model, None), (fused.eval(), "chain"),
+                (fused, "step")):
     sample, out = sample_sdm(m, make_schedule("cosine", 3), mask,
                              torch.randn(1, 9, 32, 3, generator=g), cats.float(),
                              torch.randn(1, 32, generator=g), generator=g,
@@ -51,6 +55,29 @@ with tempfile.TemporaryDirectory() as d:
                    "--output_dir", os.path.join(d, "out"), "--device", "cpu",
                    "--pcd_points", "32", "--diffusion_steps", "2",
                    "--ball_impl", "fused"])
+    test_sdm.main([data, "--objs_data_dir", os.path.join(d, "objs"),
+                   "--output_dir", os.path.join(d, "out_step"), "--device", "cpu",
+                   "--pcd_points", "32", "--diffusion_steps", "2", "--fused_step"])
+    ctx = os.path.join(data, "context")
+    for s in os.listdir(ctx):
+        lines = open(os.path.join(ctx, s)).readlines()
+        lines[0] = "place a desk next to the person\n"
+        open(os.path.join(ctx, s), "w").writelines(lines)
+    os.makedirs(os.path.join(d, "objs", "N3Office"))
+    np.save(os.path.join(d, "objs", "N3Office", "table_0.npy"),
+            np.random.RandomState(0).rand(32, 3).astype(np.float32))
+    from lsdm_tpu_torch.run import scene_edit
+    final = scene_edit.main([data, "--objs_data_dir", os.path.join(d, "objs"),
+                             "--output_dir", os.path.join(d, "edit"), "--device", "cpu",
+                             "--pcd_points", "32", "--diffusion_steps", "2",
+                             "--icp_tries", "4"])
+    assert "fitness" in final, final
+from lsdm_tpu_torch.ops import geometry, metrics, recon_metrics, rotations
+x = torch.randn(2, 16, 3, generator=g)
+assert torch.isfinite(metrics.emd_sinkhorn(x, x.flip(1), iters=5))
+assert float(recon_metrics.compute_iou(x[..., 0] > 0, x[..., 1] > 0)) >= 0
+assert rotations.rotz(torch.zeros(2)).shape == (2, 3, 3)
+assert np.isfinite(geometry.estimate_floor_height(x.numpy()))
 from lsdm_tpu_torch.run import train_sdm
 with tempfile.TemporaryDirectory() as d:
     data = generate(d, "proxd", n_scenes=1, n_seqs=2, pnt_size=32, split="train")

@@ -122,8 +122,9 @@ def test_resolve_fast_path_by_device(device, want):
     # explicit choices pass through
     assert resolve_fast_path("pallas", "chain", dev) == ("pallas", "chain")
     assert resolve_fast_path("topk", None, dev) == ("topk", want[1])
-    with pytest.raises(NotImplementedError):
-        resolve_fast_path("auto", "step", dev)
+    assert resolve_fast_path("auto", "step", dev) == (want[0], "step")
+    with pytest.raises(ValueError):
+        resolve_fast_path("auto", "loop", dev)
 
 
 # "sg" (K10) is ported with the training slice; these TPU formulations are not
