@@ -11,10 +11,12 @@ Run from the repository root:  python3 chip_smoke.py
    FPS (K3) must give equal indices; the fused SA stage (K7, sa1-sa4 and a
    center with an empty ball) and FP stage (K8, fp4-fp1 with the head)
    must agree to STAGE_ATOL, the rank-1 attention (K4) to ATTN_ATOL; the
-   denoise chain (K6, N=1024, D=128, T=1000) to CHAIN_ATOL, and its first
-   pass's tables to TABLE_ATOL.  Prints both times and each kernel's
-   bound: the least time the card could take for the call's work, bytes
-   over HBM_BYTES_PER_S or float32 operations over FP32_OPS_PER_S.
+   denoise chain (K6, N=1024, D=128, T=1000) to CHAIN_ATOL at batch 1 and,
+   clip on, at batch CHAIN_BATCH, and its first pass's tables to
+   TABLE_ATOL.  Prints both times and each kernel's bound: the least time
+   the card could take for the call's work, bytes over HBM_BYTES_PER_S or
+   float32 operations over FP32_OPS_PER_S; K6's time also split into its
+   two passes, each beside its bound.
 4. The "pallas" path: samples one object at full width (``sdm_proxd()``:
    9 objects x 1024 points, T=1000 DDPM, batch 1, seeded random weights
    and inputs) with ``ball_impl="pallas"`` through the kernels (K1, K2,
@@ -99,6 +101,7 @@ CHAIN_ATOL = 1e-6
 # below those of a build with TF32 products or a tanh GELU (PERF.md).
 TABLE_ATOL = 1e-6
 TABLE_STEPS = 64  # the last steps of the chain, as their own batch
+CHAIN_BATCH = 8   # K6 is also checked and timed at this batch, clip on
 # K2 distances: kernel and plain version round the same float32 ops.
 DIST_ATOL = 1e-6
 # K7 and K8 on outputs of order 1: the same selection (equal distance
@@ -518,29 +521,47 @@ def kernel_checks(dev, model, T: int = T_STEPS) -> dict:
             _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 q4, k4, v4, scale=1.0), 20, dev))
 
-    # K6 at batch 1 with the model's own tail weights
+    # K6 with the model's own tail weights: the path's case (batch 1, no
+    # clip), then batch 8 with clip on, whose error counts.  Each time is
+    # split into pass 1 (its tables, timed alone over the chain's chunks)
+    # and pass 2 (the rest).
     p = denoise.extract_step_params(model)
-    args = (torch.randn(1, N, 3, generator=g, device=dev),
-            torch.randn(1, T, N, 3, generator=g, device=dev),
-            torch.randn(1, N, 3, generator=g, device=dev),
-            torch.randn(1, T, 2 * D, generator=g, device=dev),
-            chain_coefficients(make_schedule("cosine", T, device=dev), False),
-            p)
-    got = denoise.fused_denoise_chain(*args)
-    want = denoise.denoise_chain_plain(*args)
-    err = max((a - b).abs().max().item() for a, b in zip(got, want))
-    if not (all(torch.isfinite(a).all() for a in got) and err <= CHAIN_ATOL):
-        raise AssertionError(f"denoise chain: max error {err} > {CHAIN_ATOL}")
+    coef = chain_coefficients(make_schedule("cosine", T, device=dev), False)
     up = sum(w.numel() for w in (p.w_up0, p.w_up2, p.w_up4))  # on 2D rows
-    rows = sum(w.numel() for w in (p.wc_t, p.wp0_t, p.wp2_t, p.wx0_t, p.wx2_t,
-                                   p.wo0_t, p.wo2_t))         # on N rows
-    _record(rec, "denoise_chain", err,
-            _time_ms(lambda: denoise.fused_denoise_chain(*args), 3, dev),
-            _time_ms(lambda: denoise.denoise_chain_plain(*args), 2, dev),
-            f"K6 denoise chain N={N} D={D} T={T}: max error {err:.3g} "
-            f"(tolerance {CHAIN_ATOL})",
-            _nbytes(*args[:5], *p, *got), 2 * T * (2 * D * up + N * rows))
-    e2 = args[3][:, -TABLE_STEPS:].contiguous()
+    tail = (p.wp0_t.numel() + p.wp2_t.numel() + D * p.wx0_t.shape[1]
+            + p.wx2_t.numel() + p.wo0_t.numel() + p.wo2_t.numel())  # pass 2
+    table = p.wc_t.numel() + D * p.wx0_t.shape[1]  # pass 1's, on N rows
+    for B, clip in ((1, False), (CHAIN_BATCH, True)):
+        args = (torch.randn(B, N, 3, generator=g, device=dev),
+                torch.randn(B, T, N, 3, generator=g, device=dev),
+                torch.randn(B, N, 3, generator=g, device=dev),
+                torch.randn(B, T, 2 * D, generator=g, device=dev), coef, p)
+        got = denoise.fused_denoise_chain(*args, clip_denoised=clip)
+        want = denoise.denoise_chain_plain(*args, clip_denoised=clip)
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        if not (all(torch.isfinite(a).all() for a in got) and err <= CHAIN_ATOL):
+            raise AssertionError(f"denoise chain B={B}: max error {err} > {CHAIN_ATOL}")
+        ms = _time_ms(lambda: denoise.fused_denoise_chain(*args, clip_denoised=clip),
+                      3, dev)
+        pass1 = _chain_pass1_ms(args[3], p, dev)
+        ops1 = 2 * B * T * (2 * D * up + N * table)
+        ops2 = 2 * B * T * N * tail
+        line = (f"K6 denoise chain B={B} N={N} D={D} T={T} clip={clip}: max error "
+                f"{err:.3g} (tolerance {CHAIN_ATOL}); pass 1 {pass1:.3f} ms "
+                f"(bound {ops1 / FP32_OPS_PER_S * 1e3:.3f}), pass 2 "
+                f"{ms - pass1:.3f} ms (bound {ops2 / FP32_OPS_PER_S * 1e3:.3f})")
+        if B != 1:
+            print(f"{line}; kernel {ms:.4f} ms")
+            rec["denoise_chain"]["max_abs_err"] = max(
+                rec["denoise_chain"]["max_abs_err"], err)
+            continue
+        _record(rec, "denoise_chain", err, ms,
+                _time_ms(lambda: denoise.denoise_chain_plain(*args), 2, dev), line,
+                _nbytes(*args[:5], *p, *got), ops1 + ops2)
+        rec["denoise_chain"].update(pass1_bound_ms=ops1 / FP32_OPS_PER_S * 1e3,
+                                    pass2_ms=ms - pass1)
+        e2_path = args[3]
+    e2 = e2_path[:, -TABLE_STEPS:].contiguous()
     got = denoise.denoise_chain_tables(e2, p)
     want = denoise.denoise_chain_tables_plain(e2, p)
     terr = max((a - b).abs().max().item() for a, b in zip(got, want))
@@ -548,8 +569,24 @@ def kernel_checks(dev, model, T: int = T_STEPS) -> dict:
           f"{terr:.3g} (tolerance {TABLE_ATOL})")
     if terr > TABLE_ATOL:
         raise AssertionError(f"denoise chain pass 1: max error {terr} > {TABLE_ATOL}")
-    rec["denoise_chain"]["max_abs_err"] = max(err, terr)
+    rec["denoise_chain"]["max_abs_err"] = max(rec["denoise_chain"]["max_abs_err"], terr)
     return rec
+
+
+def _chain_pass1_ms(e2, p, dev) -> float:
+    """Device ms of K6's first pass over the step rows e2 (B, T, 2D), as the
+    chain runs it: pass 1 alone (``denoise_chain_tables``) over each of the
+    chain's chunks of steps."""
+    from lsdm_tpu_torch.ops import denoise
+
+    B, T = e2.shape[:2]
+    tc = denoise.chain_chunk_steps(B, T, p)
+    ms = 0.0
+    for steps, count in ((tc, T // tc), (T % tc, 1)):
+        if steps and count:
+            rows = e2[:, :steps].contiguous()
+            ms += count * _time_ms(lambda: denoise.denoise_chain_tables(rows, p), 3, dev)
+    return ms
 
 
 def train_kernel_checks(dev, model, batch: int = TRAIN_BATCH) -> dict:

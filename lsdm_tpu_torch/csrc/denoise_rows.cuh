@@ -1,6 +1,6 @@
-// Device code shared by the denoise chain (K6, denoise_chain.cu) and the
-// denoise step (K9, denoise_step.cu): the activations and the dense layer
-// over a block's tile of kRows point rows, its activations in shared
+// Device code of the denoise step (K9, denoise_step.cu): the activations,
+// which the denoise chain (K6, denoise_chain.cu) shares, and the dense
+// layer over a block's tile of kRows point rows, its activations in shared
 // memory.
 
 #pragma once

@@ -26,8 +26,8 @@
 //   2. step_rows_kernel: one block per (tile of 8 point rows, scene), 128
 //      blocks a scene at N = 1024, carries its rows from their w_up4 rows
 //      through u4, emb and the x-dependent layers to the update, the
-//      activations in shared memory (dense_rows of denoise_rows.cuh, as
-//      K6's pass 2).  Each block reads all of u2 (512 KB a scene) and the
+//      activations in shared memory (dense_rows of denoise_rows.cuh).
+//      Each block reads all of u2 (512 KB a scene) and the
 //      tail weights (264 KB) from L2, and the reads' latency bounds it: at
 //      batch 1 an SM holds one block, so the block is 512 threads, four
 //      parts of each layer's k keeping four times the reads in flight

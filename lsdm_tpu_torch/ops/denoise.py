@@ -17,8 +17,9 @@ CUDA version (``csrc/denoise_chain.cu``) splits the step at the bracket:
 the t-only embedding (and its half of the first combination_extraction
 layer) does not depend on the sample, so a first pass builds it for a
 chunk of steps at once as batched GEMMs over the whole card, and a second
-pass carries each tile of point rows through the chunk's steps; rows
-never exchange data, so tiles need no synchronisation between them.
+pass carries pairs of tiles of point rows through the chunk's steps on
+clusters of two blocks, which hold the tail's weights in their shared
+memory between them (half the layers each) for the whole chunk.
 GELU is the exact erf form (the Pallas kernel approximates erf only
 because Mosaic has no erf).  :func:`denoise_chain_tables` runs the first
 pass alone, so a check can see its numerics, which the chain's output
@@ -255,11 +256,10 @@ def fused_denoise_chain(
         "x_init": (x_init, (B, N, 3)), "noise_tab": (noise_tab, (B, T, N, 3)),
         "cond_pcd": (cond_pcd, (B, N, 3)), "coef_tab": (coef_tab, (T, 3)),
         "e2_tab": (e2_tab, (B, T, p.wc_t.shape[0]))})
-    per_step = _per_step(dims)
-    # (the first pass grids its batch of B * tc GEMMs on gridDim.z <= 65535)
-    tc = max(1, min(T, CHAIN_SCRATCH_FLOATS // (B * per_step), 65535 // B))
+    tc = chain_chunk_steps(B, T, p)
     dev = x_init.device
-    scratch = torch.empty(B * tc * per_step, dtype=torch.float32, device=dev)
+    scratch = torch.empty(B * tc * _per_step(dims), dtype=torch.float32,
+                          device=dev)
     final = torch.empty_like(x_init)
     last_in = torch.empty_like(x_init)
     lib = kernels.load()
@@ -273,6 +273,17 @@ def fused_denoise_chain(
     kernels.check(rc, "denoise_chain")
     kernels.LAUNCHES["denoise_chain"] += 1
     return final, last_in
+
+
+def chain_chunk_steps(B: int, T: int, p: DenoiseStepParams) -> int:
+    """Steps per chunk of K6 for B scenes and T steps: as many as the first
+    pass's tables fit in ``CHAIN_SCRATCH_FLOATS``, and no more than let the
+    first pass grid its batch of B * tc GEMMs on gridDim.z <= 65535."""
+    dims = (B, T, p.w_up4.shape[0], p.wc_t.shape[0], p.w_up0.shape[0],
+            p.w_up2.shape[0], p.wc_t.shape[1], p.wp0_t.shape[1],
+            p.wx0_t.shape[1], p.wo0_t.shape[1])
+    return max(1, min(T, CHAIN_SCRATCH_FLOATS // (B * _per_step(dims)),
+                      65535 // B))
 
 
 def denoise_chain_tables_plain(e2_tab: torch.Tensor, p: DenoiseStepParams

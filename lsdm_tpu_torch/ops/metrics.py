@@ -73,10 +73,13 @@ def fscore(pred: torch.Tensor, gt: torch.Tensor, threshold: float = 0.1
 def topk_accuracy(output: torch.Tensor, target: torch.Tensor,
                   ks: Sequence[int] = (1,)) -> List[torch.Tensor]:
     """Top-k accuracy in percent (reference ``util/evaluation.py:13-26``):
-    output (B, C) scores, target (B,) int labels."""
+    output (B, C) scores, target (B,) int labels.  Equal scores rank by
+    the lowest class index, as ``jax.lax.top_k`` ranks them (a stable
+    descending sort; ``torch.topk`` promises no order among ties)."""
+    order = torch.sort(output, dim=1, descending=True, stable=True).indices
     res = []
     for k in ks:
-        pred = torch.topk(output, k, dim=1).indices  # (B, k)
+        pred = order[:, :k]  # (B, k)
         correct = (pred == target[:, None]).any(dim=1)
         res.append(correct.float().mean() * 100.0)
     return res

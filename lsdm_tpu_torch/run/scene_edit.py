@@ -39,6 +39,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from lsdm_tpu_torch.run import jax_flags
+
 # phrase -> (scene object path fragment, proxd category)  (reference :61-84;
 # copied from lsdm_tpu/run/scene_edit.py)
 EDIT_KEYWORDS = {
@@ -86,6 +88,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "HASH; only HASH is ported")
     ap.add_argument("--pcd_points", type=int, default=None,
                     help="override the cloud size (tiny smoke runs)")
+    jax_flags.add(ap, "bpe_path", "platform")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' must be asked for explicitly")
     return ap.parse_args(argv)
@@ -114,6 +117,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Run the evaluation; returns the final metrics (and the mean ICP
     statistics when a keyword hit)."""
     args = parse_args(argv)
+    jax_flags.refuse(args, "bpe_path", "platform")
     if args.load_model and not args.load_model.endswith(".pt"):
         raise SystemExit(f"--load_model {args.load_model}: only reference "
                          "torch .pt checkpoints load into the port (a flax "

@@ -29,6 +29,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from lsdm_tpu_torch.run import jax_flags
+
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -61,6 +63,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     choices=["auto", "fused", "pallas", "topk"],
                     help="'auto' = 'fused' on CUDA (fused encode kernels), "
                          "the composed encode on the CPU")
+    ap.add_argument("--gather_bwd", default="scatter",
+                    help="JAX CLI flag: only 'scatter', the exact gather the "
+                         "port runs, is taken")
+    jax_flags.add(ap, "clip_weights", "bpe_path", "platform")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' must be asked for explicitly")
     return ap.parse_args(argv)
@@ -69,6 +75,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Run the evaluation; returns the five final metrics."""
     args = parse_args(argv)
+    if args.gather_bwd != "scatter":
+        raise SystemExit(f"--gather_bwd {args.gather_bwd} is not ported: "
+                         "one-hot matmul gathers are a TPU workaround "
+                         "(ROADMAP.md, 'Not ported'); the port's gathers are "
+                         "exact, as 'scatter'")
+    jax_flags.refuse(args, "clip_weights", "bpe_path", "platform")
     if args.load_model and not args.load_model.endswith(".pt"):
         raise SystemExit(f"--load_model {args.load_model}: only reference "
                          "torch .pt checkpoints load into the port (a flax "

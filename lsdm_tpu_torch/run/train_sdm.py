@@ -30,6 +30,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from lsdm_tpu_torch.run import jax_flags
+
 # flags of the JAX CLI whose feature the port does not have (ROADMAP.md)
 _NOT_PORTED = {
     "mesh": "multi-GPU training is ROADMAP.md queue 1 item 15",
@@ -37,6 +39,8 @@ _NOT_PORTED = {
     "sa_hoist": "a TPU-only formulation (ROADMAP.md, 'Not ported')",
     "gather_bwd": "one-hot matmul gathers are a TPU workaround (ROADMAP.md, "
                   "'Not ported'); the port's gathers are exact",
+    "bn_dtype": "a bf16 BatchNorm belongs to bf16 autocast, ROADMAP.md queue 1 "
+                "item 8",
 }
 
 
@@ -80,6 +84,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--steps_per_dispatch", type=int, default=1)
     ap.add_argument("--sa_hoist", action="store_true")
     ap.add_argument("--gather_bwd", default=None)
+    ap.add_argument("--bn_dtype", default="float32",
+                    help="only float32 is ported (bf16 is a later slice)")
+    ap.add_argument("--fps_batched", action="store_true",
+                    help="JAX CLI flag, taken as is: the FPS kernel K3 gives "
+                         "the batched kernel's indices")
+    jax_flags.add(ap, "bpe_path", "platform")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' must be asked for explicitly")
     return ap.parse_args(argv)
@@ -90,10 +100,12 @@ def main(argv: Optional[Sequence[str]] = None):
     args = parse_args(argv)
     given = {"mesh": args.mesh is not None,
              "steps_per_dispatch": args.steps_per_dispatch != 1,
-             "sa_hoist": args.sa_hoist, "gather_bwd": args.gather_bwd is not None}
+             "sa_hoist": args.sa_hoist, "gather_bwd": args.gather_bwd is not None,
+             "bn_dtype": args.bn_dtype != "float32"}
     for flag, why in _NOT_PORTED.items():
         if given[flag]:
             raise SystemExit(f"--{flag} is not ported: {why}")
+    jax_flags.refuse(args, "bpe_path", "platform")
     if args.dtype != "float32":
         raise SystemExit("--dtype bfloat16 is not ported: bf16 autocast is a "
                          "later slice (ROADMAP.md queue 1 item 8)")

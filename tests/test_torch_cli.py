@@ -120,6 +120,27 @@ def test_metrics_match_jax():
                                err_msg="top-k accuracy")
 
 
+@pytest.mark.parametrize("case", ["pairs", "all_equal", "one_hot"])
+def test_topk_accuracy_breaks_ties_as_jax(case):
+    # equal scores rank by the lowest class index in jax.lax.top_k
+    rs = np.random.RandomState(7)
+    C = 13
+    if case == "pairs":  # every row: two classes share the best score
+        scores = rs.rand(12, C).astype(np.float32) * 0.5
+        hi = np.stack([rs.choice(C, 2, replace=False) for _ in range(12)])
+        scores[np.arange(12)[:, None], hi] = 0.9
+    elif case == "all_equal":
+        scores = np.full((12, C), 0.25, np.float32)
+    else:  # one class ahead, the rest tied: top-3 takes the lowest two
+        scores = np.zeros((12, C), np.float32)
+        scores[np.arange(12), rs.randint(0, C, 12)] = 1.0
+    labels = np.arange(12) % C
+    got = metrics.topk_accuracy(torch.from_numpy(scores), torch.from_numpy(labels),
+                                (1, 3))
+    want = jax_metrics.topk_accuracy(jnp.asarray(scores), jnp.asarray(labels), (1, 3))
+    np.testing.assert_array_equal([float(x) for x in got], [float(x) for x in want])
+
+
 TINY = SDMConfig(clip_dim=32, latent_dim=16, cat_emb=8, n_head=4, vert_dims=24,
                  pcd_points=32)
 
@@ -180,6 +201,22 @@ def test_test_sdm_cli_end_to_end_on_cpu(tmp_path, ball_impl):
             arr = np.load(os.path.join(out, sub, name))
             assert arr.shape == (32, 3) and arr.dtype == np.float32
             assert np.isfinite(arr).all()
+
+
+@pytest.mark.parametrize("flag", [
+    ["--gather_bwd", "matmul"], ["--gather_bwd", "matmul_fwd"],
+    ["--clip_weights", "clip.pt"], ["--bpe_path", "bpe.txt.gz"], ["--platform", "cpu"]])
+def test_test_sdm_cli_refuses_jax_flags_with_a_reason(tmp_path, flag):
+    with pytest.raises(SystemExit, match=f"{flag[0]} .*not ported"):
+        test_sdm.main([str(tmp_path), "--device", "cpu", *flag])
+
+
+def test_test_sdm_cli_takes_gather_bwd_scatter(tmp_path):
+    # the port's exact gather: past the flag checks, the run stops at the
+    # missing split
+    with pytest.raises(FileNotFoundError):
+        test_sdm.main([str(tmp_path / "none"), "--device", "cpu", "--gather_bwd",
+                       "scatter", "--output_dir", str(tmp_path / "out")])
 
 
 def test_test_sdm_cli_refuses_what_the_port_cannot_run(tmp_path):

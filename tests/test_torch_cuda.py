@@ -102,17 +102,37 @@ def _chain_inputs(dev, B, T, N, D, seed=0):
     return (t(B, N, 3), t(B, T, N, 3), t(B, N, 3), t(B, T, 2 * D), coef, p)
 
 
+@pytest.mark.parametrize("b,n,d,t,chunked", [
+    (2, 37, 16, 7, True),      # several chunks of steps, a partial tile pair
+    (1, 1024, 128, 5, False),  # the flagship widths
+    (8, 1024, 128, 3, False),  # taller tiles, the last pair part-filled
+    (4, 1000, 128, 3, False),  # the last pair's second tile empty
+    (3, 5, 16, 4, False),      # fewer rows than one tile pair
+    (2, 100, 128, 4, True),
+])
 @pytest.mark.parametrize("clip", [False, True])
-def test_denoise_chain_kernel_matches_plain(dev, clip, monkeypatch):
-    # a small scratch budget forces several chunks of steps
-    monkeypatch.setattr(denoise, "CHAIN_SCRATCH_FLOATS", 1 << 16)
-    args = _chain_inputs(dev, B=2, T=7, N=37, D=16)
+def test_denoise_chain_kernel_matches_plain(dev, b, n, d, t, chunked, clip, monkeypatch):
+    if chunked:  # a small scratch budget forces one chunk per step
+        monkeypatch.setattr(denoise, "CHAIN_SCRATCH_FLOATS", 1 << 16)
+    args = _chain_inputs(dev, B=b, T=t, N=n, D=d)
+    before = kernels.LAUNCHES["denoise_chain"]
     got = denoise.fused_denoise_chain(*args, clip_denoised=clip)
+    assert kernels.LAUNCHES["denoise_chain"] == before + 1
     want = denoise.denoise_chain_plain(*args, clip_denoised=clip)
     torch.cuda.synchronize()
-    for a, b in zip(got, want):
-        # float32 sums in another order, through 7 recurrent steps
-        torch.testing.assert_close(a, b, atol=2e-5, rtol=0)
+    for a, w in zip(got, want):
+        assert a.shape == (b, n, 3)
+        # float32 sums in another order, through t recurrent steps
+        torch.testing.assert_close(a, w, atol=2e-5, rtol=0)
+
+
+def test_denoise_chain_refuses_weights_beyond_shared_memory(dev):
+    # D = 256: each half of the tail is ~525 KB, past what a block may hold
+    args = _chain_inputs(dev, B=1, T=2, N=8, D=256)
+    before = kernels.LAUNCHES["denoise_chain"]
+    with pytest.raises(RuntimeError, match="denoise_chain"):
+        denoise.fused_denoise_chain(*args)
+    assert kernels.LAUNCHES["denoise_chain"] == before
 
 
 def test_denoise_chain_tables_kernel_matches_plain(dev):
@@ -341,6 +361,21 @@ def test_chamfer_nn_ties_go_to_the_lowest_index(dev):
     y = torch.tensor([[[1.0, 0, 0], [0, 1.0, 0], [-1.0, 0, 0]]], device=dev)
     _, arg = chamfer.directed_nn_kernel(torch.zeros(1, 4, 3, device=dev), y)
     assert arg.tolist() == [[0, 0, 0, 0]]
+
+
+def test_topk_accuracy_breaks_ties_by_the_lowest_index_on_the_card(dev):
+    from lsdm_tpu_torch.ops.metrics import topk_accuracy
+
+    scores = torch.zeros(64, 13, device=dev)
+    scores[:, 5] = 1.0  # one class ahead, the other twelve tied
+    labels = torch.arange(64, device=dev) % 13
+    top1, top3 = topk_accuracy(scores, labels, (1, 3))
+    # top-3 is {5, 0, 1}: rows whose label is 0, 1 or 5
+    assert float(top1) == pytest.approx(100.0 * 5 / 64)
+    assert float(top3) == pytest.approx(100.0 * 15 / 64)
+    ties = torch.full((64, 1000), 0.5, device=dev)  # all tied: top-3 is {0, 1, 2}
+    assert float(topk_accuracy(ties, labels, (3,))[0]) == pytest.approx(
+        100.0 * 15 / 64)
 
 
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):

@@ -205,10 +205,19 @@ def test_train_cli_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--mesh", "4x2"], ["--steps_per_dispatch", "4"],
                                   ["--sa_hoist"], ["--gather_bwd", "matmul"],
-                                  ["--dtype", "bfloat16"]])
+                                  ["--dtype", "bfloat16"], ["--bn_dtype", "bfloat16"],
+                                  ["--bpe_path", "bpe.txt.gz"], ["--platform", "cpu"]])
 def test_train_cli_refuses_what_is_not_ported(flag):
     with pytest.raises(SystemExit, match="not ported"):
         train_sdm.main(["--train_data_dir", "unused", "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("flag", [["--fps_batched"], ["--bn_dtype", "float32"]])
+def test_train_cli_takes_jax_flags_it_runs_as_is(tmp_path, flag):
+    # past the flag checks, the run stops at the missing split
+    with pytest.raises(FileNotFoundError):
+        train_sdm.main(["--train_data_dir", str(tmp_path / "none"), "--device", "cpu",
+                        "--save_dir", str(tmp_path / "out"), *flag])
 
 
 def test_train_cli_refuses_without_a_gpu():
