@@ -16,7 +16,9 @@ Run from the repository root:  python3 chip_smoke.py
    TABLE_ATOL.  Prints both times and each kernel's bound: the least time
    the card could take for the call's work, bytes over HBM_BYTES_PER_S or
    float32 operations over FP32_OPS_PER_S; K6's time also split into its
-   two passes, each beside its bound.
+   two passes, each beside its bound, pass 1 (``denoise_tables.cu``) also
+   as TFLOP/s, as a share of the FP32 peak, and beside its cuBLAS
+   yardstick (its four products as ``torch.baddbmm`` calls, TF32 off).
 4. The "pallas" path: samples one object at full width (``sdm_proxd()``:
    9 objects x 1024 points, T=1000 DDPM, batch 1, seeded random weights
    and inputs) with ``ball_impl="pallas"`` through the kernels (K1, K2,
@@ -546,20 +548,28 @@ def kernel_checks(dev, model, T: int = T_STEPS) -> dict:
         pass1 = _chain_pass1_ms(args[3], p, dev)
         ops1 = 2 * B * T * (2 * D * up + N * table)
         ops2 = 2 * B * T * N * tail
+        pass1_rec = {"source": "lsdm_tpu_torch/csrc/denoise_tables.cu",
+                     "ms": pass1, "bound_ms": ops1 / FP32_OPS_PER_S * 1e3,
+                     "library_ms": _chain_pass1_library_ms(args[3], p, dev),
+                     "tflop_s": ops1 / pass1 * 1e-9,
+                     "fp32_share": ops1 / pass1 * 1e3 / FP32_OPS_PER_S}
         line = (f"K6 denoise chain B={B} N={N} D={D} T={T} clip={clip}: max error "
                 f"{err:.3g} (tolerance {CHAIN_ATOL}); pass 1 {pass1:.3f} ms "
-                f"(bound {ops1 / FP32_OPS_PER_S * 1e3:.3f}), pass 2 "
-                f"{ms - pass1:.3f} ms (bound {ops2 / FP32_OPS_PER_S * 1e3:.3f})")
+                f"(bound {pass1_rec['bound_ms']:.3f}; {pass1_rec['tflop_s']:.2f} "
+                f"TFLOP/s, {pass1_rec['fp32_share']:.1%} of the FP32 peak; "
+                f"cuBLAS baddbmm floor, no GELU or u0: "
+                f"{pass1_rec['library_ms']:.3f}), pass 2 {ms - pass1:.3f} ms "
+                f"(bound {ops2 / FP32_OPS_PER_S * 1e3:.3f})")
         if B != 1:
             print(f"{line}; kernel {ms:.4f} ms")
             rec["denoise_chain"]["max_abs_err"] = max(
                 rec["denoise_chain"]["max_abs_err"], err)
+            rec["denoise_chain"][f"pass1_b{B}"] = pass1_rec
             continue
         _record(rec, "denoise_chain", err, ms,
                 _time_ms(lambda: denoise.denoise_chain_plain(*args), 2, dev), line,
                 _nbytes(*args[:5], *p, *got), ops1 + ops2)
-        rec["denoise_chain"].update(pass1_bound_ms=ops1 / FP32_OPS_PER_S * 1e3,
-                                    pass2_ms=ms - pass1)
+        rec["denoise_chain"].update(pass1_b1=pass1_rec, pass2_ms=ms - pass1)
         e2_path = args[3]
     e2 = e2_path[:, -TABLE_STEPS:].contiguous()
     got = denoise.denoise_chain_tables(e2, p)
@@ -586,6 +596,47 @@ def _chain_pass1_ms(e2, p, dev) -> float:
         if steps and count:
             rows = e2[:, :steps].contiguous()
             ms += count * _time_ms(lambda: denoise.denoise_chain_tables(rows, p), 3, dev)
+    return ms
+
+
+def _chain_pass1_library_ms(e2, p, dev) -> float:
+    """Device ms of pass 1's library yardstick over the step rows e2 (B, T,
+    2D), chunked as ``_chain_pass1_ms`` chunks them: for each chunk of z =
+    B x steps (scene, step) pairs, its four products with their biases as
+    ``torch.baddbmm`` calls (cuBLAS in full float32, TF32 off) on tables of
+    the kernel's shapes.  Without the GELUs and u0, it is a floor for the
+    kernel rather than the same function; timed here only, never called by
+    the port."""
+    import torch
+
+    from lsdm_tpu_torch.ops import denoise
+
+    B, T, D2 = e2.shape
+    N, U0, U2, D = (p.w_up4.shape[0], p.w_up0.shape[0], p.w_up2.shape[0],
+                    p.wc_t.shape[1])
+    tc = denoise.chain_chunk_steps(B, T, p)
+    g = torch.Generator(device=dev).manual_seed(0)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ms = 0.0
+    try:
+        for steps, count in ((tc, T // tc), (T % tc, 1)):
+            if not (steps and count):
+                continue
+            z = B * steps
+            u0, u2, u4, emb = (torch.randn(z, r, c, generator=g, device=dev)
+                               for r, c in ((U0, D2), (U2, D2), (N, D2), (N, D)))
+            w_up2, w_up4, wc, wx = (w.expand(z, -1, -1) for w in (
+                p.w_up2, p.w_up4, p.wc_t, p.wx0_t[D:]))
+
+            def products():
+                torch.baddbmm(p.b_up2, w_up2, u0)
+                torch.baddbmm(p.b_up4, w_up4, u2)
+                torch.baddbmm(p.bc, u4, wc)
+                torch.baddbmm(p.bx0, emb, wx)
+            ms += count * _time_ms(products, 3, dev)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
     return ms
 
 

@@ -18,14 +18,16 @@
 // T-step recurrence alone.  So the kernel is two hand-written passes per
 // chunk of steps:
 //
-//   pass 1: the t-only part of every step of the chunk, as batched GEMMs
-//     over (scene, step) with bias and exact-erf GELU fused into the
-//     epilogue (128x128x16 tiles in shared memory, 8x8 outputs a thread):
-//     the embedding, and the embedding's half of the first
-//     combination_extraction layer, g = emb @ wx0_t[D:] + bx0 (the layer
-//     reads concat(pose features, emb), so its product splits in two).
-//     About 0.42 GFLOP a step at the flagship width: bound by FP32 FMA
-//     throughput, and it fills the card.
+//   pass 1 (denoise_tables.cu): the t-only part of every step of the
+//     chunk, as four batched FP32 GEMMs over (scene, step) with bias and
+//     exact-erf GELU fused into the epilogue: the embedding, and the
+//     embedding's half of the first combination_extraction layer, g = emb
+//     @ wx0_t[D:] + bx0 (the layer reads concat(pose features, emb), so
+//     its product splits in two).  About 0.42 GFLOP a step at the
+//     flagship width: bound by FP32 FMA throughput.  A 3-stage cp.async
+//     ring of 32-deep k tiles, 8 x 8 outputs a thread with register
+//     double-buffering, tile shapes chosen per product, u0 computed in
+//     the first product's operand producer; the source note has the rest.
 //   pass 2: the x-dependent tail, six layers of 65,920 weights (264 KB at
 //     D = 128) and the update, for each point row through the chunk's
 //     steps.  Rows never exchange data, but every row needs all the
@@ -55,8 +57,8 @@
 //     and of the noise arrive by cp.async during its first layers.
 //
 // The sample is carried in the output buffer from chunk to chunk.  The
-// chunk length comes from the caller, which sizes the scratch (the tables
-// of one chunk).  Every product is a hand-written FMA loop: no cuBLAS.
+// chunk length comes from the caller, which sizes the scratch (pass 1's
+// transposed weights and the tables of one chunk).  Every product is a hand-written FMA loop: no cuBLAS.
 //
 // lsdm_denoise_chain_tables runs pass 1 alone, so a check can hold its
 // tables against a plain computation: the chain's final sample barely
@@ -68,167 +70,12 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "denoise_rows.cuh"  // gelu, sigmoid
+#include "denoise_rows.cuh"    // gelu, sigmoid
+#include "denoise_tables.cuh"  // pass 1
 
 namespace {
 
 using namespace denoise;
-
-enum { kNoBias = 0, kBiasRow = 1, kBiasCol = 2 };
-
-// ---------------------------------------------------------------- pass 1
-// u0[z][i][j] = gelu(w[i] * e2[b][t0 + tt][j] + bias[i]), z = b * tc + tt
-__global__ void upsample0_kernel(const float* __restrict__ e2, int t_total,
-                                 int t0, int tc, int d2,
-                                 const float* __restrict__ w,
-                                 const float* __restrict__ bias, int rows,
-                                 int nb, float* __restrict__ u0) {
-  const size_t per = (size_t)rows * d2;
-  const size_t total = (size_t)nb * tc * per;
-  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += (size_t)gridDim.x * blockDim.x) {
-    const size_t z = e / per;
-    const int rem = (int)(e - z * per);
-    const int i = rem / d2, j = rem - i * d2;
-    const int b = (int)(z / tc), tt = (int)(z - (size_t)b * tc);
-    const float v = e2[((size_t)b * t_total + t0 + tt) * d2 + j];
-    u0[e] = gelu(w[i] * v + bias[i]);
-  }
-}
-
-constexpr int kGemmBM = 128, kGemmBN = 128, kGemmBK = 16, kGemmThreads = 256;
-
-// C[z] (M x N) = act(A[z] (M x K) @ B[z] (K x N) + bias), row-major, with
-// batch strides sA/sB/sC (0 = shared by the batch).  Thread (ty, tx) of
-// 16 x 16 owns rows {ty*4 + i, 64 + ty*4 + i} and columns {tx*4 + j,
-// 64 + tx*4 + j}, i, j < 4, so its shared-memory reads are float4s.
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_bias_act_kernel(const float* __restrict__ A, int lda, long long sA,
-                     const float* __restrict__ B, int ldb, long long sB,
-                     float* __restrict__ C, int ldc, long long sC,
-                     const float* __restrict__ bias, int bias_mode, int gelu_act,
-                     int M, int N, int K) {
-  __shared__ __align__(16) float As[kGemmBK][kGemmBM + 4];  // A tile, k-major
-  __shared__ __align__(16) float Bs[kGemmBK][kGemmBN];
-  const long long z = blockIdx.z;
-  A += z * sA;
-  B += z * sB;
-  C += z * sC;
-  const int m0 = blockIdx.y * kGemmBM, n0 = blockIdx.x * kGemmBN;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += kGemmBK) {
-#pragma unroll
-    for (int l = 0; l < (kGemmBM * kGemmBK) / kGemmThreads; ++l) {
-      const int e = tid + l * kGemmThreads;
-      const int r = e / kGemmBK, c = e % kGemmBK;
-      const int gm = m0 + r, gk = k0 + c;
-      As[c][r] = (gm < M && gk < K) ? A[(size_t)gm * lda + gk] : 0.0f;
-    }
-#pragma unroll
-    for (int l = 0; l < (kGemmBK * kGemmBN) / kGemmThreads; ++l) {
-      const int e = tid + l * kGemmThreads;
-      const int r = e / kGemmBN, c = e % kGemmBN;
-      const int gk = k0 + r, gn = n0 + c;
-      Bs[r][c] = (gk < K && gn < N) ? B[(size_t)gk * ldb + gn] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kGemmBK; ++kk) {
-      const float4 a_lo = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 a_hi = *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
-      const float4 b_lo = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float4 b_hi = *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
-      const float a[8] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w,
-                          a_hi.x, a_hi.y, a_hi.z, a_hi.w};
-      const float b[8] = {b_lo.x, b_lo.y, b_lo.z, b_lo.w,
-                          b_hi.x, b_hi.y, b_hi.z, b_hi.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int gm = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int gn = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-      if (gn >= N) continue;
-      float v = acc[i][j];
-      if (bias_mode == kBiasRow) v += bias[gm];
-      else if (bias_mode == kBiasCol) v += bias[gn];
-      C[(size_t)gm * ldc + gn] = gelu_act ? gelu(v) : v;
-    }
-  }
-}
-
-cudaError_t gemm(cudaStream_t st, const float* A, int lda, long long sA,
-                 const float* B, int ldb, long long sB, float* C, int ldc,
-                 long long sC, const float* bias, int bias_mode, int gelu_act,
-                 int M, int N, int K, int batch) {
-  const dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM,
-                  batch);
-  gemm_bias_act_kernel<<<grid, kGemmThreads, 0, st>>>(
-      A, lda, sA, B, ldb, sB, C, ldc, sC, bias, bias_mode, gelu_act, M, N, K);
-  return cudaGetLastError();
-}
-
-// Dimensions of a call, from the caller's dims array (see the entry
-// points below).
-struct ChainDims {
-  int B, T, N, D2, U0, U2, D, DH, D15, DH2, TC;
-};
-
-// Pass 1 for steps [t0, t0 + tc) of every scene: fills the chunk's tables
-// u0 (B*tc, U0, 2D), u2 (B*tc, U2, 2D), u4 (B*tc, N, 2D), emb (B*tc, N, D)
-// and g (B*tc, N, D15), one after the other from scratch.  Returns g.
-cudaError_t chain_tables(cudaStream_t st, const ChainDims& d, const float* e2,
-                         const float* const* w, float* scratch, int t0,
-                         int tc, float** g_out) {
-  const int nz = d.B * tc;
-  float* u0 = scratch;
-  float* u2 = u0 + (size_t)nz * d.U0 * d.D2;
-  float* u4 = u2 + (size_t)nz * d.U2 * d.D2;
-  float* emb = u4 + (size_t)nz * d.N * d.D2;
-  float* g = emb + (size_t)nz * d.N * d.D;
-  *g_out = g;
-  const float *w_up0 = w[0], *b_up0 = w[1], *w_up2 = w[2], *b_up2 = w[3],
-              *w_up4 = w[4], *b_up4 = w[5], *wc = w[6], *bc = w[7],
-              *wx0 = w[12], *bx0 = w[13];
-  cudaError_t err;
-  const size_t n_u0 = (size_t)nz * d.U0 * d.D2;
-  const int blocks0 = (int)((n_u0 + 255) / 256 < 8192 ? (n_u0 + 255) / 256 : 8192);
-  upsample0_kernel<<<blocks0, 256, 0, st>>>(e2, d.T, t0, tc, d.D2, w_up0,
-                                            b_up0, d.U0, d.B, u0);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = gemm(st, w_up2, d.U0, 0, u0, d.D2, (long long)d.U0 * d.D2, u2,
-                  d.D2, (long long)d.U2 * d.D2, b_up2, kBiasRow, 1, d.U2,
-                  d.D2, d.U0, nz)))
-    return err;
-  if ((err = gemm(st, w_up4, d.U2, 0, u2, d.D2, (long long)d.U2 * d.D2, u4,
-                  d.D2, (long long)d.N * d.D2, b_up4, kBiasRow, 1, d.N, d.D2,
-                  d.U2, nz)))
-    return err;
-  if ((err = gemm(st, u4, d.D2, (long long)d.N * d.D2, wc, d.D, 0, emb, d.D,
-                  (long long)d.N * d.D, bc, kBiasCol, 1, d.N, d.D, d.D2, nz)))
-    return err;
-  // g = emb @ wx0_t[D:2D] + bx0, no activation (pass 2 adds the rest)
-  return gemm(st, emb, d.D, (long long)d.N * d.D, wx0 + (size_t)d.D * d.D15,
-              d.D15, 0, g, d.D15, (long long)d.N * d.D15, bx0, kBiasCol, 0,
-              d.N, d.D15, d.D, nz);
-}
 
 // ---------------------------------------------------------------- pass 2
 constexpr int kPairThreads = 384;
@@ -604,13 +451,15 @@ extern "C" {
 
 // x_init, cond_pcd (B, N, 3); noise (B, T, N, 3); e2 (B, T, 2D); coef
 // (T, 3); w: the 20 DenoiseStepParams pointers in field order; final,
-// last_in (B, N, 3) outputs; scratch: B * tc * (U0*2D + U2*2D + N*2D + N*D
-// + N*D15) floats; dims = {B, T, N, 2D, U0, U2, D, DH, D15, DH2, tc} with
-// DH, D15 the widths of input_process's layers 0 and 2 and DH2 that of
-// output_process's layer 0.  Returns cudaErrorInvalidValue for shapes the
-// kernel does not take: 2D != 2 * D, or a pass-2 block whose weights and
-// buffers exceed the shared memory a block may opt into (232,448 bytes on
-// an H100: D up to about 160).
+// last_in (B, N, 3) outputs; scratch: U0*U2 + U2*ldn + B * tc * (U2*2D +
+// 2D*ldn + D*ldn + N*D15) floats, ldn = N rounded up to 4
+// (denoise_tables.cuh); dims = {B, T, N, 2D, U0, U2, D, DH, D15, DH2, tc}
+// with DH, D15 the widths of input_process's layers 0 and 2 and DH2 that
+// of output_process's layer 0.  Returns cudaErrorInvalidValue for shapes
+// the kernel does not take: 2D != 2 * D, shapes pass 1 does not take
+// (tables_check), or a pass-2 block whose weights and buffers exceed the
+// shared memory a block may opt into (232,448 bytes on an H100: D up to
+// about 160).
 int lsdm_denoise_chain(const float* x_init, const float* noise,
                        const float* cpcd, const float* e2, const float* coef,
                        const float* const* w, float* final_x, float* last_in,
@@ -622,6 +471,7 @@ int lsdm_denoise_chain(const float* x_init, const float* noise,
     return (int)cudaErrorInvalidValue;
   int dev, limit, sms;
   cudaError_t err;
+  if ((err = tables_check(d, w, scratch))) return (int)err;
   if ((err = cudaGetDevice(&dev)) ||
       (err = cudaDeviceGetAttribute(
            &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) ||
@@ -639,6 +489,7 @@ int lsdm_denoise_chain(const float* x_init, const float* noise,
   const TailWeights tail{w[8],  w[9],  w[10], w[11], w[12], w[13],
                          w[14], w[15], w[16], w[17], w[18], w[19]};
   const int pairs = (d.N + 2 * rows - 1) / (2 * rows);  // tile pairs a scene
+  if ((err = transpose_weights(st, d, w, scratch))) return (int)err;
   for (int t0 = 0; t0 < d.T; t0 += d.TC) {
     const int tc = d.TC < d.T - t0 ? d.TC : d.T - t0;
     float* g;
@@ -649,19 +500,6 @@ int lsdm_denoise_chain(const float* x_init, const float* noise,
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   return 0;
-}
-
-// Pass 1 alone over all T steps (one chunk): afterwards scratch, of
-// B * T * (U0*2D + U2*2D + N*2D + N*D + N*D15) floats, holds the tables
-// u0, u2, u4, emb, g of every (scene, step) in that order.  Arguments as
-// for lsdm_denoise_chain; dims[10] is ignored.
-int lsdm_denoise_chain_tables(const float* e2, const float* const* w,
-                              float* scratch, const int* dims, void* stream) {
-  const ChainDims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5],
-                    dims[6], dims[7], dims[8], dims[9], dims[1]};
-  if (d.B <= 0 || d.T <= 0 || d.D2 != 2 * d.D) return (int)cudaErrorInvalidValue;
-  float* g;
-  return (int)chain_tables((cudaStream_t)stream, d, e2, w, scratch, 0, d.T, &g);
 }
 
 }  // extern "C"

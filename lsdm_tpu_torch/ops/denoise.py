@@ -15,8 +15,9 @@ outputs.  Per step t (reference graph ``model/sdm.py:141-142,164-167,
 One coefficient table serves DDPM and DDIM (``models/sampling.py``).  The
 CUDA version (``csrc/denoise_chain.cu``) splits the step at the bracket:
 the t-only embedding (and its half of the first combination_extraction
-layer) does not depend on the sample, so a first pass builds it for a
-chunk of steps at once as batched GEMMs over the whole card, and a second
+layer) does not depend on the sample, so a first pass
+(``csrc/denoise_tables.cu``) builds it for a chunk of steps at once as
+pipelined batched FP32 GEMMs over the whole card, and a second
 pass carries pairs of tiles of point rows through the chunk's steps on
 clusters of two blocks, which hold the tail's weights in their shared
 memory between them (half the layers each) for the whole chunk.
@@ -258,8 +259,8 @@ def fused_denoise_chain(
         "e2_tab": (e2_tab, (B, T, p.wc_t.shape[0]))})
     tc = chain_chunk_steps(B, T, p)
     dev = x_init.device
-    scratch = torch.empty(B * tc * _per_step(dims), dtype=torch.float32,
-                          device=dev)
+    scratch = torch.empty(_weights_floats(dims) + B * tc * _per_step(dims),
+                          dtype=torch.float32, device=dev)
     final = torch.empty_like(x_init)
     last_in = torch.empty_like(x_init)
     lib = kernels.load()
@@ -308,10 +309,9 @@ def denoise_chain_tables(e2_tab: torch.Tensor, p: DenoiseStepParams
     if B * T > 65535:
         raise ValueError(f"B * T = {B * T} tables exceed one grid (65535)")
     dims = (B, T) + _check(p, N, {"e2_tab": (e2_tab, (B, T, p.wc_t.shape[0]))})
-    U0, U2, D, D15 = dims[4], dims[5], dims[6], dims[8]
     dev = e2_tab.device
-    scratch = torch.empty(B * T * _per_step(dims), dtype=torch.float32,
-                          device=dev)
+    scratch = torch.empty(_weights_floats(dims) + B * T * _per_step(dims),
+                          dtype=torch.float32, device=dev)
     lib = kernels.load()
     with torch.cuda.device(dev):
         rc = lib.lsdm_denoise_chain_tables(
@@ -319,18 +319,40 @@ def denoise_chain_tables(e2_tab: torch.Tensor, p: DenoiseStepParams
             (ctypes.c_int * 11)(*dims[:10], T), kernels.stream(dev))
     kernels.check(rc, "denoise_chain")
     kernels.LAUNCHES["denoise_chain"] += 1
-    # scratch: u0, u2, u4, emb, g of every (scene, step), one after another
-    o_emb = B * T * (U0 * 2 * D + U2 * 2 * D + N * 2 * D)
-    o_g = o_emb + B * T * N * D
-    return (scratch[o_emb:o_g].view(B, T, N, D),
-            scratch[o_g:o_g + B * T * N * D15].view(B, T, N, D15))
+    return _table_views(scratch, dims)
+
+
+def _table_views(scratch: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
+    """emb (B, T, N, D) and g (B, T, N, D15) in the scratch of
+    ``lsdm_denoise_chain_tables`` (``csrc/denoise_tables.cuh``): the
+    transposed weights, then u2, u4^T, emb^T and g of every (scene, step).
+    emb is a transposed view of emb^T, whose rows are ``_ldn(N)`` long."""
+    B, T, N, D2, _, U2, D, _, D15, _ = dims[:10]
+    ldn, z = _ldn(N), B * T
+    o_emb = _weights_floats(dims) + z * (U2 * D2 + D2 * ldn)
+    o_g = o_emb + z * D * ldn
+    emb = scratch[o_emb:o_g].view(B, T, D, ldn)[..., :N].transpose(-1, -2)
+    return emb, scratch[o_g:o_g + z * N * D15].view(B, T, N, D15)
+
+
+def _ldn(N: int) -> int:
+    """Row length of pass 1's tables with a point column: N rounded up to
+    4, so that every row starts on 16 bytes."""
+    return (N + 3) // 4 * 4
 
 
 def _per_step(dims) -> int:
-    """Floats of the first pass's tables per (scene, step): u0, u2, u4,
-    emb, g (csrc/denoise_chain.cu:chain_tables)."""
-    _, _, N, D2, U0, U2, D, _, D15, _ = dims[:10]
-    return U0 * D2 + U2 * D2 + N * D2 + N * D + N * D15
+    """Floats of the first pass's tables per (scene, step): u2, u4^T,
+    emb^T, g (csrc/denoise_tables.cuh)."""
+    _, _, N, D2, _, U2, D, _, D15, _ = dims[:10]
+    return U2 * D2 + D2 * _ldn(N) + D * _ldn(N) + N * D15
+
+
+def _weights_floats(dims) -> int:
+    """Floats of the weights the first pass transposes once a call:
+    w_up2^T (U0, U2) and w_up4^T (U2, ldn), ahead of the tables."""
+    _, _, N, _, U0, U2 = dims[:6]
+    return U0 * U2 + U2 * _ldn(N)
 
 
 def _pointers(p: DenoiseStepParams):

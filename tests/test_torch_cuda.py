@@ -135,15 +135,21 @@ def test_denoise_chain_refuses_weights_beyond_shared_memory(dev):
     assert kernels.LAUNCHES["denoise_chain"] == before
 
 
-def test_denoise_chain_tables_kernel_matches_plain(dev):
-    *_, e2, _, p = _chain_inputs(dev, B=2, T=5, N=37, D=16)
+@pytest.mark.parametrize("b,t,n,d", [
+    (1, 8, 1024, 128),  # the flagship widths: 128 x 128 tiles, g on 96 columns
+    (2, 5, 37, 16),     # ragged rows, columns and k (g's K = 16 < one k tile)
+    (1, 6, 1000, 128),  # ragged points: partial float4s and masked columns
+    (1, 4, 1024, 96),   # g 144 wide: a half-masked 96-column tile; u2 on them
+])
+def test_denoise_chain_tables_kernel_matches_plain(dev, b, t, n, d):
+    *_, e2, _, p = _chain_inputs(dev, B=b, T=t, N=n, D=d)
     got = denoise.denoise_chain_tables(e2, p)
     want = denoise.denoise_chain_tables_plain(e2, p)
     torch.cuda.synchronize()
-    for a, b in zip(got, want):
-        assert a.shape == b.shape
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
         # float32 sums in another order, no recurrence
-        torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
+        torch.testing.assert_close(a, w, atol=1e-6, rtol=0)
 
 
 def _step_args(dev, B, N, D, seed=0, T=3):

@@ -139,6 +139,36 @@ def test_denoise_chain_plain_matches_pallas(clip):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5, rtol=0)
 
 
+@pytest.mark.parametrize("B,T,N,D", [(1, 2, 1024, 128), (2, 5, 37, 16)])
+def test_chain_tables_scratch_layout(B, T, N, D):
+    """K6's first pass keeps its scratch as csrc/denoise_tables.cuh lays it
+    out: w_up2^T and w_up4^T, then u2, u4^T, emb^T (rows of N rounded up
+    to 4) and g of every (scene, step); emb is a transposed view."""
+    U0, U2, D15 = 128, 512, D * 3 // 2
+    dims = (B, T, N, 2 * D, U0, U2, D, D // 2, D15, D // 2)
+    ldn = -(-N // 4) * 4
+    assert denoise._per_step(dims) == U2 * 2 * D + 3 * D * ldn + N * D15
+    assert denoise._weights_floats(dims) == U0 * U2 + U2 * ldn
+    size = denoise._weights_floats(dims) + B * T * denoise._per_step(dims)
+    scratch = torch.arange(size, dtype=torch.float64)
+    emb, g = denoise._table_views(scratch, dims)
+    assert emb.shape == (B, T, N, D) and g.shape == (B, T, N, D15)
+    o_emb = denoise._weights_floats(dims) + B * T * (U2 * 2 * D + 2 * D * ldn)
+    for b, t, n, d in ((0, 0, 0, 0), (B - 1, T - 1, N - 1, D - 1), (B - 1, 0, 2, 1)):
+        assert emb[b, t, n, d] == o_emb + ((b * T + t) * D + d) * ldn + n
+        assert g[b, t, n, d] == (o_emb + B * T * D * ldn
+                                 + ((b * T + t) * N + n) * D15 + d)
+    assert g[-1, -1, -1, -1] == scratch[-1]
+
+
+def test_chain_chunks_at_the_flagship_width():
+    # a chunk's tables fill at most CHAIN_SCRATCH_FLOATS: 720,896 floats a
+    # (scene, step) at N = 1024, D = 128
+    _, params = _chain_inputs(N=1024, D=128)
+    p = DenoiseStepParams(*map(torch.from_numpy, params))
+    assert [denoise.chain_chunk_steps(b, 1000, p) for b in (1, 4, 8)] == [186, 46, 23]
+
+
 def test_kernel_wrappers_on_cpu_run_the_plain_versions_and_launch_nothing():
     kernels.reset_launches()
     xyz = torch.from_numpy(_cloud(1, 2, 32, 3))
