@@ -19,6 +19,12 @@ Run from the repository root:  python3 chip_smoke.py
    two passes, each beside its bound, pass 1 (``denoise_tables.cu``) also
    as TFLOP/s, as a share of the FP32 peak, and beside its cuBLAS
    yardstick (its four products as ``torch.baddbmm`` calls, TF32 off).
+   K7 and K8 are held and timed per stage at b1 (9 clouds) and b8 (72
+   clouds), queued behind a sleep on the card: the kernel alone (K7
+   without its wrapper's layer-1 matmul) and the wrapper, each stage with
+   its launch plan (``ops/rowmlp.py``), bound, TFLOP/s and FP32 share on
+   its layers; the ``kernels`` line carries them as ``stages_b1`` /
+   ``stages_b8`` and their sums.
 4. The "pallas" path: samples one object at full width (``sdm_proxd()``:
    9 objects x 1024 points, T=1000 DDPM, batch 1, seeded random weights
    and inputs) with ``ball_impl="pallas"`` through the kernels (K1, K2,
@@ -157,6 +163,7 @@ TRAIN_STEPS = 3  # timed steps of each train configuration
 # 2.4e-07 at b1 and b8, clip off and on.
 STEP_ATOL = 1e-6
 STEP_REPS = 200  # launches timed per K9 case
+ENCODE_REPS = 50  # launches timed per K7 / K8 stage
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit): HBM
 # bytes per second and float32 operations per second outside the tensor
 # cores.  A kernel's bound counts each input byte read once and each output
@@ -354,20 +361,93 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def _ball_scan(radius, nsample, xyz, new_xyz) -> int:
-    """Distances a ball query needs on this data: per center, the points up
-    to its nsample-th in-radius one, or all N where the ball holds fewer."""
+def encode_stage_checks(dev, model, levels, g, rec=None) -> list:
+    """K7 at sa1-sa4 and K8 at fp4-fp1 (fp1 with the head and conv2) at
+    the stages' widths on these point levels (``profile_encode``): each
+    against its plain version (STAGE_ATOL), then timed queued behind a
+    sleep, so the host's pace does not count: the kernel alone (K7's launch
+    after its layer-1 matmul; K8's wrapper, which runs nothing else on the
+    card) and the wrapper (K7's with its matmul ``Z1 = base @ W1' + b1'``).
+    With ``rec`` (batch 1) each stage is also recorded with its plain
+    version's time and sa2 is checked with a centre whose ball is empty.
+    Returns a record a stage: its launch plan, times, bound, TFLOP/s and
+    FP32 share on its layers (2..L of an SA stage, all of an FP stage)."""
     import torch
 
-    from lsdm_tpu_torch.ops.ballquery import _radius2, square_distance
+    from lsdm_tpu_torch.ops import ballquery, fp_fused, rowmlp, sa_fused
+    from lsdm_tpu_torch.profile_encode import stage_cases
 
-    inside = square_distance(new_xyz, xyz) <= _radius2(radius)
-    full = inside.sum(-1) >= nsample
-    kth = (inside.cumsum(-1) >= nsample).int().argmax(-1)
-    return int(torch.where(full, kth + 1, xyz.shape[1]).sum())
-
-
-DIST_OPS = 10  # a squared distance (6 multiplies, 4 adds) and its compare
+    stages = []
+    for case in stage_cases(model.pcd_backbone, levels, g):
+        args = case["args"]
+        if case["kind"] == "sa":
+            r, ns, xyz, q, base, folded = args
+            name = "sa_fused"
+            wrapper = lambda: sa_fused.sa_stage_fused_kernel(*args)
+            plain = lambda: sa_fused.sa_stage_fused_plain(*args)
+            w1, b1 = folded[0]
+            z1, w1x = torch.matmul(base, w1) + b1, w1[:3].contiguous()
+            widths = tuple(w.shape[1] for w, _ in folded)
+            alone = lambda: sa_fused.sa_stage_launch(r, ns, xyz, q, z1, w1x,
+                                                     folded, widths)
+            if dev.type != "cuda":  # a rehearsal: the launch needs the card
+                alone = wrapper
+            plan = rowmlp.plan_sa(xyz.shape[0], xyz.shape[1], q.shape[1], ns,
+                                  widths)
+        else:
+            xyz1, xyz2, p1, p2, folded, acts = args
+            name = "fp_fused"
+            wrapper = alone = lambda: fp_fused.fp_stage_fused_kernel(*args)
+            plain = lambda: fp_fused.fp_stage_fused_plain(*args)
+            plan = rowmlp.plan_fp(xyz1.shape[0], xyz1.shape[1], xyz2.shape[1],
+                                  (folded[0][0].shape[0],
+                                   *(w.shape[1] for w, _ in folded)))
+        got, want = wrapper(), plain()
+        err = (got - want).abs().max().item()
+        clouds = got.shape[0]
+        line = (f"{'K7 fused SA' if case['kind'] == 'sa' else 'K8 fused FP'} "
+                f"{case['name']} {clouds} clouds {case['desc']}: max error "
+                f"{err:.3g} (tolerance {STAGE_ATOL})")
+        if not (torch.isfinite(got).all() and err <= STAGE_ATOL):
+            raise AssertionError(line)
+        if not torch.equal(alone(), got):
+            raise AssertionError(f"{line}: the launch alone differs from the wrapper")
+        kernel_ms = _time_queued_ms(alone, ENCODE_REPS, dev)[0]
+        wrapper_ms = (kernel_ms if alone is wrapper
+                      else _time_queued_ms(wrapper, ENCODE_REPS, dev)[0])
+        bound = max(case["nbytes"] / HBM_BYTES_PER_S, case["ops"] / FP32_OPS_PER_S) * 1e3
+        tflops = case["layer_flops"] / kernel_ms / 1e9
+        st = {"kernel": name, "stage": case["name"], "clouds": clouds,
+              "blocks": plan.blocks, "cluster": plan.cluster, "rows": plan.rows,
+              "smem": plan.smem, "kernel_ms": kernel_ms, "wrapper_ms": wrapper_ms,
+              "bound_ms": bound, "tflops": tflops,
+              "fp32_share": tflops * 1e12 / FP32_OPS_PER_S}
+        stages.append(st)
+        detail = (f"{plan.blocks} blocks (cluster {plan.cluster}, {plan.rows} "
+                  f"rows, {plan.smem} B), kernel alone {kernel_ms:.4f} ms "
+                  f"queued, {tflops:.2f} TFLOP/s on its layers "
+                  f"({st['fp32_share']:.3f} of FP32)")
+        if rec is None:
+            print(f"{line}; {detail}; wrapper {wrapper_ms:.4f} ms queued, "
+                  f"bound {bound:.4f} ms")
+            continue
+        _record(rec, name, err, wrapper_ms, _time_ms(plain, 5, dev),
+                f"{line}; {detail}; wrapper queued", case["nbytes"], case["ops"])
+        if case["name"] == "sa2":  # a center far from the cloud: an empty ball
+            far = q.clone()
+            far[0, 0] = 50.0
+            got = sa_fused.sa_stage_fused_kernel(r, ns, xyz, far, base, folded)
+            err = (got - sa_fused.sa_stage_fused_plain(r, ns, xyz, far, base, folded)
+                   ).abs().max().item()
+            if not (torch.isfinite(got).all() and err <= STAGE_ATOL):
+                raise AssertionError(f"K7 sa2 with an empty ball: max error {err}")
+            if not (ballquery.query_ball_point_plain(r, ns, xyz, far, empty=0)[0, 0] == 0).all():
+                raise AssertionError("the empty ball did not select point 0")
+            # not a call of the path: its error counts, its time not
+            rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
+            print(f"K7 fused SA sa2, one empty ball: max error {err:.3g} "
+                  f"(tolerance {STAGE_ATOL})")
+    return stages
 
 
 def kernel_checks(dev, model, T: int = T_STEPS) -> dict:
@@ -378,10 +458,10 @@ def kernel_checks(dev, model, T: int = T_STEPS) -> dict:
     import torch
 
     from lsdm_tpu_torch.diffusion.schedule import make_schedule
-    from lsdm_tpu_torch.models.pointnet2 import HEAD_ACTS, fold_mlp
     from lsdm_tpu_torch.models.sampling import chain_coefficients
-    from lsdm_tpu_torch.ops import attn, ballquery, denoise, fp_fused, fps, sa_fused
+    from lsdm_tpu_torch.ops import attn, ballquery, denoise, fps
     from lsdm_tpu_torch.ops.pointcloud import index_points
+    from lsdm_tpu_torch.profile_encode import DIST_OPS, ball_scan, encode_levels
 
     bb = model.pcd_backbone
     stages = (bb.sa1, bb.sa2, bb.sa3, bb.sa4)
@@ -416,7 +496,7 @@ def kernel_checks(dev, model, T: int = T_STEPS) -> dict:
                 _time_ms(lambda: ballquery.query_ball_point_kernel(r, ns, xyz, new_xyz), 20, dev),
                 _time_ms(lambda: ballquery.query_ball_point_plain(r, ns, xyz, new_xyz), 5, dev),
                 f"K1 ball query N={xyz.shape[1]} S={new_xyz.shape[1]} r={r}: equal indices",
-                _nbytes(xyz, new_xyz, got), DIST_OPS * _ball_scan(r, ns, xyz, new_xyz))
+                _nbytes(xyz, new_xyz, got), DIST_OPS * ball_scan(r, ns, xyz, new_xyz))
 
     for xyz1, xyz2 in zip(levels[3::-1], levels[4:0:-1]):  # K2 at fp4..fp1
         k = min(3, xyz2.shape[1])
@@ -434,74 +514,16 @@ def kernel_checks(dev, model, T: int = T_STEPS) -> dict:
                 _nbytes(xyz1, xyz2, gd, gi), (DIST_OPS + 1) * gi.shape[0]
                 * xyz1.shape[1] * xyz2.shape[1])
 
-    # K7 at sa1..sa4 with the model's folded weights: base = [xyz, features]
-    # (sa1's features are the xyz themselves), features of order 1
-    feats = [levels[0]]
-    for st, xyz, new_xyz in zip(stages, levels[:4], levels[1:5]):
-        folded = fold_mlp(st)
-        base = torch.cat([xyz, feats[-1]], -1).contiguous()
-        r, ns = st.radius, min(st.nsample, xyz.shape[1])
-        cases = [(new_xyz, "")]
-        if st is stages[1]:  # a center far from the cloud: an empty ball
-            far = new_xyz.clone()
-            far[0, 0] = 50.0
-            cases.append((far, ", one empty ball"))
-        for q, note in cases:
-            got = sa_fused.sa_stage_fused_kernel(r, ns, xyz, q, base, folded)
-            want = sa_fused.sa_stage_fused_plain(r, ns, xyz, q, base, folded)
-            err = (got - want).abs().max().item()
-            line = (f"K7 fused SA N={xyz.shape[1]} S={q.shape[1]} K={ns} "
-                    f"{tuple(w.shape[1] for w, _ in folded)}{note}: max error "
-                    f"{err:.3g} (tolerance {STAGE_ATOL})")
-            if not (torch.isfinite(got).all() and err <= STAGE_ATOL):
-                raise AssertionError(line)
-            if note:  # not a call of the path: its error counts, its time not
-                if not (ballquery.query_ball_point_plain(r, ns, xyz, q, empty=0)[0, 0] == 0).all():
-                    raise AssertionError("the empty ball did not select point 0")
-                rec["sa_fused"]["max_abs_err"] = max(rec["sa_fused"]["max_abs_err"], err)
-                print(line)
-                continue
-            widths = [base.shape[2]] + [w.shape[1] for w, _ in folded]
-            B_, N_, S_ = xyz.shape[0], xyz.shape[1], q.shape[1]
-            ops = (2 * B_ * N_ * widths[0] * widths[1]  # Z1 at the N points
-                   + 2 * B_ * S_ * 3 * widths[1]        # the center term
-                   + 2 * B_ * S_ * ns * sum(a * b for a, b in zip(widths[1:-1], widths[2:]))
-                   + DIST_OPS * _ball_scan(r, ns, xyz, q))
-            _record(rec, "sa_fused", err,
-                    _time_ms(lambda: sa_fused.sa_stage_fused_kernel(r, ns, xyz, q, base, folded), 20, dev),
-                    _time_ms(lambda: sa_fused.sa_stage_fused_plain(r, ns, xyz, q, base, folded), 5, dev),
-                    line, _nbytes(xyz, q, base, got, *(t for wb in folded for t in wb)), ops)
-        feats.append(torch.randn(9, new_xyz.shape[1], folded[-1][0].shape[1],
-                                 generator=g, device=dev))
-
-    # K8 at fp4..fp1; fp1 carries the head (ReLU) and conv2 (none)
-    for i, fp in zip((3, 2, 1, 0), (bb.fp4, bb.fp3, bb.fp2, bb.fp1)):
-        folded = fold_mlp(fp)
-        acts = ["relu"] * len(folded)
-        p1 = feats[i] if i > 0 else None  # the SA output at the targets
-        if fp is bb.fp1:
-            folded += bb.head_folded()
-            acts += HEAD_ACTS
-        xyz1, xyz2 = levels[i], levels[i + 1]
-        d2 = folded[0][0].shape[0] - (0 if p1 is None else p1.shape[2])
-        p2 = torch.randn(9, xyz2.shape[1], d2, generator=g, device=dev)
-        args = (xyz1, xyz2, p1, p2, folded, acts)
-        got = fp_fused.fp_stage_fused_kernel(*args)
-        want = fp_fused.fp_stage_fused_plain(*args)
-        err = (got - want).abs().max().item()
-        if not (torch.isfinite(got).all() and err <= STAGE_ATOL):
-            raise AssertionError(f"fused FP N={xyz1.shape[1]} S={xyz2.shape[1]}: "
-                                 f"max error {err} > {STAGE_ATOL}")
-        B_, N_, S_ = xyz1.shape[0], xyz1.shape[1], xyz2.shape[1]
-        ops = ((DIST_OPS + 1) * B_ * N_ * S_ + 2 * B_ * N_ * min(3, S_) * d2
-               + 2 * B_ * N_ * sum(w.numel() for w, _ in folded))
-        _record(rec, "fp_fused", err,
-                _time_ms(lambda: fp_fused.fp_stage_fused_kernel(*args), 20, dev),
-                _time_ms(lambda: fp_fused.fp_stage_fused_plain(*args), 5, dev),
-                f"K8 fused FP N={xyz1.shape[1]} S={xyz2.shape[1]} in {folded[0][0].shape[0]} "
-                f"{tuple(w.shape[1] for w, _ in folded)}: max error {err:.3g} "
-                f"(tolerance {STAGE_ATOL})",
-                _nbytes(xyz1, xyz2, p1, p2, got, *(t for wb in folded for t in wb)), ops)
+    # K7 at sa1..sa4 and K8 at fp4..fp1 (fp1 with the head): at b1 on
+    # these levels, then at b8 (72 clouds)
+    stages_b1 = encode_stage_checks(dev, model, levels, g, rec)
+    stages_b8 = encode_stage_checks(dev, model, encode_levels(bb, 72, g, dev), g)
+    for name in ("sa_fused", "fp_fused"):
+        for label, recs in (("b1", stages_b1), ("b8", stages_b8)):
+            mine = [st for st in recs if st["kernel"] == name]
+            rec[name][f"stages_{label}"] = mine
+            rec[name][f"kernel_ms_{label}"] = sum(st["kernel_ms"] for st in mine)
+            rec[name][f"wrapper_ms_{label}"] = sum(st["wrapper_ms"] for st in mine)
 
     # K4 at pcd_attention's shapes: 9 clouds, L = S = N, 12 heads
     H = model.cfg.translation_params
@@ -650,6 +672,7 @@ def train_kernel_checks(dev, model, batch: int = TRAIN_BATCH) -> dict:
 
     from lsdm_tpu_torch.ops import attn, chamfer, fps, sg_fused
     from lsdm_tpu_torch.ops.pointcloud import index_points
+    from lsdm_tpu_torch.profile_encode import DIST_OPS, ball_scan
 
     cfg = model.cfg
     C_, N, H = batch * cfg.max_objs, cfg.pcd_points, cfg.translation_params
@@ -715,7 +738,7 @@ def train_kernel_checks(dev, model, batch: int = TRAIN_BATCH) -> dict:
                     _time_ms(lambda: sg_fused.select_gather_plain(r, ns, xyz, qc, base), 3, dev),
                     line + "equal indices and values",
                     _nbytes(xyz, qc, base, got, gi),
-                    DIST_OPS * _ball_scan(r, ns, xyz, qc) + 3 * gi.numel())
+                    DIST_OPS * ball_scan(r, ns, xyz, qc) + 3 * gi.numel())
         del got, want
         xyz = new_xyz
 
@@ -1132,6 +1155,7 @@ def icp_check(dev, points: int = 1024, tries: int = ICP_TRIES) -> dict:
     from lsdm_tpu_torch.ops import chamfer
     from lsdm_tpu_torch.ops.icp import random_restart_icp
     from lsdm_tpu_torch.ops.rotations import quaternion_to_matrix
+    from lsdm_tpu_torch.profile_encode import DIST_OPS
 
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
     source = torch.rand(points, 3, generator=g, device=dev)

@@ -14,14 +14,18 @@
 // path never exists.
 //
 // What bounds it on an H100: the layers' float32 FMAs (2.1 GFLOP at fp2
-// and 1.2 at fp1 with the head, batch 1).  A block takes `rows` targets:
-// the source cloud staged in shared memory, one warp per target for the
-// 3-NN (each lane keeps the three smallest of its strided share of the
-// sources, then three rounds of a warp-wide (distance, index) minimum
-// merge them, which is the same selection as K2's in-order scan), then
-// the input rows built in shared memory and carried through the layers
-// (rowmlp.cuh); the last layer writes device memory.  `rows` is 32, or 16
-// where the input rows are wide (fp4: 256 + 512 channels).
+// and 1.2 at fp1 with the head, batch 1).  A cluster of plan.cluster
+// blocks takes plan.rows targets of one cloud: each block stages the
+// source cloud in shared memory, runs the 3-NN (one warp per pair of
+// targets, two independent chains on the same loads: each lane keeps the
+// three smallest of its strided share of the sources, then three rounds of
+// a warp-wide (distance, index) minimum merge them, which is the same
+// selection as K2's in-order scan) and builds the input rows
+// channel-major in shared memory, then computes its column slice of every
+// layer with the register-tiled engine of rowmlp.cuh, passing each layer's
+// slice to its peers through DSMEM; the last layer writes device memory.
+// The plan (rows, cluster, tiles, layout) comes from
+// lsdm_tpu_torch/ops/rowmlp.py:plan_fp.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -32,130 +36,186 @@
 
 namespace {
 
-constexpr int kMaxRows = 32;
+using namespace rowmlp;
+
 constexpr float kEps = 1e-8f;
 
-size_t fp_smem(int rows, int ld, int s, int* mcap) {
-  *mcap = (rows + kRowChunk - 1) / kRowChunk * kRowChunk;
-  return sizeof(float) * (2 * (size_t)(*mcap) * ld + 4 * (size_t)s) +
-         (sizeof(float) + sizeof(int)) * 3 * (size_t)rows;
+// A lane's three smallest (distance, index) of the sources it scanned, in
+// ascending index order: strict < keeps the lower index of equal distances.
+struct Top3 {
+  float d0, d1, d2;
+  int i0, i1, i2;
+  __device__ void init(int s) {
+    d0 = d1 = d2 = INFINITY;
+    i0 = i1 = i2 = s;
+  }
+  __device__ void insert(float d, int j) {
+    if (d < d2) {
+      if (d < d1) {
+        d2 = d1; i2 = i1;
+        if (d < d0) {
+          d1 = d0; i1 = i0;
+          d0 = d; i0 = j;
+        } else {
+          d1 = d; i1 = j;
+        }
+      } else {
+        d2 = d; i2 = j;
+      }
+    }
+  }
+};
+
+// k rounds of the warp's smallest (distance, index) head, popped from the
+// lane that holds it (the same selection as K2's in-order scan); lane 0
+// writes target r's inverse-distance weights and indices.
+__device__ void nn_weights(Top3& t, int k, int s, int lane, int r,
+                           float* nn_w, int* nn_i) {
+  float dk[3];
+  int ik[3];
+  for (int kk = 0; kk < k; ++kk) {
+    float md = t.d0;
+    int mi = t.i0;
+    for (int off = 16; off > 0; off >>= 1) {
+      const float od = __shfl_xor_sync(0xffffffffu, md, off);
+      const int oi = __shfl_xor_sync(0xffffffffu, mi, off);
+      if (od < md || (od == md && oi < mi)) {
+        md = od;
+        mi = oi;
+      }
+    }
+    if (t.i0 == mi) {
+      t.d0 = t.d1; t.i0 = t.i1;
+      t.d1 = t.d2; t.i1 = t.i2;
+      t.d2 = INFINITY; t.i2 = s;
+    }
+    dk[kk] = md;
+    ik[kk] = mi < s ? mi : s - 1;  // (only NaN distances leave none)
+  }
+  if (lane == 0) {
+    float rc[3];
+    float norm = 0.0f;
+    for (int kk = 0; kk < k; ++kk) {
+      rc[kk] = __fdiv_rn(1.0f, __fadd_rn(dk[kk], kEps));
+      norm = kk == 0 ? rc[0] : __fadd_rn(norm, rc[kk]);
+    }
+    for (int kk = 0; kk < k; ++kk) {
+      nn_w[3 * r + kk] = __fdiv_rn(rc[kk], norm);
+      nn_i[3 * r + kk] = ik[kk];
+    }
+  }
 }
 
-__global__ void __launch_bounds__(kMlpThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 fp_fused_kernel(const float* __restrict__ xyz1, const float* __restrict__ xyz2,
                 const float* __restrict__ p1, const float* __restrict__ p2,
-                MlpLayers layers, int n, int s, int k, int d1, int d2, int ld,
-                int rows, int mcap, float* __restrict__ out) {
+                Layers layers, Plan p, int n, int s, int k, int d1, int d2,
+                float* __restrict__ out) {
   extern __shared__ float4 smem4[];
+  const int ldm = p.ldm;
   float* buf0 = reinterpret_cast<float*>(smem4);
-  float* buf1 = buf0 + (size_t)mcap * ld;
-  float* cloud = buf1 + (size_t)mcap * ld;
+  float* buf1 = buf0 + (size_t)p.cap0 * ldm;
+  float* ring = buf1 + (size_t)p.cap1 * ldm;
+  float* cloud = ring + p.ring + p.red;
   float* nn_w = cloud + 4 * s;
-  int* nn_i = reinterpret_cast<int*>(nn_w + 3 * rows);
+  int* nn_i = reinterpret_cast<int*>(nn_w + 3 * p.rows);
 
+  const int C = p.cluster;
+  const int rank = blockIdx.x % C;  // the cluster spans C blocks along x
   const int b = blockIdx.y;
-  const int n0 = blockIdx.x * rows;
-  const int nr = min(rows, n - n0);
+  const int n0 = blockIdx.x / C * p.rows;
+  const int nr = min(p.rows, n - n0);
   stage_cloud(xyz2 + (size_t)b * s * 3, s, cloud);
   __syncthreads();
 
+  // 3-NN: one warp per pair of targets (r, r + 8), which share the loads of
+  // the sources and run two independent insertion chains
+  constexpr int kWarps = kThreads / 32;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < nr; r += kMlpWarps) {
-    const float* qp = xyz1 + ((size_t)b * n + n0 + r) * 3;
-    const float a0 = qp[0], a1 = qp[1], a2 = qp[2];
-    const float qq = sq_norm(a0, a1, a2);
-    // this lane's three smallest of sources lane, lane + 32, ...; strict <
-    // keeps the lower index of equal distances
-    float bd0 = INFINITY, bd1 = INFINITY, bd2 = INFINITY;
-    int bi0 = s, bi1 = s, bi2 = s;
+  for (int r = warp; r < nr; r += 2 * kWarps) {
+    const int r2 = r + kWarps;
+    const bool two = r2 < nr;  // warp-uniform
+    const float* qa = xyz1 + ((size_t)b * n + n0 + r) * 3;
+    const float* qb = two ? qa + 3 * kWarps : qa;
+    const float a0 = qa[0], a1 = qa[1], a2 = qa[2], aa = sq_norm(a0, a1, a2);
+    const float b0 = qb[0], b1 = qb[1], b2 = qb[2], bb = sq_norm(b0, b1, b2);
+    Top3 ta, tb;
+    ta.init(s);
+    tb.init(s);
     for (int j = lane; j < s; j += 32) {
-      const float d = sq_dist(a0, a1, a2, qq, cloud[j], cloud[s + j],
-                              cloud[2 * s + j], cloud[3 * s + j]);
-      if (d < bd2) {
-        if (d < bd1) {
-          bd2 = bd1; bi2 = bi1;
-          if (d < bd0) {
-            bd1 = bd0; bi1 = bi0;
-            bd0 = d; bi0 = j;
-          } else {
-            bd1 = d; bi1 = j;
-          }
-        } else {
-          bd2 = d; bi2 = j;
-        }
-      }
+      const float x = cloud[j], y = cloud[s + j], z = cloud[2 * s + j],
+                  w = cloud[3 * s + j];
+      ta.insert(sq_dist(a0, a1, a2, aa, x, y, z, w), j);
+      if (two) tb.insert(sq_dist(b0, b1, b2, bb, x, y, z, w), j);
     }
-    // k rounds: the warp's smallest (distance, index) head; its lane pops it
-    float dk[3];
-    int ik[3];
-    for (int kk = 0; kk < k; ++kk) {
-      float md = bd0;
-      int mi = bi0;
-      for (int off = 16; off > 0; off >>= 1) {
-        const float od = __shfl_xor_sync(0xffffffffu, md, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, mi, off);
-        if (od < md || (od == md && oi < mi)) {
-          md = od;
-          mi = oi;
-        }
-      }
-      if (bi0 == mi) {
-        bd0 = bd1; bi0 = bi1;
-        bd1 = bd2; bi1 = bi2;
-        bd2 = INFINITY; bi2 = s;
-      }
-      dk[kk] = md;
-      ik[kk] = mi < s ? mi : s - 1;  // (only NaN distances leave none)
-    }
-    if (lane == 0) {
-      float rc[3];
-      float norm = 0.0f;
-      for (int kk = 0; kk < k; ++kk) {
-        rc[kk] = __fdiv_rn(1.0f, __fadd_rn(dk[kk], kEps));
-        norm = kk == 0 ? rc[0] : __fadd_rn(norm, rc[kk]);
-      }
-      for (int kk = 0; kk < k; ++kk) {
-        nn_w[3 * r + kk] = __fdiv_rn(rc[kk], norm);
-        nn_i[3 * r + kk] = ik[kk];
-      }
-    }
+    nn_weights(ta, k, s, lane, r, nn_w, nn_i);
+    if (two) nn_weights(tb, k, s, lane, r2, nn_w, nn_i);
   }
   __syncthreads();
 
-  // input rows [points1, sum_i w_i * points2[idx_i]], summed in order i
+  // input rows [points1, sum_i w_i * points2[idx_i]] into buffer 0,
+  // channel-major, summed in order i
   const int f0 = d1 + d2;
-  for (int e = threadIdx.x; e < nr * f0; e += kMlpThreads) {
-    const int r = e / f0, c = e - r * f0;
-    float v;
-    if (c < d1) {
-      v = p1[((size_t)b * n + n0 + r) * d1 + c];
-    } else {
+  if ((d1 & 3) == 0 && (d2 & 3) == 0 && aligned16(p1) && aligned16(p2)) {
+    // four channels a load: a group never straddles points1 | interpolation
+    fill_rows4(buf0, ldm, nr, f0, [&](int r, int c) {
+      if (c < d1)
+        return __ldg(reinterpret_cast<const float4*>(
+            p1 + ((size_t)b * n + n0 + r) * d1 + c));
       const float* src = p2 + (size_t)b * s * d2 + (c - d1);
-      v = __fmul_rn(nn_w[3 * r], src[(size_t)nn_i[3 * r] * d2]);
+      float4 v = __ldg(reinterpret_cast<const float4*>(
+          src + (size_t)nn_i[3 * r] * d2));
+      const float w0 = nn_w[3 * r];
+      v = make_float4(__fmul_rn(w0, v.x), __fmul_rn(w0, v.y),
+                      __fmul_rn(w0, v.z), __fmul_rn(w0, v.w));
+      for (int kk = 1; kk < k; ++kk) {
+        const float4 x = __ldg(reinterpret_cast<const float4*>(
+            src + (size_t)nn_i[3 * r + kk] * d2));
+        const float w = nn_w[3 * r + kk];
+        v = make_float4(__fadd_rn(v.x, __fmul_rn(w, x.x)),
+                        __fadd_rn(v.y, __fmul_rn(w, x.y)),
+                        __fadd_rn(v.z, __fmul_rn(w, x.z)),
+                        __fadd_rn(v.w, __fmul_rn(w, x.w)));
+      }
+      return v;
+    });
+  } else {
+    fill_rows(buf0, ldm, nr, f0, [&](int r, int c) {
+      if (c < d1) return p1[((size_t)b * n + n0 + r) * d1 + c];
+      const float* src = p2 + (size_t)b * s * d2 + (c - d1);
+      float v = __fmul_rn(nn_w[3 * r], src[(size_t)nn_i[3 * r] * d2]);
       for (int kk = 1; kk < k; ++kk)
         v = __fadd_rn(v, __fmul_rn(nn_w[3 * r + kk],
                                    src[(size_t)nn_i[3 * r + kk] * d2]));
-    }
-    buf0[(size_t)r * ld + c] = v;
+      return v;
+    });
   }
-  __syncthreads();
+  // every block of the cluster runs before a peer writes into it
+  layer_barrier(C);
 
   float* cur = buf0;
   float* nxt = buf1;
-  int width = f0;
   for (int l = 0; l + 1 < layers.n; ++l) {
-    dense_rows(cur, ld, width, layers.w[l], layers.b[l], layers.fout[l],
-               layers.relu[l], nxt, ld, nr);
-    __syncthreads();
+    int lo, hi;
+    col_slice(layers.fout[l], C, rank, &lo, &hi);
+    dense_layer(p.tile[l], cur, ldm, nr, layers.w[l], layers.b[l],
+                layers.fin[l], layers.fout[l], layers.relu[l], lo, hi, ring,
+                shared_sink(nxt, C));
+    layer_barrier(C);
     float* t = cur;
     cur = nxt;
     nxt = t;
-    width = layers.fout[l];
   }
   const int l = layers.n - 1;
-  dense_rows(cur, ld, width, layers.w[l], layers.b[l], layers.fout[l],
-             layers.relu[l], out + ((size_t)b * n + n0) * layers.fout[l],
-             layers.fout[l], nr);
+  int lo, hi;
+  col_slice(layers.fout[l], C, rank, &lo, &hi);
+  Sink sink = {};
+  sink.mode = kToGlobal;
+  sink.out = out + ((size_t)b * n + n0) * layers.fout[l];
+  sink.ldo = layers.fout[l];
+  dense_layer(p.tile[l], cur, ldm, nr, layers.w[l], layers.b[l],
+              layers.fin[l], layers.fout[l], layers.relu[l], lo, hi, ring,
+              sink);
 }
 
 }  // namespace
@@ -165,42 +225,39 @@ extern "C" {
 // xyz1 (B, N, 3) targets, xyz2 (B, S, 3) sources, p1 (B, N, D1) or null
 // (D1 = 0), p2 (B, S, D2); params = {W1', b1', ..., WL', bL'} with Wl'
 // (F_{l-1}, F_l), F_0 = D1 + D2; widths = {F_1, ..., F_L}; relu[l] = 1
-// for a ReLU after layer l, 0 for none.  -> out (B, N, F_L), float32.
+// for a ReLU after layer l, 0 for none; plan =
+// ops/rowmlp.py:plan_fp(...).ints().  -> out (B, N, F_L), float32.
+// Returns cudaErrorInvalidValue for a plan that cannot carry these shapes.
 int lsdm_fp_fused(const float* xyz1, const float* xyz2, const float* p1,
                   const float* p2, const float* const* params,
                   const int* widths, const int* relu, int n_layers, int b,
-                  int n, int s, int d1, int d2, float* out, void* stream) {
+                  int n, int s, int d1, int d2, const int* plan, float* out,
+                  void* stream) {
   if (b <= 0 || n <= 0) return 0;
   if (n_layers < 1 || n_layers > kMaxLayers || s < 1 || d2 < 1 || d1 < 0 ||
       (d1 > 0 && p1 == nullptr))
     return (int)cudaErrorInvalidValue;
-  MlpLayers layers = {};
+  Layers layers = {};
   layers.n = n_layers;
-  int ld = d1 + d2;  // the stored widths: the input and layers 1..L-1
   for (int l = 0; l < n_layers; ++l) {
     layers.w[l] = params[2 * l];
     layers.b[l] = params[2 * l + 1];
+    layers.fin[l] = l == 0 ? d1 + d2 : widths[l - 1];
     layers.fout[l] = widths[l];
     layers.relu[l] = relu[l];
-    if (l + 1 < n_layers && widths[l] > ld) ld = widths[l];
   }
-  ld = pad4(ld);
-  int rows = kMaxRows < n ? kMaxRows : n;
-  int mcap;
-  size_t smem = fp_smem(rows, ld, s, &mcap);
-  while (rows > 1 && smem > kSmemBudget) {
-    rows = rows > kRowChunk ? rows - kRowChunk : rows / 2;
-    smem = fp_smem(rows, ld, s, &mcap);
-  }
-  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fp_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  Plan p = {};
+  p.rows = plan[0], p.cluster = plan[1], p.ldm = plan[2], p.cap0 = plan[3];
+  p.cap1 = plan[4], p.ring = plan[5], p.red = plan[6], p.smem = plan[7];
+  for (int l = 0; l < layers.n; ++l) p.tile[l] = plan[8 + l];
+  // the sources (x, y, z, |p|^2), then the 3-NN weights and indices
+  const long long extra = 4LL * s + 6LL * p.rows;
+  if (p.rows > 4096 || !plan_ok(p, layers, p.rows, d1 + d2, 0, extra))
+    return (int)cudaErrorInvalidValue;
   const int k = s < 3 ? s : 3;
-  const dim3 grid((n + rows - 1) / rows, b);
-  fp_fused_kernel<<<grid, kMlpThreads, smem, (cudaStream_t)stream>>>(
-      xyz1, xyz2, p1, p2, layers, n, s, k, d1, d2, ld, rows, mcap, out);
-  return (int)cudaGetLastError();
+  const dim3 grid((n + p.rows - 1) / p.rows * p.cluster, b);
+  return (int)launch(fp_fused_kernel, grid, p, (cudaStream_t)stream, xyz1,
+                     xyz2, p1, p2, layers, p, n, s, k, d1, d2, out);
 }
 
 }  // extern "C"

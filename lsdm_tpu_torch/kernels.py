@@ -64,12 +64,13 @@ _SIGNATURES = {
     # (q, k, v, B, L, S, H, out, stream)
     "lsdm_rank1_attn": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
     # (xyz, new_xyz, z1, w1x, params[2(L-1)], widths[L], L, B, N, S,
-    #  radius2, nsample, out, stream)
-    "lsdm_sa_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P),
-    # (xyz1, xyz2, points1, points2, params[2L], widths[L], relu[L], L, B, N,
-    #  S, D1, D2, out, stream)
-    "lsdm_fp_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+    #  radius2, nsample, plan, out, stream)
+    "lsdm_sa_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P,
                       _P),
+    # (xyz1, xyz2, points1, points2, params[2L], widths[L], relu[L], L, B, N,
+    #  S, D1, D2, plan, out, stream)
+    "lsdm_fp_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                      _P, _P),
     # (q, k, v, out, g, B, L, S, H, dq, dk, dv, stats, stream)
     "lsdm_rank1_attn_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                             _P),

@@ -27,12 +27,13 @@ import torch
 import torch.nn.functional as F
 
 from lsdm_tpu_torch import kernels
+from lsdm_tpu_torch.ops import rowmlp
 from lsdm_tpu_torch.ops.ballquery import three_nn_plain
 from lsdm_tpu_torch.ops.pointcloud import index_points
 from lsdm_tpu_torch.ops.sa_fused import Folded, _check_layers
 
 EPS = 1e-8
-MAX_LAYERS = 8  # csrc/rowmlp.cuh:kMaxLayers
+MAX_LAYERS = rowmlp.MAX_LAYERS
 ACTS = ("relu", "none")
 
 
@@ -97,6 +98,7 @@ def fp_stage_fused_kernel(xyz1: torch.Tensor, xyz2: torch.Tensor,
     if out.numel() == 0:
         return out
     L = len(folded)
+    plan = rowmlp.plan_fp(B, N, S, (D1 + D2, *widths)).ints()
     lib = kernels.load()
     with torch.cuda.device(dev):
         rc = lib.lsdm_fp_fused(
@@ -106,7 +108,8 @@ def fp_stage_fused_kernel(xyz1: torch.Tensor, xyz2: torch.Tensor,
             (ctypes.c_void_p * (2 * L))(*[t.data_ptr() for t in flat]),
             (ctypes.c_int * L)(*widths),
             (ctypes.c_int * L)(*[int(a == "relu") for a in acts]),
-            L, B, N, S, D1, D2, out.data_ptr(), kernels.stream(dev))
+            L, B, N, S, D1, D2, (ctypes.c_int * len(plan))(*plan),
+            out.data_ptr(), kernels.stream(dev))
     kernels.check(rc, "fp_fused")
     kernels.LAUNCHES["fp_fused"] += 1
     return out

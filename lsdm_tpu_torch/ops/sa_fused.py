@@ -30,12 +30,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from lsdm_tpu_torch import kernels
+from lsdm_tpu_torch.ops import rowmlp
 from lsdm_tpu_torch.ops.ballquery import _radius2, query_ball_point_plain
 from lsdm_tpu_torch.ops.pointcloud import index_points
 
 Folded = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
-MAX_LAYERS = 9  # layer 1 plus the kernel's 8 (csrc/rowmlp.cuh:kMaxLayers)
+MAX_LAYERS = rowmlp.MAX_LAYERS + 1  # layer 1 plus the kernel's
 
 
 def fold_conv_bn(conv: nn.Module, bn: nn.BatchNorm1d
@@ -94,18 +95,34 @@ def sa_stage_fused_kernel(radius: float, nsample: int, xyz: torch.Tensor,
         raise ValueError(f"fused SA kernel takes at most {MAX_LAYERS} layers")
     w1, b1 = folded[0]
     z1 = torch.matmul(base, w1) + b1  # layer 1 at the N points, as on the TPU
-    w1x = w1[:3].contiguous()
-    out = torch.empty((B, S, widths[-1]), dtype=torch.float32, device=dev)
+    return sa_stage_launch(radius, nsample, xyz, new_xyz, z1,
+                           w1[:3].contiguous(), folded, widths)
+
+
+def sa_stage_launch(radius: float, nsample: int, xyz: torch.Tensor,
+                    new_xyz: torch.Tensor, z1: torch.Tensor,
+                    w1x: torch.Tensor, folded: Folded,
+                    widths: Sequence[int]) -> torch.Tensor:
+    """The launch of K7 alone, after :func:`sa_stage_fused_kernel` has
+    checked its inputs and computed layer 1 at the N points: ``z1`` (B, N,
+    F1) and ``w1x`` = W1'[:3] (3, F1), CUDA float32, contiguous."""
+    B, N, _ = xyz.shape
+    S = new_xyz.shape[1]
+    out = torch.empty((B, S, widths[-1]), dtype=torch.float32,
+                      device=xyz.device)
     if out.numel() == 0:
         return out
-    params = (ctypes.c_void_p * max(1, len(flat) - 2))(
-        *[t.data_ptr() for t in flat[2:]])
+    plan = rowmlp.plan_sa(B, N, S, nsample, tuple(widths)).ints()
+    flat = [t for wb in folded[1:] for t in wb]
+    params = (ctypes.c_void_p * max(1, len(flat)))(
+        *[t.data_ptr() for t in flat])
     lib = kernels.load()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(xyz.device):
         rc = lib.lsdm_sa_fused(
             xyz.data_ptr(), new_xyz.data_ptr(), z1.data_ptr(), w1x.data_ptr(),
             params, (ctypes.c_int * len(widths))(*widths), len(widths), B, N,
-            S, _radius2(radius), nsample, out.data_ptr(), kernels.stream(dev))
+            S, _radius2(radius), nsample, (ctypes.c_int * len(plan))(*plan),
+            out.data_ptr(), kernels.stream(xyz.device))
     kernels.check(rc, "sa_fused")
     kernels.LAUNCHES["sa_fused"] += 1
     return out

@@ -1,0 +1,106 @@
+"""Registers and spills of the port's CUDA kernels, and where their spill
+loads sit, from the compiler (needs ``nvcc`` and ``cuobjdump``).
+
+    python -m lsdm_tpu_torch.ptxas_report [sa_fused fp_fused ...]
+
+Compiles each source of ``csrc/`` named (default: the row-MLP kernels K7
+and K8) with the package's ``NVCC_FLAGS`` plus ``-Xptxas -v`` to a cubin
+under the build directory and prints, per function, what ptxas reports:
+registers, stack frame, spill stores and spill loads.  Then it reads the
+cubin's SASS and splits it at the targets of its calls (the functions
+that are not inlined, such as ``rowmlp::dense_tiles<T>``, in address
+order; the kernel body first): per part, its FFMA count, its spill loads
+(``LDL``) and those of them inside a loop that holds FFMAs and no inner
+loop (the FMA loops of the layers).  The last line is one JSON object
+with all of it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+from pathlib import Path
+
+from lsdm_tpu_torch import kernels
+
+_FUNC = re.compile(r"Function properties for (\S+)")
+_PROPS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?);")
+
+
+def ptxas(src: str, cubin: str) -> list:
+    """ptxas's report of each function compiled from ``src``."""
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v",
+           "-cubin", str(kernels.CSRC / f"{src}.cu"), "-o", cubin]
+    res = subprocess.run(cmd, capture_output=True, text=True, check=True)
+    funcs, cur = [], None
+    for line in res.stderr.splitlines():
+        m = _FUNC.search(line)
+        if m:
+            cur = {"function": m.group(1)}
+            funcs.append(cur)
+        elif cur is not None and _PROPS.search(line):
+            stack, st, ld = map(int, _PROPS.search(line).groups())
+            cur.update(stack=stack, spill_stores=st, spill_loads=ld)
+        elif cur is not None and _REGS.search(line):
+            cur["registers"] = int(_REGS.search(line).group(1))
+    return funcs
+
+
+def sass_parts(cubin: str) -> list:
+    """The SASS split at its call targets: per part, its FFMAs, spill loads
+    and spill loads inside an innermost loop that holds FFMAs."""
+    cuobjdump = Path(kernels._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", cubin], capture_output=True,
+                          text=True, check=True).stdout
+    ins = [(int(a, 16), t) for a, t in _INSTR.findall(text)]
+    calls = sorted({int(x, 16) for _, t in ins
+                    for x in re.findall(r"CALL\.REL\.NOINC (0x[0-9a-f]+)", t)})
+    starts, parts = [0] + calls, []
+    for lo, hi in zip(starts, calls + [ins[-1][0] + 16]):
+        body = [(a, t) for a, t in ins if lo <= a < hi]
+        loops = []
+        for a, t in body:  # a backward branch closes a loop
+            m = re.search(r"BRA (0x[0-9a-f]+)", t)
+            if m and lo <= int(m.group(1), 16) < a:
+                loops.append((int(m.group(1), 16), a))
+        fma_loops = [(s, e) for s, e in loops
+                     if any("FFMA" in t for a, t in body if s <= a <= e)
+                     and not any(s < s2 and e2 < e for s2, e2 in loops)]
+        ldl = [a for a, t in body if re.search(r"\bLDL\b", t)]
+        parts.append({
+            "at": hex(lo), "instructions": len(body),
+            "ffma": sum("FFMA" in t for _, t in body), "ldl": len(ldl),
+            "ldl_in_fma_loops": sum(any(s <= a <= e for s, e in fma_loops)
+                                    for a in ldl)})
+    return parts
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("sources", nargs="*", default=["sa_fused", "fp_fused"])
+    args = ap.parse_args(argv)
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for src in args.sources:
+        cubin = str(kernels.BUILD_DIR / f"{src}.report.cubin")
+        funcs, parts = ptxas(src, cubin), sass_parts(cubin)
+        for f in funcs:
+            print(f"{src} {f['function']}: {f.get('registers', '-')} registers, "
+                  f"{f['stack']} B stack, {f['spill_stores']} B spill stores, "
+                  f"{f['spill_loads']} B spill loads")
+        for p in parts:
+            print(f"{src} SASS part at {p['at']}: {p['instructions']} "
+                  f"instructions, {p['ffma']} FFMA, {p['ldl']} LDL, "
+                  f"{p['ldl_in_fma_loops']} of them in FMA loops")
+        out[src] = {"ptxas": funcs, "sass": parts}
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -10,13 +10,15 @@ machine with a GPU and no JAX, run them without the JAX test conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from lsdm_tpu_torch import kernels
 from lsdm_tpu_torch.ops import (
-    attn, ballquery, chamfer, denoise, fp_fused, fps, sa_fused, sg_fused)
+    attn, ballquery, chamfer, denoise, fp_fused, fps, rowmlp, sa_fused, sg_fused)
 from lsdm_tpu_torch.ops.denoise import DenoiseStepParams
 
 pytestmark = pytest.mark.cuda
@@ -228,24 +230,48 @@ def _layers(dev, widths, seed=0):
             for a, b in zip(widths[:-1], widths[1:])]
 
 
-@pytest.mark.parametrize("n,s,radius,nsample,mlp", [
-    (64, 13, 0.8, 16, (8, 16)),        # 13 centers: not a multiple of a tile
-    (37, 5, 0.3, 8, (8,)),             # one layer; most balls hold < 8 points
-    (100, 24, 0.05, 32, (16, 16, 24)),  # nsample far above the in-radius count
-    (64, 16, 0.8, 32, (256, 256, 512)),  # sa4's widths: one center per block
+def _forced_cluster(monkeypatch, module, cluster):
+    """Make the row-MLP plans of ``module`` (plan_sa, plan_fp) take a
+    cluster of ``cluster`` blocks (0: the plan's own choice) with the rows
+    the plan chose (``layout_sa``, ``layout_fp``)."""
+    if cluster:
+        plan = getattr(rowmlp, module)
+        layout = getattr(rowmlp, module.replace("plan", "layout"))
+        monkeypatch.setattr(rowmlp, module,
+                            lambda *a: layout(*a, plan(*a).rows, cluster))
+
+
+@pytest.mark.parametrize("b,n,s,radius,nsample,mlp,cluster", [
+    (2, 64, 13, 0.8, 16, (8, 16), 0),      # 13 centers: not a multiple of a tile
+    (2, 37, 5, 0.3, 8, (8,), 0),           # one layer; most balls hold < 8 points
+    (2, 100, 24, 0.05, 32, (16, 16, 24), 0),  # nsample far above the in-radius count
+    (2, 64, 16, 0.8, 32, (256, 256, 512), 0),  # sa4's widths
+    # the flagship stages at b1 (9 clouds): sa1-sa4
+    (9, 1024, 1024, 0.1, 32, (32, 32, 64), 0),
+    (9, 1024, 256, 0.2, 32, (64, 64, 128), 0),
+    (9, 256, 64, 0.4, 32, (128, 128, 256), 0),
+    (9, 64, 16, 0.8, 32, (256, 256, 512), 0),
+    # ragged: 37 centres in clusters of 2 and 4, an input width (67) off the
+    # k tile, outputs (20, 3) off the column tile
+    (3, 100, 37, 0.5, 16, (64, 67, 20), 2),
+    (3, 100, 37, 0.5, 16, (64, 67, 20), 4),
+    (2, 50, 7, 0.6, 8, (12, 10, 3), 4),
+    (2, 64, 16, 0.8, 32, (256, 256, 512), 4),
 ])
-def test_sa_fused_kernel_matches_plain(dev, n, s, radius, nsample, mlp):
-    xyz = _cloud(n, 2, n, 3).to(dev)
+def test_sa_fused_kernel_matches_plain(dev, b, n, s, radius, nsample, mlp, cluster,
+                                       monkeypatch):
+    _forced_cluster(monkeypatch, "plan_sa", cluster)
+    xyz = _cloud(n, b, n, 3).to(dev)
     new_xyz = xyz[:, :s].clone()
     new_xyz[1, 2] = 50.0  # a center with no point in its radius
-    base = torch.cat([xyz, _cloud(n + 1, 2, n, 5).to(dev)], -1).contiguous()
+    base = torch.cat([xyz, _cloud(n + 1, b, n, 5).to(dev)], -1).contiguous()
     folded = _layers(dev, (8,) + mlp)
     before = kernels.LAUNCHES["sa_fused"]
     got = sa_fused.sa_stage_fused_kernel(radius, nsample, xyz, new_xyz, base, folded)
     assert kernels.LAUNCHES["sa_fused"] == before + 1
     want = sa_fused.sa_stage_fused_plain(radius, nsample, xyz, new_xyz, base, folded)
     torch.cuda.synchronize()
-    assert got.shape == (2, s, mlp[-1])
+    assert got.shape == (b, s, mlp[-1])
     # float32 sums in another order
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     # the plain version, which the kernel matched, gathered point 0 in every
@@ -254,26 +280,61 @@ def test_sa_fused_kernel_matches_plain(dev, n, s, radius, nsample, mlp):
                                              empty=0)[1, 2] == 0).all()
 
 
-@pytest.mark.parametrize("n,s,d1,mlp,acts", [
-    (64, 2, 6, (8, 16), None),                     # S = 2: k = 2
-    (50, 50, 0, (16, 8, 3), ("relu", "relu", "none")),  # sources = targets (fp1)
-    (40, 16, 256, (256, 256), None),               # fp4-like widths, 40 rows
-    (33, 7, 0, (12,), ("none",)),
+HEAD = ("relu",) * 4 + ("none",)
+
+
+@pytest.mark.parametrize("b,n,s,d1,d2,mlp,acts,cluster", [
+    (2, 64, 2, 6, 10, (8, 16), None, 0),              # S = 2: k = 2
+    (2, 50, 50, 0, 10, (16, 8, 3), ("relu", "relu", "none"), 0),  # sources = targets (fp1)
+    (2, 40, 16, 256, 512, (256, 256), None, 0),       # fp4-like widths, 40 rows
+    (2, 33, 7, 0, 10, (12,), ("none",), 0),
+    # the flagship stages at b1 (9 clouds): fp4-fp1, fp1 with the head and conv2
+    (9, 64, 16, 256, 512, (256, 256), None, 0),
+    (9, 256, 64, 128, 256, (256, 256), None, 0),
+    (9, 1024, 256, 64, 256, (256, 128), None, 0),
+    (9, 1024, 1024, 0, 128, (128, 128, 128, 128, 3), HEAD, 0),
+    # ragged: 45 targets in clusters, an input of 67 channels (off the k
+    # tile), outputs off the column tile; 384 and 320 inputs in clusters
+    (2, 45, 11, 30, 37, (36, 5), ("relu", "none"), 2),
+    (2, 45, 11, 30, 37, (36, 5), None, 4),
+    (2, 70, 64, 128, 256, (256, 256), None, 2),
+    (2, 70, 64, 64, 256, (256, 128), None, 4),
 ])
-def test_fp_fused_kernel_matches_plain(dev, n, s, d1, mlp, acts):
-    xyz1 = _cloud(n, 2, n, 3).to(dev)
-    xyz2 = xyz1[:, :s].contiguous() if s == n else _cloud(s + 3, 2, s, 3).to(dev)
-    d2 = 512 if d1 == 256 else 10
-    p1 = _cloud(n + 5, 2, n, d1).to(dev) if d1 else None
-    p2 = _cloud(s + 9, 2, s, d2).to(dev)
+def test_fp_fused_kernel_matches_plain(dev, b, n, s, d1, d2, mlp, acts, cluster,
+                                       monkeypatch):
+    _forced_cluster(monkeypatch, "plan_fp", cluster)
+    xyz1 = _cloud(n, b, n, 3).to(dev)
+    xyz2 = xyz1[:, :s].contiguous() if s == n else _cloud(s + 3, b, s, 3).to(dev)
+    p1 = _cloud(n + 5, b, n, d1).to(dev) if d1 else None
+    p2 = _cloud(s + 9, b, s, d2).to(dev)
     folded = _layers(dev, (d1 + d2,) + mlp)
     before = kernels.LAUNCHES["fp_fused"]
     got = fp_fused.fp_stage_fused_kernel(xyz1, xyz2, p1, p2, folded, acts)
     assert kernels.LAUNCHES["fp_fused"] == before + 1
     want = fp_fused.fp_stage_fused_plain(xyz1, xyz2, p1, p2, folded, acts)
     torch.cuda.synchronize()
-    assert got.shape == (2, n, mlp[-1])
+    assert got.shape == (b, n, mlp[-1])
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_row_mlp_kernels_raise_on_a_plan_they_cannot_run(dev, monkeypatch):
+    xyz = _cloud(0, 2, 64, 3).to(dev)
+    base = torch.cat([xyz, xyz], -1).contiguous()
+    folded = _layers(dev, (6, 16, 32))
+    plan = rowmlp.plan_sa(2, 64, 16, 8, (16, 32))
+    # one byte of shared memory short of what the layout needs
+    bad = dataclasses.replace(plan, smem=plan.smem - 4)
+    monkeypatch.setattr(rowmlp, "plan_sa", lambda *a: bad)
+    with pytest.raises(RuntimeError):
+        sa_fused.sa_stage_fused_kernel(0.5, 8, xyz, xyz[:, :16].contiguous(), base,
+                                       folded)
+    fplan = rowmlp.plan_fp(2, 64, 16, (6, 8))
+    monkeypatch.setattr(rowmlp, "plan_fp",
+                        lambda *a: dataclasses.replace(fplan, tiles=(12,)))
+    with pytest.raises(RuntimeError):  # a tile that does not exist
+        fp_fused.fp_stage_fused_kernel(xyz, xyz[:, :16].contiguous(), None,
+                                       base[:, :16].contiguous(),
+                                       _layers(dev, (6, 8)))
 
 
 def test_fp_fused_ties_go_to_the_lowest_index(dev):

@@ -1,0 +1,57 @@
+"""``lsdm_tpu_torch/ptxas_report.py``'s parsers on canned compiler output:
+no nvcc is needed to check how it reads ptxas's report and the SASS."""
+
+import subprocess
+import types
+
+from lsdm_tpu_torch import kernels, ptxas_report
+
+PTXAS = """\
+ptxas info    : Compiling entry function '_Z6kernelv' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelv
+    192 bytes stack frame, 324 bytes spill stores, 464 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 192 bytes cumulative stack size
+ptxas info    : Function properties for _Z5tilesILi0EEvv
+    0 bytes stack frame, 56 bytes spill stores, 584 bytes spill loads
+"""
+
+# a kernel body that calls one function at 0x0100; the function's loop
+# (0x0120-0x0150) holds FFMAs and one spill load, its epilogue another
+SASS = """\
+        /*0000*/                   LDL R2, [R1] ;
+        /*0010*/                   CALL.REL.NOINC 0x100 ;
+        /*0020*/                   EXIT ;
+        /*0100*/                   LDL R4, [R1+0x8] ;
+        /*0110*/                   MOV R5, RZ ;
+        /*0120*/                   FFMA R6, R7, R8, R6 ;
+        /*0130*/                   LDL R9, [R1+0x4] ;
+        /*0140*/                   FFMA R6, R7, R9, R6 ;
+        /*0150*/              @P0 BRA 0x120 ;
+        /*0160*/                   RET.REL.NODEC R2 0x0 ;
+"""
+
+
+def _fake_run(stdout="", stderr=""):
+    return lambda cmd, **kw: types.SimpleNamespace(stdout=stdout, stderr=stderr)
+
+
+def test_ptxas_report_reads_each_function(monkeypatch):
+    monkeypatch.setattr(kernels, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(subprocess, "run", _fake_run(stderr=PTXAS))
+    funcs = ptxas_report.ptxas("sa_fused", "out.cubin")
+    assert funcs == [
+        {"function": "_Z6kernelv", "stack": 192, "spill_stores": 324,
+         "spill_loads": 464, "registers": 128},
+        {"function": "_Z5tilesILi0EEvv", "stack": 0, "spill_stores": 56,
+         "spill_loads": 584}]
+
+
+def test_sass_parts_split_at_calls_and_find_spills_in_fma_loops(monkeypatch):
+    monkeypatch.setattr(kernels, "_nvcc", lambda: "/cuda/bin/nvcc")
+    monkeypatch.setattr(subprocess, "run", _fake_run(stdout=SASS))
+    parts = ptxas_report.sass_parts("out.cubin")
+    assert parts == [
+        {"at": "0x0", "instructions": 3, "ffma": 0, "ldl": 1,
+         "ldl_in_fma_loops": 0},
+        {"at": "0x100", "instructions": 7, "ffma": 2, "ldl": 2,
+         "ldl_in_fma_loops": 1}]
