@@ -8,14 +8,19 @@ Run from the repository root:  python3 chip_smoke.py
    nvcc per source, in parallel).
 3. Holds each kernel against its plain PyTorch version on the card at the
    shapes of the flagship sampling paths: ball query (K1), 3-NN (K2) and
-   FPS (K3) must give equal indices; the fused SA stage (K7, sa1-sa4 and a
+   FPS (K3, from index 0 with no start tensor, as the SDM calls it) must
+   give equal indices, and that FPS call must capture into a CUDA graph
+   (no host sync); the fused SA stage (K7, sa1-sa4 and a
    center with an empty ball) and FP stage (K8, fp4-fp1 with the head)
-   must agree to STAGE_ATOL, the rank-1 attention (K4) to ATTN_ATOL; the
+   must agree to STAGE_ATOL, the rank-1 attention (K4) to ATTN_ATOL and
+   its row denominators (kept by the training forward) to ATTN_DEN_RTOL; the
    denoise chain (K6, N=1024, D=128, T=1000) to CHAIN_ATOL at batch 1 and,
    clip on, at batch CHAIN_BATCH, and its first pass's tables to
    TABLE_ATOL.  Prints both times and each kernel's bound: the least time
-   the card could take for the call's work, bytes over HBM_BYTES_PER_S or
-   float32 operations over FP32_OPS_PER_S; K6's time also split into its
+   the card could take for the call's work, the largest of its bytes over
+   HBM_BYTES_PER_S, its float32 operations over FP32_OPS_PER_S and its
+   exponentials over SFU_EXPS_PER_S (K4, K5); K1-K5 are timed queued
+   behind a sleep on the card; K6's time also split into its
    two passes, each beside its bound, pass 1 (``denoise_tables.cu``) also
    as TFLOP/s, as a share of the FP32 peak, and beside its cuBLAS
    yardstick (its four products as ``torch.baddbmm`` calls, TF32 off).
@@ -62,8 +67,11 @@ Run from the repository root:  python3 chip_smoke.py
    fixed rotations through the kernels and through the plain versions,
    agreeing to ICP_ATOL with equal inlier counts.
 10. The training kernels at the train step's shapes (batch 6 = 54 clouds
-   of 1024 points): the rank-1 attention backward (K5) to ATTN_BWD_ATOL,
-   with SDPA's backward timed beside it; the select-gather (K10, sa1-sa4
+   of 1024 points): the rank-1 attention backward (K5, from K4's saved
+   row denominators) to ATTN_BWD_ATOL, also with k and v offset by +8,
+   with SDPA's backward timed beside it; K3, K1 and K2 at the stages'
+   shapes (equal indices, queued times: the ``train_b6`` field of their
+   records); the select-gather (K10, sa1-sa4
    and an empty ball) and the chamfer nearest neighbour (K11, each way)
    equal to their plain versions.
 11. The train step of ``sdm_proxd()`` at batch 6 (fp32, T=1000, seeded
@@ -121,6 +129,10 @@ STAGE_ATOL = 2e-6
 # 7.2e-07 with these seeded inputs, which is the plain version's own
 # rounding: it reads 7.3e-07 from a float64 evaluation on the CPU.
 ATTN_ATOL = 1e-6
+# K4's row denominators (the training forward keeps them for K5): sums of
+# 1024 exponentials, compensated, against torch's sum of its own exp.
+# H100 reading 2.5e-07.
+ATTN_DEN_RTOL = 1e-6
 # The fused path's sample against the plain versions of the same
 # configuration: the encode's rounding differences pass through T steps.
 # H100 reading 1.3e-07.
@@ -128,9 +140,11 @@ FUSED_ATOL = 1e-6
 # The fused encode against the composed one: the JAX package's own bound
 # (tests/test_sdm_model.py), BatchNorm folded against applied.
 COND_RTOL, COND_ATOL = 2e-4, 2e-5
-# K5 on (54, 1024, 12): compensated sums of 1024 terms against the plain
-# version's rounded weights and its reductions in another order.  H100
-# reading 2.9e-06.
+# K5 on (54, 1024, 12): one SFU exponential a pair and sums in groups of
+# 32 rows, against the plain version's rounded weights and its reductions
+# in another order; q k - m and g v - D rounded as the plain version rounds
+# them.  H100 readings 3.8e-06, and 5.6e-06 with k and v offset by +8
+# (2.9e-06 for the compensated two-pass kernel before it).
 ATTN_BWD_ATOL = 1e-5
 # K11's minimum distances: the same float32 operations as the plain version
 CHAMFER_ATOL = 0.0
@@ -164,6 +178,7 @@ TRAIN_STEPS = 3  # timed steps of each train configuration
 STEP_ATOL = 1e-6
 STEP_REPS = 200  # launches timed per K9 case
 ENCODE_REPS = 50  # launches timed per K7 / K8 stage
+QUEUED_REPS = 20  # launches timed queued behind a sleep per K1-K5 call
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit): HBM
 # bytes per second and float32 operations per second outside the tensor
 # cores.  A kernel's bound counts each input byte read once and each output
@@ -171,6 +186,12 @@ ENCODE_REPS = 50  # launches timed per K7 / K8 stage
 # or exp that its function needs on this run's data.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# exponentials a second on the special-function units: 16 a clock per SM
+# (NVIDIA's CUDA C++ Programming Guide, arithmetic-instruction throughput
+# for compute capability 9.0) on 132 SMs at the 1.98 GHz that the FP32
+# peak above assumes.  A kernel whose function takes n exponentials cannot
+# take less than n / SFU_EXPS_PER_S, whatever its other operations.
+SFU_EXPS_PER_S = 132 * 16 * 1.98e9
 KERNELS = {  # name: (source, the TPU kernel it replaces, path it is counted on)
     "ball_query": ("lsdm_tpu_torch/csrc/ballquery.cu",
                    "lsdm_tpu/ops/ballquery_pallas.py:65", "pallas"),
@@ -276,29 +297,15 @@ def _time_ms(fn, reps: int, dev) -> float:
 
 
 def _time_queued_ms(fn, reps: int, dev):
-    """(device ms, host ms) per call of fn() after one warm-up: its
-    launches enqueued while the card sleeps (~0.1 s), so that they run back
-    to back whatever the host's pace, and the host's clock over the
-    enqueueing, which the card does not hold up; off the card, the
+    """(device ms, host ms) per call of fn(), queued behind a sleep on the
+    card (``profile_encode.time_queued_ms``); off the card, the
     synchronised host clock for both."""
-    import torch
-
     if dev.type != "cuda":
         ms = _time_ms(fn, reps, dev)
         return ms, ms
-    fn()
-    torch.cuda.synchronize(dev)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(2e8))
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    host = (time.perf_counter() - t0) * 1e3 / reps
-    end.record()
-    torch.cuda.synchronize(dev)
-    return start.elapsed_time(end) / reps, host
+    from lsdm_tpu_torch.profile_encode import time_queued_ms
+
+    return time_queued_ms(fn, reps, dev)
 
 
 def _card() -> str:
@@ -328,12 +335,13 @@ def plain_versions():
             setattr(m, name, fn)
 
 
-def _record(rec, name, err, ms, pms, line, nbytes, ops, lib_ms=None):
+def _record(rec, name, err, ms, pms, line, nbytes, ops, lib_ms=None, exps=0):
     """Add one call of kernel ``name`` to ``rec``: its error, its and its
     plain version's time, and the least time the card could take for the
-    call's work (``nbytes`` moved, ``ops`` float32 operations)."""
+    call's work (``nbytes`` moved, ``ops`` float32 operations, of which
+    ``exps`` exponentials, which also bound it on the SFUs)."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    ops_ms = max(ops / FP32_OPS_PER_S, exps / SFU_EXPS_PER_S) * 1e3
     lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
     print(f"{line}; kernel {ms:.4f} ms, plain {pms:.4f} ms{lib}, bound "
           f"{max(bytes_ms, ops_ms):.4f} ms")
@@ -450,6 +458,91 @@ def encode_stage_checks(dev, model, levels, g, rec=None) -> list:
     return stages
 
 
+def selection_checks(dev, stages, xyz, rec) -> list:
+    """K3 at sa2..sa4 (every cloud from index 0: no start tensor, as the
+    SDM calls it), K1 at sa1..sa4 and K2 at fp4..fp1, on the point sets the
+    SA stages ``stages`` make of the clouds ``xyz`` (C, N, 3): each equal to
+    its plain version, each call's device time queued behind a sleep.  Adds
+    the calls to ``rec``; returns the levels [l0, l1 = l0, l2, l3, l4]."""
+    import torch
+
+    from lsdm_tpu_torch.ops import ballquery, fps
+    from lsdm_tpu_torch.ops.pointcloud import index_points
+    from lsdm_tpu_torch.profile_encode import DIST_OPS, ball_scan
+
+    C = xyz.shape[0]
+    levels = [xyz, xyz]  # sa1 keeps all N points (no FPS)
+    for st in stages[1:]:  # K3 at sa2..sa4
+        pts, npoint = levels[-1], st.npoint
+        got = fps.farthest_point_sample_kernel(pts, npoint)
+        want = fps.farthest_point_sample_plain(pts, npoint)
+        if not torch.equal(got, want):
+            raise AssertionError(f"FPS ({C},{pts.shape[1]})->{npoint}: indices differ")
+        _record(rec, "fps", 0,
+                _time_queued_ms(lambda: fps.farthest_point_sample_kernel(pts, npoint),
+                                QUEUED_REPS, dev)[0],
+                _time_ms(lambda: fps.farthest_point_sample_plain(pts, npoint), 3, dev),
+                f"K3 fps ({C},{pts.shape[1]},3)->{npoint} from index 0: equal indices",
+                _nbytes(pts, got), DIST_OPS * C * npoint * pts.shape[1])
+        levels.append(index_points(pts, want).contiguous())
+
+    for st, pts, new_xyz in zip(stages, levels[:4], levels[1:5]):  # K1 at sa1..sa4
+        r, ns = st.radius, min(st.nsample, pts.shape[1])
+        got = ballquery.query_ball_point_kernel(r, ns, pts, new_xyz)
+        want = ballquery.query_ball_point_plain(r, ns, pts, new_xyz)
+        if not torch.equal(got, want):
+            raise AssertionError(f"ball query C={C} N={pts.shape[1]} S={new_xyz.shape[1]}: "
+                                 "indices differ")
+        _record(rec, "ball_query", 0,
+                _time_queued_ms(lambda: ballquery.query_ball_point_kernel(
+                    r, ns, pts, new_xyz), QUEUED_REPS, dev)[0],
+                _time_ms(lambda: ballquery.query_ball_point_plain(r, ns, pts, new_xyz), 5, dev),
+                f"K1 ball query C={C} N={pts.shape[1]} S={new_xyz.shape[1]} r={r}: "
+                "equal indices",
+                _nbytes(pts, new_xyz, got), DIST_OPS * ball_scan(r, ns, pts, new_xyz))
+
+    for xyz1, xyz2 in zip(levels[3::-1], levels[4:0:-1]):  # K2 at fp4..fp1
+        k = min(3, xyz2.shape[1])
+        gd, gi = ballquery.three_nn_kernel(xyz1, xyz2, k)
+        wd, wi = ballquery.three_nn_plain(xyz1, xyz2, k)
+        derr = (gd - wd).abs().max().item()
+        if not torch.equal(gi, wi) or derr > DIST_ATOL:
+            raise AssertionError(f"3-NN C={C} N={xyz1.shape[1]} S={xyz2.shape[1]}: "
+                                 f"indices differ or distance error {derr}")
+        _record(rec, "three_nn", derr,
+                _time_queued_ms(lambda: ballquery.three_nn_kernel(xyz1, xyz2, k),
+                                QUEUED_REPS, dev)[0],
+                _time_ms(lambda: ballquery.three_nn_plain(xyz1, xyz2, k), 5, dev),
+                f"K2 3-NN C={C} N={xyz1.shape[1]} S={xyz2.shape[1]}: equal indices, "
+                f"max distance error {derr:.3g}",
+                _nbytes(xyz1, xyz2, gd, gi), (DIST_OPS + 1) * C * xyz1.shape[1]
+                * xyz2.shape[1])
+    return levels
+
+
+def fps_graph_check(xyz, npoint: int) -> None:
+    """The SDM's FPS call (no start tensor) reads nothing back from the
+    card, so it captures into a CUDA graph; the replay gives the indices
+    of the direct call."""
+    import torch
+
+    from lsdm_tpu_torch.ops import fps
+
+    if xyz.device.type != "cuda":
+        return  # a CUDA graph needs the card
+    want = fps.farthest_point_sample_kernel(xyz, npoint)
+    torch.cuda.synchronize(xyz.device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fps.farthest_point_sample_kernel(xyz, npoint)
+    graph.replay()
+    torch.cuda.synchronize(xyz.device)
+    if not torch.equal(got, want):
+        raise AssertionError("FPS replayed from a CUDA graph differs from the direct call")
+    print(f"K3 fps {tuple(xyz.shape)}->{npoint} from index 0: captured into a CUDA "
+          "graph (no host sync), replay equal")
+
+
 def kernel_checks(dev, model, T: int = T_STEPS) -> dict:
     """Phase 3: every kernel against its plain version at the shapes the
     model's sampling path gives it (9 clouds of the model's width).
@@ -459,60 +552,17 @@ def kernel_checks(dev, model, T: int = T_STEPS) -> dict:
 
     from lsdm_tpu_torch.diffusion.schedule import make_schedule
     from lsdm_tpu_torch.models.sampling import chain_coefficients
-    from lsdm_tpu_torch.ops import attn, ballquery, denoise, fps
-    from lsdm_tpu_torch.ops.pointcloud import index_points
-    from lsdm_tpu_torch.profile_encode import DIST_OPS, ball_scan, encode_levels
+    from lsdm_tpu_torch.ops import attn, denoise
+    from lsdm_tpu_torch.profile_encode import encode_levels
 
     bb = model.pcd_backbone
     stages = (bb.sa1, bb.sa2, bb.sa3, bb.sa4)
     N, D = model.cfg.pcd_points, model.cfg.latent_dim
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    start = torch.zeros(9, dtype=torch.int32, device=dev)
-    levels = [torch.randn(9, N, 3, generator=g, device=dev)]
-    levels.append(levels[0])  # sa1 keeps all N points (no FPS)
     rec: dict = {}
-
-    for st in stages[1:]:  # K3 at sa2..sa4
-        xyz, npoint = levels[-1], st.npoint
-        got = fps.farthest_point_sample_kernel(xyz, npoint, start)
-        want = fps.farthest_point_sample_plain(xyz, npoint, start)
-        if not torch.equal(got, want):
-            raise AssertionError(f"FPS {xyz.shape[1]}->{npoint}: indices differ")
-        _record(rec, "fps", (got.long() - want.long()).abs().max().item(),
-                _time_ms(lambda: fps.farthest_point_sample_kernel(xyz, npoint, start), 10, dev),
-                _time_ms(lambda: fps.farthest_point_sample_plain(xyz, npoint, start), 3, dev),
-                f"K3 fps (9,{xyz.shape[1]},3)->{npoint}: equal indices",
-                _nbytes(xyz, start, got), DIST_OPS * 9 * npoint * xyz.shape[1])
-        levels.append(index_points(xyz, want).contiguous())
-
-    for st, xyz, new_xyz in zip(stages, levels[:4], levels[1:5]):  # K1 at sa1..sa4
-        r, ns = st.radius, min(st.nsample, xyz.shape[1])
-        got = ballquery.query_ball_point_kernel(r, ns, xyz, new_xyz)
-        want = ballquery.query_ball_point_plain(r, ns, xyz, new_xyz)
-        if not torch.equal(got, want):
-            raise AssertionError(f"ball query N={xyz.shape[1]} S={new_xyz.shape[1]}: "
-                                 "indices differ")
-        _record(rec, "ball_query", (got.long() - want.long()).abs().max().item(),
-                _time_ms(lambda: ballquery.query_ball_point_kernel(r, ns, xyz, new_xyz), 20, dev),
-                _time_ms(lambda: ballquery.query_ball_point_plain(r, ns, xyz, new_xyz), 5, dev),
-                f"K1 ball query N={xyz.shape[1]} S={new_xyz.shape[1]} r={r}: equal indices",
-                _nbytes(xyz, new_xyz, got), DIST_OPS * ball_scan(r, ns, xyz, new_xyz))
-
-    for xyz1, xyz2 in zip(levels[3::-1], levels[4:0:-1]):  # K2 at fp4..fp1
-        k = min(3, xyz2.shape[1])
-        gd, gi = ballquery.three_nn_kernel(xyz1, xyz2, k)
-        wd, wi = ballquery.three_nn_plain(xyz1, xyz2, k)
-        derr = (gd - wd).abs().max().item()
-        if not torch.equal(gi, wi) or derr > DIST_ATOL:
-            raise AssertionError(f"3-NN N={xyz1.shape[1]} S={xyz2.shape[1]}: "
-                                 f"indices differ or distance error {derr}")
-        _record(rec, "three_nn", derr,
-                _time_ms(lambda: ballquery.three_nn_kernel(xyz1, xyz2, k), 20, dev),
-                _time_ms(lambda: ballquery.three_nn_plain(xyz1, xyz2, k), 5, dev),
-                f"K2 3-NN N={xyz1.shape[1]} S={xyz2.shape[1]}: equal indices, "
-                f"max distance error {derr:.3g}",
-                _nbytes(xyz1, xyz2, gd, gi), (DIST_OPS + 1) * gi.shape[0]
-                * xyz1.shape[1] * xyz2.shape[1])
+    levels = selection_checks(dev, stages, torch.randn(9, N, 3, generator=g, device=dev),
+                              rec)
+    fps_graph_check(levels[0], stages[1].npoint)
 
     # K7 at sa1..sa4 and K8 at fp4..fp1 (fp1 with the head): at b1 on
     # these levels, then at b8 (72 clouds)
@@ -530,20 +580,27 @@ def kernel_checks(dev, model, T: int = T_STEPS) -> dict:
     q = torch.randn(9, N, H, generator=g, device=dev)
     k = torch.randn(9, N, H, generator=g, device=dev)
     v = torch.randn(9, N, H, generator=g, device=dev)
-    got = attn.rank1_mha_kernel(q, k, v)
-    want = attn.rank1_mha_plain(q, k, v)
+    got, den = attn.rank1_mha_kernel(q, k, v, denominator=True)
+    want, wden = attn.rank1_mha_plain(q, k, v, denominator=True)
     err = (got - want).abs().max().item()
     if not (torch.isfinite(got).all() and err <= ATTN_ATOL):
         raise AssertionError(f"rank-1 attention: max error {err} > {ATTN_ATOL}")
+    derr = ((den - wden).abs() / wden).max().item()
+    if not derr <= ATTN_DEN_RTOL:
+        raise AssertionError(f"rank-1 attention row denominators: max relative "
+                             f"error {derr} > {ATTN_DEN_RTOL}")
+    if not torch.equal(attn.rank1_mha_kernel(q, k, v), got):
+        raise AssertionError("rank-1 attention: the output moved with the denominators")
     q4, k4, v4 = (t.transpose(1, 2)[..., None].contiguous() for t in (q, k, v))
     _record(rec, "rank1_attn", err,
-            _time_ms(lambda: attn.rank1_mha_kernel(q, k, v), 20, dev),
+            _time_queued_ms(lambda: attn.rank1_mha_kernel(q, k, v), QUEUED_REPS, dev)[0],
             _time_ms(lambda: attn.rank1_mha_plain(q, k, v), 5, dev),
             f"K4 rank-1 attention (9,{N},{H}): max error {err:.3g} "
-            f"(tolerance {ATTN_ATOL})",
+            f"(tolerance {ATTN_ATOL}); row denominators (training forward) max "
+            f"relative error {derr:.3g} (tolerance {ATTN_DEN_RTOL})",
             _nbytes(q, k, v, got), 6 * 9 * H * N * N,
             _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                q4, k4, v4, scale=1.0), 20, dev))
+                q4, k4, v4, scale=1.0), 20, dev), exps=9 * H * N * N)
 
     # K6 with the model's own tail weights: the path's case (batch 1, no
     # clip), then batch 8 with clip on, whose error counts.  Each time is
@@ -665,13 +722,14 @@ def _chain_pass1_library_ms(e2, p, dev) -> float:
 def train_kernel_checks(dev, model, batch: int = TRAIN_BATCH) -> dict:
     """Phase 10: the training kernels against their plain versions at the
     shapes of the train step at ``batch`` scenes (``batch * max_objs``
-    clouds): K5 on the pcd_attention's (clouds, N, 12), K10 at sa1-sa4 and
-    on a center with an empty ball, K11 on (batch, N, 3) each way.
-    Returns {kernel: record}, as :func:`kernel_checks`."""
+    clouds): K5 on the pcd_attention's (clouds, N, 12) from K4's row
+    denominators, and on k, v offset by +8; K3, K1 and K2 at the SA and FP
+    stages (under the key "selection"); K10 at sa1-sa4 and on a center
+    with an empty ball; K11 on (batch, N, 3) each way.  Returns {kernel:
+    record}, as :func:`kernel_checks`."""
     import torch
 
-    from lsdm_tpu_torch.ops import attn, chamfer, fps, sg_fused
-    from lsdm_tpu_torch.ops.pointcloud import index_points
+    from lsdm_tpu_torch.ops import attn, chamfer, sg_fused
     from lsdm_tpu_torch.profile_encode import DIST_OPS, ball_scan
 
     cfg = model.cfg
@@ -679,15 +737,18 @@ def train_kernel_checks(dev, model, batch: int = TRAIN_BATCH) -> dict:
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     rec: dict = {}
 
-    # K5 at (clouds, N, 12), with SDPA's backward on the same inputs as the
-    # library yardstick (head_dim 1, scale 1)
+    # K5 at (clouds, N, 12) from K4's saved row denominators, with SDPA's
+    # backward on the same inputs as the library yardstick (head_dim 1,
+    # scale 1); then on k and v shifted by +8, where a factored form of the
+    # gradients would cancel
     q, k, v, gout = (torch.randn(C_, N, H, generator=g, device=dev) for _ in range(4))
-    out = attn.rank1_mha_kernel(q, k, v)
-    got = attn.rank1_mha_bwd_kernel(q, k, v, out, gout)
+    out, den = attn.rank1_mha_kernel(q, k, v, denominator=True)
+    got = attn.rank1_mha_bwd_kernel(q, k, v, out, gout, den)
     want = attn.rank1_mha_bwd_plain(q, k, v, out, gout)
     err = max((a - b).abs().max().item() for a, b in zip(got, want))
     if not (all(torch.isfinite(a).all() for a in got) and err <= ATTN_BWD_ATOL):
         raise AssertionError(f"rank-1 attention backward: max error {err} > {ATTN_BWD_ATOL}")
+    del want
     q4, k4, v4 = (t.transpose(1, 2)[..., None].contiguous().requires_grad_()
                   for t in (q, k, v))
     out4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
@@ -696,22 +757,36 @@ def train_kernel_checks(dev, model, batch: int = TRAIN_BATCH) -> dict:
                                                retain_graph=True), 5, dev)
     del q4, k4, v4, out4
     _record(rec, "rank1_attn_bwd", err,
-            _time_ms(lambda: attn.rank1_mha_bwd_kernel(q, k, v, out, gout), 10, dev),
+            _time_queued_ms(lambda: attn.rank1_mha_bwd_kernel(q, k, v, out, gout, den),
+                            QUEUED_REPS, dev)[0],
             _time_ms(lambda: attn.rank1_mha_bwd_plain(q, k, v, out, gout), 3, dev),
             f"K5 rank-1 attention backward ({C_},{N},{H}): max error {err:.3g} "
             f"(tolerance {ATTN_BWD_ATOL})",
-            _nbytes(q, k, v, out, gout, *got), 13 * C_ * H * N * N, lib)
-    del want
+            _nbytes(q, k, v, out, gout, den, *got), 13 * C_ * H * N * N, lib,
+            exps=C_ * H * N * N)
+    ks, vs = k + 8.0, v + 8.0
+    out, den = attn.rank1_mha_kernel(q, ks, vs, denominator=True)
+    got = attn.rank1_mha_bwd_kernel(q, ks, vs, out, gout, den)
+    want = attn.rank1_mha_bwd_plain(q, ks, vs, out, gout)
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    print(f"K5 rank-1 attention backward ({C_},{N},{H}), k and v offset by +8: max "
+          f"error {err:.3g} (tolerance {ATTN_BWD_ATOL})")
+    if not (all(torch.isfinite(a).all() for a in got) and err <= ATTN_BWD_ATOL):
+        raise AssertionError(f"rank-1 attention backward, offset inputs: max error "
+                             f"{err} > {ATTN_BWD_ATOL}")
+    rec["rank1_attn_bwd"]["offset_max_abs_err"] = err
+    del got, want, out, den, ks, vs
+
+    # K3, K1 and K2 at the train step's clouds
+    bb = model.pcd_backbone
+    stages = (bb.sa1, bb.sa2, bb.sa3, bb.sa4)
+    rec["selection"] = {}
+    levels = selection_checks(dev, stages, torch.randn(C_, N, 3, generator=g, device=dev),
+                              rec["selection"])
 
     # K10 at sa1..sa4: centers by FPS as the stages pick them, features of
     # the stages' input widths
-    bb = model.pcd_backbone
-    stages = (bb.sa1, bb.sa2, bb.sa3, bb.sa4)
-    xyz = torch.randn(C_, N, 3, generator=g, device=dev)
-    start = torch.zeros(C_, dtype=torch.int32, device=dev)
-    for st in stages:
-        new_xyz = (xyz if st.npoint == xyz.shape[1] else index_points(
-            xyz, fps.farthest_point_sample_kernel(xyz, st.npoint, start)).contiguous())
+    for st, xyz, new_xyz in zip(stages, levels[:4], levels[1:5]):
         width = st.mlp_convs[0].weight.shape[1]
         base = torch.cat([xyz, torch.randn(C_, xyz.shape[1], width - 3, generator=g,
                                            device=dev)], -1).contiguous()
@@ -740,7 +815,6 @@ def train_kernel_checks(dev, model, batch: int = TRAIN_BATCH) -> dict:
                     _nbytes(xyz, qc, base, got, gi),
                     DIST_OPS * ball_scan(r, ns, xyz, qc) + 3 * gi.numel())
         del got, want
-        xyz = new_xyz
 
     # K11 both ways on (batch, N, 3): the loss's x0 and target
     x = torch.randn(batch, N, 3, generator=g, device=dev)
@@ -1372,6 +1446,9 @@ def main() -> int:
     from lsdm_tpu_torch.models.sampling import resolve_train_attn_impl
 
     records.update(train_kernel_checks(dev, model))
+    # K1-K3 at the train step's clouds, beside their sampling-path records
+    for name, r in records.pop("selection").items():
+        records[name][f"train_b{TRAIN_BATCH}"] = _kernel_record(r)
     # K11's record keeps the train step's times; the ICP's call adds its error
     records["chamfer_nn"]["max_abs_err"] = max(
         records["chamfer_nn"]["max_abs_err"], icp_rec["chamfer_nn"]["max_abs_err"])

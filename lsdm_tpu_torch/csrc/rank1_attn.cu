@@ -20,7 +20,9 @@
 // and e * v, each with a compensated (Kahan) sum so that 1024 terms in
 // sequence keep the accuracy of the plain version's tree reductions, and
 // out = (sum e v) / (sum e).  All threads of a warp read the same k[s] and
-// v[s]: shared-memory broadcasts.
+// v[s]: shared-memory broadcasts.  The training forward also keeps each
+// row's sum e (an optional (B, H, L) output), from which the backward (K5,
+// csrc/rank1_attn_bwd.cu) gets every softmax weight with one exponential.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -32,7 +34,7 @@ constexpr int kAttnThreads = 256;
 __global__ void __launch_bounds__(kAttnThreads)
 rank1_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, int l, int s, int h,
-                  float* __restrict__ out) {
+                  float* __restrict__ out, float* __restrict__ denom) {
   extern __shared__ float smem[];
   __shared__ float red_max[kAttnThreads / 32], red_min[kAttnThreads / 32];
   float* ks = smem;
@@ -82,15 +84,18 @@ rank1_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     sv = tv;
   }
   out[((size_t)b * l + row) * h + hh] = __fdiv_rn(sv, se);
+  if (denom != nullptr) denom[((size_t)b * h + hh) * l + row] = se;
 }
 
 }  // namespace
 
 extern "C" {
 
-// q (B, L, H), k and v (B, S, H), float32 -> out (B, L, H).
+// q (B, L, H), k and v (B, S, H), float32 -> out (B, L, H) and, unless
+// denom is null, each row's sum of exp(q k - max) as denom (B, H, L).
 int lsdm_rank1_attn(const float* q, const float* k, const float* v, int b,
-                    int l, int s, int h, float* out, void* stream) {
+                    int l, int s, int h, float* out, float* denom,
+                    void* stream) {
   if (b <= 0 || l <= 0 || h <= 0) return 0;
   if (s < 1 || b > 65535 || h > 65535) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * 2 * (size_t)s;
@@ -100,7 +105,7 @@ int lsdm_rank1_attn(const float* q, const float* k, const float* v, int b,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((l + kAttnThreads - 1) / kAttnThreads, h, b);
   rank1_attn_kernel<<<grid, kAttnThreads, smem, (cudaStream_t)stream>>>(
-      q, k, v, l, s, h, out);
+      q, k, v, l, s, h, out, denom);
   return (int)cudaGetLastError();
 }
 

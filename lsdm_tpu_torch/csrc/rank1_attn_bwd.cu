@@ -12,27 +12,40 @@
 //   dv[s] = sum_l w[l, s] g[l]
 // The (L, S) plane of w is recomputed and never stored.
 //
-// The TPU kernel walks the query tiles in order and accumulates dk and dv
-// in a block that stays resident across the grid.  Blocks on Hopper run
-// in no order, so this takes two passes and no atomics, and its result is
-// the same from run to run:
-//   * the row pass, one thread per (cloud, head, query row): the row's
-//     maximum comes from max(k)/min(k) as in K4 (exact: rounding is
-//     monotonic), one sweep over the keys sums e = exp(q k - m) and
-//     e (g v - D) k, and it writes dq and the row statistics (m, sum e) to
-//     a (B, H, L) scratch;
-//   * the column pass, one thread per (cloud, head, key): a block stages
-//     the rows' q, g, D, m and 1 / sum e of its head in shared memory, and
-//     each thread sweeps the rows to sum dk and dv of its key.
-// Every sum runs over up to 1024 terms in sequence, so each is compensated
-// (Kahan), as K4's are.
+// One pass.  The forward (K4) saves each row's softmax denominator
+// Z = sum_s e, e = exp(q k - m), as flash attention saves its
+// log-sum-exp, so every weight is known from its own pair, w = e / Z, the
+// row max m from max(k) / min(k) as in K4 (exact: rounding is monotonic).
+// A block owns (cloud, head, 1024 keys); each of its 256 threads holds 4
+// keys in registers and sweeps every row, which the block stages in
+// shared memory ({q, m, g, D} and {q / Z, g / Z}, read as broadcasts).
+// Per (row, key) pair: q k - m rounded as the plain version rounds it,
+// times log2(e), one ex2.approx on the SFU for e, g v - D rounded as the
+// plain version rounds it, p = e (g v - D), and three FFMAs: p (q / Z)
+// into dk and e (g / Z) into dv (the key's, in registers), p k into the
+// row's dq partial, which is divided by Z once a row.  Nine FP32
+// instructions and one SFU exponential a pair, where the two-pass kernel
+// before it took two expf sequences and four Kahan sums.  Z stays out of
+// the exponent: folded in as - log2 Z, its rounding at |log2 Z| up to 10
+// would cost each weight up to 3e-7 of relative error; as a factor of the
+// row's constants it costs one rounding, and the exponent's argument is
+// small where the weight is large.  The dq partials of a tile of 8 rows are reduced across the warp
+// by a reduce-scatter (3 halving shuffle steps, then 2 butterflies: 9
+// shuffles for 8 rows), each warp's per-row total goes to shared memory,
+// and the block adds its 8 warps in order.  (8 warps of 4 keys a thread
+// ran faster than 4 warps of 8 keys on an H100, PERF.md: more warps in
+// flight hide more of the SFU's and the FP32 chains' latency.)  dk and dv are summed in
+// groups of 32 rows, the groups then in sequence: no compensation in the
+// inner loop.  Where S exceeds one block's 1024 keys, each block writes
+// its dq partial to a (tiles, B, H, L) scratch and a second short pass
+// adds the tiles in order.  No atomics: the result is the same bits from
+// run to run.
 //
-// What bounds it on an H100: one exp per (row, key) pair and pass, i.e.
-// 2 x B x H x L x S exponentials (2 x 6.8e8 at the training flagship,
-// 54 clouds of 1024 points, 12 heads) and about 20 other float32
-// operations per pair; the inputs and outputs are ~13 MB.  Both passes are
-// bound by instruction issue.  All threads of a warp read the same staged
-// value per iteration: shared-memory broadcasts, no bank conflicts.
+// What bounds it on an H100: the B x H x L x S exponentials on the
+// special-function units, 16 a clock per SM (6.8e8 at the training
+// flagship, 54 clouds of 1024 points, 12 heads: >= 0.163 ms at 1.98
+// GHz), and, at nine FP32 instructions beside each, the instruction-issue
+// rate, about as slow.  The inputs and outputs are ~13 MB.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -40,32 +53,67 @@
 namespace {
 
 constexpr int kBwdThreads = 256;
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kKeysPerThread = 4;
+constexpr int kKeysPerBlock = kBwdThreads * kKeysPerThread;
+constexpr int kRowTile = 8;    // rows whose dq partials are reduced together
+constexpr int kRowGroup = 32;  // rows summed into dk, dv before the running sum
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void kahan_add(float& sum, float& comp, float x) {
-  const float y = __fsub_rn(x, comp);
-  const float t = __fadd_rn(sum, y);
-  comp = __fsub_rn(__fsub_rn(t, sum), y);
-  sum = t;
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// Row pass: dq and the per-row (max, sum of e).
+// The warp's sums of acc[0..7]: each step of the reduce-scatter halves the
+// rows a lane carries (a lane with bit 4, 3, 2 set keeps the upper half),
+// so lane `lane` ends with the sum of row 4 b4 + 2 b3 + b2 of its bits;
+// lanes with (lane & 3) == 0 hold the eight rows once each.
+__device__ __forceinline__ float reduce_rows(float (&acc)[kRowTile], int lane) {
+  const bool up16 = lane & 16, up8 = lane & 8, up4 = lane & 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float send = up16 ? acc[i] : acc[i + 4];
+    const float keep = up16 ? acc[i + 4] : acc[i];
+    acc[i] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float send = up8 ? acc[i] : acc[i + 2];
+    const float keep = up8 ? acc[i + 2] : acc[i];
+    acc[i] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+  }
+  const float send = up4 ? acc[0] : acc[1];
+  const float keep = up4 ? acc[1] : acc[0];
+  float r = keep + __shfl_xor_sync(0xffffffffu, send, 4);
+  r += __shfl_xor_sync(0xffffffffu, r, 2);
+  r += __shfl_xor_sync(0xffffffffu, r, 1);
+  return r;
+}
+
+// kMasked: the last key tile is ragged.  A missing key holds k = v = 0 and
+// its base-2 argument is clamped to 0, so its e stays finite and its dq
+// contribution p * 0 is 0; its dk and dv are not stored.  (A real key's
+// argument is <= 0 anyway: q k <= m.)
+template <bool kMasked>
 __global__ void __launch_bounds__(kBwdThreads)
-rank1_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ out,
-                      const float* __restrict__ g, int l, int s, int h,
-                      float* __restrict__ dq, float* __restrict__ row_max,
-                      float* __restrict__ row_sum) {
-  extern __shared__ float smem[];
-  __shared__ float red_max[kBwdThreads / 32], red_min[kBwdThreads / 32];
-  float* ks = smem;
-  float* vs = smem + s;
-  const int hh = blockIdx.y, b = blockIdx.z;
+rank1_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ out,
+                 const float* __restrict__ g, const float* __restrict__ denom,
+                 int l, int lp, int s, int h, float* __restrict__ dq,
+                 float* __restrict__ dk, float* __restrict__ dv,
+                 float* __restrict__ part) {
+  extern __shared__ float4 rows[];  // lp x {q, m, g, D}
+  float2* rows_n = reinterpret_cast<float2*>(rows + lp);  // lp x {q/Z, g/Z}
+  float* red = reinterpret_cast<float*>(rows_n + lp);     // kBwdWarps x lp
+  __shared__ float red_max[kBwdWarps], red_min[kBwdWarps];
+  const int tile = blockIdx.x, hh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   float kmax = -INFINITY, kmin = INFINITY;
-  for (int j = threadIdx.x; j < s; j += kBwdThreads) {
+  for (int j = tid; j < s; j += kBwdThreads) {
     const float kj = k[((size_t)b * s + j) * h + hh];
-    ks[j] = kj;
-    vs[j] = v[((size_t)b * s + j) * h + hh];
     kmax = fmaxf(kmax, kj);
     kmin = fminf(kmin, kj);
   }
@@ -73,7 +121,6 @@ rank1_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
     kmax = fmaxf(kmax, __shfl_xor_sync(0xffffffffu, kmax, off));
     kmin = fminf(kmin, __shfl_xor_sync(0xffffffffu, kmin, off));
   }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (lane == 0) {
     red_max[warp] = kmax;
     red_min[warp] = kmin;
@@ -81,106 +128,164 @@ rank1_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __syncthreads();
   kmax = red_max[0];
   kmin = red_min[0];
-  for (int w = 1; w < kBwdThreads / 32; ++w) {
+  for (int w = 1; w < kBwdWarps; ++w) {
     kmax = fmaxf(kmax, red_max[w]);
     kmin = fminf(kmin, red_min[w]);
   }
-
-  const int row = blockIdx.x * kBwdThreads + threadIdx.x;
-  if (row >= l) return;
-  const size_t at = ((size_t)b * l + row) * h + hh;
-  const float qv = q[at], gv = g[at];
-  const float d = __fmul_rn(gv, out[at]);
-  const float m = qv >= 0.0f ? __fmul_rn(qv, kmax) : __fmul_rn(qv, kmin);
-  float se = 0.0f, ce = 0.0f;  // sum of e
-  float sa = 0.0f, ca = 0.0f;  // sum of e (g v - D) k
-  for (int j = 0; j < s; ++j) {
-    const float e = expf(__fsub_rn(__fmul_rn(qv, ks[j]), m));
-    kahan_add(se, ce, e);
-    const float t = __fmul_rn(__fsub_rn(__fmul_rn(gv, vs[j]), d), ks[j]);
-    kahan_add(sa, ca, __fmul_rn(e, t));
+  // padded rows (l <= i < lp) have g = D = 0: they add nothing
+  for (int i = tid; i < lp; i += kBwdThreads) {
+    float4 r = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float2 rn = make_float2(0.0f, 0.0f);
+    if (i < l) {
+      const size_t at = ((size_t)b * l + i) * h + hh;
+      const float qv = q[at], gv = g[at];
+      const float z = denom[((size_t)b * h + hh) * l + i];
+      r = make_float4(qv, qv >= 0.0f ? __fmul_rn(qv, kmax) : __fmul_rn(qv, kmin),
+                      gv, __fmul_rn(gv, out[at]));
+      rn = make_float2(__fdiv_rn(qv, z), __fdiv_rn(gv, z));
+    }
+    rows[i] = r;
+    rows_n[i] = rn;
   }
-  dq[at] = __fdiv_rn(sa, se);
-  const size_t r = ((size_t)b * h + hh) * l + row;
-  row_max[r] = m;
-  row_sum[r] = se;
-}
 
-// Column pass: dk and dv from the row statistics.
-__global__ void __launch_bounds__(kBwdThreads)
-rank1_bwd_cols_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ out,
-                      const float* __restrict__ g,
-                      const float* __restrict__ row_max,
-                      const float* __restrict__ row_sum, int l, int s, int h,
-                      float* __restrict__ dk, float* __restrict__ dv) {
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* gs = smem + l;
-  float* ds = smem + 2 * l;
-  float* ms = smem + 3 * l;
-  float* rs = smem + 4 * l;  // 1 / sum of e
-  const int hh = blockIdx.y, b = blockIdx.z;
-  for (int i = threadIdx.x; i < l; i += kBwdThreads) {
-    const size_t at = ((size_t)b * l + i) * h + hh;
-    const size_t r = ((size_t)b * h + hh) * l + i;
-    const float gi = g[at];
-    qs[i] = q[at];
-    gs[i] = gi;
-    ds[i] = __fmul_rn(gi, out[at]);
-    ms[i] = row_max[r];
-    rs[i] = __frcp_rn(row_sum[r]);
+  float kk[kKeysPerThread], vv[kKeysPerThread];
+  float dks[kKeysPerThread], dvs[kKeysPerThread];
+  const int key0 = tile * kKeysPerBlock + tid;
+#pragma unroll
+  for (int j = 0; j < kKeysPerThread; ++j) {
+    const int key = key0 + j * kBwdThreads;
+    const bool ok = !kMasked || key < s;
+    kk[j] = ok ? k[((size_t)b * s + key) * h + hh] : 0.0f;
+    vv[j] = ok ? v[((size_t)b * s + key) * h + hh] : 0.0f;
+    dks[j] = 0.0f;
+    dvs[j] = 0.0f;
   }
   __syncthreads();
 
-  const int col = blockIdx.x * kBwdThreads + threadIdx.x;
-  if (col >= s) return;
-  const size_t at = ((size_t)b * s + col) * h + hh;
-  const float kv = k[at], vv = v[at];
-  float sk = 0.0f, ck = 0.0f;  // dk
-  float sv = 0.0f, cv = 0.0f;  // dv
-  for (int i = 0; i < l; ++i) {
-    const float w = __fmul_rn(expf(__fsub_rn(__fmul_rn(qs[i], kv), ms[i])), rs[i]);
-    kahan_add(sv, cv, __fmul_rn(w, gs[i]));
-    const float t = __fmul_rn(__fsub_rn(__fmul_rn(gs[i], vv), ds[i]), qs[i]);
-    kahan_add(sk, ck, __fmul_rn(w, t));
+  const int rsel = ((lane >> 4) & 1) * 4 + ((lane >> 3) & 1) * 2 + ((lane >> 2) & 1);
+  for (int r0 = 0; r0 < lp; r0 += kRowGroup) {
+    float dkg[kKeysPerThread], dvg[kKeysPerThread];
+#pragma unroll
+    for (int j = 0; j < kKeysPerThread; ++j) dkg[j] = dvg[j] = 0.0f;
+    const int r1 = min(r0 + kRowGroup, lp);
+    for (int rt = r0; rt < r1; rt += kRowTile) {
+      float acc[kRowTile];
+#pragma unroll
+      for (int r = 0; r < kRowTile; ++r) {
+        const float4 rd = rows[rt + r];  // q, m, g, D
+        const float2 rn = rows_n[rt + r];  // q / Z, g / Z
+        float a = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kKeysPerThread; ++j) {
+          float arg = __fmul_rn(__fsub_rn(__fmul_rn(rd.x, kk[j]), rd.y), kLog2e);
+          if (kMasked) arg = fminf(arg, 0.0f);
+          const float e = ex2_approx(arg);
+          const float p = __fmul_rn(e, __fsub_rn(__fmul_rn(rd.z, vv[j]), rd.w));
+          a = fmaf(p, kk[j], a);
+          dkg[j] = fmaf(p, rn.x, dkg[j]);
+          dvg[j] = fmaf(e, rn.y, dvg[j]);
+        }
+        acc[r] = a;
+      }
+      const float sum = reduce_rows(acc, lane);
+      if ((lane & 3) == 0) red[warp * lp + rt + rsel] = sum;
+    }
+#pragma unroll
+    for (int j = 0; j < kKeysPerThread; ++j) {
+      dks[j] += dkg[j];
+      dvs[j] += dvg[j];
+    }
   }
-  dk[at] = sk;
-  dv[at] = sv;
+
+#pragma unroll
+  for (int j = 0; j < kKeysPerThread; ++j) {
+    const int key = key0 + j * kBwdThreads;
+    if (kMasked && key >= s) continue;
+    const size_t at = ((size_t)b * s + key) * h + hh;
+    dk[at] = dks[j];
+    dv[at] = dvs[j];
+  }
+  __syncthreads();
+  for (int i = tid; i < l; i += kBwdThreads) {
+    float t = red[i];
+    for (int w = 1; w < kBwdWarps; ++w) t += red[w * lp + i];
+    t = __fdiv_rn(t, denom[((size_t)b * h + hh) * l + i]);
+    if (part == nullptr) {
+      dq[((size_t)b * l + i) * h + hh] = t;
+    } else {
+      part[(((size_t)tile * gridDim.z + b) * h + hh) * l + i] = t;
+    }
+  }
+}
+
+// dq from the key tiles' partials, added in tile order.
+__global__ void rank1_bwd_dq_kernel(const float* __restrict__ part, int tiles,
+                                    int bsz, int l, int h,
+                                    float* __restrict__ dq) {
+  const size_t n = (size_t)bsz * l * h;
+  const size_t stride = (size_t)bsz * h * l;  // one tile's partials
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const int hh = (int)(e % h);
+    const size_t bl = e / h;
+    const int i = (int)(bl % l);
+    const size_t b = bl / l;
+    const size_t at = (b * h + hh) * l + i;
+    float t = part[at];
+    for (int tt = 1; tt < tiles; ++tt) t += part[tt * stride + at];
+    dq[e] = t;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, out, g (B, L, H), k and v (B, S, H), float32 -> dq (B, L, H), dk and
-// dv (B, S, H); stats: a (2, B, H, L) float32 scratch (row max, row sum).
+// Key tiles of one (cloud, head): the scratch holds (tiles, B, H, L)
+// floats where this is above 1, none otherwise.
+int lsdm_rank1_attn_bwd_tiles(int s) {
+  return (s + kKeysPerBlock - 1) / kKeysPerBlock;
+}
+
+// q, out, g (B, L, H), k and v (B, S, H), denom (B, H, L) the forward's
+// row sums of exp(q k - max), float32 -> dq (B, L, H), dk and dv
+// (B, S, H); scratch: (tiles, B, H, L) float32 where there is more than
+// one key tile, else unused (may be null).
 int lsdm_rank1_attn_bwd(const float* q, const float* k, const float* v,
-                        const float* out, const float* g, int b, int l, int s,
-                        int h, float* dq, float* dk, float* dv, float* stats,
-                        void* stream) {
+                        const float* out, const float* g, const float* denom,
+                        int b, int l, int s, int h, float* dq, float* dk,
+                        float* dv, float* scratch, void* stream) {
   if (b <= 0 || l <= 0 || h <= 0 || s <= 0) return 0;
   if (b > 65535 || h > 65535) return (int)cudaErrorInvalidValue;
-  const size_t row_smem = sizeof(float) * 2 * (size_t)s;
-  const size_t col_smem = sizeof(float) * 5 * (size_t)l;
-  cudaError_t err = cudaFuncSetAttribute(
-      rank1_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)row_smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(rank1_bwd_cols_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)col_smem);
-  if (err != cudaSuccess) return (int)err;
-  float* row_max = stats;
-  float* row_sum = stats + (size_t)b * h * l;
-  const dim3 rows((l + kBwdThreads - 1) / kBwdThreads, h, b);
-  rank1_bwd_rows_kernel<<<rows, kBwdThreads, row_smem, (cudaStream_t)stream>>>(
-      q, k, v, out, g, l, s, h, dq, row_max, row_sum);
+  const int lp = (l + kRowTile - 1) / kRowTile * kRowTile;
+  const size_t smem = sizeof(float) * (size_t)lp * (4 + 2 + kBwdWarps);
+  const int tiles = lsdm_rank1_attn_bwd_tiles(s);
+  const bool masked = s % kKeysPerBlock != 0;
+  float* part = tiles > 1 ? scratch : nullptr;
+  if (tiles > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid(tiles, h, b);
+  cudaError_t err;
+  if (masked) {
+    err = cudaFuncSetAttribute(rank1_bwd_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    rank1_bwd_kernel<true><<<grid, kBwdThreads, smem, st>>>(
+        q, k, v, out, g, denom, l, lp, s, h, dq, dk, dv, part);
+  } else {
+    err = cudaFuncSetAttribute(rank1_bwd_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    rank1_bwd_kernel<false><<<grid, kBwdThreads, smem, st>>>(
+        q, k, v, out, g, denom, l, lp, s, h, dq, dk, dv, part);
+  }
   err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 cols((s + kBwdThreads - 1) / kBwdThreads, h, b);
-  rank1_bwd_cols_kernel<<<cols, kBwdThreads, col_smem, (cudaStream_t)stream>>>(
-      q, k, v, out, g, row_max, row_sum, l, s, h, dk, dv);
+  if (err != cudaSuccess || tiles == 1) return (int)err;
+  const size_t n = (size_t)b * l * h;
+  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+  rank1_bwd_dq_kernel<<<blocks, 256, 0, st>>>(part, tiles, b, l, h, dq);
   return (int)cudaGetLastError();
 }
 

@@ -51,8 +51,8 @@ _SIGNATURES = {
     "lsdm_ball_query": (_P, _P, _I, _I, _I, _F, _I, _P, _P),
     # (xyz1, xyz2, B, N, S, k, dist, idx, stream)
     "lsdm_three_nn": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
-    # (xyz, start, B, N, npoint, out, stream)
-    "lsdm_fps": (_P, _P, _I, _I, _I, _P, _P),
+    # (xyz, start or null, B, N, npoint, warps, points a lane, out, stream)
+    "lsdm_fps": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
     # (x_init, noise, cond_pcd, e2, coef, weights[20], final, last_in,
     #  scratch, dims[11], clip, stream)
     "lsdm_denoise_chain": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
@@ -61,8 +61,8 @@ _SIGNATURES = {
     # (x, noise, cond_pcd, e2, coefs, weights[20], out, scratch, dims[9],
     #  clip, stream)
     "lsdm_denoise_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
-    # (q, k, v, B, L, S, H, out, stream)
-    "lsdm_rank1_attn": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
+    # (q, k, v, B, L, S, H, out, denom or null, stream)
+    "lsdm_rank1_attn": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     # (xyz, new_xyz, z1, w1x, params[2(L-1)], widths[L], L, B, N, S,
     #  radius2, nsample, plan, out, stream)
     "lsdm_sa_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P,
@@ -71,9 +71,11 @@ _SIGNATURES = {
     #  S, D1, D2, plan, out, stream)
     "lsdm_fp_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
                       _P, _P),
-    # (q, k, v, out, g, B, L, S, H, dq, dk, dv, stats, stream)
-    "lsdm_rank1_attn_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
-                            _P),
+    # (q, k, v, out, g, denom, B, L, S, H, dq, dk, dv, scratch, stream)
+    "lsdm_rank1_attn_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                            _P, _P),
+    # (S) -> key tiles of one (cloud, head)
+    "lsdm_rank1_attn_bwd_tiles": (_I,),
     # (xyz, new_xyz, base, B, N, S, C, radius2, nsample, out, idx, stream)
     "lsdm_select_gather": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P),
     # (x, y, B, N, M, min, argmin, stream)

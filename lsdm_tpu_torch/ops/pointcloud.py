@@ -51,10 +51,9 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int,
                           start: Optional[torch.Tensor] = None,
                           impl: str = "pallas") -> torch.Tensor:
     """FPS indices (B, npoint) int32.  ``start`` (B,) defaults to index 0
-    for every cloud, as the JAX function does without a key."""
+    for every cloud, as the JAX function does without a key; then no start
+    tensor is made and the kernel's call reads nothing back."""
     _check_impl(impl)
-    if start is None:
-        start = torch.zeros(xyz.shape[0], dtype=torch.int32, device=xyz.device)
     if impl == "topk":
         return farthest_point_sample_plain(xyz, npoint, start)
     return farthest_point_sample_kernel(xyz, npoint, start)

@@ -35,11 +35,12 @@ import torch
 DIST_OPS = 10  # a squared distance (6 multiplies, 4 adds) and its compare
 
 
-def time_queued_ms(fn, reps: int, dev):
+def time_queued_ms(fn, reps: int, dev=None):
     """(device ms, host ms) per call of fn() after one warm-up: its launches
     enqueued while the card sleeps (~0.1 s), so that they run back to back
     whatever the host's pace, and the host's clock over the enqueueing,
-    which the card does not hold up."""
+    which the card does not hold up.  ``dev``: the CUDA device (None: the
+    current one)."""
     fn()
     torch.cuda.synchronize(dev)
     start = torch.cuda.Event(enable_timing=True)
@@ -79,9 +80,8 @@ def encode_levels(backbone, clouds: int, g: torch.Generator, dev):
     n = backbone.sa1.npoint
     levels = [torch.randn(clouds, n, 3, generator=g, device=dev)]
     levels.append(levels[0])
-    start = torch.zeros(clouds, dtype=torch.int32, device=dev)
     for st in (backbone.sa2, backbone.sa3, backbone.sa4):
-        idx = fps.farthest_point_sample_kernel(levels[-1], st.npoint, start)
+        idx = fps.farthest_point_sample_kernel(levels[-1], st.npoint)
         levels.append(index_points(levels[-1], idx).contiguous())
     return levels
 

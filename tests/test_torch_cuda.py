@@ -80,6 +80,42 @@ def test_fps_kernel_equals_plain(dev, n, npoint):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("n", [64, 256, 1000, 1024, 3072])
+def test_fps_kernel_breaks_ties_as_plain(dev, n):
+    """Duplicate points tie in distance, across lanes and warps of the
+    kernel's plan (1 warp of 2 points a lane at 64 points, 8 warps at 256,
+    32 at 1000 and 1024, 32 of 4 points a lane at 3072); with and without
+    a start tensor."""
+    base = _cloud(n, 3, n // 4, 3)
+    xyz = base.repeat(1, 4, 1)[:, torch.randperm(n, generator=torch.Generator().manual_seed(n))]
+    xyz = xyz.contiguous().to(dev)
+    npoint = min(n, 300)
+    want = fps.farthest_point_sample_plain(xyz, npoint)
+    before = kernels.LAUNCHES["fps"]
+    got = fps.farthest_point_sample_kernel(xyz, npoint)
+    assert kernels.LAUNCHES["fps"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    start = torch.tensor([n - 1, 0, n // 3], dtype=torch.int32, device=dev)
+    assert torch.equal(fps.farthest_point_sample_kernel(xyz, npoint, start),
+                       fps.farthest_point_sample_plain(xyz, npoint, start))
+
+
+def test_fps_default_start_captures_into_a_cuda_graph(dev):
+    """No start tensor: the call reads nothing back from the card (a host
+    sync cannot be captured), so it records into a CUDA graph after one
+    warm-up call, and the replay gives the plain version's indices."""
+    xyz = _cloud(11, 9, 1024, 3).to(dev)
+    fps.farthest_point_sample_kernel(xyz, 256)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fps.farthest_point_sample_kernel(xyz, 256)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, fps.farthest_point_sample_plain(xyz, 256))
+
+
 def _chain_inputs(dev, B, T, N, D, seed=0):
     rs = np.random.RandomState(seed)
 
@@ -363,21 +399,55 @@ def test_rank1_attention_kernel_matches_plain(dev, b, l, s, h):
 
 
 @pytest.mark.parametrize("b,l,s,h", [(2, 300, 77, 12), (1, 1024, 1024, 12), (3, 8, 5, 2)])
+def test_rank1_attention_kernel_denominator_matches_plain(dev, b, l, s, h):
+    q = _cloud(1, b, l, h, scale=2.0).to(dev)
+    k = _cloud(2, b, s, h, scale=2.0).to(dev)
+    v = _cloud(3, b, s, h).to(dev)
+    out, den = attn.rank1_mha_kernel(q, k, v, denominator=True)
+    want, wden = attn.rank1_mha_plain(q, k, v, denominator=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, attn.rank1_mha_kernel(q, k, v))
+    torch.testing.assert_close(den, wden, atol=0, rtol=1e-6)
+
+
+def _bwd_case(b, l, s, h, offset=0.0, scale=2.0):
+    q = _cloud(4, b, l, h, scale=scale).cuda()
+    k = (_cloud(5, b, s, h, scale=scale) + offset).cuda()
+    v = (_cloud(6, b, s, h) + offset).cuda()
+    g = _cloud(7, b, l, h).cuda()
+    out, den = attn.rank1_mha_kernel(q, k, v, denominator=True)
+    return q, k, v, out, g, den
+
+
+@pytest.mark.parametrize("b,l,s,h", [(2, 300, 77, 12), (1, 1024, 1024, 12), (3, 8, 5, 2),
+                                     (2, 100, 2500, 3)])  # three key tiles
 def test_rank1_attention_bwd_kernel_matches_plain(dev, b, l, s, h):
-    q = _cloud(4, b, l, h, scale=2.0).to(dev)
-    k = _cloud(5, b, s, h, scale=2.0).to(dev)
-    v = _cloud(6, b, s, h).to(dev)
-    g = _cloud(7, b, l, h).to(dev)
-    out = attn.rank1_mha_plain(q, k, v).contiguous()
+    q, k, v, out, g, den = _bwd_case(b, l, s, h)
     before = kernels.LAUNCHES["rank1_attn_bwd"]
-    got = attn.rank1_mha_bwd_kernel(q, k, v, out, g)
+    got = attn.rank1_mha_bwd_kernel(q, k, v, out, g, den)
     assert kernels.LAUNCHES["rank1_attn_bwd"] == before + 1
     want = attn.rank1_mha_bwd_plain(q, k, v, out, g)
     torch.cuda.synchronize()
     for a, w in zip(got, want):
-        # compensated sums of up to 1024 terms against the plain version's
-        # rounded weights and its reductions in another order
+        # SFU exponentials and uncompensated sums of up to 1024 terms in
+        # groups, against the plain version's rounded weights and its
+        # reductions in another order
         torch.testing.assert_close(a, w, atol=1e-5, rtol=1e-5)
+    again = attn.rank1_mha_bwd_kernel(q, k, v, out, g, den)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+@pytest.mark.parametrize("b,l,s,h", [(4, 1024, 1024, 12), (2, 300, 77, 12)])
+def test_rank1_attention_bwd_kernel_on_offset_inputs(dev, b, l, s, h):
+    """k and v offset by +8 on unit-scale inputs, as chip_smoke.py holds
+    K5: the (g v - D) k form of each pair, as the plain version rounds it,
+    where a factored form would cancel."""
+    q, k, v, out, g, den = _bwd_case(b, l, s, h, offset=8.0, scale=1.0)
+    got = attn.rank1_mha_bwd_kernel(q, k, v, out, g, den)
+    want = attn.rank1_mha_bwd_plain(q, k, v, out, g)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=1e-5, rtol=0)
 
 
 def test_rank1_attention_train_autograd_runs_both_kernels(dev):
@@ -479,7 +549,12 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
                                        ("gelu",))
     with pytest.raises(ValueError):  # base lacks the xyz columns
         sg_fused.select_gather_kernel(0.2, 4, xyz, xyz, xyz[..., :2].contiguous())
+    den = torch.ones(2, 3, 16, device=dev)  # (B, H, L) row denominators
     with pytest.raises(ValueError):  # out and g disagree in length
-        attn.rank1_mha_bwd_kernel(xyz, xyz, xyz, xyz, xyz[:, :8].contiguous())
+        attn.rank1_mha_bwd_kernel(xyz, xyz, xyz, xyz, xyz[:, :8].contiguous(), den)
+    with pytest.raises(ValueError):  # row denominators laid out (B, L, H)
+        attn.rank1_mha_bwd_kernel(xyz, xyz, xyz, xyz, xyz, xyz)
+    with pytest.raises(ValueError):  # no FPS kernel past 3072 points
+        fps.farthest_point_sample_kernel(_cloud(1, 1, 3073, 3).to(dev), 4)
     with pytest.raises(ValueError):
         chamfer.directed_nn_kernel(xyz, xyz[:, :0].contiguous())

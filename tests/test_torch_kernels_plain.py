@@ -202,8 +202,8 @@ def test_kernel_wrappers_on_cpu_run_the_plain_versions_and_launch_nothing():
                        fp_fused.fp_stage_fused_plain(*fargs))
     assert torch.equal(attn.rank1_mha_kernel(base, base, base),
                        attn.rank1_mha_plain(base, base, base))
-    out = attn.rank1_mha_plain(base, base, base)
-    for a, b in zip(attn.rank1_mha_bwd_kernel(base, base, base, out, base),
+    out, den = attn.rank1_mha_plain(base, base, base, denominator=True)
+    for a, b in zip(attn.rank1_mha_bwd_kernel(base, base, base, out, base, den),
                     attn.rank1_mha_bwd_plain(base, base, base, out, base)):
         assert torch.equal(a, b)
     for a, b in zip(sg_fused.select_gather_kernel(0.5, 8, xyz, new_xyz, base),
