@@ -18,9 +18,12 @@ Run from the repository root:  python3 chip_smoke.py
    clip on, at batch CHAIN_BATCH, and its first pass's tables to
    TABLE_ATOL.  Prints both times and each kernel's bound: the least time
    the card could take for the call's work, the largest of its bytes over
-   HBM_BYTES_PER_S, its float32 operations over FP32_OPS_PER_S and its
-   exponentials over SFU_EXPS_PER_S (K4, K5); K1-K5 are timed queued
-   behind a sleep on the card; K6's time also split into its
+   HBM_BYTES_PER_S, its float32 operations over FP32_OPS_PER_S (for the
+   distance kernels K1-K3, K10 and K11, whose products and sums are rounded
+   on their own, its issued float32 instructions over FP32_INSTR_PER_S:
+   DIST_INSTRS or FPS_DIST_INSTRS a pair) and its exponentials over
+   SFU_EXPS_PER_S (K4, K5); K1-K5 are timed queued behind a sleep on the
+   card, K4 beside SDPA's forward; K6's time also split into its
    two passes, each beside its bound, pass 1 (``denoise_tables.cu``) also
    as TFLOP/s, as a share of the FP32 peak, and beside its cuBLAS
    yardstick (its four products as ``torch.baddbmm`` calls, TF32 off).
@@ -67,11 +70,13 @@ Run from the repository root:  python3 chip_smoke.py
    fixed rotations through the kernels and through the plain versions,
    agreeing to ICP_ATOL with equal inlier counts.
 10. The training kernels at the train step's shapes (batch 6 = 54 clouds
-   of 1024 points): the rank-1 attention backward (K5, from K4's saved
-   row denominators) to ATTN_BWD_ATOL, also with k and v offset by +8,
-   with SDPA's backward timed beside it; K3, K1 and K2 at the stages'
-   shapes (equal indices, queued times: the ``train_b6`` field of their
-   records); the select-gather (K10, sa1-sa4
+   of 1024 points): the rank-1 attention forward (K4, with the row
+   denominators the training forward keeps) to ATTN_ATOL and
+   ATTN_DEN_RTOL with SDPA's forward timed beside it, and its backward
+   (K5, from K4's saved row denominators) to ATTN_BWD_ATOL, also with k
+   and v offset by +8, with SDPA's backward timed beside it; K3, K1 and K2
+   at the stages' shapes (equal indices); K1-K4 timed queued (the
+   ``train_b6`` field of their records); the select-gather (K10, sa1-sa4
    and an empty ball) and the chamfer nearest neighbour (K11, each way)
    equal to their plain versions.
 11. The train step of ``sdm_proxd()`` at batch 6 (fp32, T=1000, seeded
@@ -124,14 +129,16 @@ DIST_ATOL = 1e-6
 # bits), float32 sums of up to 768 products in another order (FMA chains
 # against cuBLAS).  H100 readings: K7 <= 4.2e-07, K8 <= 6.0e-07.
 STAGE_ATOL = 2e-6
-# K4: the kernel's compensated sums over 1024 keys against the plain
-# version's rounded weights and its 1024-term products.  H100 reading
-# 7.2e-07 with these seeded inputs, which is the plain version's own
-# rounding: it reads 7.3e-07 from a float64 evaluation on the CPU.
+# K4: the kernel's one SFU exponential a pair and its shallow sum tree
+# over 1024 keys (4 keys a thread, the warp, 8 warps) against the plain
+# version's rounded weights and its 1024-term products.  H100 readings
+# 4.8e-07 at 9 clouds and 6.0e-07 at 54; the compensated sums of the
+# kernel before it read 7.2e-07 at 9, which is the plain version's own
+# rounding (7.3e-07 from a float64 evaluation on the CPU).
 ATTN_ATOL = 1e-6
 # K4's row denominators (the training forward keeps them for K5): sums of
-# 1024 exponentials, compensated, against torch's sum of its own exp.
-# H100 reading 2.5e-07.
+# 1024 exponentials against torch's sum of its own exp.  H100 readings
+# 3.0e-07 at 9 clouds and 4.5e-07 at 54 (the compensated sums: 2.5e-07).
 ATTN_DEN_RTOL = 1e-6
 # The fused path's sample against the plain versions of the same
 # configuration: the encode's rounding differences pass through T steps.
@@ -143,7 +150,8 @@ COND_RTOL, COND_ATOL = 2e-4, 2e-5
 # K5 on (54, 1024, 12): one SFU exponential a pair and sums in groups of
 # 32 rows, against the plain version's rounded weights and its reductions
 # in another order; q k - m and g v - D rounded as the plain version rounds
-# them.  H100 readings 3.8e-06, and 5.6e-06 with k and v offset by +8
+# them.  H100 readings 4.3e-06 from K4's denominators (3.8e-06 from those
+# of the compensated K4 before it), and 5.6e-06 with k and v offset by +8
 # (2.9e-06 for the compensated two-pass kernel before it).
 ATTN_BWD_ATOL = 1e-5
 # K11's minimum distances: the same float32 operations as the plain version
@@ -192,6 +200,21 @@ FP32_OPS_PER_S = 67e12
 # peak above assumes.  A kernel whose function takes n exponentials cannot
 # take less than n / SFU_EXPS_PER_S, whatever its other operations.
 SFU_EXPS_PER_S = 132 * 16 * 1.98e9
+# float32 instructions a second outside the tensor cores: 128 lanes a clock
+# per SM on 132 SMs at 1.98 GHz, half of FP32_OPS_PER_S, which counts an FMA
+# as two operations.  The distance kernels round every product and sum on
+# its own, as the plain versions do, so few of their operations fuse: their
+# bound counts the float32 instructions a pair must issue at this rate.
+FP32_INSTR_PER_S = 132 * 128 * 1.98e9
+# (-2 (q.x) + |q|^2) + |x|^2 (pointdist.cuh's sq_dist; K11's
+# (|q|^2 + |x|^2) - 2 (q.x) alike) and its compare: 3 multiplies and 2 adds
+# for the dot product, one FMA for -2 (q.x) + |q|^2 (a product by -2 is
+# exact, so the FMA gives the separately rounded bits), the add of |x|^2
+# and the compare; the norms are taken once a point, not once a pair.
+DIST_INSTRS = 8
+# FPS's (x - c)^2 form: 3 subtracts, 3 multiplies, 2 adds, the running
+# minimum and the compare of the round's argmax.
+FPS_DIST_INSTRS = 10
 KERNELS = {  # name: (source, the TPU kernel it replaces, path it is counted on)
     "ball_query": ("lsdm_tpu_torch/csrc/ballquery.cu",
                    "lsdm_tpu/ops/ballquery_pallas.py:65", "pallas"),
@@ -335,13 +358,16 @@ def plain_versions():
             setattr(m, name, fn)
 
 
-def _record(rec, name, err, ms, pms, line, nbytes, ops, lib_ms=None, exps=0):
+def _record(rec, name, err, ms, pms, line, nbytes, ops, lib_ms=None, exps=0,
+            instrs=False):
     """Add one call of kernel ``name`` to ``rec``: its error, its and its
     plain version's time, and the least time the card could take for the
     call's work (``nbytes`` moved, ``ops`` float32 operations, of which
-    ``exps`` exponentials, which also bound it on the SFUs)."""
+    ``exps`` exponentials, which also bound it on the SFUs).  ``instrs``:
+    ``ops`` counts issued float32 instructions, at FP32_INSTR_PER_S."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = max(ops / FP32_OPS_PER_S, exps / SFU_EXPS_PER_S) * 1e3
+    ops_ms = max(ops / (FP32_INSTR_PER_S if instrs else FP32_OPS_PER_S),
+                 exps / SFU_EXPS_PER_S) * 1e3
     lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
     print(f"{line}; kernel {ms:.4f} ms, plain {pms:.4f} ms{lib}, bound "
           f"{max(bytes_ms, ops_ms):.4f} ms")
@@ -468,7 +494,7 @@ def selection_checks(dev, stages, xyz, rec) -> list:
 
     from lsdm_tpu_torch.ops import ballquery, fps
     from lsdm_tpu_torch.ops.pointcloud import index_points
-    from lsdm_tpu_torch.profile_encode import DIST_OPS, ball_scan
+    from lsdm_tpu_torch.profile_encode import ball_scan
 
     C = xyz.shape[0]
     levels = [xyz, xyz]  # sa1 keeps all N points (no FPS)
@@ -483,7 +509,8 @@ def selection_checks(dev, stages, xyz, rec) -> list:
                                 QUEUED_REPS, dev)[0],
                 _time_ms(lambda: fps.farthest_point_sample_plain(pts, npoint), 3, dev),
                 f"K3 fps ({C},{pts.shape[1]},3)->{npoint} from index 0: equal indices",
-                _nbytes(pts, got), DIST_OPS * C * npoint * pts.shape[1])
+                _nbytes(pts, got), FPS_DIST_INSTRS * C * npoint * pts.shape[1],
+                instrs=True)
         levels.append(index_points(pts, want).contiguous())
 
     for st, pts, new_xyz in zip(stages, levels[:4], levels[1:5]):  # K1 at sa1..sa4
@@ -499,7 +526,8 @@ def selection_checks(dev, stages, xyz, rec) -> list:
                 _time_ms(lambda: ballquery.query_ball_point_plain(r, ns, pts, new_xyz), 5, dev),
                 f"K1 ball query C={C} N={pts.shape[1]} S={new_xyz.shape[1]} r={r}: "
                 "equal indices",
-                _nbytes(pts, new_xyz, got), DIST_OPS * ball_scan(r, ns, pts, new_xyz))
+                _nbytes(pts, new_xyz, got), DIST_INSTRS * ball_scan(r, ns, pts, new_xyz),
+                instrs=True)
 
     for xyz1, xyz2 in zip(levels[3::-1], levels[4:0:-1]):  # K2 at fp4..fp1
         k = min(3, xyz2.shape[1])
@@ -515,8 +543,8 @@ def selection_checks(dev, stages, xyz, rec) -> list:
                 _time_ms(lambda: ballquery.three_nn_plain(xyz1, xyz2, k), 5, dev),
                 f"K2 3-NN C={C} N={xyz1.shape[1]} S={xyz2.shape[1]}: equal indices, "
                 f"max distance error {derr:.3g}",
-                _nbytes(xyz1, xyz2, gd, gi), (DIST_OPS + 1) * C * xyz1.shape[1]
-                * xyz2.shape[1])
+                _nbytes(xyz1, xyz2, gd, gi), (DIST_INSTRS + 1) * C * xyz1.shape[1]
+                * xyz2.shape[1], instrs=True)
     return levels
 
 
@@ -543,6 +571,48 @@ def fps_graph_check(xyz, npoint: int) -> None:
           "graph (no host sync), replay equal")
 
 
+def rank1_attn_check(dev, rec, q, k, v, denominator: bool = False):
+    """K4 on q (C, L, H), k and v (C, S, H) against its plain version: the
+    output within ATTN_ATOL, the row denominators within ATTN_DEN_RTOL, and
+    the output the same bits with and without them; timed queued behind a
+    sleep with ``denominator`` as the path calls it (the training forward
+    keeps them), beside SDPA's forward on the same inputs (head_dim 1,
+    scale 1) as the library yardstick.  Adds the call to ``rec``; returns
+    the kernel's (out, row denominators)."""
+    import torch
+
+    from lsdm_tpu_torch.ops import attn
+
+    C, L, H = q.shape
+    S = k.shape[1]
+    got, den = attn.rank1_mha_kernel(q, k, v, denominator=True)
+    want, wden = attn.rank1_mha_plain(q, k, v, denominator=True)
+    err = (got - want).abs().max().item()
+    if not (torch.isfinite(got).all() and err <= ATTN_ATOL):
+        raise AssertionError(f"rank-1 attention ({C},{L},{H}): max error {err} > {ATTN_ATOL}")
+    derr = ((den - wden).abs() / wden).max().item()
+    if not derr <= ATTN_DEN_RTOL:
+        raise AssertionError(f"rank-1 attention ({C},{L},{H}) row denominators: max "
+                             f"relative error {derr} > {ATTN_DEN_RTOL}")
+    if not torch.equal(attn.rank1_mha_kernel(q, k, v), got):
+        raise AssertionError("rank-1 attention: the output moved with the denominators")
+    del want, wden
+    q4, k4, v4 = (t.transpose(1, 2)[..., None].contiguous() for t in (q, k, v))
+    _record(rec, "rank1_attn", err,
+            _time_queued_ms(lambda: attn.rank1_mha_kernel(q, k, v, denominator),
+                            QUEUED_REPS, dev)[0],
+            _time_ms(lambda: attn.rank1_mha_plain(q, k, v, denominator), 3, dev),
+            f"K4 rank-1 attention ({C},{L},{H}){' with denominators' * denominator}: "
+            f"max error {err:.3g} (tolerance {ATTN_ATOL}); row denominators max "
+            f"relative error {derr:.3g} (tolerance {ATTN_DEN_RTOL})",
+            _nbytes(q, k, v, got, den if denominator else None), 6 * C * H * L * S,
+            _time_queued_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, scale=1.0), QUEUED_REPS, dev)[0], exps=C * H * L * S)
+    rec["rank1_attn"]["den_max_rel_err"] = max(
+        rec["rank1_attn"].get("den_max_rel_err", 0.0), derr)
+    return got, den
+
+
 def kernel_checks(dev, model, T: int = T_STEPS) -> dict:
     """Phase 3: every kernel against its plain version at the shapes the
     model's sampling path gives it (9 clouds of the model's width).
@@ -552,7 +622,7 @@ def kernel_checks(dev, model, T: int = T_STEPS) -> dict:
 
     from lsdm_tpu_torch.diffusion.schedule import make_schedule
     from lsdm_tpu_torch.models.sampling import chain_coefficients
-    from lsdm_tpu_torch.ops import attn, denoise
+    from lsdm_tpu_torch.ops import denoise
     from lsdm_tpu_torch.profile_encode import encode_levels
 
     bb = model.pcd_backbone
@@ -577,30 +647,8 @@ def kernel_checks(dev, model, T: int = T_STEPS) -> dict:
 
     # K4 at pcd_attention's shapes: 9 clouds, L = S = N, 12 heads
     H = model.cfg.translation_params
-    q = torch.randn(9, N, H, generator=g, device=dev)
-    k = torch.randn(9, N, H, generator=g, device=dev)
-    v = torch.randn(9, N, H, generator=g, device=dev)
-    got, den = attn.rank1_mha_kernel(q, k, v, denominator=True)
-    want, wden = attn.rank1_mha_plain(q, k, v, denominator=True)
-    err = (got - want).abs().max().item()
-    if not (torch.isfinite(got).all() and err <= ATTN_ATOL):
-        raise AssertionError(f"rank-1 attention: max error {err} > {ATTN_ATOL}")
-    derr = ((den - wden).abs() / wden).max().item()
-    if not derr <= ATTN_DEN_RTOL:
-        raise AssertionError(f"rank-1 attention row denominators: max relative "
-                             f"error {derr} > {ATTN_DEN_RTOL}")
-    if not torch.equal(attn.rank1_mha_kernel(q, k, v), got):
-        raise AssertionError("rank-1 attention: the output moved with the denominators")
-    q4, k4, v4 = (t.transpose(1, 2)[..., None].contiguous() for t in (q, k, v))
-    _record(rec, "rank1_attn", err,
-            _time_queued_ms(lambda: attn.rank1_mha_kernel(q, k, v), QUEUED_REPS, dev)[0],
-            _time_ms(lambda: attn.rank1_mha_plain(q, k, v), 5, dev),
-            f"K4 rank-1 attention (9,{N},{H}): max error {err:.3g} "
-            f"(tolerance {ATTN_ATOL}); row denominators (training forward) max "
-            f"relative error {derr:.3g} (tolerance {ATTN_DEN_RTOL})",
-            _nbytes(q, k, v, got), 6 * 9 * H * N * N,
-            _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                q4, k4, v4, scale=1.0), 20, dev), exps=9 * H * N * N)
+    rank1_attn_check(dev, rec, *(torch.randn(9, N, H, generator=g, device=dev)
+                                 for _ in range(3)))
 
     # K6 with the model's own tail weights: the path's case (batch 1, no
     # clip), then batch 8 with clip on, whose error counts.  Each time is
@@ -722,27 +770,28 @@ def _chain_pass1_library_ms(e2, p, dev) -> float:
 def train_kernel_checks(dev, model, batch: int = TRAIN_BATCH) -> dict:
     """Phase 10: the training kernels against their plain versions at the
     shapes of the train step at ``batch`` scenes (``batch * max_objs``
-    clouds): K5 on the pcd_attention's (clouds, N, 12) from K4's row
-    denominators, and on k, v offset by +8; K3, K1 and K2 at the SA and FP
-    stages (under the key "selection"); K10 at sa1-sa4 and on a center
-    with an empty ball; K11 on (batch, N, 3) each way.  Returns {kernel:
-    record}, as :func:`kernel_checks`."""
+    clouds): K4 on the pcd_attention's (clouds, N, 12) with its row
+    denominators and K5 from them, and on k, v offset by +8; K3, K1 and K2
+    at the SA and FP stages (K1-K4 under the key "train_shapes"); K10 at
+    sa1-sa4 and on a center with an empty ball; K11 on (batch, N, 3) each
+    way.  Returns {kernel: record}, as :func:`kernel_checks`."""
     import torch
 
     from lsdm_tpu_torch.ops import attn, chamfer, sg_fused
-    from lsdm_tpu_torch.profile_encode import DIST_OPS, ball_scan
+    from lsdm_tpu_torch.profile_encode import ball_scan
 
     cfg = model.cfg
     C_, N, H = batch * cfg.max_objs, cfg.pcd_points, cfg.translation_params
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
-    rec: dict = {}
+    rec: dict = {"train_shapes": {}}
 
-    # K5 at (clouds, N, 12) from K4's saved row denominators, with SDPA's
+    # K4 at (clouds, N, 12) with the row denominators the training forward
+    # keeps; then K5 from them, with SDPA's
     # backward on the same inputs as the library yardstick (head_dim 1,
     # scale 1); then on k and v shifted by +8, where a factored form of the
     # gradients would cancel
     q, k, v, gout = (torch.randn(C_, N, H, generator=g, device=dev) for _ in range(4))
-    out, den = attn.rank1_mha_kernel(q, k, v, denominator=True)
+    out, den = rank1_attn_check(dev, rec["train_shapes"], q, k, v, denominator=True)
     got = attn.rank1_mha_bwd_kernel(q, k, v, out, gout, den)
     want = attn.rank1_mha_bwd_plain(q, k, v, out, gout)
     err = max((a - b).abs().max().item() for a, b in zip(got, want))
@@ -780,9 +829,8 @@ def train_kernel_checks(dev, model, batch: int = TRAIN_BATCH) -> dict:
     # K3, K1 and K2 at the train step's clouds
     bb = model.pcd_backbone
     stages = (bb.sa1, bb.sa2, bb.sa3, bb.sa4)
-    rec["selection"] = {}
     levels = selection_checks(dev, stages, torch.randn(C_, N, 3, generator=g, device=dev),
-                              rec["selection"])
+                              rec["train_shapes"])
 
     # K10 at sa1..sa4: centers by FPS as the stages pick them, features of
     # the stages' input widths
@@ -813,7 +861,8 @@ def train_kernel_checks(dev, model, batch: int = TRAIN_BATCH) -> dict:
                     _time_ms(lambda: sg_fused.select_gather_plain(r, ns, xyz, qc, base), 3, dev),
                     line + "equal indices and values",
                     _nbytes(xyz, qc, base, got, gi),
-                    DIST_OPS * ball_scan(r, ns, xyz, qc) + 3 * gi.numel())
+                    DIST_INSTRS * ball_scan(r, ns, xyz, qc) + 3 * gi.numel(),
+                    instrs=True)
         del got, want
 
     # K11 both ways on (batch, N, 3): the loss's x0 and target
@@ -830,7 +879,7 @@ def train_kernel_checks(dev, model, batch: int = TRAIN_BATCH) -> dict:
                 _time_ms(lambda: chamfer.directed_nn_plain(a, b), 5, dev),
                 f"K11 nearest neighbour {name} ({batch},{N},3): equal indices, "
                 f"max error {err:.3g}", _nbytes(a, b, gm, ga),
-                (DIST_OPS + 2) * batch * N * b.shape[1])
+                (DIST_INSTRS + 2) * batch * N * b.shape[1], instrs=True)
     return rec
 
 
@@ -1229,7 +1278,6 @@ def icp_check(dev, points: int = 1024, tries: int = ICP_TRIES) -> dict:
     from lsdm_tpu_torch.ops import chamfer
     from lsdm_tpu_torch.ops.icp import random_restart_icp
     from lsdm_tpu_torch.ops.rotations import quaternion_to_matrix
-    from lsdm_tpu_torch.profile_encode import DIST_OPS
 
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
     source = torch.rand(points, 3, generator=g, device=dev)
@@ -1253,7 +1301,7 @@ def icp_check(dev, points: int = 1024, tries: int = ICP_TRIES) -> dict:
             _time_ms(lambda: chamfer.directed_nn_plain(src, tgt), 5, dev),
             f"K11 nearest neighbour, ICP ({tries},{points},3): equal indices, "
             f"max error {err:.3g}", _nbytes(src, tgt, gm, ga),
-            (DIST_OPS + 2) * tries * points * points)
+            (DIST_INSTRS + 2) * tries * points * points, instrs=True)
 
     _sync(dev)
     kernels.reset_launches()
@@ -1446,8 +1494,8 @@ def main() -> int:
     from lsdm_tpu_torch.models.sampling import resolve_train_attn_impl
 
     records.update(train_kernel_checks(dev, model))
-    # K1-K3 at the train step's clouds, beside their sampling-path records
-    for name, r in records.pop("selection").items():
+    # K1-K4 at the train step's clouds, beside their sampling-path records
+    for name, r in records.pop("train_shapes").items():
         records[name][f"train_b{TRAIN_BATCH}"] = _kernel_record(r)
     # K11's record keeps the train step's times; the ICP's call adds its error
     records["chamfer_nn"]["max_abs_err"] = max(

@@ -20,7 +20,8 @@
 // keys in registers and sweeps every row, which the block stages in
 // shared memory ({q, m, g, D} and {q / Z, g / Z}, read as broadcasts).
 // Per (row, key) pair: q k - m rounded as the plain version rounds it,
-// times log2(e), one ex2.approx on the SFU for e, g v - D rounded as the
+// times log2(e), one ex2.approx on the SFU for e (rank1_attn.cuh: the
+// sequence by which K4 sums the denominators it saves), g v - D rounded as the
 // plain version rounds it, p = e (g v - D), and three FFMAs: p (q / Z)
 // into dk and e (g / Z) into dv (the key's, in registers), p k into the
 // row's dq partial, which is divided by Z once a row.  Nine FP32
@@ -50,47 +51,16 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "rank1_attn.cuh"
+
 namespace {
 
 constexpr int kBwdThreads = 256;
 constexpr int kBwdWarps = kBwdThreads / 32;
 constexpr int kKeysPerThread = 4;
 constexpr int kKeysPerBlock = kBwdThreads * kKeysPerThread;
-constexpr int kRowTile = 8;    // rows whose dq partials are reduced together
+constexpr int kRowTile = rank1::kRowTile;
 constexpr int kRowGroup = 32;  // rows summed into dk, dv before the running sum
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float ex2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// The warp's sums of acc[0..7]: each step of the reduce-scatter halves the
-// rows a lane carries (a lane with bit 4, 3, 2 set keeps the upper half),
-// so lane `lane` ends with the sum of row 4 b4 + 2 b3 + b2 of its bits;
-// lanes with (lane & 3) == 0 hold the eight rows once each.
-__device__ __forceinline__ float reduce_rows(float (&acc)[kRowTile], int lane) {
-  const bool up16 = lane & 16, up8 = lane & 8, up4 = lane & 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float send = up16 ? acc[i] : acc[i + 4];
-    const float keep = up16 ? acc[i + 4] : acc[i];
-    acc[i] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float send = up8 ? acc[i] : acc[i + 2];
-    const float keep = up8 ? acc[i + 2] : acc[i];
-    acc[i] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
-  }
-  const float send = up4 ? acc[0] : acc[1];
-  const float keep = up4 ? acc[1] : acc[0];
-  float r = keep + __shfl_xor_sync(0xffffffffu, send, 4);
-  r += __shfl_xor_sync(0xffffffffu, r, 2);
-  r += __shfl_xor_sync(0xffffffffu, r, 1);
-  return r;
-}
 
 // kMasked: the last key tile is ragged.  A missing key holds k = v = 0 and
 // its base-2 argument is clamped to 0, so its e stays finite and its dq
@@ -111,27 +81,8 @@ rank1_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tile = blockIdx.x, hh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  float kmax = -INFINITY, kmin = INFINITY;
-  for (int j = tid; j < s; j += kBwdThreads) {
-    const float kj = k[((size_t)b * s + j) * h + hh];
-    kmax = fmaxf(kmax, kj);
-    kmin = fminf(kmin, kj);
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    kmax = fmaxf(kmax, __shfl_xor_sync(0xffffffffu, kmax, off));
-    kmin = fminf(kmin, __shfl_xor_sync(0xffffffffu, kmin, off));
-  }
-  if (lane == 0) {
-    red_max[warp] = kmax;
-    red_min[warp] = kmin;
-  }
-  __syncthreads();
-  kmax = red_max[0];
-  kmin = red_min[0];
-  for (int w = 1; w < kBwdWarps; ++w) {
-    kmax = fmaxf(kmax, red_max[w]);
-    kmin = fminf(kmin, red_min[w]);
-  }
+  float kmax, kmin;
+  rank1::key_range<kBwdThreads>(k, b, s, h, hh, red_max, red_min, kmax, kmin);
   // padded rows (l <= i < lp) have g = D = 0: they add nothing
   for (int i = tid; i < lp; i += kBwdThreads) {
     float4 r = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -162,7 +113,7 @@ rank1_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   __syncthreads();
 
-  const int rsel = ((lane >> 4) & 1) * 4 + ((lane >> 3) & 1) * 2 + ((lane >> 2) & 1);
+  const int rsel = rank1::row_of_lane(lane);
   for (int r0 = 0; r0 < lp; r0 += kRowGroup) {
     float dkg[kKeysPerThread], dvg[kKeysPerThread];
 #pragma unroll
@@ -177,9 +128,9 @@ rank1_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         float a = 0.0f;
 #pragma unroll
         for (int j = 0; j < kKeysPerThread; ++j) {
-          float arg = __fmul_rn(__fsub_rn(__fmul_rn(rd.x, kk[j]), rd.y), kLog2e);
+          float arg = rank1::pair_arg(rd.x, kk[j], rd.y);
           if (kMasked) arg = fminf(arg, 0.0f);
-          const float e = ex2_approx(arg);
+          const float e = rank1::ex2_approx(arg);
           const float p = __fmul_rn(e, __fsub_rn(__fmul_rn(rd.z, vv[j]), rd.w));
           a = fmaf(p, kk[j], a);
           dkg[j] = fmaf(p, rn.x, dkg[j]);
@@ -187,7 +138,7 @@ rank1_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
         acc[r] = a;
       }
-      const float sum = reduce_rows(acc, lane);
+      const float sum = rank1::reduce_rows(acc, lane);
       if ((lane & 3) == 0) red[warp * lp + rt + rsel] = sum;
     }
 #pragma unroll

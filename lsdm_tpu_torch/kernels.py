@@ -38,6 +38,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
+# streaming multiprocessors of an H100 SXM, which the host plans
+# (ops/ballquery.py, ops/rowmlp.py) size their grids to fill
+SMS = 132
+
 LAUNCHES = {"ball_query": 0, "three_nn": 0, "fps": 0, "denoise_chain": 0,
             "rank1_attn": 0, "sa_fused": 0, "fp_fused": 0,
             "rank1_attn_bwd": 0, "select_gather": 0, "chamfer_nn": 0,
@@ -47,8 +51,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # (xyz, new_xyz, B, N, S, radius2, nsample, out, stream)
-    "lsdm_ball_query": (_P, _P, _I, _I, _I, _F, _I, _P, _P),
+    # (xyz, new_xyz, B, N, S, radius2, nsample, queries a warp, out, stream)
+    "lsdm_ball_query": (_P, _P, _I, _I, _I, _F, _I, _I, _P, _P),
     # (xyz1, xyz2, B, N, S, k, dist, idx, stream)
     "lsdm_three_nn": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     # (xyz, start or null, B, N, npoint, warps, points a lane, out, stream)

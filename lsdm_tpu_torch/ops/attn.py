@@ -56,7 +56,7 @@ def rank1_mha_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernels.require("v", v, torch.float32, (B, S, H), dev)
     if S < 1:
         raise ValueError("attention needs at least one key")
-    if S > 16384:  # a head's k and v columns are staged in shared memory
+    if S > 16384:  # K4's contract (its keys pass through in 1024-key chunks)
         raise ValueError(f"rank-1 attention kernel takes at most 16384 keys, got {S}")
     if B > 65535 or H > 65535:
         raise ValueError(f"rank-1 attention kernel grids at most 65535 clouds "

@@ -57,6 +57,28 @@ def _radius2(radius: float) -> float:
     return float(np.float32(float(radius) ** 2))
 
 
+BALL_MAX_POINTS = 3072  # the staged cloud in 48 KB of shared memory
+
+
+def ball_query_plan(clouds: int, s: int) -> int:
+    """Queries a warp (1, 2 or 4) of K1 for ``clouds`` clouds of ``s``
+    queries each.  A warp serves its queries from every point it reads, so
+    more queries a warp issue fewer loads and votes, but a round's latency
+    is hidden only by other warps: four queries a warp where they still
+    leave 24 warps an SM, two where those leave 16, else one.  Chosen from
+    the sweep of the three at sa1-sa4 and 9, 54 and 72 clouds
+    (``profile_kernels.py --bq_sweep``; PERF.md §6 gives the call and the
+    card), where it picks the fastest plan or one within 3% of it in
+    every cell.  Flagship stages (1024, 256, 64, 16 queries): 2, 1, 1, 1
+    queries a warp at 9 clouds; 4, 4, 1, 1 at 54."""
+    if clouds < 1 or s < 1:
+        raise ValueError(f"ball query plan needs clouds and queries, got "
+                         f"{clouds} and {s}")
+    if clouds * -(-s // 4) >= 24 * kernels.SMS:
+        return 4
+    return 2 if clouds * -(-s // 2) >= 16 * kernels.SMS else 1
+
+
 def query_ball_point_plain(radius: float, nsample: int, xyz: torch.Tensor,
                            new_xyz: torch.Tensor,
                            empty: Optional[int] = None) -> torch.Tensor:
@@ -91,15 +113,19 @@ def query_ball_point_kernel(radius: float, nsample: int, xyz: torch.Tensor,
     kernels.require("new_xyz", new_xyz, torch.float32, (B, None, 3), dev)
     if not 0 < nsample <= N:
         raise ValueError(f"nsample {nsample} must lie in [1, {N}]")
-    if N > 3072:  # the cloud is staged in 48 KB of shared memory
-        raise ValueError(f"ball query kernel takes at most 3072 points, got {N}")
+    if N > BALL_MAX_POINTS:
+        raise ValueError(f"ball query kernel takes at most {BALL_MAX_POINTS} "
+                         f"points, got {N}")
+    if B > 65535:
+        raise ValueError(f"ball query kernel grids at most 65535 clouds, got {B}")
     out = torch.empty((B, S, nsample), dtype=torch.int32, device=dev)
     if out.numel() == 0:
         return out
     lib = kernels.load()
     with torch.cuda.device(dev):
         rc = lib.lsdm_ball_query(xyz.data_ptr(), new_xyz.data_ptr(), B, N, S,
-                                 _radius2(radius), nsample, out.data_ptr(),
+                                 _radius2(radius), nsample,
+                                 ball_query_plan(B, S), out.data_ptr(),
                                  kernels.stream(dev))
     kernels.check(rc, "ball_query")
     kernels.LAUNCHES["ball_query"] += 1

@@ -41,12 +41,13 @@ import functools
 import math
 from typing import Dict, Sequence, Tuple
 
+from lsdm_tpu_torch.kernels import SMS
+
 THREADS = 256
 STAGES = 3           # cp.async ring depth of the weight tiles
 STAGE_FLOATS = 2048  # floats of one ring stage at most: BK x BN
 SMEM_MAX = 232_448   # dynamic shared memory a block may take on Hopper
 SMEM_SM = 233_472    # shared memory of an SM (228 KB), 1 KB reserved a block
-SMS = 132
 MAX_LAYERS = 8       # layers the kernel computes (csrc/rowmlp.cuh:kMaxLayers)
 SA_ROWS = (1, 2, 4, 8)    # centres a cluster may take (nsample rows each)
 FP_ROWS = (32, 64, 128)   # targets a cluster may take

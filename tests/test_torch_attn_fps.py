@@ -1,20 +1,23 @@
-"""K5 (rank-1 attention backward) and K3 (FPS) as the Hopper kernels compute
-them, on the CPU.
+"""K4 and K5 (rank-1 attention forward and backward) and K3 (FPS) as the
+Hopper kernels compute them, on the CPU.
 
 The CUDA kernels cannot run here, so their arithmetic is transcribed into
-torch and held against the JAX package: K5's one pass from the forward's
-saved row denominator (``csrc/rank1_attn_bwd.cu``), in float64 against
-``_rank1_mha_bwd_pallas`` in interpret mode, and in float32 against that
-exact algebra, on plain inputs and on k, v shifted by +8, where a factored
-form of the same gradients loses digits to cancellation; the warp
-reduction that sums K5's dq partials; K3's lane layout and argmax
-(``csrc/fps.cu``) against ``torch.argmax``; the host's FPS launch plan;
-and the calls that must not read back from the card (no ``start`` tensor
-on the SDM's FPS).  The transcriptions add their terms in sequence, as a
-kernel's lane does, so their float32 results are the same bits in every
-process.
+torch and held against the JAX package: K4's one pass over the keys
+(``csrc/rank1_attn.cu``: per thread 4 keys in sequence, K5's warp
+reduce-scatter over the lanes, the warps in order, the exponential as
+``ex2`` of the rounded argument) against ``rank1_mha_pallas`` in
+interpret mode, and its row denominators; K5's one pass from the
+forward's saved row denominator (``csrc/rank1_attn_bwd.cu``), in float64
+against ``_rank1_mha_bwd_pallas`` in interpret mode, and in float32
+against that exact algebra, on plain inputs and on k, v shifted by +8,
+where a factored form of the same gradients loses digits to
+cancellation; the warp reduction that sums K4's and K5's row partials;
+K3's lane layout and argmax (``csrc/fps.cu``) against ``torch.argmax``;
+the host's FPS launch plan; and the calls that must not read back from
+the card (no ``start`` tensor on the SDM's FPS).  The transcriptions add
+their terms in a fixed order, as the kernels' lanes do, so their float32
+results are the same bits in every process.
 """
-
 import functools
 
 import jax
@@ -28,7 +31,10 @@ from lsdm_tpu.ops.attn_pallas import (
 from lsdm_tpu_torch.models.pointnet2 import PointNet2Backbone
 from lsdm_tpu_torch.ops import attn, fps, pointcloud
 
-# chip_smoke.ATTN_BWD_ATOL: K5 against its plain version on the card
+# chip_smoke.ATTN_ATOL, ATTN_DEN_RTOL: K4 against its plain version on the
+# card; chip_smoke.ATTN_BWD_ATOL: K5 against its plain version
+ATTN_ATOL = 1e-6
+ATTN_DEN_RTOL = 1e-6
 ATTN_BWD_ATOL = 1e-5
 # float32 against the exact (float64) algebra, here and in JAX's kernel:
 # with k and v offset by +8 a dq term w (g v - D) k reaches ~10 and cancels
@@ -83,6 +89,63 @@ def k5_factored(q, k, v, out, g, z):
     return dq, dk, _sum(w * g[:, :, None], 1)
 
 
+# csrc/rank1_attn.cu: threads a block, keys a thread, warps a block
+K4_THREADS, K4_KEYS = 256, 4
+K4_WARPS = K4_THREADS // 32
+
+
+def _fma(a, b, c):
+    """fmaf in float32: the float64 product of two float32 values is exact."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _lane_tree(x, dim):
+    """The sum over 32 lanes along ``dim`` as the reduce-scatter of
+    ``rank1::reduce_rows`` adds them: pairs by lane bit 4, then 3, 2, 1, 0
+    (each add commutes, so who adds to whom does not matter)."""
+    while x.shape[dim] > 1:
+        x = x.narrow(dim, 0, x.shape[dim] // 2) + x.narrow(dim, x.shape[dim] // 2,
+                                                           x.shape[dim] // 2)
+    return x.squeeze(dim)
+
+
+def k4_kernel_order(q, k, v):
+    """K4 as the kernel computes it, float32: e = 2^((q k - m) log2 e) of the
+    argument rounded as the kernel rounds it; key c 1024 + j 256 + t on
+    thread t of chunk c; each thread's 4 keys in sequence (the first one
+    starts the sums, e v then FMAs), the lanes by the reduce-scatter's tree,
+    each warp's totals over the chunks in sequence, then the 8 warps in
+    order.  q (B, L, H), k and v (B, S, H) -> out (B, L, H), den (B, H, L)."""
+    B, L, H = q.shape
+    S = k.shape[1]
+    chunk = K4_THREADS * K4_KEYS
+    nch = -(-S // chunk)
+    kp = torch.zeros(B, nch * chunk, H)
+    vp = torch.zeros(B, nch * chunk, H)
+    kp[:, :S], vp[:, :S] = k, v
+    arg = (q[:, :, None, :] * kp[:, None] - _row_max(q, k)[:, :, None, :]) * LOG2E
+    e = torch.exp2(arg)
+    e[:, :, S:] = 0.0  # a missing key's argument is -inf
+    e = e.reshape(B, L, nch, K4_KEYS, K4_THREADS, H)
+    vv = vp.reshape(B, 1, nch, K4_KEYS, K4_THREADS, H).expand_as(e)
+    se, sv = e[:, :, :, 0], e[:, :, :, 0] * vv[:, :, :, 0]
+    for j in range(1, K4_KEYS):
+        se, sv = se + e[:, :, :, j], _fma(e[:, :, :, j], vv[:, :, :, j], sv)
+    warps = [_lane_tree(t.reshape(B, L, nch, K4_WARPS, 32, H), 4) for t in (se, sv)]
+    se, sv = (_sum(t, 2) for t in warps)   # chunks in sequence: (B, L, W, H)
+    se, sv = _sum(se, 2), _sum(sv, 2)      # warps in order: (B, L, H)
+    return sv / se, se.transpose(1, 2)
+
+
+def _softmax64(q, k, v):
+    """The softmax of the logits as every version rounds them (q k, then
+    - m, in float32), evaluated in float64: (out (B, L, H), den (B, H, L))."""
+    x = (q[:, :, None, :] * k[:, None] - _row_max(q, k)[:, :, None, :]).double()
+    e = torch.exp(x)
+    den = e.sum(2)
+    return (e * v[:, None].double()).sum(2) / den, den.transpose(1, 2)
+
+
 @functools.lru_cache(maxsize=None)
 def _attn_inputs(offset):
     """Seeded (q, k, v, out, g), k and v offset by ``offset``, with JAX's
@@ -114,6 +177,65 @@ def _exact(offset):
     data, _ = _attn_inputs(offset)
     q, k, v, out, g = (torch.from_numpy(a.copy()).double() for a in data)
     return [t.numpy() for t in k5_one_pass(q, k, v, out, g, k4_denominator(q, k))]
+
+
+K4_SHAPES = [(2, 64, 1024, 12),  # one chunk of 1024 keys, as at the flagship
+             (1, 37, 2500, 12)]  # three chunks, the last one masked; ragged rows
+
+
+@functools.lru_cache(maxsize=None)
+def _k4_case(shape, offset):
+    """Seeded (q, k, v), k and v offset by ``offset``, and JAX's forward
+    kernel's output on them (interpret mode); computed once a process."""
+    B, L, S, H = shape
+    rs = np.random.RandomState(10)
+    q = rs.randn(B, L, H).astype(np.float32)
+    k, v = ((rs.randn(B, S, H) + offset).astype(np.float32) for _ in range(2))
+    with jax.default_matmul_precision("highest"):
+        want = rank1_mha_pallas(*map(jnp.asarray, (q, k, v)), interpret=True)
+    return (q, k, v), np.array(want)
+
+
+@pytest.mark.parametrize("offset", [0.0, 8.0])
+@pytest.mark.parametrize("shape", K4_SHAPES)
+def test_k4_kernel_order_matches_jax(shape, offset):
+    """K4's float32 arithmetic and summation order against JAX's forward
+    kernel (interpret mode) and against the float64 softmax of the logits
+    as both round them, in units of the output's size (with v offset by +8
+    the outputs are ~8, whose float32 spacing is 9.5e-7): within
+    ATTN_ATOL of JAX's kernel and of the float64 result, and no further
+    from the latter than JAX's kernel itself; the row denominators within
+    ATTN_DEN_RTOL."""
+    data, jax_out = _k4_case(shape, offset)
+    q, k, v = map(torch.from_numpy, data)
+    out, den = k4_kernel_order(q, k, v)
+    exact, exact_den = _softmax64(q, k, v)
+    scale = max(1.0, float(exact.abs().max()))
+    err = float((out.double() - exact).abs().max())
+    jax_err = float(np.abs(jax_out - exact.numpy()).max())
+    assert err <= ATTN_ATOL * scale and err <= jax_err, (err, jax_err, scale)
+    assert np.abs(out.numpy() - jax_out).max() <= ATTN_ATOL * scale
+    den_err = float(((den.double() - exact_den) / exact_den).abs().max())
+    assert den_err <= ATTN_DEN_RTOL, den_err
+
+
+def test_k4_lane_tree_is_the_reduce_scatter_order():
+    """``_lane_tree`` adds the lanes as ``rank1::reduce_rows`` does, to the
+    bit, in float32: the reduce-scatter run lane by lane on 8 rows."""
+    rs = np.random.RandomState(1)
+    acc = torch.from_numpy(rs.randn(32, 8).astype(np.float32) * 10.0 ** rs.randint(-3, 3, (32, 8)))
+    lanes = torch.arange(32)
+    vals = [acc[:, i].clone() for i in range(8)]
+    for off, n in ((16, 4), (8, 2), (4, 1)):
+        up = (lanes & off) != 0
+        vals = [torch.where(up, vals[i + n], vals[i])
+                + torch.where(up, vals[i], vals[i + n])[lanes ^ off] for i in range(n)]
+    r = vals[0]
+    for off in (2, 1):
+        r = r + r[lanes ^ off]
+    rsel = ((lanes >> 4) & 1) * 4 + ((lanes >> 3) & 1) * 2 + ((lanes >> 2) & 1)
+    writers = lanes[(lanes & 3) == 0]
+    assert torch.equal(r[writers], _lane_tree(acc, 0)[rsel[writers]])
 
 
 @pytest.mark.parametrize("offset", [0.0, 8.0])

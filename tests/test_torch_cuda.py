@@ -37,7 +37,10 @@ def _cloud(seed, *shape, scale=1.0):
 
 
 @pytest.mark.parametrize("n,s,radius,nsample", [
-    (64, 64, 0.3, 32), (100, 13, 0.5, 16), (37, 5, 0.05, 8), (1024, 256, 0.2, 32)])
+    (64, 64, 0.3, 32), (100, 13, 0.5, 16), (37, 5, 0.05, 8), (1024, 256, 0.2, 32),
+    (37, 6, 0.8, 37),        # nsample == N, N not a multiple of 32
+    (3000, 700, 0.15, 32),   # 3000 points (24 rounds); 700 queries, ragged blocks
+    (256, 64, 2.5, 8)])      # every ball full in the first round
 def test_ball_query_kernel_equals_plain(dev, n, s, radius, nsample):
     xyz = _cloud(n, 3, n, 3).to(dev)
     new_xyz = _cloud(s, 3, s, 3).to(dev)
@@ -49,6 +52,30 @@ def test_ball_query_kernel_equals_plain(dev, n, s, radius, nsample):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert (got[0, 0] == n - 1).all()
+
+
+@pytest.mark.parametrize("clouds", [9, 54])
+def test_ball_query_kernel_at_the_flagship_stages(dev, clouds):
+    """sa1-sa4 (1024 -> 1024, 256, 64, 16 centres, radii 0.1-0.8, 32
+    samples) at a b1 sample's 9 clouds and a train step's 54: every block
+    serves its share of queries (up to 16) from one staged cloud, the plan
+    picks the queries a warp; plus a centre whose ball is empty."""
+    g = torch.Generator(device=dev).manual_seed(clouds)
+    levels = [torch.randn(clouds, 1024, 3, generator=g, device=dev)]
+    levels.append(levels[0])
+    for npoint in (256, 64, 16):
+        idx = fps.farthest_point_sample_plain(levels[-1], npoint)
+        levels.append(torch.gather(levels[-1], 1, idx.long()[..., None].expand(-1, -1, 3))
+                      .contiguous())
+    for r, xyz, new_xyz in zip((0.1, 0.2, 0.4, 0.8), levels[:4], levels[1:5]):
+        far = new_xyz.clone()
+        far[-1, -1] = 50.0
+        for centres in (new_xyz, far):
+            got = ballquery.query_ball_point_kernel(r, 32, xyz, centres)
+            want = ballquery.query_ball_point_plain(r, 32, xyz, centres)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (r, xyz.shape[1], centres.shape[1])
+        assert (got[-1, -1] == xyz.shape[1] - 1).all()
 
 
 @pytest.mark.parametrize("n,s,k", [(64, 16, 3), (50, 50, 3), (33, 2, 2), (7, 1, 1)])
@@ -385,7 +412,13 @@ def test_fp_fused_ties_go_to_the_lowest_index(dev):
     torch.testing.assert_close(got, torch.full((1, 8, 1), 7.0 / 3, device=dev))
 
 
-@pytest.mark.parametrize("b,l,s,h", [(2, 300, 77, 12), (1, 1024, 1024, 12), (3, 8, 5, 2)])
+K4_SHAPES = [(2, 300, 77, 12), (1, 1024, 1024, 12), (3, 8, 5, 2),
+             (2, 1, 1024, 12),     # one query row
+             (2, 129, 2048, 12),   # two key chunks; one row past a 128-row tile
+             (1, 200, 2500, 12)]   # three key chunks, the last one masked
+
+
+@pytest.mark.parametrize("b,l,s,h", K4_SHAPES)
 def test_rank1_attention_kernel_matches_plain(dev, b, l, s, h):
     q = _cloud(1, b, l, h, scale=2.0).to(dev)
     k = _cloud(2, b, s, h, scale=2.0).to(dev)
@@ -398,7 +431,7 @@ def test_rank1_attention_kernel_matches_plain(dev, b, l, s, h):
     torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
 
 
-@pytest.mark.parametrize("b,l,s,h", [(2, 300, 77, 12), (1, 1024, 1024, 12), (3, 8, 5, 2)])
+@pytest.mark.parametrize("b,l,s,h", K4_SHAPES)
 def test_rank1_attention_kernel_denominator_matches_plain(dev, b, l, s, h):
     q = _cloud(1, b, l, h, scale=2.0).to(dev)
     k = _cloud(2, b, s, h, scale=2.0).to(dev)
