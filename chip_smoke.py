@@ -9,10 +9,10 @@ Run from the repository root:  python3 chip_smoke.py
 3. Holds each kernel against its plain PyTorch version on the card at the
    shapes of the flagship sampling paths: ball query (K1), 3-NN (K2) and
    FPS (K3, from index 0 with no start tensor, as the SDM calls it) must
-   give equal indices, and that FPS call must capture into a CUDA graph
-   (no host sync); the fused SA stage (K7, sa1-sa4 and a
-   center with an empty ball) and FP stage (K8, fp4-fp1 with the head)
-   must agree to STAGE_ATOL, the rank-1 attention (K4) to ATTN_ATOL and
+   give equal indices (K2 also distances of the same bits), and that FPS
+   call must capture into a CUDA graph (no host sync); the fused SA stage
+   (K7, sa1-sa4 and a center with an empty ball) and FP stage (K8,
+   fp4-fp1 with the head) must agree to STAGE_ATOL, the rank-1 attention (K4) to ATTN_ATOL and
    its row denominators (kept by the training forward) to ATTN_DEN_RTOL; the
    denoise chain (K6, N=1024, D=128, T=1000) to CHAIN_ATOL at batch 1 and,
    clip on, at batch CHAIN_BATCH, and its first pass's tables to
@@ -45,7 +45,12 @@ Run from the repository root:  python3 chip_smoke.py
    versions of the same configuration, agreeing to FUSED_ATOL; the fused
    encode's ``cond_pcd`` against the composed ("pallas") encode at the
    JAX package's fused-vs-composed bound COND_RTOL / COND_ATOL.  Prints
-   ms/scene and peak memory of both paths.
+   ms/scene and peak memory of both paths.  Then the encode alone at
+   ``--pcd_points`` LARGE_POINTS (9 clouds of 4096 points; vert_dims 2048,
+   so that the human branch yields as many points): the fused
+   encode (K3, K7, K8, K4) against the plain versions of the same
+   configuration at the COND bound, and the composed encode over K1, K2
+   and K3 against the plain selection to FUSED_ATOL.
 6. The CLI: ``lsdm_tpu_torch.run.test_sdm`` on a synthetic proxd test
    split (4 sequences x 1024 points, batch 2, T=1000) on CUDA; checks the
    output files and that the fused kernels ran.
@@ -123,8 +128,6 @@ CHAIN_ATOL = 1e-6
 TABLE_ATOL = 1e-6
 TABLE_STEPS = 64  # the last steps of the chain, as their own batch
 CHAIN_BATCH = 8   # K6 is also checked and timed at this batch, clip on
-# K2 distances: kernel and plain version round the same float32 ops.
-DIST_ATOL = 1e-6
 # K7 and K8 on outputs of order 1: the same selection (equal distance
 # bits), float32 sums of up to 768 products in another order (FMA chains
 # against cuBLAS).  H100 readings: K7 <= 4.2e-07, K8 <= 6.0e-07.
@@ -162,6 +165,9 @@ CHAMFER_ATOL = 0.0
 # batched SVD's own run-to-run rounding.  H100 reading: 0, equal inliers.
 ICP_TRIES, ICP_ITERS = 64, 30  # scene_edit's --icp_tries and icp's iters
 ICP_ATOL = 1e-6
+# --pcd_points of the large-cloud encode phase: past the 3072 points the
+# selection kernels once refused, as the JAX kernels take any N
+LARGE_POINTS = 4096
 # The train step, kernels against plain versions from the same weights and
 # draws: the loss, each gradient leaf's max |a - b| / max |b| (max |b| no
 # less than 1e-3 of the largest gradient of the model), and the
@@ -242,6 +248,7 @@ KERNELS = {  # name: (source, the TPU kernel it replaces, path it is counted on)
 PATH_KERNELS = {"pallas": ("ball_query", "three_nn", "fps", "denoise_chain"),
                 "fused": ("fps", "sa_fused", "fp_fused", "rank1_attn",
                           "denoise_chain"),
+                "fused_encode": ("fps", "sa_fused", "fp_fused", "rank1_attn"),
                 "train": ("ball_query", "three_nn", "fps", "rank1_attn",
                           "rank1_attn_bwd"),
                 "train_sg": ("select_gather", "three_nn", "fps", "rank1_attn",
@@ -534,15 +541,18 @@ def selection_checks(dev, stages, xyz, rec) -> list:
         gd, gi = ballquery.three_nn_kernel(xyz1, xyz2, k)
         wd, wi = ballquery.three_nn_plain(xyz1, xyz2, k)
         derr = (gd - wd).abs().max().item()
-        if not torch.equal(gi, wi) or derr > DIST_ATOL:
+        if not (torch.equal(gi, wi) and torch.equal(gd.view(torch.int32),
+                                                    wd.view(torch.int32))):
             raise AssertionError(f"3-NN C={C} N={xyz1.shape[1]} S={xyz2.shape[1]}: "
-                                 f"indices differ or distance error {derr}")
+                                 f"indices differ or distances not the same bits "
+                                 f"(max error {derr})")
         _record(rec, "three_nn", derr,
                 _time_queued_ms(lambda: ballquery.three_nn_kernel(xyz1, xyz2, k),
                                 QUEUED_REPS, dev)[0],
                 _time_ms(lambda: ballquery.three_nn_plain(xyz1, xyz2, k), 5, dev),
-                f"K2 3-NN C={C} N={xyz1.shape[1]} S={xyz2.shape[1]}: equal indices, "
-                f"max distance error {derr:.3g}",
+                f"K2 3-NN C={C} N={xyz1.shape[1]} S={xyz2.shape[1]}, "
+                f"{ballquery.three_nn_plan(C, xyz1.shape[1], xyz2.shape[1])} lanes a "
+                f"target: equal indices, distances the same bits",
                 _nbytes(xyz1, xyz2, gd, gi), (DIST_INSTRS + 1) * C * xyz1.shape[1]
                 * xyz2.shape[1], instrs=True)
     return levels
@@ -875,9 +885,11 @@ def train_kernel_checks(dev, model, batch: int = TRAIN_BATCH) -> dict:
         if not torch.equal(ga, wa) or err > CHAMFER_ATOL:
             raise AssertionError(f"chamfer {name}: indices differ or error {err}")
         _record(rec, "chamfer_nn", err,
-                _time_ms(lambda: chamfer.directed_nn_kernel(a, b), 20, dev),
+                _time_queued_ms(lambda: chamfer.directed_nn_kernel(a, b),
+                                QUEUED_REPS, dev)[0],
                 _time_ms(lambda: chamfer.directed_nn_plain(a, b), 5, dev),
-                f"K11 nearest neighbour {name} ({batch},{N},3): equal indices, "
+                f"K11 nearest neighbour {name} ({batch},{N},3) plan "
+                f"{chamfer.chamfer_nn_plan(batch, N, b.shape[1])}: equal indices, "
                 f"max error {err:.3g}", _nbytes(a, b, gm, ga),
                 (DIST_INSTRS + 2) * batch * N * b.shape[1], instrs=True)
     return rec
@@ -1111,6 +1123,64 @@ def fused_path(dev, cfg, model, composed, T: int = T_STEPS):
     return launches, errs, cond, (sec_k, sec_p), peak
 
 
+def encode_large_phase(dev, points: int = LARGE_POINTS) -> dict:
+    """Phase 5, large clouds: the conditioning encode of ``sdm_proxd()`` at
+    ``--pcd_points points`` (b1: 9 clouds), past the 3072 points the
+    selection kernels once refused.  The fused encode (K3, K7, K8, K4)
+    against the plain versions of the same configuration, within the
+    fused-vs-composed bound; the composed encode over the selection kernels
+    (K1, K2, K3) against the plain selection, within FUSED_ATOL.  The
+    human branch yields 2 x vert_dims points (POSA's x2 upsampling: 1310 at
+    the reference's 655 vertices), so the configuration takes vert_dims
+    ``points / 2``.  Returns the launch counts of the fused kernel run."""
+    import torch
+
+    from lsdm_tpu_torch import kernels
+    from lsdm_tpu_torch.config import sdm_proxd
+    from lsdm_tpu_torch.profile_sampling import seeded_inputs
+
+    cfg = dataclasses.replace(sdm_proxd(), pcd_points=points,
+                              vert_dims=max(sdm_proxd().vert_dims, points // 2))
+    composed, plain = build_models(cfg, dev)
+    fused = build_fused(cfg, composed, dev)
+    inputs = seeded_inputs(cfg, 1, 1, SEED, dev)[:4]
+
+    def encode(m):
+        _sync(dev)
+        kernels.reset_launches()
+        with torch.no_grad():
+            out = m.encode_conditioning(*inputs).cond_pcd
+        _sync(dev)
+        return out, dict(kernels.LAUNCHES)
+
+    got, launches = encode(fused)
+    with plain_versions():
+        want, plain_launches = encode(fused)
+    comp, comp_launches = encode(composed)
+    ref, ref_launches = encode(plain)
+    if any(plain_launches.values()) or any(ref_launches.values()):
+        raise AssertionError(f"a plain encode launched kernels: {plain_launches}, "
+                             f"{ref_launches}")
+    for name in ("ball_query", "three_nn", "fps"):
+        if comp_launches[name] < 1:
+            raise AssertionError(f"the composed encode at {points} points did not "
+                                 f"launch {name}")
+    if not (torch.isfinite(got).all() and got.shape == want.shape):
+        raise AssertionError(f"fused cond_pcd at {points} points: not finite or "
+                             f"shape {tuple(got.shape)}")
+    cond = ((got - want).abs() / (COND_ATOL + COND_RTOL * want.abs())).max().item()
+    err_f = (got - want).abs().max().item()
+    err_c = (comp - ref).abs().max().item()
+    print(f"encode sdm_proxd B=1 9x{points}: fused launches {launches}; fused vs "
+          f"its plain versions max |a - b| {err_f:.3g}, worst |a - b| / ({COND_ATOL} "
+          f"+ {COND_RTOL} |b|) = {cond:.3g} (must be <= 1); composed over K1/K2/K3 "
+          f"vs the plain selection max |a - b| {err_c:.3g} (tolerance {FUSED_ATOL})")
+    if cond > 1.0 or err_c > FUSED_ATOL:
+        raise AssertionError(f"the encode at {points} points disagrees with its "
+                             "plain versions")
+    return launches
+
+
 def step_kernel_checks(dev, model, batches=(1, 8)) -> dict:
     """Phase 7: K9 against its plain version with the model's tail
     weights, one step at each batch of ``batches``, clip off and on.  The
@@ -1297,9 +1367,11 @@ def icp_check(dev, points: int = 1024, tries: int = ICP_TRIES) -> dict:
         raise AssertionError(f"K11 at the ICP's shapes: indices differ or error {err}")
     rec: dict = {}
     _record(rec, "chamfer_nn", err,
-            _time_ms(lambda: chamfer.directed_nn_kernel(src, tgt), 20, dev),
+            _time_queued_ms(lambda: chamfer.directed_nn_kernel(src, tgt),
+                            QUEUED_REPS, dev)[0],
             _time_ms(lambda: chamfer.directed_nn_plain(src, tgt), 5, dev),
-            f"K11 nearest neighbour, ICP ({tries},{points},3): equal indices, "
+            f"K11 nearest neighbour, ICP ({tries},{points},3) plan "
+            f"{chamfer.chamfer_nn_plan(tries, points, points)}: equal indices, "
             f"max error {err:.3g}", _nbytes(src, tgt, gm, ga),
             (DIST_INSTRS + 2) * tries * points * points, instrs=True)
 
@@ -1377,7 +1449,8 @@ def _check_launches(path: str, launches: dict) -> None:
     for name in PATH_KERNELS[path]:
         if launches[name] < 1:
             raise AssertionError(f"kernel {name} was not launched on the {path} path")
-    if path in ("fused", "step") and launches["ball_query"] + launches["three_nn"]:
+    if (path in ("fused", "fused_encode", "step")
+            and launches["ball_query"] + launches["three_nn"]):
         raise AssertionError(f"the {path} path ran K1/K2: {launches}")
     if path == "fused" and launches["denoise_step"]:
         raise AssertionError(f"the fused path ran K9: {launches}")
@@ -1466,6 +1539,7 @@ def main() -> int:
         print(f"kernel path {path} at b1: {ms[path]:.1f} ms/scene, peak memory "
               f"{peaks[path]:.2f} GiB")
 
+    _check_launches("fused_encode", encode_large_phase(dev))
     _check_launches("fused", cli_phase(dev))
 
     records.update(step_kernel_checks(dev, fused))

@@ -4,19 +4,18 @@
 // three_nn_pallas.  Plain versions: lsdm_tpu_torch/ops/ballquery.py.
 //
 // Both kernels select integer indices from the squared distance
-// (-2 (q.x) + |q|^2) + |x|^2 of pointdist.cuh, whose products and sums are
-// each rounded on their own in the order of the plain version's separate
-// torch ops, so kernel and plain version produce the same bits and the
-// same indices.
+// (-2 (q.x) + |q|^2) + |x|^2 (pointdist.cuh's sq_dist; nearest.cuh's
+// distance<false> for 3-NN), whose products and sums are rounded as the
+// plain version's separate torch ops round them, so kernel and plain
+// version produce the same bits and the same indices.
 //
 // What bounds them on an H100: neither moves much memory (a 1024-point
 // cloud is 12 KB; the outputs are at most 54 x 1024 x 32 int32) nor does
 // much arithmetic (9 x 1024 x 1024 distances at sa1).  They are bound by
 // instruction issue, latency and launch: the distance's products and sums
 // are rounded on their own, so they issue as about eight instructions a
-// pair (chip_smoke.py: DIST_INSTRS).  Both keep each
-// cloud in shared memory, so the scans read no device memory after the
-// staging.
+// pair (chip_smoke.py: DIST_INSTRS).  Both read their clouds from
+// shared memory, so the scans read no device memory after the staging.
 //
 // Ball query: a block stages its cloud once (stage_points: {x, y, z,
 // |x|^2} float4s, padded with NaN points, which no ball holds) and serves
@@ -43,14 +42,22 @@
 // repeat the first index; a row with no point in radius is all n-1, the
 // Pallas kernel's clip(n, 0, n-1).
 //
-// 3-NN: one thread per target; a sorted insert with strict < keeps the k
-// smallest distances with ties to the lowest index (the scan visits
-// sources in ascending index order), which is lax.top_k(-d) order.
+// 3-NN: the lane-split nearest-k scan of nearest.cuh with K = 3 (the
+// first k <= 3 pairs written): a group of lanes splits each target's
+// sources, the source cloud streams through shared tiles, and the lanes'
+// top-3 lists merge in (distance, index) order, which is lax.top_k(-d)
+// order.
+//
+// The ball query stages its whole cloud: np x 16 bytes, above 48 KB only
+// by opting in to more dynamic shared memory, up to the 227 KB a block may
+// take on Hopper (kBallSmemMax): 14,464 points (ops/ballquery.py:
+// BALL_MAX_POINTS).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "nearest.cuh"
 #include "pointdist.cuh"
 
 namespace {
@@ -58,7 +65,7 @@ namespace {
 constexpr int kPointsPerLane = 4;    // points a lane reads a round
 constexpr int kRoundPoints = 32 * kPointsPerLane;  // points a warp reads a round
 constexpr int kBallWarps = 4;        // warps a block
-constexpr int kNnThreads = 256;      // targets per block
+constexpr size_t kBallSmemMax = 232448;  // dynamic shared memory of a block
 
 // Stage cloud (n, 3) into shared memory as {x, y, z, |p|^2} float4s, with
 // NaN points from n to np, whose distances compare false: K1's own layout
@@ -170,49 +177,6 @@ ball_query_kernel(const float* __restrict__ xyz,
   }
 }
 
-__global__ void __launch_bounds__(kNnThreads)
-three_nn_kernel(const float* __restrict__ xyz1, const float* __restrict__ xyz2,
-                int n, int s, int k, float* __restrict__ dist,
-                int32_t* __restrict__ idx) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.y;
-  stage_cloud(xyz2 + (size_t)b * s * 3, s, smem);
-  __syncthreads();
-  const float* sx = smem;
-  const float* sy = smem + s;
-  const float* sz = smem + 2 * s;
-  const float* sxx = smem + 3 * s;
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float* qp = xyz1 + ((size_t)b * n + i) * 3;
-  const float q0 = qp[0], q1 = qp[1], q2 = qp[2];
-  const float qq = sq_norm(q0, q1, q2);
-  float bd0 = INFINITY, bd1 = INFINITY, bd2 = INFINITY;
-  int bi0 = 0, bi1 = 0, bi2 = 0;
-  for (int j = 0; j < s; ++j) {
-    const float d = sq_dist(q0, q1, q2, qq, sx[j], sy[j], sz[j], sxx[j]);
-    if (d < bd2) {  // strict: an equal distance keeps the earlier index
-      if (d < bd1) {
-        bd2 = bd1; bi2 = bi1;
-        if (d < bd0) {
-          bd1 = bd0; bi1 = bi0;
-          bd0 = d; bi0 = j;
-        } else {
-          bd1 = d; bi1 = j;
-        }
-      } else {
-        bd2 = d; bi2 = j;
-      }
-    }
-  }
-  float* drow = dist + ((size_t)b * n + i) * k;
-  int32_t* irow = idx + ((size_t)b * n + i) * k;
-  drow[0] = bd0; irow[0] = bi0;
-  if (k > 1) { drow[1] = bd1; irow[1] = bi1; }
-  if (k > 2) { drow[2] = bd2; irow[2] = bi2; }
-}
-
 template <int kQueriesPerWarp>
 cudaError_t launch_ball_query(const float* xyz, const float* new_xyz, int b,
                               int n, int s, float radius2, int nsample,
@@ -221,6 +185,13 @@ cudaError_t launch_ball_query(const float* xyz, const float* new_xyz, int b,
   const int np = (n + kRoundPoints - 1) / kRoundPoints * kRoundPoints;
   const dim3 grid((s + per_block - 1) / per_block, b);
   const size_t smem = sizeof(float4) * (size_t)np;
+  if (smem > kBallSmemMax) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {  // above the default, only by opting in
+    const cudaError_t err = cudaFuncSetAttribute(
+        ball_query_kernel<kQueriesPerWarp>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
   ball_query_kernel<kQueriesPerWarp><<<grid, kBallWarps * 32, smem, stream>>>(
       xyz, new_xyz, n, np, s, radius2, nsample, out);
   return cudaGetLastError();
@@ -253,16 +224,15 @@ int lsdm_ball_query(const float* xyz, const float* new_xyz, int b, int n, int s,
   }
 }
 
-// xyz1 (B, N, 3) targets, xyz2 (B, S, 3) sources -> dist, idx (B, N, k), k <= 3.
+// xyz1 (B, N, 3) targets, xyz2 (B, S, 3) sources -> dist, idx (B, N, k),
+// k <= 3; `lanes` lanes a target, one target a lane, from the host plan
+// (ops/ballquery.py:three_nn_plan).
 int lsdm_three_nn(const float* xyz1, const float* xyz2, int b, int n, int s,
-                  int k, float* dist, int32_t* idx, void* stream) {
+                  int k, int lanes, float* dist, int32_t* idx, void* stream) {
   if (b <= 0 || n <= 0) return 0;
   if (k < 1 || k > 3 || k > s) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + kNnThreads - 1) / kNnThreads, b);
-  const size_t smem = sizeof(float) * 4 * (size_t)s;
-  three_nn_kernel<<<grid, kNnThreads, smem, (cudaStream_t)stream>>>(
-      xyz1, xyz2, n, s, k, dist, idx);
-  return (int)cudaGetLastError();
+  return (int)nearest::launch<3, false>(xyz1, xyz2, b, n, s, k, lanes, 1, dist,
+                                        idx, (cudaStream_t)stream);
 }
 
 const char* lsdm_error_string(int code) {

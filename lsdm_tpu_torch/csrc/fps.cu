@@ -127,7 +127,7 @@ extern "C" {
 
 // xyz (B, N, 3) float32, start (B,) int32 in [0, N) or null (every cloud
 // starts at 0) -> out (B, npoint) int32.  The plan: `warps` warps a cloud,
-// each lane owning `ppt` points (1, 2 or 4), covering N.
+// each lane owning `ppt` points (1, 2, 4 or 8), covering N.
 int lsdm_fps(const float* xyz, const int32_t* start, int b, int n, int npoint,
              int warps, int ppt, int32_t* out, void* stream) {
   if (b <= 0 || npoint <= 0) return 0;
@@ -138,6 +138,7 @@ int lsdm_fps(const float* xyz, const int32_t* start, int b, int n, int npoint,
     case 1: return launch<1>(xyz, start, b, n, npoint, warps, out, st);
     case 2: return launch<2>(xyz, start, b, n, npoint, warps, out, st);
     case 4: return launch<4>(xyz, start, b, n, npoint, warps, out, st);
+    case 8: return launch<8>(xyz, start, b, n, npoint, warps, out, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,6 +1,8 @@
-// Squared point distances shared by every selection kernel of the port:
-// ball query and 3-NN (ballquery.cu), the fused SA stage (sa_fused.cu) and
-// the fused FP stage (fp_fused.cu).
+// Squared point distances shared by the selection kernels of the port:
+// ball query (ballquery.cu), the train select-gather (sg_fused.cu), the
+// fused SA stage (sa_fused.cu) and the fused FP stage (fp_fused.cu); the
+// nearest-k scan of 3-NN and the chamfer nearest neighbour (nearest.cuh)
+// takes its norms and rounds its distance the same way.
 //
 // The distance is (-2 (q.x) + |q|^2) + |x|^2 with q.x = (q0 x0 + q1 x1) +
 // q2 x2.  Every product and sum is rounded on its own (__fmul_rn/__fadd_rn

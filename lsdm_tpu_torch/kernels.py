@@ -39,8 +39,11 @@ NVCC_FLAGS = (
 )
 
 # streaming multiprocessors of an H100 SXM, which the host plans
-# (ops/ballquery.py, ops/rowmlp.py) size their grids to fill
+# (ops/ballquery.py, ops/chamfer.py, ops/rowmlp.py) size their grids to fill
 SMS = 132
+# dynamic shared memory a block may take on Hopper (by opting in past 48 KB),
+# which bounds the clouds the selection kernels stage
+SMEM_MAX = 232_448
 
 LAUNCHES = {"ball_query": 0, "three_nn": 0, "fps": 0, "denoise_chain": 0,
             "rank1_attn": 0, "sa_fused": 0, "fp_fused": 0,
@@ -53,8 +56,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # (xyz, new_xyz, B, N, S, radius2, nsample, queries a warp, out, stream)
     "lsdm_ball_query": (_P, _P, _I, _I, _I, _F, _I, _I, _P, _P),
-    # (xyz1, xyz2, B, N, S, k, dist, idx, stream)
-    "lsdm_three_nn": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
+    # (xyz1, xyz2, B, N, S, k, lanes a target, dist, idx, stream)
+    "lsdm_three_nn": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     # (xyz, start or null, B, N, npoint, warps, points a lane, out, stream)
     "lsdm_fps": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
     # (x_init, noise, cond_pcd, e2, coef, weights[20], final, last_in,
@@ -82,8 +85,8 @@ _SIGNATURES = {
     "lsdm_rank1_attn_bwd_tiles": (_I,),
     # (xyz, new_xyz, base, B, N, S, C, radius2, nsample, out, idx, stream)
     "lsdm_select_gather": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P),
-    # (x, y, B, N, M, min, argmin, stream)
-    "lsdm_chamfer_nn": (_P, _P, _I, _I, _I, _P, _P, _P),
+    # (x, y, B, N, M, lanes a point, points a lane, min, argmin, stream)
+    "lsdm_chamfer_nn": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

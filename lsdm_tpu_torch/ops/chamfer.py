@@ -8,7 +8,10 @@ point of x (B, N, 3) against y (B, M, 3): the smallest
 ``(|x|^2 + |y|^2) - 2 x.y``, clamped at 0 after the min, and its lowest
 index.  Kernel and plain version compute that expression elementwise with
 the same float32 operations in the same order (no matrix product, so no
-TF32), so their distances and indices are equal.
+TF32), so their distances and indices are equal.  The kernel is the
+lane-split nearest-k scan of ``csrc/nearest.cuh`` that K2 shares, with
+one nearest point; :func:`chamfer_nn_plan` picks its lanes a point and
+points a lane.
 
 The loss has the pytorch3d reductions of ``ops/pointcloud.py:
 chamfer_distance`` (point mean, batch mean, both directions summed).  Its
@@ -29,6 +32,7 @@ from typing import Tuple
 import torch
 
 from lsdm_tpu_torch import kernels
+from lsdm_tpu_torch.ops.ballquery import NEAREST_GROUPS, nearest_plan
 from lsdm_tpu_torch.ops.pointcloud import index_points
 
 
@@ -49,10 +53,26 @@ def directed_nn_plain(x: torch.Tensor, y: torch.Tensor
     return m[..., 0].clamp_min(0.0), arg.to(torch.int32)
 
 
+CHAMFER_NN_WARPS = 20  # warps an SM K11's plan asks for
+
+
+def chamfer_nn_plan(clouds: int, n: int, m: int) -> Tuple[int, int]:
+    """K11's (lanes a point of x, points a lane) for ``clouds`` clouds of
+    ``n`` points of x against ``m`` of y: :func:`nearest_plan`, four points
+    a lane where the fewest lanes then give CHAMFER_NN_WARPS warps an SM,
+    else two, else one.  K11 keeps one nearest point, a select and no
+    branch, so more points a lane only share each source's load.  From the
+    sweep of every plan (``profile_kernels.py --nn_sweep``; PERF.md §6):
+    the fastest plan at the ICP's (64, 1024) against 1024, 8 lanes of 4
+    points, and at the chamfer step's (6, 1024), 32 lanes of 2."""
+    return nearest_plan(clouds, n, m, NEAREST_GROUPS, CHAMFER_NN_WARPS)
+
+
 def directed_nn_kernel(x: torch.Tensor, y: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K11: x (B, N, 3), y (B, M, 3) float32 -> (min (B, N), argmin (B, N)
-    int32).  CUDA kernel for CUDA tensors, plain version for CPU tensors."""
+    int32).  CUDA kernel for CUDA tensors, plain version for CPU tensors.
+    y streams through the kernel's shared tiles: M is not capped."""
     if kernels.on_cpu(x, y):
         return directed_nn_plain(x, y)
     B, N, _ = x.shape
@@ -68,10 +88,11 @@ def directed_nn_kernel(x: torch.Tensor, y: torch.Tensor
     args = torch.empty((B, N), dtype=torch.int32, device=dev)
     if mins.numel() == 0:
         return mins, args
+    lanes, group = chamfer_nn_plan(B, N, M)
     lib = kernels.load()
     with torch.cuda.device(dev):
-        rc = lib.lsdm_chamfer_nn(x.data_ptr(), y.data_ptr(), B, N, M,
-                                 mins.data_ptr(), args.data_ptr(),
+        rc = lib.lsdm_chamfer_nn(x.data_ptr(), y.data_ptr(), B, N, M, lanes,
+                                 group, mins.data_ptr(), args.data_ptr(),
                                  kernels.stream(dev))
     kernels.check(rc, "chamfer_nn")
     kernels.LAUNCHES["chamfer_nn"] += 1

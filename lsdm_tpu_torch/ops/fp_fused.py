@@ -90,10 +90,13 @@ def fp_stage_fused_kernel(xyz1: torch.Tensor, xyz2: torch.Tensor,
         kernels.require("points1", points1, torch.float32, (B, N, None), dev)
         D1 = points1.shape[2]
     widths = _check_layers(folded, D1 + D2, dev)
-    if S > 3072:  # the sources are staged in 48 KB of shared memory
-        raise ValueError(f"fused FP kernel takes at most 3072 sources, got {S}")
     if len(folded) > MAX_LAYERS:
         raise ValueError(f"fused FP kernel takes at most {MAX_LAYERS} layers")
+    cap = rowmlp.fp_max_sources((D1 + D2, *widths))
+    if S > cap:  # the sources are staged beside the layers' buffers
+        raise ValueError(f"fused FP kernel takes at most {cap} sources at these "
+                         f"widths (the sources beside its smallest plan within "
+                         f"{rowmlp.SMEM_MAX} B of shared memory), got {S}")
     out = torch.empty((B, N, widths[-1]), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out

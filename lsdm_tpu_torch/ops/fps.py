@@ -28,23 +28,27 @@ import torch
 
 from lsdm_tpu_torch import kernels
 
-MAX_POINTS = 3072  # the cloud in 48 KB of shared memory (16 bytes a point)
+PPTS = (1, 2, 4, 8)  # points a lane the kernel takes (csrc/fps.cu)
+# 32 warps of 8 points a lane; the cloud, 16 bytes a point (128 KB at this
+# cap), fits the 227 KB of shared memory a block may take on Hopper
+MAX_POINTS = 32 * 32 * PPTS[-1]
 
 
 def fps_plan(n: int):
     """(warps, points a lane) of the kernel's block for a cloud of ``n``
     points: one warp up to 64 points (no block barrier), else a warp for
-    every 32 points up to 32 warps; each lane owns the smallest of 1, 2 or
-    4 contiguous points that covers the cloud (at most 3 at 3072 points).
+    every 32 points up to 32 warps; each lane owns the smallest of 1, 2, 4
+    or 8 contiguous points that covers the cloud (8 above 4096 points).
     From the sweep of every plan at sa2-sa4 (``profile_kernels.py
     --fps_sweep``, H100): one point a lane beat 2 and 4 at 1024 and 256
     points (8 warps at 256 beat one), two points in one warp beat two warps
     at 64."""
     if not 1 <= n <= MAX_POINTS:
-        raise ValueError(f"FPS kernel takes 1 to {MAX_POINTS} points, got {n}")
+        raise ValueError(f"FPS kernel takes 1 to {MAX_POINTS} points (32 warps "
+                         f"of {PPTS[-1]} points a lane), got {n}")
     warps = 1 if n <= 64 else min(32, -(-n // 32))
     need = -(-n // (32 * warps))
-    return warps, next(p for p in (1, 2, 4) if p >= need)
+    return warps, next(p for p in PPTS if p >= need)
 
 
 def farthest_point_sample_plain(xyz: torch.Tensor, npoint: int,

@@ -41,12 +41,11 @@ import functools
 import math
 from typing import Dict, Sequence, Tuple
 
-from lsdm_tpu_torch.kernels import SMS
+from lsdm_tpu_torch.kernels import SMEM_MAX, SMS
 
 THREADS = 256
 STAGES = 3           # cp.async ring depth of the weight tiles
 STAGE_FLOATS = 2048  # floats of one ring stage at most: BK x BN
-SMEM_MAX = 232_448   # dynamic shared memory a block may take on Hopper
 SMEM_SM = 233_472    # shared memory of an SM (228 KB), 1 KB reserved a block
 MAX_LAYERS = 8       # layers the kernel computes (csrc/rowmlp.cuh:kMaxLayers)
 SA_ROWS = (1, 2, 4, 8)    # centres a cluster may take (nsample rows each)
@@ -199,6 +198,25 @@ def layout_fp(clouds: int, n: int, s: int, widths: Sequence[int], rows: int,
                    _caps(widths[:-1]), 0, 0, 4 * s + 6 * rows)
 
 
+@functools.lru_cache(maxsize=256)
+def sa_max_points(nsample: int, widths: Sequence[int]) -> int:
+    """The most points K7 stages for a stage of ``nsample`` rows a centre
+    and layer widths ``widths`` (a tuple): the cloud (16 bytes a point)
+    beside the buffers, ring and selection of its smallest plan (one centre
+    a block, cluster 1) within SMEM_MAX.  At the flagship widths it is far
+    above the 4096 points of ``--pcd_points 4096``.  Cached, as the plans
+    are: the wrapper asks at every call."""
+    return (SMEM_MAX - layout_sa(1, 0, 1, nsample, widths, 1, 1).smem) // 16
+
+
+@functools.lru_cache(maxsize=256)
+def fp_max_sources(widths: Sequence[int]) -> int:
+    """The most sources K8 stages for layer widths ``widths`` = (F0, ...,
+    FL): the source cloud beside its smallest plan (FP_ROWS[0] targets a
+    block, cluster 1) within SMEM_MAX.  Cached, as :func:`sa_max_points`."""
+    return (SMEM_MAX - layout_fp(1, 1, 0, widths, FP_ROWS[0], 1).smem) // 16
+
+
 def _rule(plans: Sequence[Plan]) -> Plan:
     """Of ``plans`` (one a row count, ascending, cluster 1): the most rows
     whose blocks still fit two to an SM and give every SM two, else the
@@ -216,7 +234,7 @@ def _plan(layout, key, clouds, row_counts, useful) -> Plan:
         return layout(*table[near])
     counts = [r for r in row_counts if useful(r)] or [row_counts[0]]
     cands = [p for p in (layout(r, 1) for r in counts) if p.smem <= SMEM_MAX]
-    if not cands:
+    if not cands:  # the wrappers refuse such a cloud first, naming the cap
         raise ValueError("no launch plan fits the shared memory of a block")
     return _rule(cands)
 

@@ -89,10 +89,13 @@ def sa_stage_fused_kernel(radius: float, nsample: int, xyz: torch.Tensor,
     widths = _check_layers(folded, base.shape[2], dev)
     if not 0 < nsample <= N:
         raise ValueError(f"nsample {nsample} must lie in [1, {N}]")
-    if N > 3072:  # the cloud is staged in 48 KB of shared memory
-        raise ValueError(f"fused SA kernel takes at most 3072 points, got {N}")
     if len(folded) > MAX_LAYERS:
         raise ValueError(f"fused SA kernel takes at most {MAX_LAYERS} layers")
+    cap = rowmlp.sa_max_points(nsample, tuple(widths))
+    if N > cap:  # the cloud is staged beside the layers' buffers
+        raise ValueError(f"fused SA kernel takes at most {cap} points at these "
+                         f"widths (the cloud beside its smallest plan within "
+                         f"{rowmlp.SMEM_MAX} B of shared memory), got {N}")
     w1, b1 = folded[0]
     z1 = torch.matmul(base, w1) + b1  # layer 1 at the N points, as on the TPU
     return sa_stage_launch(radius, nsample, xyz, new_xyz, z1,

@@ -1,36 +1,47 @@
 """Time K5 and K4 (rank-1 attention backward and forward), K3 (farthest-
-point sampling) and K1 (ball query) on the card, queued behind a sleep so
-that only the device's time counts.
+point sampling), K1 (ball query), K2 (3-NN) and K11 (chamfer nearest
+neighbour) on the card, queued behind a sleep so that only the device's
+time counts.
 
     python -m lsdm_tpu_torch.profile_kernels [--clouds 9 54 72]
                                              [--fps_sweep [--ppt 1 2 4]]
-                                             [--bq_sweep] [--csrc DIR]
+                                             [--bq_sweep] [--nn_sweep]
+                                             [--csrc DIR]
 
 K5 at the train step's shape (54 clouds, 1024 points, 12 heads), from the
 forward's row denominators; K4 at a b1 sample's (9, 1024, 12) and, with
 the row denominators the training forward keeps, at (54, 1024, 12),
 beside SDPA's forward on the same inputs; K3 at the SA stages sa2..sa4 of
 seeded clouds of 1024 points (1024 -> 256 -> 64 -> 16), every cloud from
-index 0, and K1 at sa1..sa4 (radii 0.1, 0.2, 0.4, 0.8, 32 samples) on
-those point sets, at each cloud count (9: a b1 sample; 54: a batch-6
-train step; 72: a b8 sample).  K5's and K4's lines also carry their
-largest errors against the plain versions, on these inputs and with k and
-v offset by +8 (K5: the same ``out`` on both sides; K4: and the row
-denominators' relative error); K1's, whether its indices equal the plain
-version's at every stage; K3's, at 1024 points, the time of one round and
-the fixed cost of a launch, fitted from 16 and 256 rounds.  Prints one
-JSON line per case and the card's name and power limit.
+index 0, K1 at sa1..sa4 (radii 0.1, 0.2, 0.4, 0.8, 32 samples) and K2 at
+fp4..fp1 (targets 64, 256, 1024, 1024 against sources 16, 64, 256 and, at
+fp1, the targets themselves) on those point sets, at each cloud count (9:
+a b1 sample; 54: a batch-6 train step; 72: a b8 sample); K11 at an ICP
+iteration's (64, 1024) against (64, 1024) and at the chamfer train step's
+(6, 1024), both ways.  K5's and K4's lines also carry their largest errors
+against the plain versions, on these inputs and with k and v offset by +8
+(K5: the same ``out`` on both sides; K4: and the row denominators'
+relative error); K1's, K2's and K11's, whether their outputs equal the
+plain versions' (K2's and K11's distances bit for bit) at every stage;
+K3's, at 1024 points, the time of one round and the fixed cost of a
+launch, fitted from 16 and 256 rounds.  Prints one JSON line per case and
+the card's name and power limit.
 
 ``--fps_sweep`` times every launch plan (warps a cloud, points a lane,
 the latter from ``--ppt``) of the FPS entry at each stage and cloud
 count, against which ``ops/fps.py:fps_plan`` was chosen; ``--bq_sweep``
 every plan (queries a warp 1, 2 or 4) of the ball query entry, against
-which ``ops/ballquery.py:ball_query_plan`` was chosen.  ``--csrc DIR``
-builds the kernels from another copy of ``csrc/`` (an edited copy for an
-ablation, such as another ``kBallWarps``, kept in a git-ignored
-directory), so variants are timed by this same script.  Without the
-sweeps it calls the kernels' wrappers only, so a copy of it times a
-parent tree whose wrappers take the same arguments.
+which ``ops/ballquery.py:ball_query_plan`` was chosen; ``--nn_sweep``
+every plan of the 3-NN and chamfer entries at K2's and K11's shapes
+(lanes a target 1-32; K11 also 1, 2 or 4 targets a lane, K2 one),
+against which ``ops/ballquery.py:three_nn_plan`` and
+``ops/chamfer.py:chamfer_nn_plan``
+were chosen.  ``--csrc DIR`` builds the kernels from another copy of
+``csrc/`` (an edited copy for an ablation, such as another
+``kBallWarps``, kept in a git-ignored directory), so variants are timed
+by this same script.  Without the sweeps it calls the
+kernels' wrappers only, so a copy of it times a parent tree whose
+wrappers take the same arguments.
 """
 
 from __future__ import annotations
@@ -44,7 +55,7 @@ from pathlib import Path
 import torch
 
 from lsdm_tpu_torch import kernels
-from lsdm_tpu_torch.ops import attn, ballquery, fps
+from lsdm_tpu_torch.ops import attn, ballquery, chamfer, fps
 from lsdm_tpu_torch.ops.pointcloud import index_points
 from lsdm_tpu_torch.profile_encode import time_queued_ms
 
@@ -133,6 +144,59 @@ def ball_query_call(r: float, xyz: torch.Tensor, new_xyz: torch.Tensor,
         out.data_ptr(), stream), "ball_query") or out
 
 
+NN_LANES = (1, 2, 4, 8, 16, 32)
+NN_PLANS = [(lanes, group) for lanes in NN_LANES for group in (1, 2, 4)]
+
+
+def three_nn_call(xyz1: torch.Tensor, xyz2: torch.Tensor, plan=None):
+    """One K2 launch (k = 3): the wrapper, or with ``plan`` (lanes a
+    target) the C entry."""
+    if plan is None:
+        return lambda: ballquery.three_nn_kernel(xyz1, xyz2, 3)
+    B, N, _ = xyz1.shape
+    S = xyz2.shape[1]
+    lib = kernels.load()
+    dist = torch.empty((B, N, 3), dtype=torch.float32, device=xyz1.device)
+    idx = torch.empty((B, N, 3), dtype=torch.int32, device=xyz1.device)
+    stream = kernels.stream(xyz1.device)
+    return lambda: kernels.check(lib.lsdm_three_nn(
+        xyz1.data_ptr(), xyz2.data_ptr(), B, N, S, 3, plan, dist.data_ptr(),
+        idx.data_ptr(), stream), "three_nn") or (dist, idx)
+
+
+def chamfer_nn_call(x: torch.Tensor, y: torch.Tensor, plan=None):
+    """One K11 launch: the wrapper, or with ``plan`` the C entry."""
+    if plan is None:
+        return lambda: chamfer.directed_nn_kernel(x, y)
+    B, N, _ = x.shape
+    lib = kernels.load()
+    mins = torch.empty((B, N), dtype=torch.float32, device=x.device)
+    args = torch.empty((B, N), dtype=torch.int32, device=x.device)
+    stream = kernels.stream(x.device)
+    return lambda: kernels.check(lib.lsdm_chamfer_nn(
+        x.data_ptr(), y.data_ptr(), B, N, y.shape[1], *plan, mins.data_ptr(),
+        args.data_ptr(), stream), "chamfer_nn") or (mins, args)
+
+
+def same_bits(got, want) -> bool:
+    """Outputs (floats, indices) equal, the floats bit for bit."""
+    return all(torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                           b.view(torch.int32) if b.is_floating_point() else b)
+               for a, b in zip(got, want))
+
+
+def chamfer_cases(g: torch.Generator):
+    """(name, x, y) of K11's calls: an ICP iteration's 64 moved copies of
+    a 1024-point source against the target repeated, and the chamfer train
+    step's (6, 1024) x0 and target, each way."""
+    source = torch.rand(64, 1024, 3, generator=g, device="cuda")
+    target = (source[0] + 0.01 * torch.randn(1024, 3, generator=g, device="cuda"))
+    icp = (source, target.expand(64, -1, -1).contiguous())
+    x = torch.randn(6, 1024, 3, generator=g, device="cuda")
+    y = 0.3 * torch.randn(6, 1024, 3, generator=g, device="cuda")
+    return [("icp", *icp), ("train x0 -> target", x, y), ("train target -> x0", y, x)]
+
+
 def plans(n: int, ppts=(1, 2, 4)):
     """Every (warps, points a lane in ``ppts``) that covers n points."""
     for ppt in ppts:
@@ -148,6 +212,7 @@ def main() -> None:
     ap.add_argument("--ppt", type=int, nargs="+", default=[1, 2, 4],
                     help="points a lane of the sweep's plans")
     ap.add_argument("--bq_sweep", action="store_true")
+    ap.add_argument("--nn_sweep", action="store_true")
     ap.add_argument("--csrc", help="build the kernels from this copy of csrc/")
     args = ap.parse_args()
     if args.csrc:
@@ -223,6 +288,35 @@ def main() -> None:
                                       "plan": plan, "ms": queued_ms(fw)}))
         print(json.dumps({"kernel": "ball_query", "clouds": clouds, "stages_ms": stages,
                           "ms": sum(stages), "equal": equal, "card": card}))
+        stages, equal = [], True  # K2 at fp4..fp1
+        for xyz1, xyz2 in zip(sets[3::-1], sets[4:0:-1]):
+            want = ballquery.three_nn_plain(xyz1, xyz2, 3)
+            fn = three_nn_call(xyz1, xyz2)
+            equal = equal and same_bits(fn(), want)
+            stages.append(queued_ms(fn))
+            if args.nn_sweep:
+                for plan in NN_LANES:
+                    fw = three_nn_call(xyz1, xyz2, plan)
+                    if not same_bits(fw(), want):
+                        raise AssertionError(f"3-NN plan {plan}: outputs differ")
+                    print(json.dumps({"kernel": "three_nn", "clouds": clouds,
+                                      "targets": xyz1.shape[1], "sources": xyz2.shape[1],
+                                      "plan": plan, "ms": queued_ms(fw)}))
+        print(json.dumps({"kernel": "three_nn", "clouds": clouds, "stages_ms": stages,
+                          "ms": sum(stages), "equal": equal, "card": card}))
+    for name, x, y in chamfer_cases(g):
+        want = chamfer.directed_nn_plain(x, y)
+        fn = chamfer_nn_call(x, y)
+        print(json.dumps({"kernel": "chamfer_nn", "case": name, "shape": list(x.shape[:2]),
+                          "ms": queued_ms(fn), "equal": same_bits(fn(), want),
+                          "card": card}))
+        if args.nn_sweep:
+            for plan in NN_PLANS:
+                fw = chamfer_nn_call(x, y, plan)
+                if not same_bits(fw(), want):
+                    raise AssertionError(f"chamfer plan {plan}: outputs differ")
+                print(json.dumps({"kernel": "chamfer_nn", "case": name, "plan": plan,
+                                  "ms": queued_ms(fw)}))
 
 
 if __name__ == "__main__":

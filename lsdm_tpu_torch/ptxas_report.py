@@ -4,15 +4,17 @@ loads sit, from the compiler (needs ``nvcc`` and ``cuobjdump``).
     python -m lsdm_tpu_torch.ptxas_report [sa_fused fp_fused ...]
 
 Compiles each source of ``csrc/`` named (default: the row-MLP kernels K7
-and K8) with the package's ``NVCC_FLAGS`` plus ``-Xptxas -v`` to a cubin
-under the build directory and prints, per function, what ptxas reports:
-registers, stack frame, spill stores and spill loads.  Then it reads the
-cubin's SASS and splits it at the targets of its calls (the functions
-that are not inlined, such as ``rowmlp::dense_tiles<T>``, in address
-order; the kernel body first): per part, its FFMA count, its spill loads
-(``LDL``) and those of them inside a loop that holds FFMAs and no inner
-loop (the FMA loops of the layers).  The last line is one JSON object
-with all of it.
+and K8, the ball query and 3-NN kernels K1 and K2, the chamfer nearest
+neighbour K11 and FPS, K3) with the package's ``NVCC_FLAGS`` plus
+``-Xptxas -v`` to a cubin under the build directory and prints, per
+function (each instance of a template), what ptxas reports: registers,
+stack frame, spill stores and spill loads.  For the row-MLP sources it
+then reads the cubin's SASS and splits it at the targets of its calls
+(the functions that are not inlined, such as ``rowmlp::dense_tiles<T>``,
+in address order; the kernel body first): per part, its FFMA count, its
+spill loads (``LDL``) and those of them inside a loop that holds FFMAs
+and no inner loop (the FMA loops of the layers).  The last line is one
+JSON object with all of it.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from pathlib import Path
 
 from lsdm_tpu_torch import kernels
 
+SOURCES = ("sa_fused", "fp_fused", "ballquery", "chamfer", "fps")
+SASS_SOURCES = ("sa_fused", "fp_fused")
 _FUNC = re.compile(r"Function properties for (\S+)")
 _PROPS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                     r"(\d+) bytes spill loads")
@@ -82,13 +86,15 @@ def sass_parts(cubin: str) -> list:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("sources", nargs="*", default=["sa_fused", "fp_fused"])
+    ap.add_argument("sources", nargs="*", default=list(SOURCES))
     args = ap.parse_args(argv)
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = {}
     for src in args.sources:
         cubin = str(kernels.BUILD_DIR / f"{src}.report.cubin")
-        funcs, parts = ptxas(src, cubin), sass_parts(cubin)
+        funcs = ptxas(src, cubin)
+        # one kernel and its out-of-line tiles: the split reads one address space
+        parts = sass_parts(cubin) if src in SASS_SOURCES else []
         for f in funcs:
             print(f"{src} {f['function']}: {f.get('registers', '-')} registers, "
                   f"{f['stack']} B stack, {f['spill_stores']} B spill stores, "

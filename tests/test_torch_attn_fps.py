@@ -340,7 +340,7 @@ def test_k5_wrapper_on_cpu_takes_the_plain_version_with_or_without_denom():
 def test_fps_plan_covers_every_cloud_size():
     for n in range(1, fps.MAX_POINTS + 1):
         warps, ppt = fps.fps_plan(n)
-        assert ppt in (1, 2, 4) and 1 <= warps <= 32
+        assert ppt in fps.PPTS and 1 <= warps <= 32
         assert warps * 32 * ppt >= n, n
         assert warps * 32 * ppt < 2 * n + 32, n  # at most ~half the lanes idle
         if n <= 64:

@@ -97,6 +97,120 @@ def test_three_nn_ties_go_to_the_lowest_index(dev):
     assert idx.tolist() == [[[0, 1, 2]]]
 
 
+def _fp_levels(dev, clouds, n=1024, seed=0):
+    """Seeded clouds of n points and the FPS levels of the SA stages (n,
+    n / 4, n / 16, n / 64 points), from the plain FPS."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    levels = [torch.randn(clouds, n, 3, generator=g, device=dev)]
+    for npoint in (n // 4, n // 16, n // 64):
+        idx = fps.farthest_point_sample_plain(levels[-1], npoint)
+        levels.append(torch.gather(levels[-1], 1, idx.long()[..., None].expand(-1, -1, 3))
+                      .contiguous())
+    return levels
+
+
+@pytest.mark.parametrize("clouds", [9, 54])
+def test_three_nn_kernel_at_the_flagship_fp_stages(dev, clouds):
+    """fp4-fp1 (targets 64, 256, 1024, 1024 against 16, 64, 256, 1024
+    sources; at fp1 the sources are the targets, whose nearest distance is
+    rounding noise around 0) at a b1 sample's 9 clouds and a train step's
+    54: indices equal and distances the same bits as the plain version."""
+    levels = _fp_levels(dev, clouds, seed=clouds)
+    for xyz1, xyz2 in zip(levels[3::-1], levels[:0:-1]):
+        before = kernels.LAUNCHES["three_nn"]
+        gd, gi = ballquery.three_nn_kernel(xyz1, xyz2, 3)
+        assert kernels.LAUNCHES["three_nn"] == before + 1
+        wd, wi = ballquery.three_nn_plain(xyz1, xyz2, 3)
+        torch.cuda.synchronize()
+        assert torch.equal(gi, wi), (xyz1.shape[1], xyz2.shape[1])
+        assert torch.equal(gd.view(torch.int32), wd.view(torch.int32))
+    gd, gi = ballquery.three_nn_kernel(levels[0], levels[0], 3)  # fp1: sources = targets
+    wd, wi = ballquery.three_nn_plain(levels[0], levels[0], 3)
+    assert torch.equal(gi, wi) and torch.equal(gd.view(torch.int32), wd.view(torch.int32))
+
+
+def _tied_sources(dev, s, seed):
+    """s seeded sources with duplicates 1 and 33 apart (other lanes at every
+    L) and across the tiles of 1024 (csrc/nearest.cuh: kTile), and targets
+    beside them."""
+    x = _cloud(seed, 2, s, 3)
+    pairs = [(a, b) for a, b in ((0, 1), (2, 35), (7, 8), (1023, 1024), (5, s - 1),
+                                 (100, 1124), (40, 1064)) if b < s]
+    for a, b in pairs:
+        x[:, b] = x[:, a]
+    q = torch.cat([x[:, [a for a, _ in pairs]] + 1e-3, _cloud(seed + 1, 2, 57, 3)], 1)
+    return q.contiguous().to(dev), x.contiguous().to(dev)
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_nearest_kernels_break_ties_across_lanes_and_tiles(dev, lanes, group, monkeypatch):
+    """Every plan of the scan (lanes a target; K11 also targets a lane, K2
+    takes one) on sources that tie between lanes and between tiles: K2 and
+    K11 equal to their plain versions, ties to the lowest index."""
+    monkeypatch.setattr(ballquery, "three_nn_plan", lambda *a: lanes)
+    monkeypatch.setattr(chamfer, "chamfer_nn_plan", lambda *a: (lanes, group))
+    for s in (45, 1100, 2100):
+        q, x = _tied_sources(dev, s, s)
+        for k in (1, 2, 3):
+            gd, gi = ballquery.three_nn_kernel(q, x, k)
+            wd, wi = ballquery.three_nn_plain(q, x, k)
+            torch.cuda.synchronize()
+            assert torch.equal(gi, wi), (s, k)
+            assert torch.equal(gd.view(torch.int32), wd.view(torch.int32)), (s, k)
+        gm, ga = chamfer.directed_nn_kernel(q, x)
+        wm, wa = chamfer.directed_nn_plain(q, x)
+        torch.cuda.synchronize()
+        assert torch.equal(ga, wa) and torch.equal(gm, wm), s
+    # S < L: lanes with no source keep empty slots, which never win
+    q, x = _tied_sources(dev, 45, 3)
+    gd, gi = ballquery.three_nn_kernel(q, x[:, :2].contiguous(), 2)
+    wd, wi = ballquery.three_nn_plain(q, x[:, :2].contiguous(), 2)
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)
+
+
+@pytest.mark.parametrize("clouds", [64, 6])
+def test_chamfer_nn_kernel_at_the_icp_and_train_shapes(dev, clouds):
+    """K11 at (64, 1024) against (64, 1024), an ICP iteration's, and at
+    (6, 1024) each way, the chamfer train step's: argmin equal, clamped
+    minimum the same bits."""
+    g = torch.Generator(device=dev).manual_seed(clouds)
+    x = torch.rand(clouds, 1024, 3, generator=g, device=dev)
+    y = (x + 0.01 * torch.randn(clouds, 1024, 3, generator=g, device=dev)).contiguous()
+    for a, b in ((x, y), (y, x), (x, x)):
+        before = kernels.LAUNCHES["chamfer_nn"]
+        gm, ga = chamfer.directed_nn_kernel(a, b)
+        assert kernels.LAUNCHES["chamfer_nn"] == before + 1
+        wm, wa = chamfer.directed_nn_plain(a, b)
+        torch.cuda.synchronize()
+        assert torch.equal(ga, wa) and torch.equal(gm, wm)
+
+
+def test_selection_kernels_take_4096_points(dev):
+    """--pcd_points 4096: K1 (its cloud, 64 KB, past the default 48 KB of
+    shared memory), K2 (sources streamed through tiles) and K3 (32 warps of
+    4 points a lane) at the SA and FP stages' shapes, and K3 at 8192 points
+    (8 points a lane), against their plain versions."""
+    levels = _fp_levels(dev, 9, n=4096, seed=4096)
+    for r, xyz, new_xyz in zip((0.1, 0.2), (levels[0], levels[0]), (levels[0], levels[1])):
+        got = ballquery.query_ball_point_kernel(r, 32, xyz, new_xyz)
+        assert torch.equal(got, ballquery.query_ball_point_plain(r, 32, xyz, new_xyz))
+    for xyz1, xyz2 in ((levels[0], levels[0]), (levels[0], levels[1])):
+        gd, gi = ballquery.three_nn_kernel(xyz1, xyz2, 3)
+        wd, wi = ballquery.three_nn_plain(xyz1, xyz2, 3)
+        assert torch.equal(gi, wi) and torch.equal(gd, wd)
+    assert torch.equal(fps.farthest_point_sample_kernel(levels[0], 1024),
+                       fps.farthest_point_sample_plain(levels[0], 1024))
+    big = _cloud(8192, 2, fps.MAX_POINTS, 3).to(dev)
+    assert fps.fps_plan(fps.MAX_POINTS) == (32, 8)
+    assert torch.equal(fps.farthest_point_sample_kernel(big, 64),
+                       fps.farthest_point_sample_plain(big, 64))
+    with pytest.raises(ValueError):  # past the cap, named in the message
+        ballquery.query_ball_point_kernel(
+            0.1, 4, _cloud(1, 1, ballquery.BALL_MAX_POINTS + 1, 3).to(dev),
+            levels[0][:1, :4].contiguous())
+
+
 @pytest.mark.parametrize("n,npoint", [(64, 16), (1000, 250), (1024, 256), (3, 3)])
 def test_fps_kernel_equals_plain(dev, n, npoint):
     xyz = _cloud(n + 7, 5, n, 3).to(dev)
@@ -107,12 +221,12 @@ def test_fps_kernel_equals_plain(dev, n, npoint):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("n", [64, 256, 1000, 1024, 3072])
+@pytest.mark.parametrize("n", [64, 256, 1000, 1024, 3072, 4096, 6000])
 def test_fps_kernel_breaks_ties_as_plain(dev, n):
     """Duplicate points tie in distance, across lanes and warps of the
     kernel's plan (1 warp of 2 points a lane at 64 points, 8 warps at 256,
-    32 at 1000 and 1024, 32 of 4 points a lane at 3072); with and without
-    a start tensor."""
+    32 at 1000 and 1024, 32 of 4 points a lane at 3072 and 4096, of 8 at
+    6000); with and without a start tensor."""
     base = _cloud(n, 3, n // 4, 3)
     xyz = base.repeat(1, 4, 1)[:, torch.randperm(n, generator=torch.Generator().manual_seed(n))]
     xyz = xyz.contiguous().to(dev)
@@ -380,6 +494,71 @@ def test_fp_fused_kernel_matches_plain(dev, b, n, s, d1, d2, mlp, acts, cluster,
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("stage", ["sa1", "sa2", "fp2", "fp1"])
+def test_row_mlp_kernels_take_4096_points(dev, stage):
+    """--pcd_points 4096 at the flagship widths: K7 at sa1 (4096 centres of
+    4096 points) and sa2 (1024 of 4096), K8 at fp2 (4096 targets, 1024
+    sources) and fp1 with the head (4096 targets and sources), 2 clouds,
+    against their plain versions; their clouds (64 KB) sit beside the
+    layers in the plans' shared memory."""
+    levels = _fp_levels(dev, 2, n=4096, seed=7)
+    if stage.startswith("sa"):
+        n_c, radius, mlp = ((4096, 0.1, (32, 32, 64)) if stage == "sa1"
+                            else (1024, 0.2, (64, 64, 128)))
+        xyz = levels[0]
+        new_xyz = xyz if n_c == 4096 else levels[1]
+        base = torch.cat([xyz, _cloud(5, 2, 4096, 5).to(dev)], -1).contiguous()
+        folded = _layers(dev, (8,) + mlp)
+        got = sa_fused.sa_stage_fused_kernel(radius, 32, xyz, new_xyz, base, folded)
+        want = sa_fused.sa_stage_fused_plain(radius, 32, xyz, new_xyz, base, folded)
+    else:
+        xyz2 = levels[0] if stage == "fp1" else levels[1]
+        d1, d2, mlp, acts = ((0, 128, (128, 128, 128, 128, 3), HEAD) if stage == "fp1"
+                             else (64, 256, (256, 128), None))
+        p1 = _cloud(11, 2, 4096, d1).to(dev) if d1 else None
+        p2 = _cloud(12, 2, xyz2.shape[1], d2).to(dev)
+        folded = _layers(dev, (d1 + d2,) + mlp)
+        got = fp_fused.fp_stage_fused_kernel(levels[0], xyz2, p1, p2, folded, acts)
+        want = fp_fused.fp_stage_fused_plain(levels[0], xyz2, p1, p2, folded, acts)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_encode_at_4096_points_on_the_fused_and_pallas_paths(dev):
+    """The conditioning encode of sdm_proxd() at --pcd_points 4096, b1 (9
+    clouds of 4096 points): the fused path (K3, K7, K8, K4) within the JAX
+    package's fused-vs-composed bound of the pallas path (K1, K2, K3 and
+    the composed stages), which equals the plain selection's encode.  The
+    human branch yields 2 x vert_dims points (POSA's x2 upsampling, 1310
+    at the reference's 655 vertices), so 4096 points take vert_dims 2048."""
+    from lsdm_tpu_torch.config import sdm_proxd
+    from lsdm_tpu_torch.models.sdm import SceneDiffusionModel
+    from lsdm_tpu_torch.profile_sampling import seeded_inputs
+    from lsdm_tpu_torch.weights import init_weights
+
+    cfg = dataclasses.replace(sdm_proxd(), pcd_points=4096, vert_dims=2048)
+    state = init_weights(SceneDiffusionModel(cfg), 0).state_dict()
+    models = {}
+    for impl in ("fused", "pallas", "topk"):
+        m = SceneDiffusionModel(dataclasses.replace(cfg, ball_impl=impl))
+        m.load_state_dict(state)
+        models[impl] = m.to(dev).eval()
+    inputs = seeded_inputs(cfg, 1, 1, 0, dev)[:4]
+    cond, launches = {}, {}
+    with torch.no_grad():
+        for impl, m in models.items():
+            kernels.reset_launches()
+            cond[impl] = m.encode_conditioning(*inputs).cond_pcd
+            torch.cuda.synchronize()
+            launches[impl] = dict(kernels.LAUNCHES)
+    assert all(launches["fused"][k] for k in ("fps", "sa_fused", "fp_fused"))
+    assert all(launches["pallas"][k] for k in ("fps", "ball_query", "three_nn"))
+    assert not launches["topk"]["ball_query"] + launches["topk"]["three_nn"]
+    assert torch.isfinite(cond["fused"]).all()
+    torch.testing.assert_close(cond["pallas"], cond["topk"], atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(cond["fused"], cond["pallas"], atol=2e-5, rtol=2e-4)
+
+
 def test_row_mlp_kernels_raise_on_a_plan_they_cannot_run(dev, monkeypatch):
     xyz = _cloud(0, 2, 64, 3).to(dev)
     base = torch.cat([xyz, xyz], -1).contiguous()
@@ -587,7 +766,7 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
         attn.rank1_mha_bwd_kernel(xyz, xyz, xyz, xyz, xyz[:, :8].contiguous(), den)
     with pytest.raises(ValueError):  # row denominators laid out (B, L, H)
         attn.rank1_mha_bwd_kernel(xyz, xyz, xyz, xyz, xyz, xyz)
-    with pytest.raises(ValueError):  # no FPS kernel past 3072 points
-        fps.farthest_point_sample_kernel(_cloud(1, 1, 3073, 3).to(dev), 4)
+    with pytest.raises(ValueError):  # no FPS kernel past 32 warps of 8 points a lane
+        fps.farthest_point_sample_kernel(_cloud(1, 1, fps.MAX_POINTS + 1, 3).to(dev), 4)
     with pytest.raises(ValueError):
         chamfer.directed_nn_kernel(xyz, xyz[:, :0].contiguous())
