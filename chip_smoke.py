@@ -58,13 +58,20 @@ Run from the repository root:  python3 chip_smoke.py
    D=128, batch 1 and 8, clip off and on, to STEP_ATOL; its time per
    launch is taken with the launches queued behind a sleep on the card,
    so that the host's pace between them does not count (the host-paced
-   time and the host's own time per call are printed beside it).
+   time and the host's own time per call are printed beside it), and so
+   are its two launches apart (u2, and the tile kernel on clusters of the
+   plan's size); the record carries both batches as ``b1`` / ``b8``.
 8. The "step" path: ``sdm_proxd()`` at full width, batch 1, T=1000,
-   ``ball_impl="fused"``, ``fused_step="step"`` (K9 once per step from
-   the host): through the kernels and through the plain versions with the
-   same draws (FUSED_ATOL), and against the chain path with the same draws
-   (CHAIN_ATOL); K9 launched T times and K6 never.  Prints ms/scene and
-   peak memory.
+   ``ball_impl="fused"``, ``fused_step="step"`` (K9 once per step, the T
+   calls captured into one CUDA graph by the first sample and replayed by
+   the timed one): through the kernels and through the plain versions
+   with the same draws (FUSED_ATOL), and against the chain path with the
+   same draws (CHAIN_ATOL); the timed sample must make no K9 call from the
+   host and replay the graph once, which holds T u2 and T tile kernel
+   nodes; K9 launched T times (by the replay, counted from those nodes)
+   and K6 never; ``test_sdm --fused_step step`` must likewise make its K9
+   calls by replays, with no host call beyond the one before the capture.  Prints ms/scene, peak memory and the graph's
+   capture and instantiation times.
 9. ``test_sdm --fused_step step`` on the synthetic split, and
    ``lsdm_tpu_torch.run.scene_edit`` on a synthetic proxd test split (2
    sequences x 1024 points, T=1000) whose prompts hit the keyword table:
@@ -82,8 +89,8 @@ Run from the repository root:  python3 chip_smoke.py
    and v offset by +8, with SDPA's backward timed beside it; K3, K1 and K2
    at the stages' shapes (equal indices); K1-K4 timed queued (the
    ``train_b6`` field of their records); the select-gather (K10, sa1-sa4
-   and an empty ball) and the chamfer nearest neighbour (K11, each way)
-   equal to their plain versions.
+   and an empty ball, timed queued) and the chamfer nearest neighbour
+   (K11, each way) equal to their plain versions.
 11. The train step of ``sdm_proxd()`` at batch 6 (fp32, T=1000, seeded
    weights and batch) in the configuration ``train_sdm`` runs by default
    on CUDA (K1-K5), with ``ball_impl="sg"`` (K10) and with the K11 chamfer:
@@ -293,9 +300,17 @@ PLAIN_VERSIONS = (
      "lsdm_tpu_torch.ops.chamfer", "directed_nn_plain"),
     ("lsdm_tpu_torch.models.sampling", "fused_denoise_chain",
      "lsdm_tpu_torch.ops.denoise", "denoise_chain_plain"),
-    ("lsdm_tpu_torch.models.sampling", "make_denoise_step",
-     "lsdm_tpu_torch.ops.denoise", "make_denoise_step_plain"),
+    ("lsdm_tpu_torch.models.sampling", "make_denoise_step_loop",
+     "lsdm_tpu_torch.ops.denoise", "make_denoise_step_loop_plain"),
 )
+
+
+def _launches() -> dict:
+    """Kernel launches per kernel since the last reset: the wrappers' own
+    and those of CUDA graph replays (``kernels.GRAPH_LAUNCHES``)."""
+    from lsdm_tpu_torch import kernels
+
+    return {k: v + kernels.GRAPH_LAUNCHES[k] for k, v in kernels.LAUNCHES.items()}
 
 
 def _sync(dev) -> None:
@@ -867,7 +882,8 @@ def train_kernel_checks(dev, model, batch: int = TRAIN_BATCH) -> dict:
                 print(line + "equal indices and values")
                 continue
             _record(rec, "select_gather", 0.0,
-                    _time_ms(lambda: sg_fused.select_gather_kernel(r, ns, xyz, qc, base), 10, dev),
+                    _time_queued_ms(lambda: sg_fused.select_gather_kernel(
+                        r, ns, xyz, qc, base), QUEUED_REPS, dev)[0],
                     _time_ms(lambda: sg_fused.select_gather_plain(r, ns, xyz, qc, base), 3, dev),
                     line + "equal indices and values",
                     _nbytes(xyz, qc, base, got, gi),
@@ -932,7 +948,7 @@ def train_step_check(dev, cfg, label: str, chamfer_impl: str = "xla",
     kernels.reset_launches()
     loss_k, grads_k, params_k = run(kstate)
     _sync(dev)
-    launches = dict(kernels.LAUNCHES)
+    launches = _launches()
     with plain_versions():
         kernels.reset_launches()
         loss_p, grads_p, params_p = run(pstate)
@@ -998,7 +1014,7 @@ def train_cli_phase(dev, points: int = 1024, T: int = T_STEPS) -> dict:
             "--epochs", "1", "--eval_every", "1", "--diffusion_steps", str(T),
             "--pcd_points", str(points), "--device", str(dev)])
         sec = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
+        launches = _launches()
         names = sorted(f for f in os.listdir(out) if f.endswith(".pt"))
         if names != ["best_model_cfd.pt", "best_model_train_loss.pt",
                      "epoch_0000.pt", "final.pt"]:
@@ -1047,7 +1063,7 @@ def full_path(dev, cfg, model, plain, T: int = T_STEPS):
     peak = _reset_peak(dev)
     kernels.reset_launches()
     (s_k, o_k), sec_k = run(model, fused_step)
-    launches = dict(kernels.LAUNCHES)
+    launches = _launches()
     peak = peak()
     run(plain, None)  # warm-up
     (s_p, o_p), sec_p = run(plain, None)
@@ -1102,14 +1118,14 @@ def fused_path(dev, cfg, model, composed, T: int = T_STEPS):
     peak = _reset_peak(dev)
     kernels.reset_launches()
     (s_k, o_k), sec_k = run()
-    launches = dict(kernels.LAUNCHES)
+    launches = _launches()
     peak = peak()
     with plain_versions():
         run()  # warm-up
         kernels.reset_launches()
         (s_p, o_p), sec_p = run()
-        if any(kernels.LAUNCHES.values()):
-            raise AssertionError(f"the plain run launched kernels: {kernels.LAUNCHES}")
+        if any(_launches().values()):
+            raise AssertionError(f"the plain run launched kernels: {_launches()}")
     if s_k.shape != (B, N, 3) or not torch.isfinite(s_k).all():
         raise AssertionError(f"fused-path sample is not a finite {(B, N, 3)} cloud")
     errs = {"sample": (s_k - s_p).abs().max().item(),
@@ -1151,7 +1167,7 @@ def encode_large_phase(dev, points: int = LARGE_POINTS) -> dict:
         with torch.no_grad():
             out = m.encode_conditioning(*inputs).cond_pcd
         _sync(dev)
-        return out, dict(kernels.LAUNCHES)
+        return out, _launches()
 
     got, launches = encode(fused)
     with plain_versions():
@@ -1181,11 +1197,33 @@ def encode_large_phase(dev, points: int = LARGE_POINTS) -> dict:
     return launches
 
 
+def step_part_calls(p, args, clip: bool, dev):
+    """The two launches of one K9 call on ``args`` (x, noise, cond_pcd, e2,
+    coefs), each alone, through the bound step's methods (which count
+    nothing: these launches time the parts): (u2, tiles, the tile
+    launch's cluster size)."""
+    import torch
+
+    from lsdm_tpu_torch import kernels
+    from lsdm_tpu_torch.ops import denoise
+
+    x, noise, cpcd, e2, coef = args
+    bound = denoise.BoundStep(p, x.shape[1], dev, clip)
+    stream = kernels.stream(dev)
+    scratch, out = bound.scratch(x.shape[0]), torch.empty_like(x)
+    return (lambda: bound.launch_u2(e2, scratch, stream),
+            lambda: bound.launch_tiles(x, noise, cpcd, coef, out, scratch, stream),
+            bound.cluster(x.shape[0]))
+
+
 def step_kernel_checks(dev, model, batches=(1, 8)) -> dict:
     """Phase 7: K9 against its plain version with the model's tail
-    weights, one step at each batch of ``batches``, clip off and on.  The
-    record holds the path's case (batch 1, no clip): time per launch, its
-    bound and the plain version's time; the other cases add their error.
+    weights, one step at each batch of ``batches``, clip off and on.  Each
+    case is timed queued behind a sleep: the call (both launches) and,
+    apart, its u2 launch and its tile launch (the plan's cluster size
+    beside them).  The record holds the path's case (batch 1, no clip):
+    time per launch, its bound and the plain version's time, its parts and
+    the b8 case's times under ``b{B}``; the other cases add their error.
     Returns {"denoise_step": record}."""
     import torch
 
@@ -1201,6 +1239,7 @@ def step_kernel_checks(dev, model, batches=(1, 8)) -> dict:
     rows = sum(w.numel() for w in (p.wc_t, p.wp0_t, p.wp2_t, p.wx0_t, p.wx2_t,
                                    p.wo0_t, p.wo2_t))         # on N rows
     rec: dict = {}
+    parts = {}
     for B in batches:
         args = [torch.randn(B, N, 3, generator=g, device=dev),
                 torch.randn(B, N, 3, generator=g, device=dev),
@@ -1210,15 +1249,28 @@ def step_kernel_checks(dev, model, batches=(1, 8)) -> dict:
             got = denoise.fused_denoise_step(*args, clip_denoised=clip)
             want = denoise.denoise_step_plain(*args, clip_denoised=clip)
             err = (got - want).abs().max().item()
-            # timed as the step sampler calls it: the weights bound once
+            # timed as a sampler calls it: the weights bound once
             step = denoise.make_denoise_step(p, N, dev, clip)
             ms, host = _time_queued_ms(lambda: step(*args[:5]), STEP_REPS, dev)
+            u2_ms = tiles_ms = float("nan")  # the launches exist on the card only
+            cluster = None
+            if dev.type == "cuda":
+                u2, tiles, cluster = step_part_calls(p, args[:5], clip, dev)
+                u2_ms = _time_queued_ms(u2, STEP_REPS, dev)[0]
+                tiles_ms = _time_queued_ms(tiles, STEP_REPS, dev)[0]
             paced = _time_ms(lambda: step(*args[:5]), STEP_REPS, dev)
-            line = (f"K9 denoise step B={B} N={N} D={D} clip={clip}: max error "
-                    f"{err:.3g} (tolerance {STEP_ATOL}); host-paced {paced:.4f} "
-                    f"ms per launch, the host's own {host:.4f}")
+            line = (f"K9 denoise step B={B} N={N} D={D} clip={clip} cluster "
+                    f"{cluster}: max error {err:.3g} (tolerance "
+                    f"{STEP_ATOL}); u2 {u2_ms:.4f} ms, tiles {tiles_ms:.4f} ms; "
+                    f"host-paced {paced:.4f} ms per launch, the host's own {host:.4f}")
             if not (torch.isfinite(got).all() and err <= STEP_ATOL):
                 raise AssertionError(line)
+            bound_ms = _nbytes(*args[:5], *p, got) / HBM_BYTES_PER_S * 1e3
+            bound_ms = max(bound_ms, 2 * B * (2 * D * up + N * rows) / FP32_OPS_PER_S * 1e3)
+            if not clip:
+                parts[f"b{B}"] = {"ms": ms, "u2_ms": u2_ms, "tiles_ms": tiles_ms,
+                                  "bound_ms": bound_ms,
+                                  "cluster": cluster}
             if B != 1 or clip:  # not the path's case: its error counts
                 print(f"{line}; kernel {ms:.4f} ms per launch")
                 rec["denoise_step"]["max_abs_err"] = max(
@@ -1227,20 +1279,25 @@ def step_kernel_checks(dev, model, batches=(1, 8)) -> dict:
             _record(rec, "denoise_step", err, ms,
                     _time_ms(lambda: denoise.denoise_step_plain(*args), 20, dev),
                     line, _nbytes(*args[:5], *p, got), 2 * B * (2 * D * up + N * rows))
+    rec["denoise_step"].update(parts)
     return rec
 
 
 def step_path(dev, cfg, model, T: int = T_STEPS):
     """Phase 8: one batch-1 sample on the step path (``model`` with the
     fused encode, ``fused_step="step"``) through the kernels, through the
-    plain versions and on the chain path, same draws.  Returns (launch
-    counts of the kernel run, max |kernel - plain| per output, max |step -
-    chain| per output, seconds of the kernel run, peak GiB of it)."""
+    plain versions and on the chain path, same draws.  On the card the
+    step path's T K9 calls are one CUDA graph: the first sample captures
+    it, the timed one must replay it (no K9 call from the host, T launches
+    by the replay, T u2 and T tile nodes in the captured graph).  Returns
+    (launch counts of the kernel run, max |kernel - plain| per output, max
+    |step - chain| per output, seconds of the kernel run, peak GiB of it,
+    the graph's record)."""
     import torch
 
     from lsdm_tpu_torch import kernels
     from lsdm_tpu_torch.diffusion.schedule import make_schedule
-    from lsdm_tpu_torch.models.sampling import sample_sdm
+    from lsdm_tpu_torch.models.sampling import sample_sdm, step_loop
     from lsdm_tpu_torch.profile_sampling import seeded_inputs
 
     B, N = 1, cfg.pcd_points
@@ -1255,17 +1312,34 @@ def step_path(dev, cfg, model, T: int = T_STEPS):
         _sync(dev)
         return out, time.perf_counter() - t0
 
-    run("step")  # warm-up
+    run("step")  # warm-up: captures the graph
+    graph = step_loop(model, B, N, T, dev, False)  # the one it keeps
+    replays = getattr(graph, "replays", 0)
     peak = _reset_peak(dev)
     kernels.reset_launches()
     (s_k, o_k), sec_k = run("step")
-    launches = dict(kernels.LAUNCHES)
+    launches = _launches()
+    direct = kernels.LAUNCHES["denoise_step"]
     peak = peak()
+    info = {}
+    if dev.type == "cuda":
+        info = {"calls": graph.calls, "kernel_nodes": list(graph.kernel_nodes),
+                "capture_s": graph.capture_s, "instantiate_s": graph.instantiate_s}
+        print(f"step path graph: {graph.calls} K9 calls captured in "
+              f"{graph.capture_s:.3f} s, instantiated in {graph.instantiate_s:.3f} s; "
+              f"kernel nodes (all, K9 u2, K9 tiles) {graph.kernel_nodes}")
+        if direct or graph.replays != replays + 1:
+            raise AssertionError(f"the step path did not replay its graph: {direct} "
+                                 f"K9 calls from the host, {graph.replays - replays} "
+                                 "replays")
+        if graph.calls != T or tuple(graph.kernel_nodes[1:]) != (T, T):
+            raise AssertionError(f"the step graph holds {graph.calls} K9 calls and "
+                                 f"kernel nodes {graph.kernel_nodes}, not {T}")
     with plain_versions():
         kernels.reset_launches()
         (s_p, o_p), _ = run("step")
-        if any(kernels.LAUNCHES.values()):
-            raise AssertionError(f"the plain run launched kernels: {kernels.LAUNCHES}")
+        if any(_launches().values()):
+            raise AssertionError(f"the plain run launched kernels: {_launches()}")
     (s_c, o_c), _ = run("chain")
     if s_k.shape != (B, N, 3) or not torch.isfinite(s_k).all():
         raise AssertionError(f"step-path sample is not a finite {(B, N, 3)} cloud")
@@ -1276,7 +1350,7 @@ def step_path(dev, cfg, model, T: int = T_STEPS):
                 "guiding": (o_k.guiding - o.guiding).abs().max().item(),
                 "cat": (o_k.cat - o.cat).abs().max().item()}
 
-    return launches, errs(s_p, o_p), errs(s_c, o_c), sec_k, peak
+    return launches, errs(s_p, o_p), errs(s_c, o_c), sec_k, peak, info
 
 
 def scene_edit_phase(dev, points: int = 1024, T: int = T_STEPS) -> dict:
@@ -1310,7 +1384,7 @@ def scene_edit_phase(dev, points: int = 1024, T: int = T_STEPS) -> dict:
                                  "--output_dir", out, "--diffusion_steps", str(T),
                                  "--pcd_points", str(points), "--device", str(dev)])
         sec = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
+        launches = _launches()
         with open(os.path.join(out, "results.txt")) as f:
             tail = [line.split(":")[0] for line in f.read().splitlines()[-8:]]
         if tail != ["Final Chamfer distance", "Final EMD", "Final F1 score",
@@ -1406,7 +1480,9 @@ def cli_phase(dev, points: int = 1024, T: int = T_STEPS,
               fused_step: str = "auto") -> dict:
     """Phase 6 (and 9 with ``fused_step="step"``): the port's test_sdm on
     a synthetic proxd test split of 4 sequences of ``points`` points,
-    batch 2.  Returns the launch counts of the run."""
+    batch 2.  Returns the launch counts of the run.  On the step path the
+    T K9 calls of a sample must come from replays of the CUDA graph (at
+    least T), and from the host only the one call before its capture."""
     import numpy as np
 
     from lsdm_tpu_torch import kernels
@@ -1425,7 +1501,13 @@ def cli_phase(dev, points: int = 1024, T: int = T_STEPS,
                                str(points), "--device", str(dev),
                                "--fused_step", fused_step])
         sec = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
+        launches = _launches()
+        direct = kernels.LAUNCHES["denoise_step"]
+        replayed = kernels.GRAPH_LAUNCHES["denoise_step"]
+        if fused_step == "step" and (replayed < T or direct > 1):
+            raise AssertionError(f"test_sdm --fused_step step made {replayed} K9 "
+                                 f"calls by graph replays (at least {T}) and {direct} "
+                                 "from the host (at most the one before the capture)")
         with open(os.path.join(out, "results.txt")) as f:
             tail = [line.split(":")[0] for line in f.read().splitlines()[-5:]]
         if tail != ["Final Chamfer distance", "Final EMD", "Final F1 score",
@@ -1543,20 +1625,21 @@ def main() -> int:
     _check_launches("fused", cli_phase(dev))
 
     records.update(step_kernel_checks(dev, fused))
-    path_launches, errs, vs_chain, sec_k, peak = step_path(dev, cfg, fused)
+    path_launches, errs, vs_chain, sec_k, peak, graph = step_path(dev, cfg, fused)
+    records["denoise_step"]["graph"] = graph
     print(f"step path sdm_proxd B=1 9x{cfg.pcd_points} T={T_STEPS}: launches "
           f"{path_launches}; max |kernel - plain| {errs} (tolerance {FUSED_ATOL}); "
           f"max |step - chain| {vs_chain} (tolerance {CHAIN_ATOL})")
     _check_launches("step", path_launches)
     launches["step"] = path_launches
-    if path_launches["denoise_step"] != T_STEPS:
+    if path_launches["denoise_step"] != T_STEPS:  # by the graph's replay
         raise AssertionError(f"K9 launched {path_launches['denoise_step']} times, "
                              f"not {T_STEPS}")
     if max(errs.values()) > FUSED_ATOL:
         raise AssertionError("step path disagrees with its plain versions")
     if max(vs_chain.values()) > CHAIN_ATOL:
         raise AssertionError("step path disagrees with the chain path")
-    print(f"kernel path step at b1: {sec_k * 1e3:.1f} ms/scene, "
+    print(f"kernel path step at b1 (the graph replayed): {sec_k * 1e3:.1f} ms/scene, "
           f"{T_STEPS / sec_k:.1f} steps/s, peak memory {peak:.2f} GiB")
     _check_launches("step", cli_phase(dev, fused_step="step"))
     _check_launches("scene_edit", scene_edit_phase(dev))

@@ -17,30 +17,18 @@
 // pair (chip_smoke.py: DIST_INSTRS).  Both read their clouds from
 // shared memory, so the scans read no device memory after the staging.
 //
-// Ball query: a block stages its cloud once (stage_points: {x, y, z,
-// |x|^2} float4s, padded with NaN points, which no ball holds) and serves
-// its warps' queries from it.  The host plan (ops/ballquery.py:
-// ball_query_plan) picks the queries a warp (1, 2 or 4) so the card holds
-// enough warps to hide a round's latency.  A block is kBallWarps = 4
-// warps: a cloud is 12-48 KB and staging it is a small part of a block's
-// time, so wider blocks ran no faster and left a 9-cloud grid unevenly
-// spread over the SMs (PERF.md, the block-width sweep).  A warp
-// serves kQueriesPerWarp queries from every point it reads: in a
-// round each lane reads kPointsPerLane points (one 16-byte shared load
-// each; lane l takes points base + 32 p + l, so each of the warp's loads
-// is contiguous and each ballot covers 32 consecutive points) and
-// computes their distances to every query of the warp, folding "in
-// radius" into one predicate a query (the compare's OR form): about ten
-// instructions a (query, point) pair by count, where one query a warp
-// issued ~25.  One vote a query then skips a round in which its ball got
-// nothing, as most rounds do at the SA radii on the seeded clouds; a round
-// with a hit takes a ballot a point slot, and __popc gives each in-radius
-// point its slot, in index order, so the first nsample in-radius indices
-// come out ascending.  A query stops taking points once nsample are
-// found, and the warp once all of its queries have (the Pallas kernel
-// instead runs nsample min-passes over the whole row).  Empty slots
-// repeat the first index; a row with no point in radius is all n-1, the
-// Pallas kernel's clip(n, 0, n-1).
+// Ball query: K1's staged multi-query scan (ballscan.cuh, which the train
+// select-gather K10 shares): a block of kWarps = 4 warps stages its cloud
+// once and serves its warps' queries from it, 1, 2 or 4 queries a warp
+// from the host plan (ops/ballquery.py:ball_query_plan), so the card holds
+// enough warps to hide a round's latency.  A cloud is 12-48 KB and staging
+// it is a small part of a block's time, so wider blocks ran no faster and
+// left a 9-cloud grid unevenly spread over the SMs (PERF.md, the
+// block-width sweep).  In a round a warp issues about ten instructions a
+// (query, point) pair by count, where one query a warp issued ~25; one
+// vote a query skips a round in which its ball got nothing, as most rounds
+// do at the SA radii on the seeded clouds.  (The Pallas kernel instead
+// runs nsample min-passes over the whole row.)
 //
 // 3-NN: the lane-split nearest-k scan of nearest.cuh with K = 3 (the
 // first k <= 3 pairs written): a group of lanes splits each target's
@@ -57,46 +45,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "ballscan.cuh"
 #include "nearest.cuh"
-#include "pointdist.cuh"
 
 namespace {
 
-constexpr int kPointsPerLane = 4;    // points a lane reads a round
-constexpr int kRoundPoints = 32 * kPointsPerLane;  // points a warp reads a round
-constexpr int kBallWarps = 4;        // warps a block
-constexpr size_t kBallSmemMax = 232448;  // dynamic shared memory of a block
-
-// Stage cloud (n, 3) into shared memory as {x, y, z, |p|^2} float4s, with
-// NaN points from n to np, whose distances compare false: K1's own layout
-// (one 16-byte load a point); pointdist.cuh's stage_cloud serves the others.
-// A thread issues the loads of kStageLoads points before it stores any, so
-// a block of one warp stages 256 points in one round trip to memory, not 8.
-constexpr int kStageLoads = 8;
-__device__ __forceinline__ void stage_points(const float* __restrict__ cloud,
-                                             int n, int np, float4* s) {
-  for (int i0 = threadIdx.x; i0 < np; i0 += kStageLoads * blockDim.x) {
-    float a[kStageLoads][3];
-#pragma unroll
-    for (int u = 0; u < kStageLoads; ++u) {
-      const int i = i0 + u * blockDim.x;
-      a[u][0] = a[u][1] = a[u][2] = NAN;
-      if (i < n) {
-        a[u][0] = cloud[3 * i];
-        a[u][1] = cloud[3 * i + 1];
-        a[u][2] = cloud[3 * i + 2];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kStageLoads; ++u) {
-      const int i = i0 + u * blockDim.x;
-      if (i < np) {
-        s[i] = make_float4(a[u][0], a[u][1], a[u][2],
-                           sq_norm(a[u][0], a[u][1], a[u][2]));
-      }
-    }
-  }
-}
+using ballscan::kRoundPoints;
+constexpr int kBallWarps = ballscan::kWarps;  // warps a block
+constexpr size_t kBallSmemMax = ballscan::kSmemMax;
 
 // kQueriesPerWarp: 1, 2 or 4 queries served from each point a warp reads.
 template <int kQueriesPerWarp>
@@ -107,74 +63,15 @@ ball_query_kernel(const float* __restrict__ xyz,
   extern __shared__ float4 pts[];
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
   const int q0 = (blockIdx.x * kBallWarps + warp) * kQueriesPerWarp;
-  // per query (warp-uniform): a query past s starts full, so it takes no
-  // point and writes nothing; its coordinates are read before the staging,
-  // so their loads wait with the cloud's
-  float c0[kQueriesPerWarp], c1[kQueriesPerWarp], c2[kQueriesPerWarp],
-      cc[kQueriesPerWarp];
-  int count[kQueriesPerWarp], first[kQueriesPerWarp];
-#pragma unroll
-  for (int t = 0; t < kQueriesPerWarp; ++t) {
-    c0[t] = c1[t] = c2[t] = 0.0f;
-    count[t] = nsample;
-    first[t] = -1;
-    if (q0 + t < s) {
-      const float* qp = new_xyz + ((size_t)b * s + q0 + t) * 3;
-      c0[t] = qp[0];
-      c1[t] = qp[1];
-      c2[t] = qp[2];
-      count[t] = 0;
-    }
-  }
-  stage_points(xyz + (size_t)b * n * 3, n, np, pts);
+  ballscan::Queries<kQueriesPerWarp> qs;
+  ballscan::load_queries(qs, new_xyz, b, s, q0, nsample);
+  ballscan::stage_points(xyz + (size_t)b * n * 3, n, np, pts);
   __syncthreads();
   if (q0 >= s) return;  // whole warp leaves together
-#pragma unroll
-  for (int t = 0; t < kQueriesPerWarp; ++t) cc[t] = sq_norm(c0[t], c1[t], c2[t]);
-  const unsigned lower = (1u << lane) - 1u;  // lanes below this one
-
-  for (int base = 0; base < np; base += kRoundPoints) {
-    bool done = true;
-#pragma unroll
-    for (int t = 0; t < kQueriesPerWarp; ++t) done = done && count[t] >= nsample;
-    if (done) break;
-    float d[kQueriesPerWarp][kPointsPerLane];
-    bool hit[kQueriesPerWarp];
-#pragma unroll
-    for (int p = 0; p < kPointsPerLane; ++p) {
-      const float4 x = pts[base + p * 32 + lane];
-#pragma unroll
-      for (int t = 0; t < kQueriesPerWarp; ++t) {
-        d[t][p] = sq_dist(c0[t], c1[t], c2[t], cc[t], x.x, x.y, x.z, x.w);
-        hit[t] = (p > 0 && hit[t]) || d[t][p] <= radius2;
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < kQueriesPerWarp; ++t) {
-      if (count[t] >= nsample || !__any_sync(0xffffffffu, hit[t])) continue;
-      int32_t* row = out + ((size_t)b * s + q0 + t) * nsample;
-#pragma unroll
-      for (int p = 0; p < kPointsPerLane; ++p) {
-        const bool in = d[t][p] <= radius2;
-        const unsigned mask = __ballot_sync(0xffffffffu, in);
-        if (mask == 0u) continue;
-        const int i0 = base + p * 32;
-        if (first[t] < 0) first[t] = i0 + __ffs(mask) - 1;
-        const int pos = count[t] + __popc(mask & lower);
-        if (in && pos < nsample) row[pos] = i0 + lane;
-        count[t] += __popc(mask);
-      }
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < kQueriesPerWarp; ++t) {
-    if (q0 + t >= s) continue;
-    int32_t* row = out + ((size_t)b * s + q0 + t) * nsample;
-    const int fill = first[t] < 0 ? n - 1 : first[t];
-    for (int j = count[t] + lane; j < nsample; j += 32) row[j] = fill;
-  }
+  ballscan::scan(qs, pts, n, np, s, q0, radius2, nsample, [&](int t) {
+    return out + ((size_t)b * s + q0 + t) * nsample;
+  });
 }
 
 template <int kQueriesPerWarp>

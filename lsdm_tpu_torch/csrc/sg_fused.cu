@@ -15,83 +15,132 @@
 // (B, S, K, C) directly: the Pallas kernel's K-major layout was a Mosaic
 // workaround.  The backward is plain torch (an index_add over idx).
 //
-// Selection is K1's (csrc/ballquery.cu): one warp per center, the cloud
-// staged in shared memory, __ballot_sync + __popc over 32-point chunks in
-// index order, the distance of pointdist.cuh with its separately rounded
-// products and sums, so the indices equal K1's and the plain version's.
-// The warp keeps its nsample indices in shared memory and then copies the
-// K rows of base it selected into its (K, C) output slab, one float per
-// lane per step over the slab's K x C elements: consecutive lanes write
-// consecutive addresses, and each row of base is read contiguously.
-//
 // What bounds it on an H100: the bytes of the output, B S K C floats
 // (247 MB over sa1-sa4 at the training flagship, 54 clouds of 1024
-// points); the rows of base are re-read from L2 (a stage's base is at most
-// 54 x 256 x 259 floats, 14 MB, inside the 50 MB L2).
+// points), a write-once stream far larger than the 50 MB L2; the rows of
+// base are re-read from L2 (a stage's base is at most 54 x 256 x 259
+// floats, 14 MB).
+//
+// Selection is K1's, from the same code (ballscan.cuh): a block of 4
+// warps stages its cloud once as float4s and each warp serves 1, 2 or 4
+// centers (the host plan, ops/sg_fused.py:select_gather_plan) from every
+// point it reads, with the distance of pointdist.cuh, so the indices equal
+// K1's and the plain version's.  Each warp keeps its centers' nsample
+// indices in shared memory behind the cloud, then writes each center's
+// idx row and its (nsample, C) output slab.  A slab is written as 16-byte
+// streaming stores (st.global.cs: the output is not read again by this
+// kernel, and evicting it first keeps base in L2): lane l takes the
+// float4s l, l + 32, ... of the slab's 16-byte-aligned body, whose
+// (slot, column) position it advances by 128 elements a step with one add
+// and one compare, no division; the up to 3 floats before the first
+// 16-byte boundary (a slab is aligned only where its row * nsample * C is
+// a multiple of 4) and after the last are written one float a lane.
+//
+// The cloud is staged whole, np x 16 bytes beside 16 x Q x nsample of
+// index slots, above 48 KB only by opting in: the wrapper's cap
+// (ops/sg_fused.py:select_gather_max_points) is what fits kSmemMax.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "pointdist.cuh"
+#include "ballscan.cuh"
 
 namespace {
 
-constexpr int kSgWarps = 8;  // centers per block
+using ballscan::kRoundPoints;
+using ballscan::kWarps;
 
-__global__ void __launch_bounds__(kSgWarps * 32)
+// kQueriesPerWarp: 1, 2 or 4 centers a warp.
+template <int kQueriesPerWarp>
+__global__ void __launch_bounds__(kWarps * 32)
 select_gather_kernel(const float* __restrict__ xyz,
                      const float* __restrict__ new_xyz,
-                     const float* __restrict__ base, int n, int s, int c,
-                     float radius2, int nsample, float* __restrict__ out,
-                     int32_t* __restrict__ idx) {
-  extern __shared__ float smem[];
+                     const float* __restrict__ base, int n, int np, int s,
+                     int c, float radius2, int nsample,
+                     float* __restrict__ out, int32_t* __restrict__ idx) {
+  constexpr int Q = kQueriesPerWarp;
+  extern __shared__ float4 pts[];
   const int b = blockIdx.y;
-  stage_cloud(xyz + (size_t)b * n * 3, n, smem);
-  __syncthreads();
-  const float* sx = smem;
-  const float* sy = smem + n;
-  const float* sz = smem + 2 * n;
-  const float* sxx = smem + 3 * n;
-
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  int* slots = reinterpret_cast<int*>(smem + 4 * n) + warp * nsample;
-  const int q = blockIdx.x * kSgWarps + warp;
-  if (q >= s) return;  // whole warp leaves together
-  const float* qp = new_xyz + ((size_t)b * s + q) * 3;
-  const float q0 = qp[0], q1 = qp[1], q2 = qp[2];
-  const float qq = sq_norm(q0, q1, q2);
-  const unsigned lower = (1u << lane) - 1u;  // lanes below this one
-
-  int count = 0;   // warp-uniform
-  int first = -1;  // warp-uniform
-  for (int start = 0; start < n && count < nsample; start += 32) {
-    const int i = start + lane;
-    bool in = false;
-    if (i < n) in = sq_dist(q0, q1, q2, qq, sx[i], sy[i], sz[i], sxx[i]) <= radius2;
-    const unsigned mask = __ballot_sync(0xffffffffu, in);
-    if (mask == 0u) continue;
-    if (first < 0) first = start + __ffs(mask) - 1;
-    const int pos = count + __popc(mask & lower);
-    if (in && pos < nsample) slots[pos] = i;
-    count += __popc(mask);
-  }
-  const int fill = first < 0 ? n - 1 : first;
-  for (int j = count + lane; j < nsample; j += 32) slots[j] = fill;
+  const int q0 = (blockIdx.x * kWarps + warp) * Q;
+  ballscan::Queries<Q> qs;
+  ballscan::load_queries(qs, new_xyz, b, s, q0, nsample);
+  ballscan::stage_points(xyz + (size_t)b * n * 3, n, np, pts);
+  __syncthreads();
+  if (q0 >= s) return;  // whole warp leaves together
+  int32_t* slots = reinterpret_cast<int32_t*>(pts + np) + warp * Q * nsample;
+  ballscan::scan(qs, pts, n, np, s, q0, radius2, nsample,
+                 [&](int t) { return slots + t * nsample; });
   __syncwarp();
 
-  const size_t row = (size_t)b * s + q;
-  for (int j = lane; j < nsample; j += 32) idx[row * nsample + j] = slots[j];
-  const float* cloud = base + (size_t)b * n * c;
-  float* slab = out + row * nsample * c;
+  // the gather's walk: lane l's first float4 of a 16-byte-aligned body
+  // starts at element 4 l, slot k0 column c0; a step is 128 elements
+  const int k_lane = 4 * lane / c, c_lane = 4 * lane - k_lane * c;
+  const int k_step = 128 / c, c_step = 128 - k_step * c;
   const int total = nsample * c;
-  for (int e = lane; e < total; e += 32) {
-    const int kk = e / c;
-    const int cc = e - kk * c;
-    float val = cloud[(size_t)slots[kk] * c + cc];
-    if (cc < 3) val = __fsub_rn(val, cc == 0 ? q0 : (cc == 1 ? q1 : q2));
-    slab[e] = val;
+  const float* cloud = base + (size_t)b * n * c;
+#pragma unroll
+  for (int t = 0; t < Q; ++t) {
+    if (q0 + t >= s) break;
+    const int32_t* sl = slots + t * nsample;
+    const size_t row = (size_t)b * s + q0 + t;
+    for (int j = lane; j < nsample; j += 32) idx[row * nsample + j] = sl[j];
+    const float q_0 = qs.c0[t], q_1 = qs.c1[t], q_2 = qs.c2[t];
+    auto value = [&](int k, int cc) {
+      const float v = cloud[(size_t)sl[k] * c + cc];
+      return cc < 3 ? __fsub_rn(v, cc == 0 ? q_0 : cc == 1 ? q_1 : q_2) : v;
+    };
+    float* slab = out + row * total;
+    // floats before the slab's first 16-byte boundary: slot 0, columns
+    // 0..2 (c >= 3)
+    int head = (int)(((uintptr_t)0 - (uintptr_t)slab) & 15) >> 2;
+    head = head < total ? head : total;
+    if (lane < head) __stcs(slab + lane, value(0, lane));
+    const int body = (total - head) >> 2;  // float4s
+    int k = k_lane, cc = c_lane + head;
+    if (cc >= c) cc -= c, ++k;
+    float4* dst = reinterpret_cast<float4*>(slab + head);
+    for (int v = lane; v < body; v += 32) {
+      float e[4];
+      int kk = k, ce = cc;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        e[i] = value(kk, ce);
+        if (++ce == c) ce = 0, ++kk;
+      }
+      __stcs(dst + v, make_float4(e[0], e[1], e[2], e[3]));
+      k += k_step;
+      cc += c_step;
+      if (cc >= c) cc -= c, ++k;
+    }
+    // floats after the body: the last slot's last columns
+    const int tail = total - head - 4 * body;
+    if (lane < tail)
+      __stcs(slab + total - 1 - lane, value(nsample - 1, c - 1 - lane));
   }
+}
+
+template <int kQueriesPerWarp>
+cudaError_t launch_select_gather(const float* xyz, const float* new_xyz,
+                                 const float* base, int b, int n, int s, int c,
+                                 float radius2, int nsample, float* out,
+                                 int32_t* idx, cudaStream_t stream) {
+  const int per_block = kWarps * kQueriesPerWarp;
+  const int np = (n + kRoundPoints - 1) / kRoundPoints * kRoundPoints;
+  const size_t smem = sizeof(float4) * (size_t)np +
+                      sizeof(int32_t) * (size_t)per_block * nsample;
+  if (smem > ballscan::kSmemMax) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {  // above the default, only by opting in
+    const cudaError_t err = cudaFuncSetAttribute(
+        select_gather_kernel<kQueriesPerWarp>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((s + per_block - 1) / per_block, b);
+  select_gather_kernel<kQueriesPerWarp><<<grid, kWarps * 32, smem, stream>>>(
+      xyz, new_xyz, base, n, np, s, c, radius2, nsample, out, idx);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -99,23 +148,28 @@ select_gather_kernel(const float* __restrict__ xyz,
 extern "C" {
 
 // xyz (B, N, 3), new_xyz (B, S, 3), base (B, N, C) float32 ->
-// out (B, S, nsample, C) float32, idx (B, S, nsample) int32.
+// out (B, S, nsample, C) float32, idx (B, S, nsample) int32; centers a
+// warp (1, 2 or 4) from the host plan.
 int lsdm_select_gather(const float* xyz, const float* new_xyz,
                        const float* base, int b, int n, int s, int c,
-                       float radius2, int nsample, float* out, int32_t* idx,
-                       void* stream) {
+                       float radius2, int nsample, int queries_per_warp,
+                       float* out, int32_t* idx, void* stream) {
   if (b <= 0 || s <= 0 || n <= 0 || nsample <= 0) return 0;
   if (c < 3 || b > 65535) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * 4 * (size_t)n +
-                      sizeof(int) * (size_t)kSgWarps * nsample;
-  cudaError_t err = cudaFuncSetAttribute(
-      select_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((s + kSgWarps - 1) / kSgWarps, b);
-  select_gather_kernel<<<grid, kSgWarps * 32, smem, (cudaStream_t)stream>>>(
-      xyz, new_xyz, base, n, s, c, radius2, nsample, out, idx);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (queries_per_warp) {
+    case 1:
+      return (int)launch_select_gather<1>(xyz, new_xyz, base, b, n, s, c,
+                                          radius2, nsample, out, idx, st);
+    case 2:
+      return (int)launch_select_gather<2>(xyz, new_xyz, base, b, n, s, c,
+                                          radius2, nsample, out, idx, st);
+    case 4:
+      return (int)launch_select_gather<4>(xyz, new_xyz, base, b, n, s, c,
+                                          radius2, nsample, out, idx, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

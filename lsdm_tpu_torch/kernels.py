@@ -16,7 +16,10 @@ kernel or the call raises.
 
 ``LAUNCHES`` counts kernel launches per kernel name.  A wrapper adds one
 where it calls its C entry point and nowhere else, so a run can show that
-its main path went through the kernels.
+its main path went through the kernels.  The step sampler's CUDA graph
+(``ops/denoise.py:DenoiseStepGraph``) counts nothing while it is
+captured, where no kernel runs; each replay adds the K9 calls the
+captured graph holds, read from its kernel nodes, to ``GRAPH_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ LAUNCHES = {"ball_query": 0, "three_nn": 0, "fps": 0, "denoise_chain": 0,
             "rank1_attn": 0, "sa_fused": 0, "fp_fused": 0,
             "rank1_attn_bwd": 0, "select_gather": 0, "chamfer_nn": 0,
             "denoise_step": 0}
+GRAPH_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -65,9 +69,15 @@ _SIGNATURES = {
     "lsdm_denoise_chain": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
     # (e2, weights[20], scratch, dims[11], stream)
     "lsdm_denoise_chain_tables": (_P, _P, _P, _P, _P),
-    # (x, noise, cond_pcd, e2, coefs, weights[20], out, scratch, dims[9],
-    #  clip, stream)
-    "lsdm_denoise_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
+    # K9's two launches: (e2, weights[20], scratch, dims[9], stream)
+    "lsdm_denoise_step_u2": (_P, _P, _P, _P, _P),
+    # (x, noise, cond_pcd, coefs, weights[20], w_up4^T, out, scratch,
+    #  dims[9], cluster, clip, stream)
+    "lsdm_denoise_step_tiles": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # (dims[9], cluster) -> clusters of K9's tile kernel the device runs at once
+    "lsdm_denoise_step_max_clusters": (_P, _I),
+    # (cudaGraph_t, counts[3]): kernel nodes, K9's u2 and tile nodes
+    "lsdm_graph_kernel_nodes": (_P, _P),
     # (q, k, v, B, L, S, H, out, denom or null, stream)
     "lsdm_rank1_attn": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     # (xyz, new_xyz, z1, w1x, params[2(L-1)], widths[L], L, B, N, S,
@@ -83,8 +93,9 @@ _SIGNATURES = {
                             _P, _P),
     # (S) -> key tiles of one (cloud, head)
     "lsdm_rank1_attn_bwd_tiles": (_I,),
-    # (xyz, new_xyz, base, B, N, S, C, radius2, nsample, out, idx, stream)
-    "lsdm_select_gather": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P),
+    # (xyz, new_xyz, base, B, N, S, C, radius2, nsample, centers a warp,
+    #  out, idx, stream)
+    "lsdm_select_gather": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P),
     # (x, y, B, N, M, lanes a point, points a lane, min, argmin, stream)
     "lsdm_chamfer_nn": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
 }
@@ -95,6 +106,7 @@ _lib: Optional[ctypes.CDLL] = None
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        GRAPH_LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:

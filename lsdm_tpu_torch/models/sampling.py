@@ -13,6 +13,7 @@ calling :meth:`SceneDiffusionModel.denoise_from_cond` each step.
 
 from __future__ import annotations
 
+import weakref
 from typing import Optional, Tuple
 
 import torch
@@ -22,7 +23,30 @@ from lsdm_tpu_torch.diffusion.sampler import ddim_sample_loop, p_sample_loop
 from lsdm_tpu_torch.diffusion.schedule import Schedule
 from lsdm_tpu_torch.models.sdm import CondCache, SceneDiffusionModel
 from lsdm_tpu_torch.ops.denoise import (
-    extract_step_params, fused_denoise_chain, make_denoise_step)
+    extract_step_params, fused_denoise_chain, make_denoise_step_loop,
+    step_params_key)
+
+# the step sampler's loops (on CUDA, captured CUDA graphs), per model: key
+# (factory, B, N, T, clip, weights) -> the loop
+_STEP_LOOPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def step_loop(model: SceneDiffusionModel, B: int, N: int, T: int,
+              device: torch.device, clip_denoised: bool):
+    """The K9 loop of ``make_denoise_step_loop`` for ``model``'s weights as
+    they stand, built once and kept per (B, N, T, clip, weights): on CUDA
+    a second sample with the same shapes replays the graph the first
+    captured.  A loop of the same shapes over older weights is dropped."""
+    factory = make_denoise_step_loop  # the module's, as it stands
+    weights = step_params_key(model)
+    loops = _STEP_LOOPS.setdefault(model, {})
+    key = (factory, B, N, T, bool(clip_denoised), weights)
+    if key not in loops:
+        for k in [k for k in loops if k[:5] == key[:5]]:
+            del loops[k]
+        loops[key] = factory(extract_step_params(model), B, N, T, device,
+                             clip_denoised)
+    return loops[key]
 
 
 def resolve_fast_path(ball_impl: str = "auto",
@@ -156,24 +180,20 @@ def sample_sdm(
         e2_tab = model.step_emb2_table(cond, tm_seq)  # (B, T, 2D)
         coef_tab = chain_coefficients(schedule, use_ddim).contiguous()
         cond_pcd = cond.cond_pcd.contiguous()
-        p = extract_step_params(model)
         if fused_step == "chain":
             final, last_in = fused_denoise_chain(
                 x_init.contiguous(), noise.transpose(0, 1).contiguous(),
-                cond_pcd, e2_tab.contiguous(), coef_tab, p,
-                clip_denoised=clip_denoised)
+                cond_pcd, e2_tab.contiguous(), coef_tab,
+                extract_step_params(model), clip_denoised=clip_denoised)
         else:
             # one K9 call per step, carrying (x, last_in) as the JAX scan
-            # does; the weights are checked once, every step's rows are
-            # contiguous views of the tables, all made before the loop, and
-            # the coefficients stay on the device
-            step = make_denoise_step(p, N, dev, clip_denoised)
-            e2_tab = e2_tab.transpose(0, 1).contiguous()  # (T, B, 2D)
-            final = last_in = x_init.contiguous()
-            for nz, e2, coefs in zip(noise.contiguous().unbind(0),
-                                     e2_tab.unbind(0), coef_tab.unbind(0)):
-                last_in = final
-                final = step(final, nz, cond_pcd, e2, coefs)
+            # does; every step's rows are contiguous rows of the tables,
+            # all made before the loop, and the coefficients stay on the
+            # device
+            run = step_loop(model, B, N, T, dev, clip_denoised)
+            final, last_in = run(x_init.contiguous(), noise.contiguous(),
+                                 cond_pcd, e2_tab.transpose(0, 1).contiguous(),
+                                 coef_tab)
         # the DenoiserOutput at the last step's input, composed
         last_out = model.denoise_from_cond(
             cond, last_in, tm_seq[-1].expand(B))

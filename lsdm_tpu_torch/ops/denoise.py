@@ -28,10 +28,13 @@ all but hides.
 
 K9 replaces ``lsdm_tpu/ops/denoise_pallas.py:fused_denoise_step``: ONE step
 of that body per call, for the step-by-step sampler
-(``sample_sdm(fused_step="step")``), which calls it T times from a host
-loop.  Its CUDA version (``csrc/denoise_step.cu``) is two launches on the
-stream: the scene's u2 table, then one block per tile of point rows that
-carries its rows from u4 to the update.  The two plain versions share the
+(``sample_sdm(fused_step="step")``).  Its CUDA version
+(``csrc/denoise_step.cu``) is two launches on the stream: the scene's u2
+table, then a cluster of blocks per tile of 32 point rows that carries its
+rows from u4 to the update, each block a slice of every layer's columns
+(:func:`step_plan` picks the cluster size).  On CUDA the sampler captures
+its T calls into one CUDA graph (:class:`DenoiseStepGraph`) and replays
+it; on the CPU it loops on the host.  The two plain versions share the
 step body, :func:`denoise_step_plain`.
 """
 
@@ -39,7 +42,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+import time
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -79,14 +83,26 @@ class DenoiseStepParams(NamedTuple):
     bo2: torch.Tensor     # (1, 3)
 
 
+def _tail_modules(model):
+    return (model.upsampling_layer, model.combine_extraction[0],
+            model.input_process.pose_embedding,
+            model.input_process.combination_extraction,
+            model.output_process.pose_final)
+
+
+def step_params_key(model) -> Tuple:
+    """What identifies the weights :func:`extract_step_params` takes from
+    ``model`` as they stand: each parameter's storage and its version,
+    which an in-place update (an optimizer step, ``load_state_dict``)
+    advances.  A sampler keys what it builds from those weights by it."""
+    return tuple((t.data_ptr(), t._version)
+                 for m in _tail_modules(model) for t in m.parameters())
+
+
 def extract_step_params(model) -> DenoiseStepParams:
     """The per-step tail weights of a port ``SceneDiffusionModel``,
     detached, contiguous, in the kernel's layout."""
-    up = model.upsampling_layer
-    comb = model.combine_extraction[0]
-    pose = model.input_process.pose_embedding
-    cext = model.input_process.combination_extraction
-    out = model.output_process.pose_final
+    up, comb, pose, cext, out = _tail_modules(model)
 
     def t(lin):
         return lin.weight.detach().t().contiguous()
@@ -144,6 +160,71 @@ def denoise_step_plain(
     return coefs[0] * x0 + coefs[1] * x + coefs[2] * noise
 
 
+# K9's tile of point rows (csrc/denoise_step.cu: kTileRows) and the
+# cluster sizes its host plan chooses from
+STEP_TILE_ROWS = 32
+STEP_CLUSTERS = (1, 2, 3, 4, 5, 6, 7, 8)
+# a block's time with a cluster of C, as STEP_FIXED + 1 / C (in units of
+# the C = 1 block's work): the share of a block's time that splitting the
+# columns does not shrink (barriers, epilogues, the prologue), fitted to
+# the sweep of every size at N = 1024, D = 128, b1-b8 on an H100
+# (``profile_kernels.py --step_sweep``; PERF.md §6)
+STEP_FIXED = 0.25
+
+
+def step_plan(B: int, N: int, max_clusters: Mapping[int, int]) -> int:
+    """Blocks a cluster of K9's tile kernel (1 to 8) for B scenes of N
+    points, given ``max_clusters``: for each cluster size, the clusters of
+    the kernel the device runs at once (:func:`step_occupancy`; 0 where it
+    runs none).  The size that takes the least time by the waves it
+    needs, ceil(tiles / max_clusters[C]), times a block's time,
+    STEP_FIXED + 1 / C; ties to the smaller cluster.  More blocks a tile
+    split each layer's columns finer, so a block's share of the work
+    shrinks while its barriers and epilogues do not; and larger clusters
+    fit the card's GPCs less well (on an H100 at the flagship width, 30
+    clusters of 4, not 33).  There it picks the sweep's fastest size in
+    each of its 8 cells: at N = 1024, 3 at b1, 2 at b2, b5 and b6, 1 at
+    b3, b4, b7 and b8."""
+    if B < 1 or N < 1:
+        raise ValueError(f"step plan needs scenes and points, got {B} and {N}")
+    sizes = [c for c in STEP_CLUSTERS if max_clusters.get(c, 0) > 0]
+    if not sizes:
+        raise ValueError(f"the device runs no cluster of K9's tile kernel: "
+                         f"{dict(max_clusters)}")
+    tiles = B * -(-N // STEP_TILE_ROWS)
+
+    def cost(c):
+        return -(-tiles // max_clusters[c]) * (STEP_FIXED + 1.0 / c)
+
+    return min(sizes, key=lambda c: (cost(c), c))
+
+
+@functools.lru_cache(maxsize=None)
+def step_occupancy(dims: Tuple[int, ...], device_index: int) -> Dict[int, int]:
+    """Clusters of K9's tile kernel that CUDA device ``device_index`` runs
+    at once, for each size of ``STEP_CLUSTERS``, at the dims {N, 2D, U0,
+    U2, D, DH, D15, DH2} (cudaOccupancyMaxActiveClusters, which the block's
+    shared memory and the GPCs decide), asked once per dims and device."""
+    lib = kernels.load()
+    occupancy = {}
+    with torch.cuda.device(device_index):
+        for c in STEP_CLUSTERS:
+            n = lib.lsdm_denoise_step_max_clusters((ctypes.c_int * 9)(1, *dims), c)
+            kernels.check(-min(n, 0), "denoise_step")
+            occupancy[c] = n
+    return occupancy
+
+
+def col_slice(fout: int, cluster: int, rank: int) -> Tuple[int, int]:
+    """Columns [lo, hi) of a layer of ``fout`` outputs that block ``rank``
+    of a K9 cluster computes (``csrc/denoise_step.cu:col_slice``): slices
+    of ceil(fout / cluster) rounded up to 4, the last short or empty."""
+    per_rank = -(-fout // cluster)
+    sl = -(-per_rank // 4) * 4 if cluster > 1 else fout
+    lo = min(rank * sl, fout)
+    return lo, min(lo + sl, fout)
+
+
 def fused_denoise_step(
     x: torch.Tensor,         # (B, N, 3) current sample
     noise: torch.Tensor,     # (B, N, 3) this step's gaussian draw
@@ -157,9 +238,82 @@ def fused_denoise_step(
     Returns the next sample (B, N, 3) float32.  CUDA kernels for CUDA
     tensors (two launches, one call: one count in ``LAUNCHES``), plain
     version for CPU tensors.  A sampler that steps T times binds the
-    weights once with :func:`make_denoise_step` instead."""
+    weights once with :func:`make_denoise_step` instead, or captures the
+    loop with :func:`make_denoise_step_loop`."""
     step = make_denoise_step(p, x.shape[1], x.device, clip_denoised)
     return step(x, noise, cond_pcd, e2, coefs)
+
+
+class BoundStep:
+    """K9's weights for N points on a CUDA device, checked and their
+    addresses taken once, with w_up4^T (the layout in which the tile
+    kernel copies a tile's rows of w_up4), which it keeps alive, and the
+    device's occupancy of the tile kernel, from which :meth:`cluster`
+    plans a launch."""
+
+    def __init__(self, p: DenoiseStepParams, N: int, device: torch.device,
+                 clip_denoised: bool):
+        self.dims = _check(p, N, {}, device)
+        self.N, self.D2, self.U2 = N, self.dims[1], self.dims[3]
+        self.device = device
+        self.p = p
+        self.w4t = p.w_up4.t().contiguous()
+        self.ptrs = _pointers(p)
+        self.clip = int(bool(clip_denoised))
+        self.lib = kernels.load()
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        self.occupancy = step_occupancy(self.dims, index)
+
+    def cluster(self, B: int) -> int:
+        """Blocks a cluster of the tile launch for B scenes (:func:`step_plan`)."""
+        return step_plan(B, self.N, self.occupancy)
+
+    def check(self, x, noise, cond_pcd, e2, coefs) -> int:
+        """Check one step's five data tensors; returns B."""
+        B, N = x.shape[0], self.N
+        for name, t, shape in (("x", x, (B, N, 3)), ("noise", noise, (B, N, 3)),
+                               ("cond_pcd", cond_pcd, (B, N, 3)),
+                               ("e2", e2, (B, self.D2)), ("coefs", coefs, (3,))):
+            kernels.require(name, t, torch.float32, shape, self.device)
+        if B > 65535:
+            raise ValueError(f"the step kernels grid at most 65535 scenes, got {B}")
+        return B
+
+    def scratch(self, B: int) -> torch.Tensor:
+        """u2 of B scenes, the scratch of one step."""
+        return torch.empty(B * self.U2 * self.D2, dtype=torch.float32,
+                           device=self.device)
+
+    def launch(self, x, noise, cond_pcd, e2, coefs, out, scratch, stream) -> None:
+        """One K9 call on ``stream`` (checked tensors; ``out`` (B, N, 3)):
+        its two launches, counted once in ``kernels.LAUNCHES``, unless the
+        stream is being captured, where no kernel runs."""
+        self.launch_u2(e2, scratch, stream)
+        self.launch_tiles(x, noise, cond_pcd, coefs, out, scratch, stream)
+        if not torch.cuda.is_current_stream_capturing():
+            kernels.LAUNCHES["denoise_step"] += 1
+
+    def launch_u2(self, e2, scratch, stream) -> None:
+        """The first of a K9 call's two launches: u2 into scratch (not
+        counted)."""
+        with torch.cuda.device(self.device):
+            rc = self.lib.lsdm_denoise_step_u2(
+                e2.data_ptr(), self.ptrs, scratch.data_ptr(),
+                (ctypes.c_int * 9)(e2.shape[0], *self.dims), stream)
+        kernels.check(rc, "denoise_step")
+
+    def launch_tiles(self, x, noise, cond_pcd, coefs, out, scratch, stream,
+                     cluster: Optional[int] = None) -> None:
+        """The second launch of a K9 call, reading u2 from scratch (not
+        counted), on clusters of ``cluster`` blocks (by default the plan's)."""
+        B = x.shape[0]
+        with torch.cuda.device(self.device):
+            rc = self.lib.lsdm_denoise_step_tiles(
+                x.data_ptr(), noise.data_ptr(), cond_pcd.data_ptr(),
+                coefs.data_ptr(), self.ptrs, self.w4t.data_ptr(), out.data_ptr(),
+                scratch.data_ptr(), (ctypes.c_int * 9)(B, *self.dims),
+                cluster or self.cluster(B), self.clip, stream)
+        kernels.check(rc, "denoise_step")
 
 
 def make_denoise_step(p: DenoiseStepParams, N: int, device: torch.device,
@@ -168,9 +322,9 @@ def make_denoise_step(p: DenoiseStepParams, N: int, device: torch.device,
     steps: returns ``step(x, noise, cond_pcd, e2, coefs)``, which computes
     :func:`fused_denoise_step` of those arguments.  On a CUDA ``device``
     the weights (for N points) are checked and their addresses taken here,
-    once, and the launches go to the stream that is current on ``device``
-    now; each call checks its five data tensors only.  The returned step
-    runs the plain version for CPU tensors."""
+    once; each call checks its five data tensors only and launches on the
+    stream that is current on ``device`` when it is called.  The returned
+    step runs the plain version for CPU tensors."""
     plain = make_denoise_step_plain(p, N, device, clip_denoised)
     if device.type != "cuda":
         def step(x, noise, cond_pcd, e2, coefs):
@@ -180,32 +334,15 @@ def make_denoise_step(p: DenoiseStepParams, N: int, device: torch.device,
             return plain(x, noise, cond_pcd, e2, coefs)
         return step
 
-    dims = _check(p, N, {}, device)
-    _, D2, _, U2 = dims[:4]
-    ptrs = _pointers(p)
-    stream = kernels.stream(device)
-    lib = kernels.load()
+    bound = BoundStep(p, N, device, clip_denoised)
 
     def step(x, noise, cond_pcd, e2, coefs):
         if kernels.on_cpu(x, noise, cond_pcd, e2, coefs):
             return plain(x, noise, cond_pcd, e2, coefs)
-        B = x.shape[0]
-        for name, t, shape in (("x", x, (B, N, 3)), ("noise", noise, (B, N, 3)),
-                               ("cond_pcd", cond_pcd, (B, N, 3)),
-                               ("e2", e2, (B, D2)), ("coefs", coefs, (3,))):
-            kernels.require(name, t, torch.float32, shape, device)
-        if B > 65535:
-            raise ValueError(f"the step kernels grid at most 65535 scenes, got {B}")
-        scratch = torch.empty(B * U2 * D2, dtype=torch.float32, device=device)
+        B = bound.check(x, noise, cond_pcd, e2, coefs)
         out = torch.empty_like(x)
-        with torch.cuda.device(device):
-            rc = lib.lsdm_denoise_step(
-                x.data_ptr(), noise.data_ptr(), cond_pcd.data_ptr(),
-                e2.data_ptr(), coefs.data_ptr(), ptrs, out.data_ptr(),
-                scratch.data_ptr(), (ctypes.c_int * 9)(B, *dims),
-                int(bool(clip_denoised)), stream)
-        kernels.check(rc, "denoise_step")
-        kernels.LAUNCHES["denoise_step"] += 1
+        bound.launch(x, noise, cond_pcd, e2, coefs, out, bound.scratch(B),
+                     kernels.stream(device))
         return out
     return step
 
@@ -214,6 +351,140 @@ def make_denoise_step_plain(p: DenoiseStepParams, N: int, device: torch.device,
                             clip_denoised: bool = False):
     """Plain version of :func:`make_denoise_step`, on any device."""
     return functools.partial(denoise_step_plain, p=p, clip_denoised=clip_denoised)
+
+
+class DenoiseStepGraph:
+    """K9's T-step loop for B scenes of N points captured as ONE CUDA graph,
+    the port's counterpart of the JAX sampler's ``lax.scan`` of the step
+    inside ``jit``.  ``run(x_init, noise_tab, cond_pcd, e2_tab, coef_tab)``
+    (noise_tab (T, B, N, 3), e2_tab (T, B, 2D), coef_tab (T, 3)) copies its
+    arguments into the graph's static inputs, replays the graph and
+    returns (final sample, input of the last step), both (B, N, 3).
+
+    The sample ping-pongs between two static buffers; step t reads row t
+    of each static table, the coefficients on the device, so nothing in
+    the loop reads back from the card.  Each K9 call's u2 launch, which
+    depends on the step's e2 row alone, is captured on a second stream
+    into one of two scratch buffers, so it runs beside the tile launch of
+    the step before (which leaves SMs free: 96 of 132 at b1) and waits
+    only for the tile launch two steps back, which read that buffer; the
+    tile launches follow each other on the capturing stream.  One K9 call
+    runs outside the capture first (the library's load and the kernels'
+    attributes are set there); it is the one the graph counts in
+    ``kernels.LAUNCHES``, since no kernel runs while the stream is
+    captured.  ``kernel_nodes`` (all kernel nodes, K9's u2 nodes, its tile
+    nodes) is read from the captured graph itself, and ``calls``, its K9
+    tile nodes, is what each replay adds to ``kernels.GRAPH_LAUNCHES``.
+    ``capture_s`` and ``instantiate_s`` time the capture and the graph's
+    instantiation apart.  A capture that fails raises: there is no host
+    loop to fall back to."""
+
+    def __init__(self, p: DenoiseStepParams, B: int, N: int, T: int,
+                 device: torch.device, clip_denoised: bool = False):
+        if device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, got {device}")
+        if T < 1:
+            raise ValueError("the step loop needs at least one step")
+        bound = BoundStep(p, N, device, clip_denoised)
+        self.T = T
+        f32 = dict(dtype=torch.float32, device=device)
+        self.x = torch.zeros(2, B, N, 3, **f32)
+        self.noise = torch.zeros(T, B, N, 3, **f32)
+        self.cond = torch.zeros(B, N, 3, **f32)
+        self.e2 = torch.zeros(T, B, bound.D2, **f32)
+        self.coef = torch.zeros(T, 3, **f32)
+        scratch = (bound.scratch(B), bound.scratch(B))
+        bound.check(self.x[0], self.noise[0], self.cond, self.e2[0], self.coef[0])
+        bound.launch(self.x[0], self.noise[0], self.cond, self.e2[0],
+                     self.coef[0], self.x[1], scratch[0], kernels.stream(device))
+        torch.cuda.synchronize(device)
+        side = torch.cuda.Stream(device)
+        u2_done = [torch.cuda.Event() for _ in range(T)]
+        tiles_done = [torch.cuda.Event() for _ in range(T)]
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            main = torch.cuda.current_stream(device)  # the capturing stream
+            side.wait_stream(main)
+            for t in range(T):
+                with torch.cuda.stream(side):
+                    if t >= 2:  # the tile launch that read this buffer
+                        side.wait_event(tiles_done[t - 2])
+                    bound.launch_u2(self.e2[t], scratch[t % 2], side.cuda_stream)
+                    u2_done[t].record(side)
+                main.wait_event(u2_done[t])
+                bound.launch_tiles(self.x[t % 2], self.noise[t], self.cond,
+                                   self.coef[t], self.x[(t + 1) % 2],
+                                   scratch[t % 2], main.cuda_stream)
+                tiles_done[t].record(main)
+            main.wait_stream(side)
+        self.capture_s = time.perf_counter() - t0
+        counts = (ctypes.c_int * 3)()
+        kernels.check(bound.lib.lsdm_graph_kernel_nodes(graph.raw_cuda_graph(),
+                                                        counts), "denoise_step")
+        self.kernel_nodes = tuple(counts)
+        if self.kernel_nodes[1:] != (T, T):
+            raise RuntimeError(f"the step graph holds K9 nodes {self.kernel_nodes} "
+                               f"(all, u2, tiles), not {T} of each launch")
+        self.calls = self.kernel_nodes[2]
+        t0 = time.perf_counter()
+        graph.instantiate()
+        torch.cuda.synchronize(device)
+        self.instantiate_s = time.perf_counter() - t0
+        self.graph = graph
+        self.bound = bound  # the weights the graph reads
+        self.scratch = scratch
+        self.replays = 0
+
+    def run(self, x_init, noise_tab, cond_pcd, e2_tab, coef_tab
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        self.x[0].copy_(x_init)
+        self.noise.copy_(noise_tab)
+        self.cond.copy_(cond_pcd)
+        self.e2.copy_(e2_tab)
+        self.coef.copy_(coef_tab)
+        self.graph.replay()
+        self.replays += 1
+        kernels.GRAPH_LAUNCHES["denoise_step"] += self.calls
+        T = self.T
+        return self.x[T % 2].clone(), self.x[(T - 1) % 2].clone()
+
+    __call__ = run  # the loop of make_denoise_step_loop
+
+
+def _step_loop(step, x_init, noise_tab, cond_pcd, e2_tab, coef_tab):
+    """The host loop of ``step`` over the T rows of the tables, carrying
+    (x, last_in) as the JAX scan does."""
+    final = last_in = x_init.contiguous()
+    for nz, e2, coefs in zip(noise_tab.contiguous().unbind(0),
+                             e2_tab.contiguous().unbind(0), coef_tab.unbind(0)):
+        last_in = final
+        final = step(final, nz, cond_pcd, e2, coefs)
+    return final, last_in
+
+
+def make_denoise_step_loop(p: DenoiseStepParams, B: int, N: int, T: int,
+                           device: torch.device, clip_denoised: bool = False):
+    """K9's T-step loop with ``p`` bound: returns ``run(x_init, noise_tab,
+    cond_pcd, e2_tab, coef_tab)`` -> (final sample, input of the last
+    step), tables as :class:`DenoiseStepGraph` takes them.  On a CUDA
+    ``device`` the T K9 calls are captured into one CUDA graph (a
+    :class:`DenoiseStepGraph`, which a sampler keeps and replays); on the
+    CPU it is the host loop over :func:`make_denoise_step`, whose steps are
+    the plain version."""
+    if device.type == "cuda":
+        return DenoiseStepGraph(p, B, N, T, device, clip_denoised)
+    return functools.partial(_step_loop,
+                             make_denoise_step(p, N, device, clip_denoised))
+
+
+def make_denoise_step_loop_plain(p: DenoiseStepParams, B: int, N: int, T: int,
+                                 device: torch.device,
+                                 clip_denoised: bool = False):
+    """Plain version of :func:`make_denoise_step_loop`, on any device: the
+    host loop over :func:`denoise_step_plain`."""
+    return functools.partial(
+        _step_loop, make_denoise_step_plain(p, N, device, clip_denoised))
 
 
 def denoise_chain_plain(

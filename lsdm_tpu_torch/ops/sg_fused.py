@@ -28,8 +28,48 @@ from typing import Tuple
 import torch
 
 from lsdm_tpu_torch import kernels
-from lsdm_tpu_torch.ops.ballquery import _radius2, query_ball_point_plain
+from lsdm_tpu_torch.ops.ballquery import (
+    _radius2, ball_query_plan, query_ball_point_plain)
 from lsdm_tpu_torch.ops.pointcloud import index_points
+
+# csrc/ballscan.cuh: warps a block, points a scan round
+SG_WARPS, SG_ROUND_POINTS = 4, 128
+
+
+# the largest slab (nsample x C floats) for which K10 takes K1's plan
+SG_SELECT_SLAB = 512
+
+
+def select_gather_plan(clouds: int, s: int, slab: int) -> int:
+    """Centers a warp (1, 2 or 4) of K10 for ``clouds`` clouds of ``s``
+    centers whose output slabs are ``slab`` = nsample x C floats.  Where a
+    slab is small (sa1's 32 x 6), the scan holds the kernel and K1's plan
+    (``ops/ballquery.py:ball_query_plan``) serves it; where a slab is
+    large (sa2-sa4's 2,144 to 8,288 floats), a warp's gather of its
+    centers' slabs holds it, and one center a warp, the most warps, is
+    fastest.  From the sweep of the three plans at sa1-sa4 at 9, 54 and 72
+    clouds (``profile_kernels.py --sg_sweep``; PERF.md §6 gives the call
+    and the card): the fastest plan, or one within 1%, in each of the 12
+    cells."""
+    if slab <= SG_SELECT_SLAB:
+        return ball_query_plan(clouds, s)
+    return 1
+
+
+def select_gather_smem(n: int, nsample: int, queries: int) -> int:
+    """Bytes of shared memory a K10 block takes: its cloud, padded to the
+    scan's rounds, as float4s, and the index slots of its warps' centers
+    (``csrc/sg_fused.cu:launch_select_gather``)."""
+    padded = -(-n // SG_ROUND_POINTS) * SG_ROUND_POINTS
+    return 16 * padded + 4 * SG_WARPS * queries * nsample
+
+
+def select_gather_max_points(nsample: int, queries: int) -> int:
+    """The largest cloud K10 stages beside ``queries`` centers a warp of
+    ``nsample`` slots within a block's ``kernels.SMEM_MAX`` bytes: 14,336
+    points at nsample 32 and 4 centers a warp."""
+    room = kernels.SMEM_MAX - 4 * SG_WARPS * queries * nsample
+    return room // (16 * SG_ROUND_POINTS) * SG_ROUND_POINTS
 
 
 def select_gather_plain(radius: float, nsample: int, xyz: torch.Tensor,
@@ -61,8 +101,12 @@ def select_gather_kernel(radius: float, nsample: int, xyz: torch.Tensor,
         raise ValueError(f"nsample {nsample} must lie in [1, min({N}, 128)]")
     if C < 3:
         raise ValueError(f"base must lead with the 3 xyz columns, has {C}")
-    if N > 8192:  # the cloud is staged in shared memory
-        raise ValueError(f"select-gather kernel takes at most 8192 points, got {N}")
+    queries = select_gather_plan(B, S, nsample * C) if S > 0 else 1
+    cap = select_gather_max_points(nsample, queries)
+    if N > cap:  # the cloud is staged in shared memory
+        raise ValueError(f"select-gather kernel takes at most {cap} points at "
+                         f"nsample {nsample} (its cloud within "
+                         f"{kernels.SMEM_MAX} B of shared memory), got {N}")
     if B > 65535:
         raise ValueError(f"select-gather kernel grids at most 65535 clouds, got {B}")
     out = torch.empty((B, S, nsample, C), dtype=torch.float32, device=dev)
@@ -73,7 +117,7 @@ def select_gather_kernel(radius: float, nsample: int, xyz: torch.Tensor,
     with torch.cuda.device(dev):
         rc = lib.lsdm_select_gather(
             xyz.data_ptr(), new_xyz.data_ptr(), base.data_ptr(), B, N, S, C,
-            _radius2(radius), nsample, out.data_ptr(), idx.data_ptr(),
+            _radius2(radius), nsample, queries, out.data_ptr(), idx.data_ptr(),
             kernels.stream(dev))
     kernels.check(rc, "select_gather")
     kernels.LAUNCHES["select_gather"] += 1

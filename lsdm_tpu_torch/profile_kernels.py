@@ -1,11 +1,13 @@
 """Time K5 and K4 (rank-1 attention backward and forward), K3 (farthest-
-point sampling), K1 (ball query), K2 (3-NN) and K11 (chamfer nearest
-neighbour) on the card, queued behind a sleep so that only the device's
-time counts.
+point sampling), K1 (ball query), K2 (3-NN), K11 (chamfer nearest
+neighbour), K10 (the train select-gather) and K9 (one denoise step) on
+the card, queued behind a sleep so that only the device's time counts.
 
     python -m lsdm_tpu_torch.profile_kernels [--clouds 9 54 72]
                                              [--fps_sweep [--ppt 1 2 4]]
                                              [--bq_sweep] [--nn_sweep]
+                                             [--sg_sweep] [--step_sweep]
+                                             [--only step sg ...]
                                              [--csrc DIR]
 
 K5 at the train step's shape (54 clouds, 1024 points, 12 heads), from the
@@ -24,8 +26,13 @@ against the plain versions, on these inputs and with k and v offset by +8
 relative error); K1's, K2's and K11's, whether their outputs equal the
 plain versions' (K2's and K11's distances bit for bit) at every stage;
 K3's, at 1024 points, the time of one round and the fixed cost of a
-launch, fitted from 16 and 256 rounds.  Prints one JSON line per case and
-the card's name and power limit.
+launch, fitted from 16 and 256 rounds.  K10 at sa1..sa4 of those point
+sets (the stages' widths 6, 67, 131, 259 columns, 32 samples) at each
+cloud count, with whether its indices and values equal the plain
+version's; K9 per launch at b1 and b8 (N = 1024, D = 128, seeded weights
+at the flagship widths), clip off, with its error against the plain
+version, through the bound step a sampler calls (``make_denoise_step``).
+Prints one JSON line per case and the card's name and power limit.
 
 ``--fps_sweep`` times every launch plan (warps a cloud, points a lane,
 the latter from ``--ppt``) of the FPS entry at each stage and cloud
@@ -36,7 +43,13 @@ every plan of the 3-NN and chamfer entries at K2's and K11's shapes
 (lanes a target 1-32; K11 also 1, 2 or 4 targets a lane, K2 one),
 against which ``ops/ballquery.py:three_nn_plan`` and
 ``ops/chamfer.py:chamfer_nn_plan``
-were chosen.  ``--csrc DIR`` builds the kernels from another copy of
+were chosen; ``--sg_sweep`` every plan (centers a warp 1, 2 or 4) of the
+select-gather entry at K10's shapes; ``--step_sweep`` K9's two launches
+apart, u2 and the tile kernel at every cluster size the card runs (1 to
+8), with the card's occupancy of the tile kernel at each, at b1 to b8,
+against which ``ops/denoise.py:step_plan`` was chosen.  ``--only``
+times those kernels alone (names: attn, fps, bq, nn, chamfer, sg, step).
+``--csrc DIR`` builds the kernels from another copy of
 ``csrc/`` (an edited copy for an ablation, such as another
 ``kBallWarps``, kept in a git-ignored directory), so variants are timed
 by this same script.  Without the sweeps it calls the
@@ -55,7 +68,7 @@ from pathlib import Path
 import torch
 
 from lsdm_tpu_torch import kernels
-from lsdm_tpu_torch.ops import attn, ballquery, chamfer, fps
+from lsdm_tpu_torch.ops import attn, ballquery, chamfer, denoise, fps, sg_fused
 from lsdm_tpu_torch.ops.pointcloud import index_points
 from lsdm_tpu_torch.profile_encode import time_queued_ms
 
@@ -197,6 +210,67 @@ def chamfer_cases(g: torch.Generator):
     return [("icp", *icp), ("train x0 -> target", x, y), ("train target -> x0", y, x)]
 
 
+SG_WIDTHS = (6, 67, 131, 259)  # base columns of sa1..sa4 at the flagship
+
+
+def sg_call(r: float, xyz, new_xyz, base, plan=None):
+    """One K10 launch at radius r, 32 samples: the wrapper, or with
+    ``plan`` (centers a warp) the C entry."""
+    ns = min(NSAMPLE, xyz.shape[1])
+    if plan is None:
+        return lambda: sg_fused.select_gather_kernel(r, ns, xyz, new_xyz, base)
+    B, N, C = base.shape
+    S = new_xyz.shape[1]
+    lib = kernels.load()
+    out = torch.empty((B, S, ns, C), dtype=torch.float32, device=xyz.device)
+    idx = torch.empty((B, S, ns), dtype=torch.int32, device=xyz.device)
+    stream = kernels.stream(xyz.device)
+    r2 = ballquery._radius2(r)
+    return lambda: kernels.check(lib.lsdm_select_gather(
+        xyz.data_ptr(), new_xyz.data_ptr(), base.data_ptr(), B, N, S, C, r2, ns,
+        plan, out.data_ptr(), idx.data_ptr(), stream), "select_gather") or (out, idx)
+
+
+def step_case(B: int, N: int = 1024, D: int = 128, seed: int = 0):
+    """Seeded K9 arguments at the flagship widths on the card: (x, noise,
+    cond_pcd, e2, coefs) and the weights, scaled as the model's init."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    dh, d15 = D // 2, D * 3 // 2
+    p = denoise.DenoiseStepParams(
+        t(128, 1), t(128, 1, scale=0.1), t(512, 128, scale=128 ** -0.5),
+        t(512, 1, scale=0.1), t(N, 512, scale=512 ** -0.5), t(N, 1, scale=0.1),
+        t(2 * D, D, scale=(2 * D) ** -0.5), t(1, D, scale=0.1),
+        t(3, dh, scale=0.5), t(1, dh, scale=0.1), t(dh, D, scale=dh ** -0.5),
+        t(1, D, scale=0.1), t(2 * D, d15, scale=(2 * D) ** -0.5),
+        t(1, d15, scale=0.1), t(d15, D, scale=d15 ** -0.5), t(1, D, scale=0.1),
+        t(D, dh, scale=D ** -0.5), t(1, dh, scale=0.1), t(dh, 3, scale=dh ** -0.5),
+        t(1, 3, scale=0.1))
+    coefs = torch.tensor([0.6, 0.7, 0.1], device="cuda")
+    return (t(B, N, 3), t(B, N, 3), t(B, N, 3), t(B, 2 * D), coefs), p
+
+
+def step_sweep(B: int, card: str) -> None:
+    """K9's u2 launch and its tile launch at every cluster size, at B
+    scenes, through the bound step's launches, beside the device's
+    occupancy of the tile kernel at each size and the plan it gives."""
+    args, p = step_case(B)
+    x, noise, cpcd, e2, coefs = args
+    bound = denoise.BoundStep(p, x.shape[1], x.device, False)
+    stream = kernels.stream(x.device)
+    scratch, out = bound.scratch(B), torch.empty_like(x)
+    u2 = queued_ms(lambda: bound.launch_u2(e2, scratch, stream))
+    tiles = {c: queued_ms(lambda: bound.launch_tiles(x, noise, cpcd, coefs, out,
+                                                     scratch, stream, c))
+             for c in denoise.STEP_CLUSTERS if bound.occupancy[c] > 0}
+    print(json.dumps({"kernel": "denoise_step", "sweep": True, "batch": B,
+                      "u2_ms": u2, "tiles_ms": tiles, "max_clusters": bound.occupancy,
+                      "plan": bound.cluster(B), "card": card}))
+
+
 def plans(n: int, ppts=(1, 2, 4)):
     """Every (warps, points a lane in ``ppts``) that covers n points."""
     for ppt in ppts:
@@ -213,6 +287,10 @@ def main() -> None:
                     help="points a lane of the sweep's plans")
     ap.add_argument("--bq_sweep", action="store_true")
     ap.add_argument("--nn_sweep", action="store_true")
+    ap.add_argument("--sg_sweep", action="store_true")
+    ap.add_argument("--step_sweep", action="store_true")
+    ap.add_argument("--only", nargs="+",
+                    choices=["attn", "fps", "bq", "nn", "chamfer", "sg", "step"])
     ap.add_argument("--csrc", help="build the kernels from this copy of csrc/")
     args = ap.parse_args()
     if args.csrc:
@@ -227,6 +305,41 @@ def main() -> None:
     kernels.load()
     print(f"build {time.perf_counter() - t0:.1f} s")
 
+    def on(name):
+        return args.only is None or name in args.only
+
+    if on("attn"):
+        attn_cases(card)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for clouds in args.clouds:
+        levels = fps_levels(clouds, g)
+        if on("fps"):
+            fps_cases(levels, clouds, args, card)
+        sets = [levels[0], *levels]  # sa1 keeps every point: l1 = l0
+        if on("bq"):
+            bq_cases(sets, clouds, args, card)
+        if on("nn"):
+            nn_cases(sets, clouds, args, card)
+        if on("sg"):
+            sg_cases(sets, clouds, args, card, g)
+    if on("chamfer"):
+        chamfer_all(g, args, card)
+    if on("step"):
+        for B in (1, 8):
+            step_args, p = step_case(B)
+            step = denoise.make_denoise_step(p, step_args[0].shape[1],
+                                             step_args[0].device)
+            err = (step(*step_args) - denoise.denoise_step_plain(*step_args, p)
+                   ).abs().max().item()
+            print(json.dumps({"kernel": "denoise_step", "batch": B, "points": 1024,
+                              "ms": queued_ms(lambda: step(*step_args)),
+                              "max_abs_err": err, "card": card}))
+        if args.step_sweep:
+            for B in range(1, 9):
+                step_sweep(B, card)
+
+
+def attn_cases(card: str) -> None:
     fn, want = k5_call(54)
     err = k5_err(fn, want)
     ms = queued_ms(fn)
@@ -250,60 +363,92 @@ def main() -> None:
             "offset_max_abs_err": off_err, "offset_den_max_rel_err": off_den_err,
             "card": card}))
         del q, k, v, q4, k4, v4
-    g = torch.Generator(device="cuda").manual_seed(0)
-    for clouds in args.clouds:
-        levels = fps_levels(clouds, g)
-        stages = [queued_ms(fps_call(levels[i], npoint))
-                  for i, (_, npoint) in enumerate(STAGES)]
-        short = queued_ms(fps_call(levels[0], 16))
-        round_ms = (stages[0] - short) / (STAGES[0][1] - 16)
-        print(json.dumps({"kernel": "fps", "clouds": clouds, "stages_ms": stages,
-                          "ms": sum(stages), "round_us_1024": round_ms * 1e3,
-                          "launch_us_1024": (short - 16 * round_ms) * 1e3,
-                          "card": card}))
-        if args.fps_sweep:
-            for i, (n, npoint) in enumerate(STAGES):
-                want = fps.farthest_point_sample_plain(levels[i], npoint)
-                for plan in plans(n, args.ppt):
-                    fn = fps_call(levels[i], npoint, plan)
-                    if not torch.equal(fn(), want):
-                        raise AssertionError(f"FPS plan {plan}: indices differ")
-                    print(json.dumps({"kernel": "fps", "clouds": clouds, "points": n,
-                                      "plan": plan, "ms": queued_ms(fn)}))
-        sets = [levels[0], *levels]  # sa1 keeps every point: l1 = l0
-        stages, equal = [], True
-        for r, xyz, new_xyz in zip(RADII, sets[:4], sets[1:5]):
-            fn = ball_query_call(r, xyz, new_xyz)
-            want = ballquery.query_ball_point_plain(r, min(NSAMPLE, xyz.shape[1]),
-                                                    xyz, new_xyz)
-            equal = equal and torch.equal(fn(), want)
-            stages.append(queued_ms(fn))
-            if args.bq_sweep:
-                for plan in (1, 2, 4):
-                    fw = ball_query_call(r, xyz, new_xyz, plan)
-                    if not torch.equal(fw(), want):
-                        raise AssertionError(f"ball query plan {plan}: indices differ")
-                    print(json.dumps({"kernel": "ball_query", "clouds": clouds,
-                                      "points": xyz.shape[1], "queries": new_xyz.shape[1],
-                                      "plan": plan, "ms": queued_ms(fw)}))
-        print(json.dumps({"kernel": "ball_query", "clouds": clouds, "stages_ms": stages,
-                          "ms": sum(stages), "equal": equal, "card": card}))
-        stages, equal = [], True  # K2 at fp4..fp1
-        for xyz1, xyz2 in zip(sets[3::-1], sets[4:0:-1]):
-            want = ballquery.three_nn_plain(xyz1, xyz2, 3)
-            fn = three_nn_call(xyz1, xyz2)
-            equal = equal and same_bits(fn(), want)
-            stages.append(queued_ms(fn))
-            if args.nn_sweep:
-                for plan in NN_LANES:
-                    fw = three_nn_call(xyz1, xyz2, plan)
-                    if not same_bits(fw(), want):
-                        raise AssertionError(f"3-NN plan {plan}: outputs differ")
-                    print(json.dumps({"kernel": "three_nn", "clouds": clouds,
-                                      "targets": xyz1.shape[1], "sources": xyz2.shape[1],
-                                      "plan": plan, "ms": queued_ms(fw)}))
-        print(json.dumps({"kernel": "three_nn", "clouds": clouds, "stages_ms": stages,
-                          "ms": sum(stages), "equal": equal, "card": card}))
+
+
+def fps_cases(levels, clouds: int, args, card: str) -> None:
+    stages = [queued_ms(fps_call(levels[i], npoint))
+              for i, (_, npoint) in enumerate(STAGES)]
+    short = queued_ms(fps_call(levels[0], 16))
+    round_ms = (stages[0] - short) / (STAGES[0][1] - 16)
+    print(json.dumps({"kernel": "fps", "clouds": clouds, "stages_ms": stages,
+                      "ms": sum(stages), "round_us_1024": round_ms * 1e3,
+                      "launch_us_1024": (short - 16 * round_ms) * 1e3,
+                      "card": card}))
+    if args.fps_sweep:
+        for i, (n, npoint) in enumerate(STAGES):
+            want = fps.farthest_point_sample_plain(levels[i], npoint)
+            for plan in plans(n, args.ppt):
+                fn = fps_call(levels[i], npoint, plan)
+                if not torch.equal(fn(), want):
+                    raise AssertionError(f"FPS plan {plan}: indices differ")
+                print(json.dumps({"kernel": "fps", "clouds": clouds, "points": n,
+                                  "plan": plan, "ms": queued_ms(fn)}))
+
+
+def bq_cases(sets, clouds: int, args, card: str) -> None:
+    stages, equal = [], True
+    for r, xyz, new_xyz in zip(RADII, sets[:4], sets[1:5]):
+        fn = ball_query_call(r, xyz, new_xyz)
+        want = ballquery.query_ball_point_plain(r, min(NSAMPLE, xyz.shape[1]),
+                                                xyz, new_xyz)
+        equal = equal and torch.equal(fn(), want)
+        stages.append(queued_ms(fn))
+        if args.bq_sweep:
+            for plan in (1, 2, 4):
+                fw = ball_query_call(r, xyz, new_xyz, plan)
+                if not torch.equal(fw(), want):
+                    raise AssertionError(f"ball query plan {plan}: indices differ")
+                print(json.dumps({"kernel": "ball_query", "clouds": clouds,
+                                  "points": xyz.shape[1], "queries": new_xyz.shape[1],
+                                  "plan": plan, "ms": queued_ms(fw)}))
+    print(json.dumps({"kernel": "ball_query", "clouds": clouds, "stages_ms": stages,
+                      "ms": sum(stages), "equal": equal, "card": card}))
+
+
+def nn_cases(sets, clouds: int, args, card: str) -> None:
+    stages, equal = [], True  # K2 at fp4..fp1
+    for xyz1, xyz2 in zip(sets[3::-1], sets[4:0:-1]):
+        want = ballquery.three_nn_plain(xyz1, xyz2, 3)
+        fn = three_nn_call(xyz1, xyz2)
+        equal = equal and same_bits(fn(), want)
+        stages.append(queued_ms(fn))
+        if args.nn_sweep:
+            for plan in NN_LANES:
+                fw = three_nn_call(xyz1, xyz2, plan)
+                if not same_bits(fw(), want):
+                    raise AssertionError(f"3-NN plan {plan}: outputs differ")
+                print(json.dumps({"kernel": "three_nn", "clouds": clouds,
+                                  "targets": xyz1.shape[1], "sources": xyz2.shape[1],
+                                  "plan": plan, "ms": queued_ms(fw)}))
+    print(json.dumps({"kernel": "three_nn", "clouds": clouds, "stages_ms": stages,
+                      "ms": sum(stages), "equal": equal, "card": card}))
+
+
+def sg_cases(sets, clouds: int, args, card: str, g: torch.Generator) -> None:
+    """K10 at sa1..sa4: equal indices and values, and its queued time."""
+    stages, equal = [], True
+    for r, c, xyz, new_xyz in zip(RADII, SG_WIDTHS, sets[:4], sets[1:5]):
+        base = torch.cat([xyz, torch.randn(clouds, xyz.shape[1], c - 3, generator=g,
+                                           device="cuda")], -1).contiguous()
+        fn = sg_call(r, xyz, new_xyz, base)
+        want = sg_fused.select_gather_plain(r, min(NSAMPLE, xyz.shape[1]), xyz,
+                                            new_xyz, base)
+        equal = equal and same_bits(fn(), want)
+        stages.append(queued_ms(fn))
+        if args.sg_sweep:
+            for plan in (1, 2, 4):
+                fw = sg_call(r, xyz, new_xyz, base, plan)
+                if not same_bits(fw(), want):
+                    raise AssertionError(f"select-gather plan {plan}: outputs differ")
+                print(json.dumps({"kernel": "select_gather", "clouds": clouds,
+                                  "points": xyz.shape[1], "queries": new_xyz.shape[1],
+                                  "plan": plan, "ms": queued_ms(fw)}))
+        del want
+    print(json.dumps({"kernel": "select_gather", "clouds": clouds, "stages_ms": stages,
+                      "ms": sum(stages), "equal": equal, "card": card}))
+
+
+def chamfer_all(g: torch.Generator, args, card: str) -> None:
     for name, x, y in chamfer_cases(g):
         want = chamfer.directed_nn_plain(x, y)
         fn = chamfer_nn_call(x, y)

@@ -1,12 +1,14 @@
 """Where the time of one SDM sample goes, on a CUDA device.
 
     python -m lsdm_tpu_torch.profile_sampling [--batch 1 4 8] [--steps 1000]
-        [--ball_impl fused|pallas] [--fused_step chain|step|none]
+        [--ball_impl fused|pallas] [--fused_step chain|step|none] [--csrc DIR]
 
 Builds ``sdm_proxd()`` with seeded random weights and samples seeded
 random inputs through the kernel path (``sample_sdm`` with
 ``fused_step="chain"``, the whole loop as K6; with ``--fused_step step``,
-K9 once per step; with ``none``, the composed loop): the fused encode
+K9 once per step, its T calls captured into one CUDA graph by the first
+sample of each batch size and replayed by the others; with ``none``, the
+composed loop): the fused encode
 (K7, K8, K4, K3; the default, what ``resolve_fast_path`` gives on CUDA)
 or, with ``--ball_impl pallas``, the composed encode over the selection
 kernels (K1, K2, K3).  ``--ball_impl pallas --fused_step none`` is how
@@ -14,10 +16,15 @@ kernels (K1, K2, K3).  ``--ball_impl pallas --fused_step none`` is how
 batch size it prints the wall time per scene (host clock around a
 synchronised call, best and all of ``--repeats`` runs after one warm-up),
 the DDPM steps per second, the peak device memory and the wall time of
-the conditioning encode alone.  For the first batch size it then traces
+the conditioning encode alone; with ``--fused_step step`` also the
+warm-up's wall, which captured the graph, and the capture's and the
+instantiation's own times.  For the first batch size it then traces
 one more sample with ``torch.profiler`` and prints the device time of
 each kernel and the busy share: summed kernel time over the traced wall.
-The last line is one JSON object with all of it.
+The last line is one JSON object with all of it.  ``--csrc DIR`` builds
+the kernels from another copy of ``csrc/`` (an edited copy for an
+ablation, kept in a git-ignored directory), so that a variant's sample is
+timed by this same script.
 """
 
 from __future__ import annotations
@@ -27,12 +34,14 @@ import dataclasses
 import json
 import time
 from collections import defaultdict
+from pathlib import Path
 
 import torch
 
+from lsdm_tpu_torch import kernels as kernel_lib
 from lsdm_tpu_torch.config import SDMConfig, sdm_proxd
 from lsdm_tpu_torch.diffusion.schedule import make_schedule
-from lsdm_tpu_torch.models.sampling import resolve_fast_path, sample_sdm
+from lsdm_tpu_torch.models.sampling import resolve_fast_path, sample_sdm, step_loop
 from lsdm_tpu_torch.models.sdm import SceneDiffusionModel
 from lsdm_tpu_torch.weights import init_weights
 
@@ -96,7 +105,16 @@ def profile(batches, steps: int, repeats: int, seed: int,
 
     for b in batches:
         inputs = seeded_inputs(cfg, b, steps, seed, dev)
-        run(inputs)  # warm-up: kernel build, allocator
+        warm = run(inputs)  # warm-up: kernel build, allocator, the step graph
+        graph = {}
+        if step == "step":
+            loop = step_loop(model, b, cfg.pcd_points, steps, dev, False)
+            graph = {"warmup_s": warm, "capture_s": loop.capture_s,
+                     "instantiate_s": loop.instantiate_s,
+                     "kernel_nodes": list(loop.kernel_nodes)}
+            print(f"batch {b}: step graph captured in {loop.capture_s:.3f} s, "
+                  f"instantiated in {loop.instantiate_s:.3f} s (warm-up sample "
+                  f"{warm:.3f} s); kernel nodes {loop.kernel_nodes}")
         torch.cuda.reset_peak_memory_stats(dev)
         walls = [run(inputs) for _ in range(repeats)]
         ms = [w * 1e3 / b for w in walls]
@@ -105,7 +123,7 @@ def profile(batches, steps: int, repeats: int, seed: int,
             "ms_per_scene": ms, "best_ms_per_scene": min(ms),
             "steps_per_s": steps * b / min(walls),
             "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-            "encode_ms": encode}
+            "encode_ms": encode, **({"graph": graph} if graph else {})}
         print(f"batch {b}: ms/scene {[round(x, 3) for x in ms]}, "
               f"{steps * b / min(walls):.1f} steps/s, peak "
               f"{result['batches'][b]['peak_mem_gib']:.2f} GiB; encode alone "
@@ -138,7 +156,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ball_impl", default="fused", choices=["fused", "pallas"])
     ap.add_argument("--fused_step", default="chain", choices=["chain", "step", "none"])
+    ap.add_argument("--csrc", help="build the kernels from this copy of csrc/")
     args = ap.parse_args(argv)
+    if args.csrc:
+        kernel_lib.CSRC = Path(args.csrc).resolve()
     if not torch.cuda.is_available():
         raise SystemExit("profile_sampling: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -359,6 +359,91 @@ def test_denoise_step_kernel_matches_plain(dev, b, n, d, clip):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("b", [1, 2, 8])
+@pytest.mark.parametrize("n", [1000, 1024])
+@pytest.mark.parametrize("clip", [False, True])
+def test_denoise_step_kernel_at_the_flagship_width(dev, b, n, clip):
+    # D = 128: clusters of 3 at b1, 2 at b2, 1 at b8 on an H100 (step_plan);
+    # N = 1000 leaves the last tile of each scene 8 rows
+    args = _step_args(dev, b, n, 128)
+    got = denoise.fused_denoise_step(*args, clip_denoised=clip)
+    want = denoise.denoise_step_plain(*args, clip_denoised=clip)
+    torch.cuda.synchronize()
+    # chip_smoke.STEP_ATOL: float32 sums in another order, one step
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+
+
+def test_step_occupancy_at_the_flagship_width(dev):
+    # the plan's input, asked of the card: one ~217 KB tile block an SM,
+    # and no cluster size holds more blocks than the card has SMs
+    p = _step_args(dev, 1, 1024, 128)[-1]
+    bound = denoise.BoundStep(p, 1024, dev, False)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert bound.occupancy[1] == sms
+    assert all(0 <= n * c <= sms for c, n in bound.occupancy.items())
+    assert bound.occupancy[bound.cluster(1)] > 0
+
+
+@pytest.mark.parametrize("b,n,d,t,clip", [
+    (1, 1024, 128, 6, False),  # the flagship width
+    (2, 37, 16, 5, True),      # a partial tile, T odd
+])
+def test_step_graph_replays_the_host_loop_bit_for_bit(dev, b, n, d, t, clip):
+    x, noise, cpcd, e2, coef, p = _chain_inputs(dev, b, t, n, d)
+    noise_tab = noise.transpose(0, 1).contiguous()
+    e2_tab = e2.transpose(0, 1).contiguous()
+    before = kernels.LAUNCHES["denoise_step"]
+    graph = denoise.DenoiseStepGraph(p, b, n, t, dev, clip)
+    # one call before the capture, none counted in it; the graph holds t of
+    # each launch
+    assert kernels.LAUNCHES["denoise_step"] == before + 1
+    assert graph.calls == t and tuple(graph.kernel_nodes) == (2 * t, t, t)
+    replayed = kernels.GRAPH_LAUNCHES["denoise_step"]
+    final, last_in = graph.run(x, noise_tab, cpcd, e2_tab, coef)
+    assert kernels.GRAPH_LAUNCHES["denoise_step"] == replayed + t
+    host = denoise.make_denoise_step(p, n, dev, clip)
+    want_final, want_last = denoise._step_loop(host, x, noise_tab, cpcd, e2_tab, coef)
+    torch.cuda.synchronize()
+    # the same kernels on the same inputs in the same order
+    assert torch.equal(final, want_final) and torch.equal(last_in, want_last)
+    again, _ = graph.run(x, noise_tab, cpcd, e2_tab, coef)  # statics refilled
+    assert torch.equal(again, final)
+
+
+def test_second_step_sample_replays_without_recapture(dev):
+    from lsdm_tpu_torch.config import SDMConfig
+    from lsdm_tpu_torch.diffusion.schedule import make_schedule
+    from lsdm_tpu_torch.models.sampling import sample_sdm, step_loop
+    from lsdm_tpu_torch.models.sdm import SceneDiffusionModel
+    from lsdm_tpu_torch.weights import init_weights
+
+    cfg = SDMConfig(clip_dim=32, latent_dim=16, cat_emb=8, n_head=4,
+                    vert_dims=32, pcd_points=64)  # the human branch: 2 x 32 points
+    model = init_weights(SceneDiffusionModel(cfg), 0).to(dev).eval()
+    g = torch.Generator(device=dev).manual_seed(0)
+    mask = torch.zeros(2, 9, device=dev)
+    mask[:, 1:4] = 1.0
+    cats = torch.nn.functional.one_hot(
+        torch.randint(0, 13, (2, 9), generator=g, device=dev), 13).float()
+    args = (mask, torch.randn(2, 9, 64, 3, generator=g, device=dev), cats,
+            torch.randn(2, 32, generator=g, device=dev))
+    T = 7
+    x_init = torch.randn(2, 64, 3, generator=g, device=dev)
+    noise = torch.randn(T, 2, 64, 3, generator=g, device=dev)
+    sched = make_schedule("cosine", T, device=dev)
+    first = sample_sdm(model, sched, *args, fused_step="step", x_init=x_init, noise=noise)
+    graph = step_loop(model, 2, 64, T, dev, False)
+    kernels.reset_launches()
+    second = sample_sdm(model, sched, *args, fused_step="step", x_init=x_init, noise=noise)
+    assert step_loop(model, 2, 64, T, dev, False) is graph
+    assert kernels.LAUNCHES["denoise_step"] == 0  # no K9 call from the host
+    assert kernels.GRAPH_LAUNCHES["denoise_step"] == T and graph.replays == 2
+    assert torch.equal(first[0], second[0])
+    chain = sample_sdm(model, sched, *args, fused_step="chain", x_init=x_init,
+                       noise=noise)
+    torch.testing.assert_close(second[0], chain[0], atol=1e-6, rtol=0)
+
+
 def test_denoise_step_kernel_reads_table_rows_in_place(dev):
     # the sampler's layout: rows of contiguous tables at an offset, the
     # coefficients on the device; every step of a short loop equals the
@@ -679,6 +764,10 @@ def test_rank1_attention_train_autograd_runs_both_kernels(dev):
     (100, 24, 0.05, 32, 67),   # most balls hold fewer than nsample points
     (1024, 256, 0.2, 32, 67),  # sa2's shapes
     (37, 5, 0.3, 8, 3),        # xyz only
+    (300, 40, 0.3, 31, 67),    # nsample C odd: slabs at every offset mod 4
+    (300, 21, 0.5, 1, 6),      # one sample: slabs of 6 floats
+    (200, 9, 0.9, 64, 259),    # 64 samples of sa4's width
+    (4096, 1024, 0.1, 32, 6),  # 4096 points
 ])
 def test_select_gather_kernel_equals_plain(dev, n, s, radius, nsample, c):
     xyz = _cloud(n, 2, n, 3).to(dev)
@@ -692,6 +781,46 @@ def test_select_gather_kernel_equals_plain(dev, n, s, radius, nsample, c):
     torch.cuda.synchronize()
     assert torch.equal(gi, wi) and torch.equal(got, want)  # a copy and one subtraction
     assert (gi[1, 2] == n - 1).all()
+
+
+@pytest.mark.parametrize("clouds", [9, 54])
+def test_select_gather_kernel_at_the_flagship_stages(dev, clouds):
+    # sa1-sa4 of the train step: centres by FPS, the stages' widths
+    xyz = _cloud(clouds, clouds, 1024, 3).to(dev)
+    levels = [xyz, xyz]
+    for npoint in (256, 64, 16):
+        idx = fps.farthest_point_sample_plain(levels[-1], npoint)
+        levels.append(torch.gather(levels[-1], 1, idx.long()[..., None].expand(-1, -1, 3))
+                      .contiguous())
+    for i, (r, c) in enumerate(zip((0.1, 0.2, 0.4, 0.8), (6, 67, 131, 259))):
+        pts, centres = levels[i], levels[i + 1]
+        ns = min(32, pts.shape[1])
+        base = torch.cat([pts, _cloud(i, clouds, pts.shape[1], c - 3).to(dev)],
+                         -1).contiguous()
+        got, gi = sg_fused.select_gather_kernel(r, ns, pts, centres, base)
+        want, wi = sg_fused.select_gather_plain(r, ns, pts, centres, base)
+        torch.cuda.synchronize()
+        assert torch.equal(gi, wi) and torch.equal(got, want), i
+        # K1 selects the same indices from the same code
+        assert torch.equal(gi, ballquery.query_ball_point_kernel(r, ns, pts, centres))
+
+
+def test_select_gather_kernel_at_its_cap(dev):
+    # 5 centres of one cloud: one centre a warp, so the cap is 14,464 points
+    queries = sg_fused.select_gather_plan(1, 5, 32 * 6)
+    cap = sg_fused.select_gather_max_points(32, queries)
+    xyz = _cloud(7, 1, cap, 3).to(dev)
+    new_xyz = xyz[:, :5].clone()
+    new_xyz[0, 4] = 50.0
+    base = torch.cat([xyz, _cloud(8, 1, cap, 3).to(dev)], -1).contiguous()
+    got, gi = sg_fused.select_gather_kernel(0.05, 32, xyz, new_xyz, base)
+    want, wi = sg_fused.select_gather_plain(0.05, 32, xyz, new_xyz, base)
+    torch.cuda.synchronize()
+    assert torch.equal(gi, wi) and torch.equal(got, want)
+    assert (gi[0, 4] == cap - 1).all()
+    big = _cloud(9, 1, cap + 1, 3).to(dev)
+    with pytest.raises(ValueError, match="at most"):
+        sg_fused.select_gather_kernel(0.05, 32, big, new_xyz, big)
 
 
 @pytest.mark.parametrize("n,m", [(1024, 1024), (100, 37), (5000, 3000), (1, 1)])
