@@ -100,7 +100,19 @@ Run from the repository root:  python3 chip_smoke.py
    peak memory.
 12. ``lsdm_tpu_torch.run.train_sdm`` on a synthetic split (one epoch of
    two steps, validation on the fused path), its ``final.pt`` read back.
-13. Prints one JSON line of kernel records, then, as its last line,
+13. The text towers: the full-width CLIP text tower (its tokens from a
+   small BPE merges file the phase writes) and BERT-base (read from a
+   local snapshot the phase writes, tokens from its WordPiece vocabulary),
+   seeded weights, encode TEXT_PROMPTS prompts through ``TextEncoder`` on
+   the card and on the CPU, agreeing to TEXT_RTOL; each tower's time per
+   batch by CUDA events.  Then ``test_sdm --text_encoder CLIP --bpe_path
+   ... --clip_weights ...`` (a seeded OpenAI-named state dict) with the
+   output checks of phase 6, the CLIP tower on the card.
+14. PLMS: ``plms_sample_loop`` (order 2) over ``sdm_proxd()`` at b1 on a
+   PLMS_STEPS-step respacing (the fused encode, then the composed
+   denoiser), through the kernels and through the plain versions from the
+   same initial image, agreeing to PLMS_ATOL.
+15. Prints one JSON line of kernel records, then, as its last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is non-zero and no result line is
@@ -199,6 +211,18 @@ TRAIN_STEPS = 3  # timed steps of each train configuration
 STEP_ATOL = 1e-6
 STEP_REPS = 200  # launches timed per K9 case
 ENCODE_REPS = 50  # launches timed per K7 / K8 stage
+# The text towers (CLIP ViT-B/32's text tower and BERT-base, seeded
+# weights, 32 prompts) on the card against the same towers on the CPU, TF32
+# off on the card: float32 sums in another order through 12 layers, on
+# outputs of order 1.  Bound: max |card - CPU| <= TEXT_RTOL * max(1, |CPU|).
+# H100 readings: CLIP 5.8e-06 on outputs up to 4.0, BERT 3.0e-06.
+TEXT_RTOL = 1e-5
+TEXT_REPS = 20  # forwards timed per tower
+TEXT_PROMPTS = 32
+# PLMS (order 2) over sdm_proxd() at b1 on a 50-step respacing, through
+# the kernels against the plain versions from the same initial image: the
+# encode's rounding passes through 51 denoiser calls.  H100 reading 9.3e-09.
+PLMS_STEPS, PLMS_ATOL = 50, 1e-5
 QUEUED_REPS = 20  # launches timed queued behind a sleep per K1-K5 call
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit): HBM
 # bytes per second and float32 operations per second outside the tensor
@@ -1477,7 +1501,7 @@ def icp_check(dev, points: int = 1024, tries: int = ICP_TRIES) -> dict:
 
 
 def cli_phase(dev, points: int = 1024, T: int = T_STEPS,
-              fused_step: str = "auto") -> dict:
+              fused_step: str = "auto", text_args=()) -> dict:
     """Phase 6 (and 9 with ``fused_step="step"``): the port's test_sdm on
     a synthetic proxd test split of 4 sequences of ``points`` points,
     batch 2.  Returns the launch counts of the run.  On the step path the
@@ -1499,7 +1523,7 @@ def cli_phase(dev, points: int = 1024, T: int = T_STEPS,
                                "--output_dir", out, "--batch_size", "2",
                                "--diffusion_steps", str(T), "--pcd_points",
                                str(points), "--device", str(dev),
-                               "--fused_step", fused_step])
+                               "--fused_step", fused_step, *text_args])
         sec = time.perf_counter() - t0
         launches = _launches()
         direct = kernels.LAUNCHES["denoise_step"]
@@ -1522,8 +1546,194 @@ def cli_phase(dev, points: int = 1024, T: int = T_STEPS,
                 if a.shape != (points, 3) or a.dtype != np.float32 or not np.isfinite(a).all():
                     raise AssertionError(f"{sub}/{name}: not a finite ({points}, 3) "
                                          "float32 array")
-    print(f"CLI test_sdm --fused_step {fused_step}, 4 synthetic sequences, batch 2, "
+    print(f"CLI test_sdm {' '.join(['--fused_step', fused_step, *text_args[:2]])}, "
+          "4 synthetic sequences, batch 2, "
           f"T={T}: {final}; {sec:.1f} s; launches {launches}")
+    return launches
+
+
+_WORDS = ("place", "put", "add", "a", "the", "chair", "table", "sofa", "bed",
+          "lamp", "desk", "shelf", "cabinet", "tv", "monitor", "next", "to",
+          "in", "front", "of", "behind", "person", "near", "beside", "on",
+          "left", "right", "side")
+
+
+def _prompts(n: int = TEXT_PROMPTS):
+    """``n`` seeded prompts of 5 to 12 words from _WORDS."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED)
+    return [" ".join(rng.choice(_WORDS, rng.randint(5, 13))) for _ in range(n)]
+
+
+def _write_merges(path: str) -> str:
+    """A small CLIP-scheme BPE merges file (as tests/test_clip_parity.py
+    writes one) that merges a few of _WORDS."""
+    pairs = ["p l", "pl a", "pla c", "plac e</w>", "t h", "th e</w>", "c h", "ch a",
+             "i r</w>", "cha ir</w>", "t a", "b l", "ta bl", "tabl e</w>", "s o",
+             "so f", "sof a</w>", "p e", "pe r", "per s", "pers o", "perso n</w>",
+             "n e", "ne x", "nex t</w>", "t o</w>", "o n</w>", "d e", "de s", "des k</w>"]
+    with open(path, "w") as f:
+        f.write("#version: synthetic\n" + "\n".join(pairs) + "\n")
+    return path
+
+
+def _bert_snapshot(root: str, prompts) -> None:
+    """A local ``bert-base-uncased`` snapshot under ``root`` (the HF cache
+    layout): seeded BERT-base weights, a vocabulary of the prompts' words,
+    the config."""
+    import torch
+
+    from lsdm_tpu_torch.models.bert import BertConfig, BertModel, init_bert_weights
+
+    snap = os.path.join(root, "hub", "models--bert-base-uncased", "snapshots", "seeded")
+    os.makedirs(snap)
+    torch.save(init_bert_weights(BertModel(), SEED).state_dict(),
+               os.path.join(snap, "pytorch_model.bin"))
+    words = sorted({w for p in prompts for w in p.split()})
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words
+    with open(os.path.join(snap, "vocab.txt"), "w") as f:
+        f.write("\n".join(vocab + [f"[unused{i}]" for i in range(BertConfig().vocab_size
+                                                                  - len(vocab))]) + "\n")
+    with open(os.path.join(snap, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(BertConfig()), f)
+
+
+def text_phase(dev, prompts=None) -> dict:
+    """Phase 13: the CLIP and BERT towers through ``TextEncoder`` on the
+    card and on the CPU, same seeded weights and prompts.  Returns
+    {tower: (max |card - CPU|, bound, ms per batch)}."""
+    import torch
+
+    from lsdm_tpu_torch.models.bert import WordPieceTokenizer
+    from lsdm_tpu_torch.models.text import (CLIPTextTransformer, SimpleTokenizer,
+                                            TextEncoder, init_clip_weights)
+
+    prompts = prompts or _prompts()
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        merges = _write_merges(os.path.join(root, "merges.txt"))
+        sd = init_clip_weights(CLIPTextTransformer(), SEED).state_dict()
+        _bert_snapshot(root, prompts)
+        hf_home = os.environ.get("HF_HOME")
+        os.environ["HF_HOME"] = root
+        try:
+            for tower, kw in (("CLIP", {"state_dict": sd, "bpe_path": merges}),
+                              ("BERT", {"require_parity": True})):
+                card = TextEncoder(tower, dim=512, device=dev, **kw)
+                host = TextEncoder(tower, dim=512, device="cpu", **kw)
+                want_tok = SimpleTokenizer if tower == "CLIP" else WordPieceTokenizer
+                if not isinstance(card.tokenizer, want_tok):
+                    raise AssertionError(f"{tower}: tokenizer {type(card.tokenizer)}")
+                got, want = card.encode(prompts), host.encode(prompts)
+                if got.shape != (len(prompts), 512) or not torch.isfinite(
+                        torch.from_numpy(got)).all():
+                    raise AssertionError(f"{tower}: not a finite ({len(prompts)}, 512) batch")
+                err = float(abs(got - want).max())
+                bound = TEXT_RTOL * max(1.0, float(abs(want).max()))
+
+                def encode_uncached():
+                    card.cache.clear()
+                    return card.encode(prompts)
+
+                ms = _time_ms(encode_uncached, TEXT_REPS, dev)
+                out[tower] = (err, bound, ms)
+                print(f"text tower {tower} ({type(card.model).__name__}, seeded), "
+                      f"{len(prompts)} prompts: max |card - CPU| {err:.3g} (bound "
+                      f"{bound:.3g}); {ms:.3f} ms per batch on the card (CUDA events, "
+                      "TextEncoder.encode with an empty cache: tokens to embeddings "
+                      "on the host)")
+                if err > bound:
+                    raise AssertionError(f"text tower {tower} disagrees with the CPU")
+        finally:
+            if hf_home is None:
+                os.environ.pop("HF_HOME", None)
+            else:
+                os.environ["HF_HOME"] = hf_home
+    return out
+
+
+def clip_cli_phase(dev, points: int = 1024, T: int = T_STEPS) -> dict:
+    """Phase 13, the CLI: ``cli_phase`` with ``--text_encoder CLIP
+    --bpe_path --clip_weights`` (a seeded OpenAI-named state dict); the
+    CLIP tower must have encoded the prompts on the card."""
+    import torch
+
+    from lsdm_tpu_torch.models import text as text_lib
+
+    used = []
+
+    class Recording(text_lib.TextEncoder):
+        def encode(self, texts):
+            used.append(self)
+            return super().encode(texts)
+
+    with tempfile.TemporaryDirectory() as root:
+        merges = _write_merges(os.path.join(root, "merges.txt"))
+        weights = os.path.join(root, "clip.pt")
+        torch.save(text_lib.init_clip_weights(text_lib.CLIPTextTransformer(), SEED
+                                              ).state_dict(), weights)
+        real, text_lib.TextEncoder = text_lib.TextEncoder, Recording
+        try:
+            launches = cli_phase(dev, points, T, text_args=[
+                "--text_encoder", "CLIP", "--bpe_path", merges, "--clip_weights", weights])
+        finally:
+            text_lib.TextEncoder = real
+    enc = used[0]
+    if (enc.encoder_type != "CLIP" or not isinstance(enc.tokenizer, text_lib.SimpleTokenizer)
+            or next(enc.model.parameters()).device.type != dev.type or len(enc.cache) < 1):
+        raise AssertionError(f"test_sdm --text_encoder CLIP did not run the CLIP tower "
+                             f"on {dev}")
+    return launches
+
+
+def plms_phase(dev, cfg, model) -> tuple:
+    """Phase 14: ``plms_sample_loop`` (order 2) over ``model`` at b1 on a
+    PLMS_STEPS-step respacing, through the kernels and through the plain
+    versions, same initial image.  Returns (launch counts of the kernel
+    run, max |kernel - plain| of the sample, seconds of the kernel run)."""
+    import torch
+
+    from lsdm_tpu_torch import kernels
+    from lsdm_tpu_torch.diffusion.sampler import plms_sample_loop
+    from lsdm_tpu_torch.diffusion.schedule import spaced_schedule
+    from lsdm_tpu_torch.profile_sampling import seeded_inputs
+
+    B, N = 1, cfg.pcd_points
+    mask, objs, cats, text, x_init, _ = seeded_inputs(cfg, B, 1, SEED, dev)
+    schedule = spaced_schedule("cosine", T_STEPS, f"ddim{PLMS_STEPS}", device=dev)
+
+    @torch.no_grad()
+    def run():
+        _sync(dev)
+        t0 = time.perf_counter()
+        cond = model.encode_conditioning(mask, objs, cats, text)
+
+        def model_fn(x, t):
+            return model.denoise_from_cond(cond, x, schedule.timestep_map[t])
+
+        out = plms_sample_loop(schedule, model_fn, (B, N, 3), x_init=x_init,
+                               clip_denoised=False, order=2)
+        _sync(dev)
+        return out, time.perf_counter() - t0
+
+    run()  # warm-up
+    kernels.reset_launches()
+    (s_k, o_k), sec = run()
+    launches = _launches()
+    with plain_versions():
+        kernels.reset_launches()
+        (s_p, o_p), _ = run()
+        if any(_launches().values()):
+            raise AssertionError(f"the plain run launched kernels: {_launches()}")
+    if s_k.shape != (B, N, 3) or not torch.isfinite(s_k).all():
+        raise AssertionError(f"PLMS sample is not a finite {(B, N, 3)} cloud")
+    err = max((s_k - s_p).abs().max().item(), (o_k.x0 - o_p.x0).abs().max().item())
+    print(f"PLMS order 2, sdm_proxd B=1 9x{N}, {PLMS_STEPS} of {T_STEPS} steps: "
+          f"max |kernel - plain| {err:.3g} (tolerance {PLMS_ATOL}); {sec * 1e3:.1f} ms "
+          f"a sample; launches {launches}")
+    if err > PLMS_ATOL:
+        raise AssertionError("PLMS through the kernels disagrees with the plain versions")
     return launches
 
 
@@ -1623,6 +1833,9 @@ def main() -> int:
 
     _check_launches("fused_encode", encode_large_phase(dev))
     _check_launches("fused", cli_phase(dev))
+    text_phase(dev)
+    _check_launches("fused", clip_cli_phase(dev))
+    _check_launches("fused_encode", plms_phase(dev, cfg, fused))
 
     records.update(step_kernel_checks(dev, fused))
     path_launches, errs, vs_chain, sec_k, peak, graph = step_path(dev, cfg, fused)

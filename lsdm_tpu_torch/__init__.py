@@ -9,8 +9,10 @@ reference: public functions keep its layouts and names (channel-last
 like with like.
 
 The package imports ``torch``, ``numpy`` and ``scipy`` (the exact EMD),
-never ``jax`` and nothing of ``lsdm_tpu`` (its configuration is a copy,
-:mod:`lsdm_tpu_torch.config`).
+and ``yaml`` only in :func:`lsdm_tpu_torch.factory.load_yaml_config`;
+never ``jax``, ``transformers`` or ``regex``, and nothing of ``lsdm_tpu``
+(its configuration is a copy, :mod:`lsdm_tpu_torch.config`; the CLIP
+merges asset under ``lsdm_tpu/data/assets`` is read as a file).
 Importing it builds nothing: the CUDA kernels under ``csrc/`` are
 compiled with ``nvcc`` at their first launch (:mod:`lsdm_tpu_torch.kernels`).
 On a CPU tensor every kernel wrapper runs its plain PyTorch version

@@ -53,6 +53,7 @@ class DiffusionConfig:
 
     steps: int = 1000
     noise_schedule: str = "cosine"
+    timestep_respacing: str = ""  # "" -> every step; "ddimN" / "N" respace
     lambda_cat: float = 0.1
 
 

@@ -1,15 +1,16 @@
-"""DDPM posterior math for sampling, and the training loss.
+"""DDPM math: the q and p distributions, classifier guidance, the
+variational bound in bits per dimension, and the training loss.
 
-Counterpart of the sampling and training subset of
-``lsdm_tpu/diffusion/gaussian.py`` (reference
-``diffusion/gaussian_diffusion.py``).  LSDM's model predicts x_start and
-uses the fixed small posterior variance (``util/model_util.py:127-163``);
-those are the only branches here.
+Counterpart of ``lsdm_tpu/diffusion/gaussian.py`` (reference
+``diffusion/gaussian_diffusion.py`` and ``diffusion/losses.py``).  LSDM's
+model predicts x_start and uses the fixed small posterior variance
+(``util/model_util.py:127-163``); those are the only branches here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, Optional
 
 import torch
@@ -30,6 +31,15 @@ class DenoiserOutput:
 
 
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], DenoiserOutput]
+
+
+def q_mean_variance(schedule: Schedule, x_start: torch.Tensor, t: torch.Tensor):
+    """q(x_t | x_0): (mean, variance, log variance) (reference
+    ``gaussian_diffusion.py:221-236``)."""
+    nd = x_start.dim()
+    return (extract(schedule.sqrt_alphas_cumprod, t, nd) * x_start,
+            extract(1.0 - schedule.alphas_cumprod, t, nd),
+            extract(schedule.log_one_minus_alphas_cumprod, t, nd))
 
 
 def q_sample(schedule: Schedule, x_start: torch.Tensor, t: torch.Tensor,
@@ -109,3 +119,100 @@ def training_losses(schedule: Schedule, model_fn: DenoiseFn,
     else:
         mse = chamfer_distance(x0, target)
     return {"loss": mse + cat_loss, "mse": mse, "cat_loss": cat_loss}
+
+
+def condition_mean(cond_fn: Callable, mean: torch.Tensor, variance: torch.Tensor,
+                   x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Classifier guidance of the mean (reference ``condition_mean``,
+    ``gaussian_diffusion.py:423-436``): mean + variance * cond_fn(x, t),
+    ``cond_fn`` the gradient of log p(y | x)."""
+    return mean + variance * cond_fn(x, t).float()
+
+
+def condition_score(cond_fn: Callable, schedule: Schedule,
+                    pred_xstart: torch.Tensor, x: torch.Tensor,
+                    t: torch.Tensor) -> torch.Tensor:
+    """Classifier guidance of the score, for DDIM (reference
+    ``condition_score``, ``gaussian_diffusion.py:461-480``): the implied
+    epsilon shifted by sqrt(1 - abar) * cond_fn(x, t), x_start re-derived."""
+    alpha_bar = extract(schedule.alphas_cumprod, t, x.dim())
+    eps = predict_eps_from_xstart(schedule, x, t, pred_xstart)
+    eps = eps - torch.sqrt(1 - alpha_bar) * cond_fn(x, t)
+    return predict_xstart_from_eps(schedule, x, t, eps)
+
+
+def normal_kl(mean1, logvar1, mean2, logvar2):
+    """KL between two Gaussians (reference ``diffusion/losses.py:12-39``)."""
+    return 0.5 * (-1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+                  + (mean1 - mean2) ** 2 * torch.exp(-logvar2))
+
+
+def approx_standard_normal_cdf(x: torch.Tensor) -> torch.Tensor:
+    """(reference ``diffusion/losses.py:42-47``)"""
+    return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi)
+                                   * (x + 0.044715 * torch.pow(x, 3))))
+
+
+def discretized_gaussian_log_likelihood(x: torch.Tensor, *, means: torch.Tensor,
+                                        log_scales: torch.Tensor) -> torch.Tensor:
+    """Log-likelihood of a Gaussian discretized to 8-bit bins on [-1, 1]
+    (reference ``diffusion/losses.py:50-77``)."""
+    centered_x = x - means
+    inv_stdv = torch.exp(-log_scales)
+    cdf_plus = approx_standard_normal_cdf(inv_stdv * (centered_x + 1.0 / 255.0))
+    cdf_min = approx_standard_normal_cdf(inv_stdv * (centered_x - 1.0 / 255.0))
+    log_cdf_plus = torch.log(cdf_plus.clamp(min=1e-12))
+    log_one_minus_cdf_min = torch.log((1.0 - cdf_min).clamp(min=1e-12))
+    log_cdf_delta = torch.log((cdf_plus - cdf_min).clamp(min=1e-12))
+    return torch.where(x < -0.999, log_cdf_plus,
+                       torch.where(x > 0.999, log_one_minus_cdf_min, log_cdf_delta))
+
+
+def vb_terms_bpd(schedule: Schedule, model_fn: DenoiseFn, x_start: torch.Tensor,
+                 x_t: torch.Tensor, t: torch.Tensor, clip_denoised: bool = False):
+    """One term of the variational bound in bits per dimension (reference
+    ``gaussian_diffusion.py:1221-1254``): KL(q(x_{t-1} | x_t, x_0) ||
+    p(x_{t-1} | x_t)), or the decoder NLL at t = 0.  Returns (term (B,),
+    pred_xstart)."""
+    true_mean, _, true_log_var = q_posterior_mean_variance(schedule, x_start, x_t, t)
+    mean, _, log_var, pred_xstart, _ = p_mean_variance(
+        schedule, model_fn, x_t, t, clip_denoised=clip_denoised)
+    B = x_start.shape[0]
+    kl = normal_kl(true_mean, true_log_var, mean, log_var)
+    kl = kl.reshape(B, -1).mean(dim=1) / math.log(2.0)
+    decoder_nll = -discretized_gaussian_log_likelihood(
+        x_start, means=mean, log_scales=0.5 * log_var)
+    decoder_nll = decoder_nll.reshape(B, -1).mean(dim=1) / math.log(2.0)
+    return torch.where(t == 0, decoder_nll, kl), pred_xstart
+
+
+@torch.no_grad()
+def calc_bpd_loop(schedule: Schedule, model_fn: DenoiseFn, x_start: torch.Tensor,
+                  generator: Optional[torch.Generator] = None,
+                  noise: Optional[torch.Tensor] = None,
+                  clip_denoised: bool = True) -> Dict[str, torch.Tensor]:
+    """The whole variational bound in bits per dimension (reference
+    ``calc_bpd_loop``, ``gaussian_diffusion.py:1527-1583``): each step t
+    noises x_start with ``noise[t]`` (a (T, *x_start.shape) table; drawn
+    from ``generator`` when not given).  Returns ``total_bpd`` and
+    ``prior_bpd`` (B,), and the per-step ``vb`` and ``mse`` (B, T)."""
+    B, T = x_start.shape[0], schedule.num_timesteps
+    if noise is None:
+        noise = torch.randn((T,) + tuple(x_start.shape), generator=generator,
+                            device=x_start.device)
+    vb, mse = [], []
+    for ti in range(T):
+        t = torch.full((B,), ti, dtype=torch.long, device=x_start.device)
+        x_t = q_sample(schedule, x_start, t, noise[ti])
+        term, pred_xstart = vb_terms_bpd(schedule, model_fn, x_start, x_t, t,
+                                         clip_denoised=clip_denoised)
+        vb.append(term)
+        mse.append(((pred_xstart - x_start) ** 2).reshape(B, -1).mean(dim=1))
+    vb, mse = torch.stack(vb, dim=1), torch.stack(mse, dim=1)
+    # the prior term: KL(q(x_T | x_0) || N(0, I))
+    t_last = torch.full((B,), T - 1, dtype=torch.long, device=x_start.device)
+    mean, _, log_var = q_mean_variance(schedule, x_start, t_last)
+    prior = normal_kl(mean, log_var, torch.zeros_like(mean), torch.zeros_like(log_var))
+    prior_bpd = prior.reshape(B, -1).mean(dim=1) / math.log(2.0)
+    return {"total_bpd": vb.sum(dim=1) + prior_bpd, "prior_bpd": prior_bpd,
+            "vb": vb, "mse": mse}

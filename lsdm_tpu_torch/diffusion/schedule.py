@@ -52,6 +52,7 @@ class Schedule:
     alphas_cumprod_prev: torch.Tensor
     sqrt_alphas_cumprod: torch.Tensor
     sqrt_one_minus_alphas_cumprod: torch.Tensor
+    log_one_minus_alphas_cumprod: torch.Tensor
     sqrt_recip_alphas_cumprod: torch.Tensor
     sqrt_recipm1_alphas_cumprod: torch.Tensor
     posterior_variance: torch.Tensor
@@ -86,6 +87,7 @@ def _schedule_from_betas(betas: np.ndarray, timestep_map: np.ndarray,
         alphas_cumprod_prev=f32(alphas_cumprod_prev),
         sqrt_alphas_cumprod=f32(np.sqrt(alphas_cumprod)),
         sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - alphas_cumprod)),
+        log_one_minus_alphas_cumprod=f32(np.log(1.0 - alphas_cumprod)),
         sqrt_recip_alphas_cumprod=f32(np.sqrt(1.0 / alphas_cumprod)),
         sqrt_recipm1_alphas_cumprod=f32(np.sqrt(1.0 / alphas_cumprod - 1)),
         posterior_variance=f32(posterior_variance),

@@ -7,9 +7,6 @@ from __future__ import annotations
 import argparse
 
 REASONS = {
-    "bpe_path": "the CLIP tokenizer is ROADMAP.md queue 1 item 10; the "
-                "port's text encoder is HASH",
-    "clip_weights": "the CLIP text tower is ROADMAP.md queue 1 item 10",
     "platform": "it picks a JAX platform; the port takes --device (cuda or "
                 "cpu)",
 }

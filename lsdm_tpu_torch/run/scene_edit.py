@@ -85,10 +85,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--text_encoder", default="auto",
                     choices=["auto", "CLIP", "BERT", "HASH"],
                     help="'auto' = CLIP when a BPE merges source exists, else "
-                         "HASH; only HASH is ported")
+                         "HASH")
     ap.add_argument("--pcd_points", type=int, default=None,
                     help="override the cloud size (tiny smoke runs)")
-    jax_flags.add(ap, "bpe_path", "platform")
+    ap.add_argument("--bpe_path", default=None,
+                    help="CLIP BPE merges file or directory (default: "
+                         "$LSDM_TPU_CLIP_BPE, the vendored asset, the HF cache)")
+    jax_flags.add(ap, "platform")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' must be asked for explicitly")
     return ap.parse_args(argv)
@@ -117,7 +120,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Run the evaluation; returns the final metrics (and the mean ICP
     statistics when a keyword hit)."""
     args = parse_args(argv)
-    jax_flags.refuse(args, "bpe_path", "platform")
+    jax_flags.refuse(args, "platform")
     if args.load_model and not args.load_model.endswith(".pt"):
         raise SystemExit(f"--load_model {args.load_model}: only reference "
                          "torch .pt checkpoints load into the port (a flax "
@@ -150,8 +153,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                 max_cats=model_cfg.max_cats, pnt_size=model_cfg.pcd_points)
     loader = DataLoader(ds, 1, shuffle=False)
     schedule = make_schedule("cosine", args.diffusion_steps, device=dev)
-    text_encoder = TextEncoder(resolve_text_encoder(args.text_encoder),
-                               dim=model_cfg.clip_dim)
+    text_encoder = TextEncoder(resolve_text_encoder(args.text_encoder, args.bpe_path),
+                               dim=model_cfg.clip_dim, bpe_path=args.bpe_path,
+                               device=dev)
     model = init_weights(SceneDiffusionModel(model_cfg), 0)
     if args.load_model:
         print(f"loaded torch checkpoint {args.load_model}: "

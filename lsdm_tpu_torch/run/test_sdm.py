@@ -15,7 +15,12 @@ resolve_fast_path``).  ``--fused_step step`` (or a bare ``--fused_step``)
 samples with the one-step kernel K9, called once per step from the host.  ``--device`` defaults to ``cuda`` and there is no
 silent CPU run: without a GPU the CLI raises unless ``--device cpu`` is
 given.  Without ``--load_model`` the weights are seeded (seed 0), as the
-JAX CLI initialises them.  The draws (initial image and per-step noise)
+JAX CLI initialises them.  ``--text_encoder auto`` runs the CLIP tower on
+the device when a BPE merges source is found (``--bpe_path``,
+``$LSDM_TPU_CLIP_BPE``, the vendored asset, the HF cache), with the
+weights of ``--clip_weights`` or seeded ones, and the HASH encoder
+otherwise; with ``--load_model``, CLIP or BERT without their assets
+refuse to run.  The draws (initial image and per-step noise)
 come from one ``torch.Generator`` on the device, seeded with ``--seed``.
 """
 
@@ -48,7 +53,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--text_encoder", default="auto",
                     choices=["auto", "CLIP", "BERT", "HASH"],
                     help="'auto' = CLIP when a BPE merges source exists, else "
-                         "HASH; only HASH is ported")
+                         "HASH")
     ap.add_argument("--pcd_points", type=int, default=None,
                     help="override the cloud size (tiny smoke runs)")
     ap.add_argument("--fused_step", nargs="?", const="step", default="auto",
@@ -66,7 +71,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--gather_bwd", default="scatter",
                     help="JAX CLI flag: only 'scatter', the exact gather the "
                          "port runs, is taken")
-    jax_flags.add(ap, "clip_weights", "bpe_path", "platform")
+    ap.add_argument("--bpe_path", default=None,
+                    help="CLIP BPE merges file or directory (default: "
+                         "$LSDM_TPU_CLIP_BPE, the vendored asset, the HF cache)")
+    ap.add_argument("--clip_weights", default=None,
+                    help="a torch CLIP text state dict (OpenAI or HF naming) "
+                         "for --text_encoder CLIP")
+    jax_flags.add(ap, "platform")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' must be asked for explicitly")
     return ap.parse_args(argv)
@@ -80,7 +91,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                          "one-hot matmul gathers are a TPU workaround "
                          "(ROADMAP.md, 'Not ported'); the port's gathers are "
                          "exact, as 'scatter'")
-    jax_flags.refuse(args, "clip_weights", "bpe_path", "platform")
+    jax_flags.refuse(args, "platform")
     if args.load_model and not args.load_model.endswith(".pt"):
         raise SystemExit(f"--load_model {args.load_model}: only reference "
                          "torch .pt checkpoints load into the port (a flax "
@@ -99,7 +110,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from lsdm_tpu_torch.models.text import TextEncoder, resolve_text_encoder
     from lsdm_tpu_torch.ops.metrics import emd, fscore, topk_accuracy
     from lsdm_tpu_torch.ops.pointcloud import chamfer_distance
-    from lsdm_tpu_torch.weights import init_weights
+    from lsdm_tpu_torch.weights import clip_text_state_dict, init_weights
 
     for sub in ("predictions", "guiding_points"):
         os.makedirs(os.path.join(args.output_dir, sub), exist_ok=True)
@@ -125,16 +136,30 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     else:
         schedule = make_schedule("cosine", args.diffusion_steps, device=dev)
 
-    text_encoder = TextEncoder(resolve_text_encoder(args.text_encoder),
-                               dim=model_cfg.clip_dim)
+    clip_sd = None
+    if args.clip_weights:
+        sd = torch.load(args.clip_weights, map_location="cpu", weights_only=False)
+        clip_sd = clip_text_state_dict(sd.get("state_dict", sd))
+        print(f"converted CLIP text tower: {args.clip_weights}")
+    encoder = resolve_text_encoder(args.text_encoder, args.bpe_path)
+    text_encoder = TextEncoder(
+        encoder, dim=model_cfg.clip_dim, state_dict=clip_sd,
+        bpe_path=args.bpe_path, device=dev,
+        # evaluating a checkpoint with a mismatched tokenizer silently
+        # gives wrong numbers: refuse instead
+        require_parity=bool(args.load_model) and encoder in ("CLIP", "BERT"))
+    if args.load_model and encoder == "HASH":
+        print("WARNING: evaluating a checkpoint with --text_encoder HASH; "
+              "prompt embeddings will not match the reference CLIP tower. "
+              "Use --text_encoder CLIP with --clip_weights (and a BPE merges "
+              "source, auto-detected when available) for parity-grade numbers.")
     model = init_weights(SceneDiffusionModel(model_cfg), 0)
     if args.load_model:
         extra = load_torch_checkpoint(args.load_model, model)
         print(f"loaded torch checkpoint {args.load_model}: {extra}")
-        print("WARNING: evaluating a checkpoint with --text_encoder HASH; "
-              "prompt embeddings will not match the reference CLIP tower.")
     model = model.to(dev).eval()
-    print(f"test_sdm: {len(ds)} sequences on {dev}, ball_impl={ball_impl}, "
+    print(f"test_sdm: {len(ds)} sequences on {dev}, text_encoder={encoder}, "
+          f"ball_impl={ball_impl}, "
           f"fused_step={fused_step}, T={schedule.num_timesteps}")
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)

@@ -59,7 +59,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--text_encoder", default="auto",
                     choices=["auto", "CLIP", "BERT", "HASH"],
                     help="'auto' = CLIP when a BPE merges source exists, else "
-                         "HASH; only HASH is ported")
+                         "HASH")
     ap.add_argument("--load_ckpt", default=None,
                     help="resume from a .pt checkpoint this CLI wrote")
     ap.add_argument("--ema_rate", type=float, default=0.0,
@@ -89,7 +89,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--fps_batched", action="store_true",
                     help="JAX CLI flag, taken as is: the FPS kernel K3 gives "
                          "the batched kernel's indices")
-    jax_flags.add(ap, "bpe_path", "platform")
+    ap.add_argument("--bpe_path", default=None,
+                    help="CLIP BPE merges file or directory (default: "
+                         "$LSDM_TPU_CLIP_BPE, the vendored asset, the HF cache)")
+    jax_flags.add(ap, "platform")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' must be asked for explicitly")
     return ap.parse_args(argv)
@@ -105,7 +108,7 @@ def main(argv: Optional[Sequence[str]] = None):
     for flag, why in _NOT_PORTED.items():
         if given[flag]:
             raise SystemExit(f"--{flag} is not ported: {why}")
-    jax_flags.refuse(args, "bpe_path", "platform")
+    jax_flags.refuse(args, "platform")
     if args.dtype != "float32":
         raise SystemExit("--dtype bfloat16 is not ported: bf16 autocast is a "
                          "later slice (ROADMAP.md queue 1 item 8)")
@@ -151,8 +154,9 @@ def main(argv: Optional[Sequence[str]] = None):
                           pnt_size=model_cfg.pcd_points, **objs_kw)
         valid_loader = DataLoader(valid_ds, args.batch_size, shuffle=False)
 
-    text_encoder = TextEncoder(resolve_text_encoder(args.text_encoder),
-                               dim=model_cfg.clip_dim)
+    text_encoder = TextEncoder(resolve_text_encoder(args.text_encoder, args.bpe_path),
+                               dim=model_cfg.clip_dim, bpe_path=args.bpe_path,
+                               device=dev)
     trainer = Trainer(model_cfg, diff_cfg, train_cfg, text_encoder=text_encoder,
                       save_dir=args.save_dir, device=dev)
     trainer.init_state(args.seed)

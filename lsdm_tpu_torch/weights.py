@@ -11,6 +11,12 @@ kernels (in, out) become (out, in) conv weights with trailing 1x1 dims,
 carries optax's Adam moments (``ScaleByAdamState``: mu, nu, count) over
 to ``torch.optim.AdamW``'s state, so both optimizers can start from the
 same point.
+
+The text towers' bridges: :func:`clip_text_state_dict` (a torch CLIP text
+state dict in OpenAI's or HF's naming, the port's names being OpenAI's)
+and :func:`bert_state_dict` (an HF torch BERT checkpoint) for released
+weights; :func:`clip_text_state_dict_from_jax` and
+:func:`bert_state_dict_from_flax` carry the JAX package's towers across.
 """
 
 from __future__ import annotations
@@ -162,3 +168,120 @@ def load_adamw_state_from_optax(optimizer: torch.optim.Optimizer,
             "step": torch.tensor(float(count)),
             "exp_avg": m[name].to(p.device).reshape(p.shape).clone(),
             "exp_avg_sq": v[name].to(p.device).reshape(p.shape).clone()}
+
+
+# ---------------------------------------------------------------------------
+# the text towers (models/text.py, models/bert.py)
+
+_CLIP_DROPPED = ("visual.", "logit_scale", "text_model.embeddings.position_ids")
+# HF CLIPTextModelWithProjection -> OpenAI naming (q/k/v and the
+# projection are handled apart)
+_CLIP_HF_RULES = (
+    (r"text_model\.embeddings\.token_embedding\.weight", "token_embedding.weight"),
+    (r"text_model\.embeddings\.position_embedding\.weight", "positional_embedding"),
+    (r"text_model\.final_layer_norm\.(weight|bias)", r"ln_final.\1"),
+    (r"text_model\.encoder\.layers\.(\d+)\.layer_norm1\.(weight|bias)",
+     r"transformer.resblocks.\1.ln_1.\2"),
+    (r"text_model\.encoder\.layers\.(\d+)\.layer_norm2\.(weight|bias)",
+     r"transformer.resblocks.\1.ln_2.\2"),
+    (r"text_model\.encoder\.layers\.(\d+)\.self_attn\.out_proj\.(weight|bias)",
+     r"transformer.resblocks.\1.attn.out_proj.\2"),
+    (r"text_model\.encoder\.layers\.(\d+)\.mlp\.fc1\.(weight|bias)",
+     r"transformer.resblocks.\1.mlp.c_fc.\2"),
+    (r"text_model\.encoder\.layers\.(\d+)\.mlp\.fc2\.(weight|bias)",
+     r"transformer.resblocks.\1.mlp.c_proj.\2"),
+)
+_CLIP_OPENAI = re.compile(
+    r"token_embedding\.weight|positional_embedding|text_projection|"
+    r"ln_final\.(weight|bias)|transformer\.resblocks\.\d+\.("
+    r"ln_[12]\.(weight|bias)|attn\.in_proj_(weight|bias)|"
+    r"attn\.out_proj\.(weight|bias)|mlp\.c_(fc|proj)\.(weight|bias))")
+
+
+def _f32(v) -> torch.Tensor:
+    return torch.tensor(np.asarray(v, np.float32))  # a copy
+
+
+def clip_text_state_dict(state_dict: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's ``CLIPTextTransformer`` state dict from a torch CLIP text
+    tower's, in either naming that the JAX package's
+    ``train/checkpoint.py:convert_clip_text`` takes: OpenAI's ``clip``
+    (optionally prefixed ``clip_model.``, as inside an SDM checkpoint; the
+    port's own naming) or HF ``CLIPTextModelWithProjection`` (q/k/v
+    concatenated into ``in_proj``, ``text_projection.weight`` transposed).
+    Vision-tower and ``logit_scale`` keys are dropped; any other unknown key
+    raises ``KeyError``."""
+    sd: Dict[str, torch.Tensor] = {}
+    qkv: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, val in state_dict.items():
+        key = key[len("clip_model."):] if key.startswith("clip_model.") else key
+        if key.startswith(_CLIP_DROPPED):
+            continue
+        v = val.detach().cpu().numpy() if isinstance(val, torch.Tensor) else np.asarray(val)
+        if _CLIP_OPENAI.fullmatch(key):
+            sd[key] = _f32(v)
+            continue
+        if key == "text_projection.weight":
+            sd["text_projection"] = _f32(v.T)  # Linear (out, in) -> (width, embed)
+            continue
+        m = re.fullmatch(r"text_model\.encoder\.layers\.(\d+)\.self_attn\."
+                         r"([qkv])_proj\.(weight|bias)", key)
+        if m:
+            qkv.setdefault(m.group(1), {})[m.group(2) + m.group(3)] = v
+            continue
+        for pattern, repl in _CLIP_HF_RULES:
+            if re.fullmatch(pattern, key):
+                sd[re.sub(pattern, repl, key)] = _f32(v)
+                break
+        else:
+            raise KeyError(f"unmapped CLIP parameter: {key} {v.shape}")
+    for layer, d in qkv.items():
+        for kind in ("weight", "bias"):
+            sd[f"transformer.resblocks.{layer}.attn.in_proj_{kind}"] = _f32(
+                np.concatenate([d["q" + kind], d["k" + kind], d["v" + kind]], 0))
+    return sd
+
+
+def clip_text_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's ``CLIPTextTransformer`` state dict from the JAX tower's
+    ``params`` tree (numpy arrays): the same tensors, renamed."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, v in _flatten(params).items():
+        key = re.sub(r"^resblock_(\d+)\.", r"transformer.resblocks.\1.", path)
+        key = re.sub(r"\.mlp_(c_fc|c_proj)\.", r".mlp.\1.", key)
+        key = re.sub(r"(ln_1|ln_2|ln_final)\.scale$", r"\1.weight", key)
+        if key == "token_embedding":
+            key = "token_embedding.weight"
+        sd[key] = _f32(v)
+    return sd
+
+
+def bert_state_dict(state_dict: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's ``BertModel`` state dict from an HF torch BERT checkpoint
+    (``BertModel``, or ``BertFor*`` with the ``bert.`` prefix; LayerNorm
+    ``gamma``/``beta`` as older checkpoints name them).  Heads (``cls.``)
+    and the ``position_ids`` buffer are dropped."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key, val in state_dict.items():
+        key = key[len("bert."):] if key.startswith("bert.") else key
+        if key.startswith("cls.") or key.endswith("position_ids"):
+            continue
+        key = re.sub(r"LayerNorm\.gamma$", "LayerNorm.weight", key)
+        key = re.sub(r"LayerNorm\.beta$", "LayerNorm.bias", key)
+        sd[key] = torch.as_tensor(val).float().contiguous()
+    return sd
+
+
+def bert_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's ``BertModel`` state dict from ``FlaxBertModel``'s params
+    (numpy arrays): embedding tables as they are, Dense kernels (in, out)
+    transposed, LayerNorm ``scale`` as ``weight``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, v in _flatten(params).items():
+        if path.endswith(".kernel"):
+            sd[path[:-len("kernel")] + "weight"] = _f32(np.asarray(v).T)
+        elif path.endswith((".embedding", ".scale")):
+            sd[path.rsplit(".", 1)[0] + ".weight"] = _f32(v)
+        else:
+            sd[path] = _f32(v)
+    return sd

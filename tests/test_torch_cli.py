@@ -45,7 +45,7 @@ def test_hash_text_encoder_equals_jax_bit_for_bit():
     np.testing.assert_array_equal(got, want)
 
 
-def test_text_encoder_auto_is_hash_offline_and_the_towers_raise(monkeypatch, tmp_path):
+def test_text_encoder_auto_is_hash_offline_and_the_towers_run(monkeypatch, tmp_path):
     monkeypatch.delenv("LSDM_TPU_CLIP_BPE", raising=False)
     monkeypatch.setenv("HF_HOME", str(tmp_path))  # an empty HuggingFace cache
     assert resolve_text_encoder("auto") == "HASH"
@@ -53,9 +53,12 @@ def test_text_encoder_auto_is_hash_offline_and_the_towers_raise(monkeypatch, tmp
     merges.write_text("#version: 0.2\n")
     assert resolve_text_encoder("auto", str(merges)) == "CLIP"
     assert resolve_text_encoder("HASH", str(merges)) == "HASH"
-    for tower in ("CLIP", "BERT"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-            TextEncoder(tower)
+    clip = TextEncoder("CLIP", bpe_path=str(merges), device="cpu")
+    with pytest.warns(UserWarning, match="random-init"):  # no BERT snapshot here
+        bert = TextEncoder("BERT", device="cpu")
+    for enc in (clip, bert):
+        emb = enc.encode(PROMPTS[:2])
+        assert emb.shape == (2, 512) and np.isfinite(emb).all()
 
 
 @pytest.mark.parametrize("datatype", ["proxd", "humanise"])
@@ -204,8 +207,7 @@ def test_test_sdm_cli_end_to_end_on_cpu(tmp_path, ball_impl):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--gather_bwd", "matmul"], ["--gather_bwd", "matmul_fwd"],
-    ["--clip_weights", "clip.pt"], ["--bpe_path", "bpe.txt.gz"], ["--platform", "cpu"]])
+    ["--gather_bwd", "matmul"], ["--gather_bwd", "matmul_fwd"], ["--platform", "cpu"]])
 def test_test_sdm_cli_refuses_jax_flags_with_a_reason(tmp_path, flag):
     with pytest.raises(SystemExit, match=f"{flag[0]} .*not ported"):
         test_sdm.main([str(tmp_path), "--device", "cpu", *flag])
@@ -225,3 +227,100 @@ def test_test_sdm_cli_refuses_what_the_port_cannot_run(tmp_path):
     if not torch.cuda.is_available():  # no silent CPU run
         with pytest.raises(SystemExit, match="--device cpu"):
             test_sdm.main([str(tmp_path)])
+
+
+class _TowerReached(Exception):
+    pass
+
+
+@pytest.mark.parametrize("cli,flag", [("test_sdm", "--bpe_path"), ("test_sdm", "--clip_weights"),
+                                      ("scene_edit", "--bpe_path"), ("train_sdm", "--bpe_path")])
+def test_cli_text_flags_reach_the_tower(tmp_path, monkeypatch, cli, flag):
+    """The flags the CLIs once refused are taken and handed to the text
+    encoder: ``--bpe_path`` makes ``auto`` CLIP with that merges file,
+    ``--clip_weights`` hands over the tower's state dict (an HF-named one,
+    converted to the port's names)."""
+    from lsdm_tpu_torch.models import text as text_lib
+    from lsdm_tpu_torch.run import scene_edit, train_sdm
+
+    monkeypatch.delenv("LSDM_TPU_CLIP_BPE", raising=False)
+    monkeypatch.setenv("HF_HOME", str(tmp_path / "empty_hf"))
+    monkeypatch.setattr(text_lib, "CLIP_BPE_ASSET", str(tmp_path / "no_asset.gz"))
+    got = {}
+
+    def stub(encoder_type, **kw):
+        got.update(kw, encoder_type=encoder_type)
+        raise _TowerReached
+
+    monkeypatch.setattr(text_lib, "TextEncoder", stub)
+    root = str(tmp_path)
+    split = "train" if cli == "train_sdm" else "test"
+    data = generate(root, "proxd", n_scenes=1, n_seqs=2, pnt_size=16, seed=1, split=split)
+    merges = tmp_path / "merges.txt"
+    merges.write_text("#version: 0.2\nt h\n")
+    common = ["--objs_data_dir", os.path.join(root, "objs"), "--device", "cpu",
+              "--pcd_points", "16"]
+    if flag == "--bpe_path":
+        args = common + ["--bpe_path", str(merges)]
+    else:
+        hf = {"text_model.embeddings.token_embedding.weight": torch.randn(6, 4),
+              "text_projection.weight": torch.randn(2, 4)}
+        torch.save({"state_dict": hf}, tmp_path / "clip.pt")
+        args = common + ["--text_encoder", "CLIP", "--clip_weights", str(tmp_path / "clip.pt")]
+    main = {"test_sdm": test_sdm.main, "scene_edit": scene_edit.main,
+            "train_sdm": train_sdm.main}[cli]
+    argv = (["--train_data_dir", data, "--save_dir", os.path.join(root, "out")]
+            if cli == "train_sdm" else [data, "--output_dir", os.path.join(root, "out")])
+    with pytest.raises(_TowerReached):
+        main(argv + args)
+    assert got["encoder_type"] == "CLIP" and got["device"] == torch.device("cpu")
+    if flag == "--bpe_path":
+        assert got["bpe_path"] == str(merges)
+    else:
+        sd = got["state_dict"]
+        assert sorted(sd) == ["text_projection", "token_embedding.weight"]
+        assert torch.equal(sd["text_projection"], hf["text_projection.weight"].T)
+
+
+def test_test_sdm_cli_runs_the_clip_tower(tmp_path, monkeypatch):
+    """``--text_encoder auto`` with a merges file runs the CLIP tower with
+    the weights of ``--clip_weights``; with ``--load_model`` and no merges
+    source, CLIP refuses with the JAX CLI's help text."""
+    from lsdm_tpu_torch.models import text as text_lib
+    from lsdm_tpu_torch.weights import clip_text_state_dict
+
+    monkeypatch.delenv("LSDM_TPU_CLIP_BPE", raising=False)
+    monkeypatch.setenv("HF_HOME", str(tmp_path / "empty_hf"))
+    monkeypatch.setattr(text_lib, "CLIP_BPE_ASSET", str(tmp_path / "no_asset.gz"))
+    root = str(tmp_path)
+    data = generate(root, "proxd", n_scenes=1, n_seqs=2, pnt_size=32, seed=3, split="test")
+    merges = tmp_path / "merges.txt"
+    merges.write_text("#version: 0.2\np l\npl a\nc h\nch a\n")
+    tower = text_lib.init_clip_weights(text_lib.CLIPTextTransformer(), 4)
+    torch.save(tower.state_dict(), tmp_path / "clip.pt")
+    seen = []
+    real = text_lib.TextEncoder
+
+    class Recording(real):
+        def encode(self, texts):
+            seen.append(self)
+            return super().encode(texts)
+
+    monkeypatch.setattr(text_lib, "TextEncoder", Recording)
+    common = ["--objs_data_dir", os.path.join(root, "objs"), "--diffusion_steps", "2",
+              "--batch_size", "2", "--pcd_points", "32", "--device", "cpu"]
+    final = test_sdm.main([data, "--output_dir", os.path.join(root, "out"),
+                           "--bpe_path", str(merges),
+                           "--clip_weights", str(tmp_path / "clip.pt")] + common)
+    assert np.isfinite(final["cfd"])
+    enc = seen[0]
+    assert enc.encoder_type == "CLIP" and isinstance(enc.tokenizer, text_lib.SimpleTokenizer)
+    for k, v in clip_text_state_dict(tower.state_dict()).items():
+        assert torch.equal(enc.model.state_dict()[k], v), k
+    assert all(np.isfinite(e).all() and e.shape == (512,) for e in enc.cache.values())
+
+    model = init_weights(SceneDiffusionModel(SDMConfig(pcd_points=32, vert_dims=32)), 2)
+    torch.save({"model_state_dict": model.state_dict()}, tmp_path / "model.pt")
+    with pytest.raises(RuntimeError, match="Provide the CLIP BPE merges via --bpe_path"):
+        test_sdm.main([data, "--output_dir", os.path.join(root, "out2"), "--text_encoder",
+                       "CLIP", "--load_model", str(tmp_path / "model.pt")] + common)

@@ -357,7 +357,7 @@ def test_scene_edit_prompt_phrases_and_masks():
     assert not scene_edit.edit_mask(gt, "obj_dis").any()
 
 
-@pytest.mark.parametrize("flag", [["--bpe_path", "bpe.txt.gz"], ["--platform", "cpu"]])
+@pytest.mark.parametrize("flag", [["--platform", "cpu"]])
 def test_scene_edit_cli_refuses_jax_flags_with_a_reason(tmp_path, flag):
     with pytest.raises(SystemExit, match=f"{flag[0]} is not ported"):
         scene_edit.main([str(tmp_path), "--device", "cpu", *flag])

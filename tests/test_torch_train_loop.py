@@ -206,7 +206,7 @@ def test_train_cli_on_cpu(tmp_path):
 @pytest.mark.parametrize("flag", [["--mesh", "4x2"], ["--steps_per_dispatch", "4"],
                                   ["--sa_hoist"], ["--gather_bwd", "matmul"],
                                   ["--dtype", "bfloat16"], ["--bn_dtype", "bfloat16"],
-                                  ["--bpe_path", "bpe.txt.gz"], ["--platform", "cpu"]])
+                                  ["--platform", "cpu"]])
 def test_train_cli_refuses_what_is_not_ported(flag):
     with pytest.raises(SystemExit, match="not ported"):
         train_sdm.main(["--train_data_dir", "unused", "--device", "cpu", *flag])
