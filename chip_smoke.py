@@ -91,15 +91,28 @@ Run from the repository root:  python3 chip_smoke.py
    ``train_b6`` field of their records); the select-gather (K10, sa1-sa4
    and an empty ball, timed queued) and the chamfer nearest neighbour
    (K11, each way) equal to their plain versions.
+   Then the bf16 modes at those shapes (phase 10b): K4 and K5 on bf16
+   q, k, v within ATTN_BF16_ATOL / ATTN_BWD_BF16_ATOL of their plain bf16
+   versions, K10 on bf16 stage columns equal to its plain version, each
+   timed queued with its bound (records ``rank1_attn_bf16``,
+   ``rank1_attn_bwd_bf16``, ``select_gather_bf16``).
 11. The train step of ``sdm_proxd()`` at batch 6 (fp32, T=1000, seeded
    weights and batch) in the configuration ``train_sdm`` runs by default
    on CUDA (K1-K5), with ``ball_impl="sg"`` (K10) and with the K11 chamfer:
    each through the kernels and through the plain versions from the same
    weights, t, noise and dropout keep-mask, agreeing in the loss, the
    gradients and the parameters after one AdamW step; prints ms/step and
-   peak memory.
+   peak memory.  Then the same step at ``dtype="bfloat16"`` with
+   ``bn_dtype`` float32 and bf16, on the default path (K1-K3, K4/K5 in
+   their bf16 modes) and with ``ball_impl="sg"`` (K10's bf16 mode), each
+   agreeing with its plain versions within the TRAIN_BF16_* gates and
+   launching no float32 mode of K4, K5, K10 and no fused eval kernel; its
+   ms/step and peak memory beside the float32 step's.
 12. ``lsdm_tpu_torch.run.train_sdm`` on a synthetic split (one epoch of
-   two steps, validation on the fused path), its ``final.pt`` read back.
+   two steps, validation on the fused path), its ``final.pt`` read back;
+   then ``--dtype bfloat16 --bn_dtype bfloat16`` at BF16_CLI_STEPS steps
+   (validation on the composed path), its ``final.pt`` read back into a
+   float32 model.
 13. The text towers: the full-width CLIP text tower (its tokens from a
    small BPE merges file the phase writes) and BERT-base (read from a
    local snapshot the phase writes, tokens from its WordPiece vocabulary),
@@ -125,6 +138,7 @@ import contextlib
 import dataclasses
 import importlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -203,6 +217,34 @@ LARGE_POINTS = 4096
 TRAIN_LOSS_RTOL = 1e-6
 TRAIN_GRAD_RTOL = 1e-5
 TRAIN_PARAM_ATOL = 1e-6
+# The bf16 modes at the train shapes.  K4 and K5 against their plain bf16
+# versions: each weight w = e / Z is rounded to bf16, and where the SFU's
+# exponential and torch's differ across a rounding boundary the weight moves
+# by 2^-8 of itself, so the bound is a share of max(1, max |v|) (of the
+# largest gradient entry for K5), never looser than 2^-7.  H100 readings
+# (NVIDIA H100 80GB HBM3, 700 W) at (54, 1024, 12): K4 1.1e-3 on max |v|
+# 4.5 (2.4e-4 of the scale), K5 dq 9.8e-4, dk 3.9e-3, dv 3.9e-3 (at most
+# 5.8e-4 of their scales).  K10's bf16 mode must equal its plain version.
+ATTN_BF16_ATOL = 1e-3
+ATTN_BWD_BF16_ATOL = 2e-3
+# The bf16 train step, kernels against plain versions from the same weights
+# and draws (the float32 step's comparison, phase 11): the loss; each
+# gradient leaf's 2-norm distance over its 2-norm (a leaf below 1e-3 of the
+# largest leaf norm measured against that floor), since a bf16 rounding
+# that flips between K4/K5 and their plain versions, or between two orders
+# of the gathers' atomic float32 sums, can move a max-pool's argmax or a
+# chamfer's nearest point; and the parameters after one AdamW step where
+# the gradient exceeds 5e-2 of its leaf's largest entry, whose sign a flip
+# cannot turn, in leaves above that floor (AdamW's first step is
+# lr g / (|g| + 1e-8): a leaf of rounding noise near 1e-8, such as a conv
+# bias ahead of a train-mode BatchNorm, whose exact gradient is zero, moves
+# by a share of lr that its noise sets).
+TRAIN_BF16_LOSS_RTOL = 1e-2
+TRAIN_BF16_GRAD_RTOL = 5e-2
+TRAIN_BF16_PARAM_ATOL = 1e-6
+# --diffusion_steps of the bf16 train_sdm run: its validation samples on
+# the composed loop (the bf16 modes of K6 and K9 are the next slice)
+BF16_CLI_STEPS = 100
 TRAIN_BATCH = 6
 TRAIN_STEPS = 3  # timed steps of each train configuration
 # K9 against its plain version, one step: float32 sums in another order
@@ -275,6 +317,13 @@ KERNELS = {  # name: (source, the TPU kernel it replaces, path it is counted on)
                    "lsdm_tpu/ops/chamfer_pallas.py:75", "train_chamfer"),
     "denoise_step": ("lsdm_tpu_torch/csrc/denoise_step.cu",
                      "lsdm_tpu/ops/denoise_pallas.py:173", "step"),
+    # the bf16 modes (the JAX kernels at compute_dtype=bfloat16)
+    "rank1_attn_bf16": ("lsdm_tpu_torch/csrc/rank1_attn.cu",
+                        "lsdm_tpu/ops/attn_pallas.py:60", "train_bf16"),
+    "rank1_attn_bwd_bf16": ("lsdm_tpu_torch/csrc/rank1_attn_bwd.cu",
+                            "lsdm_tpu/ops/attn_pallas.py:138", "train_bf16"),
+    "select_gather_bf16": ("lsdm_tpu_torch/csrc/sg_fused.cu",
+                           "lsdm_tpu/ops/sg_fused_pallas.py:128", "train_bf16_sg"),
 }
 PATH_KERNELS = {"pallas": ("ball_query", "three_nn", "fps", "denoise_chain"),
                 "fused": ("fps", "sa_fused", "fp_fused", "rank1_attn",
@@ -296,7 +345,21 @@ PATH_KERNELS = {"pallas": ("ball_query", "three_nn", "fps", "denoise_chain"),
                          "denoise_step"),
                 # the composed encode over the selection kernels, the
                 # composed loop; K11 in the ICP
-                "scene_edit": ("ball_query", "three_nn", "fps", "chamfer_nn")}
+                "scene_edit": ("ball_query", "three_nn", "fps", "chamfer_nn"),
+                # the bf16 train steps (dtype bf16, either bn_dtype): K4/K5
+                # in their bf16 modes; K10's with ball_impl "sg"
+                "train_bf16": ("ball_query", "three_nn", "fps", "rank1_attn_bf16",
+                               "rank1_attn_bwd_bf16"),
+                "train_bf16_sg": ("select_gather_bf16", "three_nn", "fps",
+                                  "rank1_attn_bf16", "rank1_attn_bwd_bf16"),
+                # train_sdm --dtype bfloat16: the bf16 train steps, then
+                # validation on the composed path over K1-K3
+                "train_cli_bf16": ("ball_query", "three_nn", "fps",
+                                   "rank1_attn_bf16", "rank1_attn_bwd_bf16")}
+# kernels no bf16 path may launch: the float32 modes of K4, K5 and K10, and
+# the fused eval kernels, whose bf16 modes are not ported
+NOT_ON_BF16_PATHS = ("rank1_attn", "rank1_attn_bwd", "select_gather", "sa_fused",
+                     "fp_fused", "denoise_chain", "denoise_step")
 # (module, the name it calls a kernel wrapper by, module, plain version):
 # swapped in to run a path through the plain versions of its kernels
 PLAIN_VERSIONS = (
@@ -935,13 +998,119 @@ def train_kernel_checks(dev, model, batch: int = TRAIN_BATCH) -> dict:
     return rec
 
 
+def bf16_kernel_checks(dev, model, batch: int = TRAIN_BATCH) -> dict:
+    """Phase 10b: the bf16 modes at the train step's shapes (``batch`` x
+    max_objs clouds of N points): K4 on bf16 (clouds, N, 12) with its row
+    denominators, within ATTN_BF16_ATOL x max(1, max |v|) of its plain bf16
+    version, SDPA's bf16 forward timed beside it; K5 from those
+    denominators, each of dq, dk, dv within ATTN_BWD_BF16_ATOL x max(1, its
+    largest entry), SDPA's bf16 backward beside it; K10 on bf16 stage
+    columns at sa1-sa4, equal to its plain version, outputs and indices.
+    Each timed queued behind a sleep.  Returns {kernel: record}."""
+    import torch
+
+    from lsdm_tpu_torch.ops import attn, fps, sg_fused
+    from lsdm_tpu_torch.ops.pointcloud import index_points
+    from lsdm_tpu_torch.profile_encode import ball_scan
+
+    cfg = model.cfg
+    C_, N, H = batch * cfg.max_objs, cfg.pcd_points, cfg.translation_params
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    rec: dict = {}
+    bf = torch.bfloat16
+    q, k, v = (torch.randn(C_, N, H, generator=g, device=dev).to(bf) for _ in range(3))
+    gout = torch.randn(C_, N, H, generator=g, device=dev)
+    out, den = attn.rank1_mha_kernel(q, k, v, denominator=True)
+    want, wden = attn.rank1_mha_plain(q, k, v, denominator=True)
+    tol = ATTN_BF16_ATOL * max(1.0, v.abs().max().item())
+    err = (out - want).abs().max().item()
+    derr = ((den - wden).abs() / wden).max().item()
+    if not (torch.isfinite(out).all() and err <= tol and derr <= ATTN_DEN_RTOL):
+        raise AssertionError(f"rank-1 attention bf16: max error {err} (tolerance {tol}), "
+                             f"denominators {derr} (tolerance {ATTN_DEN_RTOL})")
+    del want, wden
+    q4, k4, v4 = (t.transpose(1, 2)[..., None].contiguous() for t in (q, k, v))
+    _record(rec, "rank1_attn_bf16", err,
+            _time_queued_ms(lambda: attn.rank1_mha_kernel(q, k, v, True),
+                            QUEUED_REPS, dev)[0],
+            _time_ms(lambda: attn.rank1_mha_plain(q, k, v, True), 3, dev),
+            f"K4 rank-1 attention bf16 ({C_},{N},{H}) with denominators: max error "
+            f"{err:.3g} (tolerance {tol:.3g} = {ATTN_BF16_ATOL:.3g} x max(1, max |v|)); "
+            f"row denominators max relative error {derr:.3g}",
+            _nbytes(q, k, v, out, den), 6 * C_ * H * N * N,
+            _time_queued_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, scale=1.0), QUEUED_REPS, dev)[0], exps=C_ * H * N * N)
+    rec["rank1_attn_bf16"]["den_max_rel_err"] = derr
+
+    got = attn.rank1_mha_bwd_kernel(q, k, v, out, gout, den)
+    want = attn.rank1_mha_bwd_plain(q, k, v, out, gout)
+    errs, tols = [], []
+    for a, w in zip(got, want):
+        errs.append((a.float() - w.float()).abs().max().item())
+        tols.append(ATTN_BWD_BF16_ATOL * max(1.0, w.float().abs().max().item()))
+    if not (all(torch.isfinite(a).all() and a.dtype == bf for a in got)
+            and all(e <= t for e, t in zip(errs, tols))):
+        raise AssertionError(f"rank-1 attention backward bf16: errors {errs} "
+                             f"(tolerances {tols})")
+    del want
+    q4, k4, v4 = (t.requires_grad_() for t in (q4, k4, v4))
+    out4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+    g4 = gout.to(bf).transpose(1, 2)[..., None].contiguous()
+    lib = _time_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), g4,
+                                               retain_graph=True), 5, dev)
+    del q4, k4, v4, out4
+    _record(rec, "rank1_attn_bwd_bf16", max(errs),
+            _time_queued_ms(lambda: attn.rank1_mha_bwd_kernel(q, k, v, out, gout, den),
+                            QUEUED_REPS, dev)[0],
+            _time_ms(lambda: attn.rank1_mha_bwd_plain(q, k, v, out, gout), 3, dev),
+            f"K5 rank-1 attention backward bf16 ({C_},{N},{H}): max errors dq, dk, dv "
+            f"{[f'{e:.3g}' for e in errs]} (tolerances {[f'{t:.3g}' for t in tols]} = "
+            f"{ATTN_BWD_BF16_ATOL:.3g} x max(1, max |grad|))",
+            _nbytes(q, k, v, out, gout, den, *got), 13 * C_ * H * N * N, lib,
+            exps=C_ * H * N * N)
+    del got, out, den
+
+    # K10 at sa1..sa4 on bf16 columns: centers by FPS as the stages pick them
+    bb = model.pcd_backbone
+    stages = (bb.sa1, bb.sa2, bb.sa3, bb.sa4)
+    levels = [torch.randn(C_, N, 3, generator=g, device=dev)] * 2
+    for st in stages[1:]:
+        idx = fps.farthest_point_sample_plain(levels[-1], st.npoint)
+        levels.append(index_points(levels[-1], idx).contiguous())
+    for st, xyz, new_xyz in zip(stages, levels[:4], levels[1:5]):
+        width = st.mlp_convs[0].weight.shape[1]
+        base = torch.cat([xyz, torch.randn(C_, xyz.shape[1], width - 3, generator=g,
+                                           device=dev)], -1).to(bf).contiguous()
+        r, ns = st.radius, min(st.nsample, xyz.shape[1])
+        got, gi = sg_fused.select_gather_kernel(r, ns, xyz, new_xyz, base)
+        want, wi = sg_fused.select_gather_plain(r, ns, xyz, new_xyz, base)
+        line = (f"K10 select-gather bf16 N={xyz.shape[1]} S={new_xyz.shape[1]} K={ns} "
+                f"C={base.shape[2]}: ")
+        if not (got.dtype == bf and torch.equal(gi, wi) and torch.equal(got, want)):
+            raise AssertionError(line + "differs from the plain version")
+        _record(rec, "select_gather_bf16", 0.0,
+                _time_queued_ms(lambda: sg_fused.select_gather_kernel(
+                    r, ns, xyz, new_xyz, base), QUEUED_REPS, dev)[0],
+                _time_ms(lambda: sg_fused.select_gather_plain(r, ns, xyz, new_xyz, base),
+                         3, dev),
+                line + "equal indices and values",
+                _nbytes(xyz, new_xyz, base, got, gi),
+                DIST_INSTRS * ball_scan(r, ns, xyz, new_xyz) + 3 * gi.numel(),
+                instrs=True)
+        del got, want
+    return rec
+
+
 def train_step_check(dev, cfg, label: str, chamfer_impl: str = "xla",
                      batch: int = TRAIN_BATCH, T: int = T_STEPS, **impls):
     """Phase 11, one configuration: a train step at ``batch`` scenes through
     the kernels and through the plain versions, from the same weights, t,
     noise and dropout keep-mask.  Returns (launch counts of the kernel
     step, {loss, grad, param} errors, ms per kernel step over TRAIN_STEPS
-    steps after the compared one, peak GiB of the kernel steps)."""
+    steps after the compared one, peak GiB of the kernel steps).  A bf16
+    configuration (``cfg.dtype``) measures its gradients by each leaf's
+    relative 2-norm and its parameters where the gradient exceeds 5e-2 of
+    the leaf's largest entry (TRAIN_BF16_*)."""
     import torch
 
     from lsdm_tpu_torch import kernels
@@ -981,19 +1150,29 @@ def train_step_check(dev, cfg, label: str, chamfer_impl: str = "xla",
     del pstate
     if not all(torch.isfinite(t).all() for t in grads_k.values()):
         raise AssertionError(f"{label}: non-finite gradients")
-    grad_err, param_err, noise = 0.0, 0.0, 0
-    floor = 1e-3 * max(g.abs().max().item() for g in grads_p.values())
+    bf16 = cfg.dtype == "bfloat16"
+    grad_err, param_err, noise, worst = 0.0, 0.0, 0, {"grad": "", "param": ""}
+    norm = (lambda t: t.norm().item()) if bf16 else (lambda t: t.abs().max().item())
+    floor = 1e-3 * max(norm(g) for g in grads_p.values())
     for n, gp in grads_p.items():
-        scale = gp.abs().max().item()
+        scale = norm(gp)
         # a leaf whose gradient is rounding noise (a conv bias ahead of a
         # train-mode BatchNorm: ~1e-14) is held to 1e-3 of the largest
-        grad_err = max(grad_err, (grads_k[n] - gp).abs().max().item() / max(scale, floor))
-        real = gp.abs() > 1e-4 * scale  # not rounding noise
+        e = norm(grads_k[n] - gp) / max(scale, floor)
+        if e > grad_err:
+            grad_err, worst["grad"] = e, n
+        real = gp.abs() > (5e-2 if bf16 else 1e-4) * gp.abs().max()  # not noise
+        if bf16 and scale < floor:  # a leaf of bf16 rounding noise
+            real = torch.zeros_like(real)
         noise += int((~real).sum())
         if real.any():
-            param_err = max(param_err, (params_k[n] - params_p[n])[real].abs().max().item())
+            e = (params_k[n] - params_p[n])[real].abs().max().item()
+            if e > param_err:
+                param_err, worst["param"] = e, n
     errs = {"loss": abs(loss_k - loss_p) / abs(loss_p), "grad": grad_err,
             "param": param_err}
+    gates = ((TRAIN_BF16_LOSS_RTOL, TRAIN_BF16_GRAD_RTOL, TRAIN_BF16_PARAM_ATOL)
+             if bf16 else (TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_PARAM_ATOL))
     peak = _reset_peak(dev)
     sec = []
     for _ in range(TRAIN_STEPS):
@@ -1005,17 +1184,23 @@ def train_step_check(dev, cfg, label: str, chamfer_impl: str = "xla",
     ms = [x * 1e3 for x in sec]
     print(f"train step {label} B={batch} ({batch * cfg.max_objs} clouds of "
           f"{cfg.pcd_points}): loss {loss_k:.6f} (plain {loss_p:.6f}); errors "
-          f"{errs} (tolerances loss {TRAIN_LOSS_RTOL}, grad {TRAIN_GRAD_RTOL}, "
-          f"param {TRAIN_PARAM_ATOL}; {noise} gradient entries below 1e-4 of "
-          f"their leaf's max left out of the parameter check); step ms "
-          f"{[round(x, 3) for x in ms]}; peak {peak():.2f} GiB; launches {launches}")
+          f"{errs} (tolerances loss {gates[0]}, grad {gates[1]}, "
+          f"param {gates[2]}; {noise} gradient entries below "
+          f"{5e-2 if bf16 else 1e-4} of their leaf's max left out of the parameter "
+          f"check; worst leaves {worst}); step ms {[round(x, 3) for x in ms]}; "
+          f"peak {peak():.2f} GiB; launches {launches}")
+    if errs["loss"] > gates[0] or errs["grad"] > gates[1] or errs["param"] > gates[2]:
+        raise AssertionError(f"train step {label} disagrees with its plain versions")
     return launches, errs, ms, peak()
 
 
-def train_cli_phase(dev, points: int = 1024, T: int = T_STEPS) -> dict:
+def train_cli_phase(dev, points: int = 1024, T: int = T_STEPS,
+                    dtype_args=()) -> dict:
     """Phase 12: the port's train_sdm on a synthetic proxd split (12 train
     sequences: 2 steps of batch 6; 2 validation sequences), one epoch with
-    validation, then ``final.pt`` read back.  Returns the launch counts."""
+    validation, then ``final.pt`` read back into a float32 model.  With
+    ``dtype_args`` (``--dtype bfloat16 --bn_dtype bfloat16``) the bf16 run.
+    Returns the launch counts."""
     import torch
 
     from lsdm_tpu_torch import kernels
@@ -1036,25 +1221,30 @@ def train_cli_phase(dev, points: int = 1024, T: int = T_STEPS) -> dict:
             "--train_data_dir", train, "--valid_data_dir", valid,
             "--objs_data_dir", os.path.join(root, "objs"), "--save_dir", out,
             "--epochs", "1", "--eval_every", "1", "--diffusion_steps", str(T),
-            "--pcd_points", str(points), "--device", str(dev)])
+            "--pcd_points", str(points), "--device", str(dev), *dtype_args])
         sec = time.perf_counter() - t0
         launches = _launches()
         names = sorted(f for f in os.listdir(out) if f.endswith(".pt"))
         if names != ["best_model_cfd.pt", "best_model_train_loss.pt",
                      "epoch_0000.pt", "final.pt"]:
             raise AssertionError(f"checkpoints written: {names}")
-        back = SceneDiffusionModel(state.model.cfg)
+        back = SceneDiffusionModel(dataclasses.replace(
+            state.model.cfg, dtype="float32", bn_dtype="float32"))
         extra = load_torch_checkpoint(os.path.join(out, "final.pt"), back)
         for n, t in state.model.state_dict().items():
             if not torch.equal(back.state_dict()[n], t.cpu()):
                 raise AssertionError(f"final.pt: {n} differs from the trained model")
         with open(os.path.join(out, "logs", "events.jsonl")) as f:
             logged = {k for line in f for k in json.loads(line) if "/" in k}
-        if not {"train/loss", "valid/cfd"} <= logged:
-            raise AssertionError(f"logged {sorted(logged)}")
-    print(f"CLI train_sdm, 12 synthetic sequences of {points} points, batch 6, "
-          f"1 epoch + validation (T={T}) on {dev}: {sec:.1f} s; {state.step} "
-          f"steps; final.pt read back equal ({extra}); launches {launches}")
+        with open(os.path.join(out, "logs", "events.jsonl")) as f:
+            losses = [json.loads(line).get("train/loss") for line in f]
+        if not {"train/loss", "valid/cfd"} <= logged or not all(
+                math.isfinite(x) for x in losses if x is not None):
+            raise AssertionError(f"logged {sorted(logged)}, train losses {losses}")
+    print(f"CLI train_sdm {' '.join(dtype_args)}, 12 synthetic sequences of "
+          f"{points} points, batch 6, 1 epoch + validation (T={T}) on {dev}: "
+          f"{sec:.1f} s; {state.step} steps; final.pt read back equal into a "
+          f"float32 model ({extra}); launches {launches}")
     return launches
 
 
@@ -1748,8 +1938,11 @@ def _check_launches(path: str, launches: dict) -> None:
         raise AssertionError(f"the fused path ran K9: {launches}")
     if path == "step" and launches["denoise_chain"]:
         raise AssertionError(f"the step path ran K6: {launches}")
-    if path == "train_sg" and launches["ball_query"]:
+    if path in ("train_sg", "train_bf16_sg") and launches["ball_query"]:
         raise AssertionError(f"the sg train step ran K1: {launches}")
+    if "bf16" in path and any(launches[k] for k in NOT_ON_BF16_PATHS):
+        raise AssertionError(f"the {path} path ran a float32 or fused kernel: "
+                             f"{launches}")
 
 
 def build_models(cfg, dev):
@@ -1787,6 +1980,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full fp32
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products summed in float32, as JAX sums them (no bf16 split-K)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda", 0)
     print(_card())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1864,6 +2059,7 @@ def main() -> int:
     from lsdm_tpu_torch.models.sampling import resolve_train_attn_impl
 
     records.update(train_kernel_checks(dev, model))
+    records.update(bf16_kernel_checks(dev, model))
     # K1-K4 at the train step's clouds, beside their sampling-path records
     for name, r in records.pop("train_shapes").items():
         records[name][f"train_b{TRAIN_BATCH}"] = _kernel_record(r)
@@ -1874,6 +2070,7 @@ def main() -> int:
     # ball_impl "auto": the selection kernels K1, K2, K3
     train_cfg = dataclasses.replace(
         cfg, attn_impl=resolve_train_attn_impl("auto", dev))
+    steps = {}  # label: (best ms/step, peak GiB)
     for path, label, chamfer_impl, impls in (
             ("train", "default", "xla", {}),
             ("train_sg", "ball_impl=sg", "xla", {"ball_impl": "sg"}),
@@ -1882,13 +2079,32 @@ def main() -> int:
             dev, train_cfg, label, chamfer_impl, **impls)
         _check_launches(path, step_launches)
         launches[path] = step_launches
-        if (errs["loss"] > TRAIN_LOSS_RTOL or errs["grad"] > TRAIN_GRAD_RTOL
-                or errs["param"] > TRAIN_PARAM_ATOL):
-            raise AssertionError(f"train step {label} disagrees with its plain versions")
+        steps[label] = (min(step_ms), peak)
         print(f"train step {label} at B={TRAIN_BATCH}: {min(step_ms):.1f} ms/step, "
               f"{TRAIN_BATCH * 1e3 / min(step_ms):.1f} scenes/s, peak memory "
               f"{peak:.2f} GiB")
+    # the bf16 train steps, beside the float32 ones of this call
+    for path, label, impls in (
+            ("train_bf16", "bf16 bn_dtype=float32", {"bn_dtype": "float32"}),
+            ("train_bf16", "bf16 bn_dtype=bfloat16", {"bn_dtype": "bfloat16"}),
+            ("train_bf16_sg", "bf16 bn_dtype=float32 ball_impl=sg",
+             {"bn_dtype": "float32", "ball_impl": "sg"}),
+            ("train_bf16_sg", "bf16 bn_dtype=bfloat16 ball_impl=sg",
+             {"bn_dtype": "bfloat16", "ball_impl": "sg"})):
+        step_launches, errs, step_ms, peak = train_step_check(
+            dev, train_cfg, label, dtype="bfloat16", **impls)
+        _check_launches(path, step_launches)
+        launches[path] = {k: launches.get(path, {}).get(k, 0) + n
+                          for k, n in step_launches.items()}
+        f32 = steps["ball_impl=sg" if "sg" in label else "default"]
+        print(f"train step {label} at B={TRAIN_BATCH}: {min(step_ms):.1f} ms/step "
+              f"({TRAIN_BATCH * 1e3 / min(step_ms):.1f} scenes/s), peak memory "
+              f"{peak:.2f} GiB; float32 in this call {f32[0]:.1f} ms/step, "
+              f"{f32[1]:.2f} GiB")
     _check_launches("train_cli", train_cli_phase(dev))
+    _check_launches("train_cli_bf16", train_cli_phase(
+        dev, T=BF16_CLI_STEPS, dtype_args=("--dtype", "bfloat16", "--bn_dtype",
+                                           "bfloat16")))
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

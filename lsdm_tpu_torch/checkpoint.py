@@ -23,7 +23,7 @@ _SKIPPED = ("clip_model.", "text_encoder_model.")
 
 # the training state train/checkpoint.py writes beside the model
 TRAIN_STATE_KEYS = ("model_state_dict", "optimizer_state_dict", "step",
-                    "ema_state_dict")
+                    "updates", "ema_state_dict")
 
 
 def read_checkpoint(path: str, model: nn.Module) -> Dict[str, Any]:

@@ -34,6 +34,13 @@ class SDMConfig:
     # "auto" skips FPS where it would select every point (sa1 at N=1024);
     # "exact" always runs it
     fps_mode: str = "auto"
+    # compute dtype of the denoiser and both backbones: "float32" or
+    # "bfloat16" (flax's casts: parameters stay float32, every Dense casts
+    # its input, weight and bias; models/common.py:compute_dtype)
+    dtype: str = "float32"
+    # the PointNet++ BatchNorms' output dtype; their statistics and
+    # normalisation stay float32 (flax's promotion)
+    bn_dtype: str = "float32"
     # "auto" / "pallas": the hand-written selection kernels for CUDA
     # tensors, their plain versions for CPU tensors; "topk": the plain
     # versions on any device; "fused": the fused eval stage kernels K7/K8

@@ -38,9 +38,21 @@
 //   1024-term Kahan sums, about as accurate and without their 8
 //   instructions a pair.  No atomics: the same bits from run to run.
 // out = (sum e v) / (sum e), the denominator sum e.
+//
+// bf16 mode (the JAX kernel's compute_dtype=bfloat16, attn_pallas.py:43-56):
+// q, k and v are bf16 in memory, half the bytes, read as float32, and every
+// weight w = e / Z is rounded to bf16 before its product with v, the sum
+// of the products accumulating in float32; the output and the denominators
+// stay float32.  A weight needs its row's Z first, so the block sweeps its
+// keys twice: the first sweep sums e as the float32 mode does (the same
+// denominators), the second recomputes each e and adds bf16(e / Z) v with
+// one FMA (rank1_attn.cuh's bf16_weight, which K5 shares).  Two
+// exponentials a pair, twice the float32 mode's SFU bound.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "rank1_attn.cuh"
 
@@ -53,14 +65,42 @@ constexpr int kChunk = kThreads * kKeys;     // keys a block holds at once
 constexpr int kRows = 128;                   // query rows a block
 constexpr int kRowTile = rank1::kRowTile;
 
-// kMasked: the last key chunk is ragged; a missing key's argument is -inf,
-// so its e is 0 and it adds nothing.
+// This thread's keys of the chunk from c0: k and v, and whether each exists.
+template <bool kMasked, typename T>
+__device__ __forceinline__ void load_keys(const T* __restrict__ k,
+                                          const T* __restrict__ v, int b,
+                                          int s, int h, int hh, int c0,
+                                          float (&kk)[kKeys],
+                                          float (&vv)[kKeys],
+                                          bool (&ok)[kKeys]) {
+#pragma unroll
+  for (int j = 0; j < kKeys; ++j) {
+    const int key = c0 + j * kThreads + threadIdx.x;
+    ok[j] = !kMasked || key < s;
+    kk[j] = ok[j] ? rank1::to_f32(k[((size_t)b * s + key) * h + hh]) : 0.0f;
+    vv[j] = ok[j] ? rank1::to_f32(v[((size_t)b * s + key) * h + hh]) : 0.0f;
+  }
+}
+
+// The exponential of a pair: e = exp(q k - m) by one ex2.approx; a missing
+// key's argument is -inf, so its e is 0 and it adds nothing.
 template <bool kMasked>
+__device__ __forceinline__ float pair_exp(float2 rd, float kj, bool ok) {
+  float arg = rank1::pair_arg(rd.x, kj, rd.y);
+  if (kMasked && !ok) arg = -INFINITY;
+  return rank1::ex2_approx(arg);
+}
+
+// kMasked: the last key chunk is ragged.  T: float (the float32 mode) or
+// __nv_bfloat16 (the bf16 mode).
+template <bool kMasked, typename T>
 __global__ void __launch_bounds__(kThreads)
-rank1_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, int l, int s, int h,
+rank1_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, int l, int s, int h,
                   float* __restrict__ out, float* __restrict__ denom) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   __shared__ float2 rows[kRows];  // q, m
+  __shared__ float rz[kBf16 ? kRows : 1];  // bf16 mode: each row's 1 / Z
   __shared__ float red_e[kWarps][kRows], red_v[kWarps][kRows];
   __shared__ float red_max[kWarps], red_min[kWarps];
   const int tile = blockIdx.x, hh = blockIdx.y, b = blockIdx.z;
@@ -75,7 +115,7 @@ rank1_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = tid; i < rp; i += kThreads) {
     float2 r = make_float2(0.0f, 0.0f);
     if (i < nr) {
-      const float qv = q[((size_t)b * l + r0 + i) * h + hh];
+      const float qv = rank1::to_f32(q[((size_t)b * l + r0 + i) * h + hh]);
       r = make_float2(qv, qv >= 0.0f ? __fmul_rn(qv, kmax) : __fmul_rn(qv, kmin));
     }
     rows[i] = r;
@@ -83,40 +123,73 @@ rank1_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __syncthreads();
 
   const int rsel = rank1::row_of_lane(lane);
-  for (int c0 = 0; c0 < s; c0 += kChunk) {
-    float kk[kKeys], vv[kKeys];
-    bool ok[kKeys];
+  float kk[kKeys], vv[kKeys];
+  bool ok[kKeys];
+  if constexpr (kBf16) {
+    // first sweep: the denominators, summed as the float32 mode sums them
+    for (int c0 = 0; c0 < s; c0 += kChunk) {
+      load_keys<kMasked>(k, v, b, s, h, hh, c0, kk, vv, ok);
+      for (int rt = 0; rt < rp; rt += kRowTile) {
+        float ae[kRowTile];
 #pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      const int key = c0 + j * kThreads + tid;
-      ok[j] = !kMasked || key < s;
-      kk[j] = ok[j] ? k[((size_t)b * s + key) * h + hh] : 0.0f;
-      vv[j] = ok[j] ? v[((size_t)b * s + key) * h + hh] : 0.0f;
+        for (int r = 0; r < kRowTile; ++r) {
+          const float2 rd = rows[rt + r];
+          float se = 0.0f;
+#pragma unroll
+          for (int j = 0; j < kKeys; ++j) {
+            const float e = pair_exp<kMasked>(rd, kk[j], ok[j]);
+            se = j == 0 ? e : se + e;
+          }
+          ae[r] = se;
+        }
+        const float te = rank1::reduce_rows(ae, lane);
+        if ((lane & 3) == 0) {
+          const int i = rt + rsel;
+          red_e[warp][i] = c0 == 0 ? te : red_e[warp][i] + te;
+        }
+      }
     }
+    __syncthreads();
+    for (int i = tid; i < rp; i += kThreads) {
+      float se = red_e[0][i];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) se += red_e[w][i];
+      rz[i] = __frcp_rn(se);
+      if (denom != nullptr && i < nr)
+        denom[((size_t)b * h + hh) * l + r0 + i] = se;
+    }
+    __syncthreads();
+  }
+  for (int c0 = 0; c0 < s; c0 += kChunk) {
+    load_keys<kMasked>(k, v, b, s, h, hh, c0, kk, vv, ok);
     for (int rt = 0; rt < rp; rt += kRowTile) {
       float ae[kRowTile], av[kRowTile];
 #pragma unroll
       for (int r = 0; r < kRowTile; ++r) {
         const float2 rd = rows[rt + r];
+        const float rzr = kBf16 ? rz[rt + r] : 0.0f;
         float se = 0.0f, sv = 0.0f;
 #pragma unroll
         for (int j = 0; j < kKeys; ++j) {
-          float arg = rank1::pair_arg(rd.x, kk[j], rd.y);
-          if (kMasked && !ok[j]) arg = -INFINITY;
-          const float e = rank1::ex2_approx(arg);
-          // the first key starts each sum (0 + e and fmaf(e, v, 0) would
-          // round to the same values, one instruction later)
-          se = j == 0 ? e : se + e;
-          sv = j == 0 ? __fmul_rn(e, vv[j]) : fmaf(e, vv[j], sv);
+          const float e = pair_exp<kMasked>(rd, kk[j], ok[j]);
+          if constexpr (kBf16) {
+            // bf16(e / Z) v is exact in float32: one FMA adds it
+            sv = fmaf(rank1::bf16_weight(e, rzr), vv[j], sv);
+          } else {
+            // the first key starts each sum (0 + e and fmaf(e, v, 0) would
+            // round to the same values, one instruction later)
+            se = j == 0 ? e : se + e;
+            sv = j == 0 ? __fmul_rn(e, vv[j]) : fmaf(e, vv[j], sv);
+          }
         }
         ae[r] = se;
         av[r] = sv;
       }
-      const float te = rank1::reduce_rows(ae, lane);
       const float tv = rank1::reduce_rows(av, lane);
+      const float te = kBf16 ? 0.0f : rank1::reduce_rows(ae, lane);
       if ((lane & 3) == 0) {
         const int i = rt + rsel;
-        red_e[warp][i] = c0 == 0 ? te : red_e[warp][i] + te;
+        if (!kBf16) red_e[warp][i] = c0 == 0 ? te : red_e[warp][i] + te;
         red_v[warp][i] = c0 == 0 ? tv : red_v[warp][i] + tv;
       }
     }
@@ -130,9 +203,30 @@ rank1_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
       se += red_e[w][i];
       sv += red_v[w][i];
     }
-    out[((size_t)b * l + r0 + i) * h + hh] = __fdiv_rn(sv, se);
-    if (denom != nullptr) denom[((size_t)b * h + hh) * l + r0 + i] = se;
+    if constexpr (kBf16) {
+      out[((size_t)b * l + r0 + i) * h + hh] = sv;
+    } else {
+      out[((size_t)b * l + r0 + i) * h + hh] = __fdiv_rn(sv, se);
+      if (denom != nullptr) denom[((size_t)b * h + hh) * l + r0 + i] = se;
+    }
   }
+}
+
+template <typename T>
+int launch_rank1_attn(const T* q, const T* k, const T* v, int b, int l, int s,
+                      int h, float* out, float* denom, void* stream) {
+  if (b <= 0 || l <= 0 || h <= 0) return 0;
+  if (s < 1 || b > 65535 || h > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((l + kRows - 1) / kRows, h, b);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (s % kChunk != 0) {
+    rank1_attn_kernel<true, T><<<grid, kThreads, 0, st>>>(q, k, v, l, s, h, out,
+                                                          denom);
+  } else {
+    rank1_attn_kernel<false, T><<<grid, kThreads, 0, st>>>(q, k, v, l, s, h,
+                                                           out, denom);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -144,18 +238,14 @@ extern "C" {
 int lsdm_rank1_attn(const float* q, const float* k, const float* v, int b,
                     int l, int s, int h, float* out, float* denom,
                     void* stream) {
-  if (b <= 0 || l <= 0 || h <= 0) return 0;
-  if (s < 1 || b > 65535 || h > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((l + kRows - 1) / kRows, h, b);
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (s % kChunk != 0) {
-    rank1_attn_kernel<true><<<grid, kThreads, 0, st>>>(q, k, v, l, s, h, out,
-                                                       denom);
-  } else {
-    rank1_attn_kernel<false><<<grid, kThreads, 0, st>>>(q, k, v, l, s, h, out,
-                                                        denom);
-  }
-  return (int)cudaGetLastError();
+  return launch_rank1_attn(q, k, v, b, l, s, h, out, denom, stream);
+}
+
+// The bf16 mode: q, k, v bf16, out and denom float32, as above.
+int lsdm_rank1_attn_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                         const __nv_bfloat16* v, int b, int l, int s, int h,
+                         float* out, float* denom, void* stream) {
+  return launch_rank1_attn(q, k, v, b, l, s, h, out, denom, stream);
 }
 
 }  // extern "C"

@@ -5,13 +5,36 @@
 // K4 keeps and the weights K5 recomputes from them come from the same
 // instruction sequence, and of the warp reduction both use to sum per-row
 // partials across the lanes that hold the keys.
+//
+// Both kernels have a bf16 mode (the JAX kernels' compute_dtype=bfloat16,
+// lsdm_tpu/ops/attn_pallas.py:43-56 and :86-134): q, k and v are bf16 in
+// memory and read as float32, and each softmax weight w = e / Z is rounded
+// to bf16 (round to nearest even) before every product, by bf16_weight,
+// the same sequence in both kernels, so the backward differentiates the
+// weights the forward used.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace rank1 {
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// The bf16 mode's weight: e times the row's 1 / Z (rz = __frcp_rn(Z)),
+// rounded to bf16 to nearest even, as a float.
+__device__ __forceinline__ float bf16_weight(float e, float rz) {
+  return __bfloat162float(__float2bfloat16_rn(__fmul_rn(e, rz)));
+}
 
 constexpr int kRowTile = 8;  // rows whose partials are reduced together
 constexpr float kLog2e = 1.4426950408889634f;
@@ -66,8 +89,8 @@ __device__ __forceinline__ int row_of_lane(int lane) {
 // kThreads / 32 floats of shared memory.  Ends with a block barrier.  The
 // row maximum of a rank-1 row is q max(k) for q >= 0 and q min(k)
 // otherwise, exactly the largest rounded logit: rounding is monotonic.
-template <int kThreads>
-__device__ __forceinline__ void key_range(const float* __restrict__ k, int b,
+template <int kThreads, typename T>
+__device__ __forceinline__ void key_range(const T* __restrict__ k, int b,
                                           int s, int h, int hh, float* red_max,
                                           float* red_min, float& kmax,
                                           float& kmin) {
@@ -75,7 +98,7 @@ __device__ __forceinline__ void key_range(const float* __restrict__ k, int b,
   kmax = -INFINITY;
   kmin = INFINITY;
   for (int j = tid; j < s; j += kThreads) {
-    const float kj = k[((size_t)b * s + j) * h + hh];
+    const float kj = to_f32(k[((size_t)b * s + j) * h + hh]);
     kmax = fmaxf(kmax, kj);
     kmin = fminf(kmin, kj);
   }

@@ -47,9 +47,20 @@
 // flagship, 54 clouds of 1024 points, 12 heads: >= 0.163 ms at 1.98
 // GHz), and, at nine FP32 instructions beside each, the instruction-issue
 // rate, about as slow.  The inputs and outputs are ~13 MB.
+//
+// bf16 mode (the JAX backward's compute_dtype=bfloat16, attn_pallas.py:
+// 86-134 and its custom VJP's casts, :191-196): q, k and v are bf16 in
+// memory and read as float32; the recomputed weight is rounded to bf16,
+// w = bf16(e / Z) by rank1_attn.cuh's bf16_weight (K4's sequence, so the
+// weights are the ones K4 multiplied v by), before every contraction:
+// p = w (g v - D), dq += p k, dk += p q, dv += w g, no division by Z after
+// it.  D = g out stays float32, and dq, dk and dv are stored as bf16,
+// rounded to nearest even once from their float32 sums.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "rank1_attn.cuh"
 
@@ -65,17 +76,20 @@ constexpr int kRowGroup = 32;  // rows summed into dk, dv before the running sum
 // kMasked: the last key tile is ragged.  A missing key holds k = v = 0 and
 // its base-2 argument is clamped to 0, so its e stays finite and its dq
 // contribution p * 0 is 0; its dk and dv are not stored.  (A real key's
-// argument is <= 0 anyway: q k <= m.)
-template <bool kMasked>
+// argument is <= 0 anyway: q k <= m.)  T: float (the float32 mode) or
+// __nv_bfloat16 (the bf16 mode), the type of q, k, v, dq, dk and dv.
+template <bool kMasked, typename T>
 __global__ void __launch_bounds__(kBwdThreads)
-rank1_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ out,
+rank1_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const float* __restrict__ out,
                  const float* __restrict__ g, const float* __restrict__ denom,
-                 int l, int lp, int s, int h, float* __restrict__ dq,
-                 float* __restrict__ dk, float* __restrict__ dv,
+                 int l, int lp, int s, int h, T* __restrict__ dq,
+                 T* __restrict__ dk, T* __restrict__ dv,
                  float* __restrict__ part) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   extern __shared__ float4 rows[];  // lp x {q, m, g, D}
-  float2* rows_n = reinterpret_cast<float2*>(rows + lp);  // lp x {q/Z, g/Z}
+  // lp x {q/Z, g/Z}; in the bf16 mode lp x {1/Z, unused}
+  float2* rows_n = reinterpret_cast<float2*>(rows + lp);
   float* red = reinterpret_cast<float*>(rows_n + lp);     // kBwdWarps x lp
   __shared__ float red_max[kBwdWarps], red_min[kBwdWarps];
   const int tile = blockIdx.x, hh = blockIdx.y, b = blockIdx.z;
@@ -89,11 +103,12 @@ rank1_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float2 rn = make_float2(0.0f, 0.0f);
     if (i < l) {
       const size_t at = ((size_t)b * l + i) * h + hh;
-      const float qv = q[at], gv = g[at];
+      const float qv = rank1::to_f32(q[at]), gv = g[at];
       const float z = denom[((size_t)b * h + hh) * l + i];
       r = make_float4(qv, qv >= 0.0f ? __fmul_rn(qv, kmax) : __fmul_rn(qv, kmin),
                       gv, __fmul_rn(gv, out[at]));
-      rn = make_float2(__fdiv_rn(qv, z), __fdiv_rn(gv, z));
+      rn = kBf16 ? make_float2(__frcp_rn(z), 0.0f)
+                 : make_float2(__fdiv_rn(qv, z), __fdiv_rn(gv, z));
     }
     rows[i] = r;
     rows_n[i] = rn;
@@ -106,8 +121,8 @@ rank1_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int j = 0; j < kKeysPerThread; ++j) {
     const int key = key0 + j * kBwdThreads;
     const bool ok = !kMasked || key < s;
-    kk[j] = ok ? k[((size_t)b * s + key) * h + hh] : 0.0f;
-    vv[j] = ok ? v[((size_t)b * s + key) * h + hh] : 0.0f;
+    kk[j] = ok ? rank1::to_f32(k[((size_t)b * s + key) * h + hh]) : 0.0f;
+    vv[j] = ok ? rank1::to_f32(v[((size_t)b * s + key) * h + hh]) : 0.0f;
     dks[j] = 0.0f;
     dvs[j] = 0.0f;
   }
@@ -124,17 +139,25 @@ rank1_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int r = 0; r < kRowTile; ++r) {
         const float4 rd = rows[rt + r];  // q, m, g, D
-        const float2 rn = rows_n[rt + r];  // q / Z, g / Z
+        const float2 rn = rows_n[rt + r];  // q / Z, g / Z (bf16 mode: 1 / Z)
         float a = 0.0f;
 #pragma unroll
         for (int j = 0; j < kKeysPerThread; ++j) {
           float arg = rank1::pair_arg(rd.x, kk[j], rd.y);
           if (kMasked) arg = fminf(arg, 0.0f);
           const float e = rank1::ex2_approx(arg);
-          const float p = __fmul_rn(e, __fsub_rn(__fmul_rn(rd.z, vv[j]), rd.w));
-          a = fmaf(p, kk[j], a);
-          dkg[j] = fmaf(p, rn.x, dkg[j]);
-          dvg[j] = fmaf(e, rn.y, dvg[j]);
+          if constexpr (kBf16) {
+            const float w = rank1::bf16_weight(e, rn.x);
+            const float p = __fmul_rn(w, __fsub_rn(__fmul_rn(rd.z, vv[j]), rd.w));
+            a = fmaf(p, kk[j], a);
+            dkg[j] = fmaf(p, rd.x, dkg[j]);
+            dvg[j] = fmaf(w, rd.z, dvg[j]);
+          } else {
+            const float p = __fmul_rn(e, __fsub_rn(__fmul_rn(rd.z, vv[j]), rd.w));
+            a = fmaf(p, kk[j], a);
+            dkg[j] = fmaf(p, rn.x, dkg[j]);
+            dvg[j] = fmaf(e, rn.y, dvg[j]);
+          }
         }
         acc[r] = a;
       }
@@ -153,16 +176,16 @@ rank1_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int key = key0 + j * kBwdThreads;
     if (kMasked && key >= s) continue;
     const size_t at = ((size_t)b * s + key) * h + hh;
-    dk[at] = dks[j];
-    dv[at] = dvs[j];
+    rank1::store(dk + at, dks[j]);
+    rank1::store(dv + at, dvs[j]);
   }
   __syncthreads();
   for (int i = tid; i < l; i += kBwdThreads) {
     float t = red[i];
     for (int w = 1; w < kBwdWarps; ++w) t += red[w * lp + i];
-    t = __fdiv_rn(t, denom[((size_t)b * h + hh) * l + i]);
+    if (!kBf16) t = __fdiv_rn(t, denom[((size_t)b * h + hh) * l + i]);
     if (part == nullptr) {
-      dq[((size_t)b * l + i) * h + hh] = t;
+      rank1::store(dq + ((size_t)b * l + i) * h + hh, t);
     } else {
       part[(((size_t)tile * gridDim.z + b) * h + hh) * l + i] = t;
     }
@@ -170,9 +193,10 @@ rank1_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // dq from the key tiles' partials, added in tile order.
+template <typename T>
 __global__ void rank1_bwd_dq_kernel(const float* __restrict__ part, int tiles,
                                     int bsz, int l, int h,
-                                    float* __restrict__ dq) {
+                                    T* __restrict__ dq) {
   const size_t n = (size_t)bsz * l * h;
   const size_t stride = (size_t)bsz * h * l;  // one tile's partials
   for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
@@ -184,8 +208,47 @@ __global__ void rank1_bwd_dq_kernel(const float* __restrict__ part, int tiles,
     const size_t at = (b * h + hh) * l + i;
     float t = part[at];
     for (int tt = 1; tt < tiles; ++tt) t += part[tt * stride + at];
-    dq[e] = t;
+    rank1::store(dq + e, t);
   }
+}
+
+template <typename T>
+int launch_rank1_attn_bwd(const T* q, const T* k, const T* v, const float* out,
+                          const float* g, const float* denom, int b, int l,
+                          int s, int h, T* dq, T* dk, T* dv, float* scratch,
+                          void* stream) {
+  if (b <= 0 || l <= 0 || h <= 0 || s <= 0) return 0;
+  if (b > 65535 || h > 65535) return (int)cudaErrorInvalidValue;
+  const int lp = (l + kRowTile - 1) / kRowTile * kRowTile;
+  const size_t smem = sizeof(float) * (size_t)lp * (4 + 2 + kBwdWarps);
+  const int tiles = (s + kKeysPerBlock - 1) / kKeysPerBlock;
+  const bool masked = s % kKeysPerBlock != 0;
+  float* part = tiles > 1 ? scratch : nullptr;
+  if (tiles > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid(tiles, h, b);
+  cudaError_t err;
+  if (masked) {
+    err = cudaFuncSetAttribute(rank1_bwd_kernel<true, T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    rank1_bwd_kernel<true, T><<<grid, kBwdThreads, smem, st>>>(
+        q, k, v, out, g, denom, l, lp, s, h, dq, dk, dv, part);
+  } else {
+    err = cudaFuncSetAttribute(rank1_bwd_kernel<false, T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    rank1_bwd_kernel<false, T><<<grid, kBwdThreads, smem, st>>>(
+        q, k, v, out, g, denom, l, lp, s, h, dq, dk, dv, part);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || tiles == 1) return (int)err;
+  const size_t n = (size_t)b * l * h;
+  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+  rank1_bwd_dq_kernel<T><<<blocks, 256, 0, st>>>(part, tiles, b, l, h, dq);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -206,38 +269,20 @@ int lsdm_rank1_attn_bwd(const float* q, const float* k, const float* v,
                         const float* out, const float* g, const float* denom,
                         int b, int l, int s, int h, float* dq, float* dk,
                         float* dv, float* scratch, void* stream) {
-  if (b <= 0 || l <= 0 || h <= 0 || s <= 0) return 0;
-  if (b > 65535 || h > 65535) return (int)cudaErrorInvalidValue;
-  const int lp = (l + kRowTile - 1) / kRowTile * kRowTile;
-  const size_t smem = sizeof(float) * (size_t)lp * (4 + 2 + kBwdWarps);
-  const int tiles = lsdm_rank1_attn_bwd_tiles(s);
-  const bool masked = s % kKeysPerBlock != 0;
-  float* part = tiles > 1 ? scratch : nullptr;
-  if (tiles > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid(tiles, h, b);
-  cudaError_t err;
-  if (masked) {
-    err = cudaFuncSetAttribute(rank1_bwd_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    rank1_bwd_kernel<true><<<grid, kBwdThreads, smem, st>>>(
-        q, k, v, out, g, denom, l, lp, s, h, dq, dk, dv, part);
-  } else {
-    err = cudaFuncSetAttribute(rank1_bwd_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    rank1_bwd_kernel<false><<<grid, kBwdThreads, smem, st>>>(
-        q, k, v, out, g, denom, l, lp, s, h, dq, dk, dv, part);
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess || tiles == 1) return (int)err;
-  const size_t n = (size_t)b * l * h;
-  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
-  rank1_bwd_dq_kernel<<<blocks, 256, 0, st>>>(part, tiles, b, l, h, dq);
-  return (int)cudaGetLastError();
+  return launch_rank1_attn_bwd(q, k, v, out, g, denom, b, l, s, h, dq, dk, dv,
+                               scratch, stream);
+}
+
+// The bf16 mode: q, k, v and dq, dk, dv bf16; out, g, denom and the
+// scratch float32, as above.
+int lsdm_rank1_attn_bwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                             const __nv_bfloat16* v, const float* out,
+                             const float* g, const float* denom, int b, int l,
+                             int s, int h, __nv_bfloat16* dq,
+                             __nv_bfloat16* dk, __nv_bfloat16* dv,
+                             float* scratch, void* stream) {
+  return launch_rank1_attn_bwd(q, k, v, out, g, denom, b, l, s, h, dq, dk, dv,
+                               scratch, stream);
 }
 
 }  // extern "C"

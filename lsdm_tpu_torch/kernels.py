@@ -51,7 +51,10 @@ SMEM_MAX = 232_448
 LAUNCHES = {"ball_query": 0, "three_nn": 0, "fps": 0, "denoise_chain": 0,
             "rank1_attn": 0, "sa_fused": 0, "fp_fused": 0,
             "rank1_attn_bwd": 0, "select_gather": 0, "chamfer_nn": 0,
-            "denoise_step": 0}
+            "denoise_step": 0,
+            # the bf16 modes of K4, K5 and K10, counted apart
+            "rank1_attn_bf16": 0, "rank1_attn_bwd_bf16": 0,
+            "select_gather_bf16": 0}
 GRAPH_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 
 _P = ctypes.c_void_p
@@ -78,8 +81,10 @@ _SIGNATURES = {
     "lsdm_denoise_step_max_clusters": (_P, _I),
     # (cudaGraph_t, counts[3]): kernel nodes, K9's u2 and tile nodes
     "lsdm_graph_kernel_nodes": (_P, _P),
-    # (q, k, v, B, L, S, H, out, denom or null, stream)
+    # (q, k, v, B, L, S, H, out, denom or null, stream); the _bf16 entry
+    # takes bf16 q, k, v
     "lsdm_rank1_attn": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "lsdm_rank1_attn_bf16": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     # (xyz, new_xyz, z1, w1x, params[2(L-1)], widths[L], L, B, N, S,
     #  radius2, nsample, plan, out, stream)
     "lsdm_sa_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P,
@@ -88,14 +93,20 @@ _SIGNATURES = {
     #  S, D1, D2, plan, out, stream)
     "lsdm_fp_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
                       _P, _P),
-    # (q, k, v, out, g, denom, B, L, S, H, dq, dk, dv, scratch, stream)
+    # (q, k, v, out, g, denom, B, L, S, H, dq, dk, dv, scratch, stream);
+    # the _bf16 entry takes bf16 q, k, v and writes bf16 dq, dk, dv
     "lsdm_rank1_attn_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                             _P, _P),
+    "lsdm_rank1_attn_bwd_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                                 _P, _P, _P),
     # (S) -> key tiles of one (cloud, head)
     "lsdm_rank1_attn_bwd_tiles": (_I,),
     # (xyz, new_xyz, base, B, N, S, C, radius2, nsample, centers a warp,
-    #  out, idx, stream)
+    #  out, idx, stream); the _bf16 entry takes a bf16 base and writes a
+    #  bf16 out
     "lsdm_select_gather": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P),
+    "lsdm_select_gather_bf16": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P,
+                                _P),
     # (x, y, B, N, M, lanes a point, points a lane, min, argmin, stream)
     "lsdm_chamfer_nn": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
 }

@@ -34,6 +34,17 @@ centers, and the ``"pallas"`` path elsewhere, as the JAX package's gate
 does.  In training an FP stage on the kernel path recomputes its 3-NN
 distances differentiably at the kernel's indices
 (``ops/pointcloud.py:three_nn_interpolate``).
+
+``dtype`` (bf16) and ``bn_dtype`` are the JAX module's: each 1x1
+convolution casts its input, weight and bias to ``dtype`` and returns it;
+an SA stage casts its gathered columns ``[xyz, features]`` to ``dtype``
+before the gather (K10's bf16 mode under ``"sg"``) and subtracts the
+center rounded to it; each BatchNorm computes its statistics and its
+normalisation in float32 from the ``dtype`` input, keeps its running
+statistics float32 and returns ``bn_dtype`` (flax's promotion); an FP
+stage interpolates in float32 from its sources' features.  bf16 runs
+only the ``"pallas"``, ``"topk"`` and ``"sg"`` paths: the fused stages'
+bf16 modes (K7, K8) are not ported.
 """
 
 from __future__ import annotations
@@ -44,6 +55,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from lsdm_tpu_torch.ops.attention import linear, wide
 from lsdm_tpu_torch.ops.fp_fused import fp_stage_fused_kernel
 from lsdm_tpu_torch.ops.pointcloud import (
     farthest_point_sample, index_points, query_ball_point, three_nn_interpolate)
@@ -57,49 +69,67 @@ HEAD_ACTS = ("relu", "none")  # the head's ReLU, then conv2 with none
 
 
 class Conv1x1(nn.Module):
-    """A 1x1 Conv1d/Conv2d parameter set, applied to channel-last input."""
+    """A 1x1 Conv1d/Conv2d parameter set, applied to channel-last input,
+    computing in ``dtype`` (None: the parameters' own)."""
 
-    def __init__(self, in_channels: int, out_channels: int, spatial_dims: int):
+    def __init__(self, in_channels: int, out_channels: int, spatial_dims: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels, *([1] * spatial_dims)))
         self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.compute_dtype = dtype
         bound = in_channels ** -0.5
         nn.init.uniform_(self.weight, -bound, bound)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.reshape(self.weight.shape[0], -1),
-                        self.bias)
+        return linear(x, self.weight.reshape(self.weight.shape[0], -1),
+                      self.bias, self.compute_dtype)
 
 
-def bn_eval(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
+def _bn_out(y: torch.Tensor, out_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    return y if out_dtype is None else y.to(out_dtype)
+
+
+def bn_eval(bn: nn.BatchNorm1d, x: torch.Tensor,
+            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Running-statistics BatchNorm over the trailing channel axis, in
-    flax's order: (x - mean) * (scale * rsqrt(var + eps)) + bias."""
+    flax's order: (x - mean) * (scale * rsqrt(var + eps)) + bias, in at
+    least float32, returned in ``out_dtype`` (None: as computed)."""
     mul = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
-    return (x - bn.running_mean) * mul + bn.bias
+    return _bn_out((x - bn.running_mean) * mul + bn.bias, out_dtype)
 
 
-def bn_train(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
+def bn_train(bn: nn.BatchNorm1d, x: torch.Tensor,
+             out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """flax ``BatchNorm(momentum=0.9)`` in training, over the trailing
     channel axis: the statistics run over every other axis, the variance
     is flax's fast one, ``max(0, E[x^2] - E[x]^2)`` (biased), and the
     running statistics become ``0.9 * running + 0.1 * batch`` with that
     biased variance (torch's ``batch_norm`` would take a two-pass variance
-    and update with the unbiased one).  Normalises in flax's order."""
+    and update with the unbiased one).  Normalises in flax's order and
+    returns ``out_dtype`` (None: as computed).  A bf16 ``x`` is widened to
+    float32 for the statistics and, apart, for the normalisation, as flax
+    promotes it, so its gradient is the two paths' gradients each rounded
+    to bf16 and summed in bf16, as JAX's is."""
+    xs = wide(x)
     dims = tuple(range(x.dim() - 1))
-    mean = x.mean(dim=dims)
-    var = torch.clamp_min((x * x).mean(dim=dims) - mean * mean, 0.0)
+    mean = xs.mean(dim=dims)
+    var = torch.clamp_min((xs * xs).mean(dim=dims) - mean * mean, 0.0)
     with torch.no_grad():
         bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean
                               + (1 - BN_MOMENTUM) * mean)
         bn.running_var.copy_(BN_MOMENTUM * bn.running_var
                              + (1 - BN_MOMENTUM) * var)
         bn.num_batches_tracked += 1
-    return (x - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
+    return _bn_out((wide(x) - mean) * (torch.rsqrt(var + bn.eps) * bn.weight)
+                   + bn.bias, out_dtype)
 
 
-def bn_relu(bn: nn.BatchNorm1d, x: torch.Tensor, training: bool) -> torch.Tensor:
-    return F.relu(bn_train(bn, x) if training else bn_eval(bn, x))
+def bn_relu(bn: nn.BatchNorm1d, x: torch.Tensor, training: bool,
+            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    return F.relu(bn_train(bn, x, out_dtype) if training
+                  else bn_eval(bn, x, out_dtype))
 
 
 def fold_mlp(stage: nn.Module) -> List[Tuple[torch.Tensor, torch.Tensor]]:
@@ -123,16 +153,18 @@ class PointNetSetAbstraction(nn.Module):
 
     def __init__(self, npoint: int, radius: float, nsample: int,
                  in_channel: int, mlp: Sequence[int], fps_mode: str = "auto",
-                 impl: str = "pallas"):
+                 impl: str = "pallas", dtype: Optional[torch.dtype] = None,
+                 bn_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
         self.fps_mode, self.impl = fps_mode, impl
+        self.compute_dtype, self.bn_dtype = dtype, bn_dtype
         self.sel = "pallas" if impl in ("fused", "sg") else impl  # selection ops
         self.mlp_convs = nn.ModuleList()
         self.mlp_bns = nn.ModuleList()
         last = in_channel
         for out in mlp:
-            self.mlp_convs.append(Conv1x1(last, out, 2))
+            self.mlp_convs.append(Conv1x1(last, out, 2, dtype))
             self.mlp_bns.append(nn.BatchNorm1d(out, eps=BN_EPS))
             last = out
 
@@ -152,44 +184,54 @@ class PointNetSetAbstraction(nn.Module):
             base = torch.cat([xyz, points], dim=-1)
             return new_xyz, sa_stage_fused_kernel(
                 self.radius, nsample, xyz, new_xyz, base, fold_mlp(self))
+        # the gathered columns, in the compute dtype before the gather
+        base = None if points is None else self._cast(torch.cat([xyz, points], dim=-1))
         if (self.impl == "sg" and points is not None
                 and new_xyz.shape[1] % 8 == 0):
             # selection + gather + center-relative xyz as one kernel (K10)
-            new_points = select_gather_grouped(
-                self.radius, nsample, xyz, new_xyz,
-                torch.cat([xyz, points], dim=-1))
+            new_points = select_gather_grouped(self.radius, nsample, xyz,
+                                               new_xyz, base.contiguous())
             return new_xyz, self._mlp_max(new_points)
         idx = query_ball_point(self.radius, nsample, xyz, new_xyz,
                                impl=self.sel)
         if points is not None:
             # one gather of the concatenated columns (== gather then concat)
-            grouped = index_points(torch.cat([xyz, points], dim=-1), idx)
+            grouped = index_points(base, idx)
+            center = new_xyz[:, :, None, :].to(grouped.dtype)
             new_points = torch.cat(
-                [grouped[..., :C] - new_xyz[:, :, None, :], grouped[..., C:]],
-                dim=-1)
+                [grouped[..., :C] - center, grouped[..., C:]], dim=-1)
         else:
             new_points = index_points(xyz, idx) - new_xyz[:, :, None, :]
         return new_xyz, self._mlp_max(new_points)
 
+    def _cast(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.compute_dtype is None else t.to(self.compute_dtype)
+
     def _mlp_max(self, new_points: torch.Tensor) -> torch.Tensor:
         for conv, bn in zip(self.mlp_convs, self.mlp_bns):
-            new_points = bn_relu(bn, conv(new_points), self.training)
-        return new_points.max(dim=2).values  # max over the K samples
+            new_points = bn_relu(bn, conv(new_points), self.training,
+                                 self.bn_dtype)
+        # max over the K samples; amax shares a tie's gradient evenly among
+        # the tied samples, as JAX's max does (in bf16, samples that differ
+        # can round to one value)
+        return new_points.amax(dim=2)
 
 
 class PointNetFeaturePropagation(nn.Module):
     """(reference ``pointnet2_utils.py:262-312``)"""
 
     def __init__(self, in_channel: int, mlp: Sequence[int],
-                 impl: str = "pallas"):
+                 impl: str = "pallas", dtype: Optional[torch.dtype] = None,
+                 bn_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.impl = impl
+        self.bn_dtype = bn_dtype
         self.sel = "pallas" if impl in ("fused", "sg") else impl  # selection ops
         self.mlp_convs = nn.ModuleList()
         self.mlp_bns = nn.ModuleList()
         last = in_channel
         for out in mlp:
-            self.mlp_convs.append(Conv1x1(last, out, 1))
+            self.mlp_convs.append(Conv1x1(last, out, 1, dtype))
             self.mlp_bns.append(nn.BatchNorm1d(out, eps=BN_EPS))
             last = out
 
@@ -217,7 +259,8 @@ class PointNetFeaturePropagation(nn.Module):
         new_points = (interpolated if points1 is None
                       else torch.cat([points1, interpolated], dim=-1))
         for conv, bn in zip(self.mlp_convs, self.mlp_bns):
-            new_points = bn_relu(bn, conv(new_points), self.training)
+            new_points = bn_relu(bn, conv(new_points), self.training,
+                                 self.bn_dtype)
         # the trailing layers when the gate above declined, so fused and
         # composed stages stay interchangeable
         for (w, b), act in zip(extra_folded, extra_acts):
@@ -234,23 +277,26 @@ class PointNet2Backbone(nn.Module):
     def __init__(self, out_dim: int = 3,
                  sa_npoints: Tuple[int, int, int, int] = (1024, 256, 64, 16),
                  sa_nsample: int = 32, fps_mode: str = "auto",
-                 ball_impl: str = "auto"):
+                 ball_impl: str = "auto", dtype: Optional[torch.dtype] = None,
+                 bn_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.impl = impl = _resolve_impl(ball_impl)
+        self.bn_dtype = bn_dtype
         p1, p2, p3, p4 = sa_npoints
         ns = sa_nsample
-        kw = dict(fps_mode=fps_mode, impl=impl)
+        kw = dict(fps_mode=fps_mode, impl=impl, dtype=dtype, bn_dtype=bn_dtype)
         self.sa1 = PointNetSetAbstraction(p1, 0.1, ns, 3 + 3, (32, 32, 64), **kw)
         self.sa2 = PointNetSetAbstraction(p2, 0.2, ns, 64 + 3, (64, 64, 128), **kw)
         self.sa3 = PointNetSetAbstraction(p3, 0.4, ns, 128 + 3, (128, 128, 256), **kw)
         self.sa4 = PointNetSetAbstraction(p4, 0.8, ns, 256 + 3, (256, 256, 512), **kw)
-        self.fp4 = PointNetFeaturePropagation(768, (256, 256), impl)
-        self.fp3 = PointNetFeaturePropagation(384, (256, 256), impl)
-        self.fp2 = PointNetFeaturePropagation(320, (256, 128), impl)
-        self.fp1 = PointNetFeaturePropagation(128, (128, 128, 128), impl)
-        self.conv1 = Conv1x1(128, 128, 1)
+        kw = dict(impl=impl, dtype=dtype, bn_dtype=bn_dtype)
+        self.fp4 = PointNetFeaturePropagation(768, (256, 256), **kw)
+        self.fp3 = PointNetFeaturePropagation(384, (256, 256), **kw)
+        self.fp2 = PointNetFeaturePropagation(320, (256, 128), **kw)
+        self.fp1 = PointNetFeaturePropagation(128, (128, 128, 128), **kw)
+        self.conv1 = Conv1x1(128, 128, 1, dtype)
         self.bn1 = nn.BatchNorm1d(128, eps=BN_EPS)
-        self.conv2 = Conv1x1(128, out_dim, 1)
+        self.conv2 = Conv1x1(128, out_dim, 1, dtype)
 
     def head_folded(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """The head (conv1 + bn1, BatchNorm folded) and conv2 as (W', b')
@@ -281,7 +327,8 @@ class PointNet2Backbone(nn.Module):
                             extra_folded=self.head_folded(),
                             extra_acts=HEAD_ACTS)
         l0_points = self.fp1(l0_xyz, l1_xyz, None, l1_points)
-        x = bn_relu(self.bn1, self.conv1(l0_points), self.training)
+        x = bn_relu(self.bn1, self.conv1(l0_points), self.training,
+                    self.bn_dtype)
         if self.training:  # flax Dropout: keep with 1 - rate, scale up
             keep = 1.0 - DROPOUT_RATE
             if dropout_mask is None:

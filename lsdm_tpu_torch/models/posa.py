@@ -8,14 +8,23 @@ identity spirals, so the pipeline is: per-point linears 3 -> z/2 -> 64
 linear 64 -> 3 over the first ``vert_dims`` points, then x2 nearest
 upsampling truncated to ``pcd_points``.  Module nesting (``de_spiral.N.
 conv.layer``, ``de_spiral.N.norm``) follows the reference state_dict.
+
+With a compute ``dtype`` (bf16) the linears cast to it as flax's do, and
+each GroupNorm, which sets no dtype in the JAX module, normalises the
+widened input in float32 against its float32 scale and returns float32,
+as flax's promotion has it.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
+
+from lsdm_tpu_torch.ops.attention import Linear, wide
 
 
 def identity_spirals(num_vertices: int) -> np.ndarray:
@@ -31,7 +40,9 @@ def _group_norm(channels: int, num_groups: int) -> nn.GroupNorm:
 
 
 def _norm_relu(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
-    # x (B, V, C): GroupNorm over (V, C/G) per group, as flax's on NVC
+    # x (B, V, C): GroupNorm over (V, C/G) per group, as flax's on NVC, in
+    # at least float32
+    x = wide(x)
     return F.relu(norm(x.transpose(1, 2)).transpose(1, 2))
 
 
@@ -40,12 +51,13 @@ class SpiralConv(nn.Module):
     (reference ``posa_models.py:70-111``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 indices: np.ndarray):
+                 indices: np.ndarray, dtype: Optional[torch.dtype] = None):
         super().__init__()
         # a plain constant like the reference's attribute: not in state_dict
         self.register_buffer("indices", torch.as_tensor(indices, dtype=torch.long),
                              persistent=False)
-        self.layer = nn.Linear(in_channels * indices.shape[1], out_channels)
+        self.layer = Linear(in_channels * indices.shape[1], out_channels,
+                            dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n_nodes = self.indices.shape[0]
@@ -56,9 +68,10 @@ class SpiralConv(nn.Module):
 class _Lin(nn.Module):
     """Per-vertex linear nested as ``conv.layer`` (reference GraphLin)."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.layer = nn.Linear(in_channels, out_channels)
+        self.layer = Linear(in_channels, out_channels, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.layer(x)
@@ -67,9 +80,10 @@ class _Lin(nn.Module):
 class GraphLinBlock(nn.Module):
     """Per-vertex linear + GroupNorm + ReLU (``posa_models.py:132-160``)."""
 
-    def __init__(self, in_channels: int, out_channels: int, num_groups: int = 8):
+    def __init__(self, in_channels: int, out_channels: int, num_groups: int = 8,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv = _Lin(in_channels, out_channels)
+        self.conv = _Lin(in_channels, out_channels, dtype)
         self.norm = _group_norm(out_channels, num_groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -80,9 +94,10 @@ class SpiralBlock(nn.Module):
     """SpiralConv + GroupNorm + ReLU (``posa_models.py:163-187``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 indices: np.ndarray, num_groups: int = 8):
+                 indices: np.ndarray, num_groups: int = 8,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv = SpiralConv(in_channels, out_channels, indices)
+        self.conv = SpiralConv(in_channels, out_channels, indices, dtype)
         self.norm = _group_norm(out_channels, num_groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -94,15 +109,15 @@ class POSADecoderBackbone(nn.Module):
 
     def __init__(self, vert_dims: int = 655, pcd_points: int = 1024,
                  z_dim: int = 128, channels: int = 64, f_dim: int = 3,
-                 num_groups: int = 8):
+                 num_groups: int = 8, dtype: Optional[torch.dtype] = None):
         super().__init__()
         idx = identity_spirals(vert_dims)
         self.pcd_points = pcd_points
         self.de_spiral = nn.Sequential(
-            GraphLinBlock(3, z_dim // 2, num_groups),
-            GraphLinBlock(z_dim // 2, channels, num_groups),
-            SpiralBlock(channels, channels, idx, num_groups),
-            SpiralConv(channels, f_dim, idx),
+            GraphLinBlock(3, z_dim // 2, num_groups, dtype),
+            GraphLinBlock(z_dim // 2, channels, num_groups, dtype),
+            SpiralBlock(channels, channels, idx, num_groups, dtype),
+            SpiralConv(channels, f_dim, idx, dtype),
         )
 
     def forward(self, vertices: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,10 @@ once per sample, through the fused encode kernels when the model's
 is the K6 kernel (``ops/denoise.py``); with ``"step"`` a host loop calls
 the K9 kernel once per step (JAX ``_sample_fused``, mode ``"step"``); with
 ``None`` it is the composed Python loop of ``diffusion/sampler.py``
-calling :meth:`SceneDiffusionModel.denoise_from_cond` each step.
+calling :meth:`SceneDiffusionModel.denoise_from_cond` each step.  A bf16
+model samples on the composed loop only (its encode on ``"pallas"`` or
+``"topk"``): the bf16 modes of K6 and K9 are not ported, and
+:func:`sample_sdm` raises rather than run them in float32.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ import torch
 from lsdm_tpu_torch.diffusion.gaussian import DenoiserOutput
 from lsdm_tpu_torch.diffusion.sampler import ddim_sample_loop, p_sample_loop
 from lsdm_tpu_torch.diffusion.schedule import Schedule
-from lsdm_tpu_torch.models.sdm import CondCache, SceneDiffusionModel
+from lsdm_tpu_torch.models.sdm import (
+    BF16_NOT_PORTED, CondCache, SceneDiffusionModel)
 from lsdm_tpu_torch.ops.denoise import (
     extract_step_params, fused_denoise_chain, make_denoise_step_loop,
     step_params_key)
@@ -163,6 +167,9 @@ def sample_sdm(
         raise ValueError("sample_sdm needs the model in eval mode (model.eval()): "
                          "training mode normalises with batch statistics and "
                          "drops out")
+    if model.compute_dtype is not None and fused_step is not None:
+        raise ValueError(f"dtype {model.cfg.dtype} with fused_step "
+                         f"{fused_step!r}: " + BF16_NOT_PORTED)
     B, _, N, _ = given_objs.shape
     dev = given_objs.device
     T = schedule.num_timesteps

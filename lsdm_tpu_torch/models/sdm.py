@@ -17,8 +17,12 @@ Reference quirks reproduced on purpose (trained weights depend on them):
   * ``OutputProcess`` ends in GELU and ``predict_cat`` in Softmax.
 
 Module and parameter names follow the reference ``state_dict``.  Only the
-configuration of the sampling slices is built: the PointNet++ object
-backbone, the POSA human backbone and float32 compute.  ``ball_impl``
+PointNet++ object backbone and the POSA human backbone are built.
+``cfg.dtype`` "bfloat16" computes in bf16 over float32 parameters with the
+JAX module's casts (``lsdm_tpu/models/sdm.py:71-152``): every submodule in
+that dtype, ``cfg.bn_dtype`` for the backbone's BatchNorms, the category
+probabilities and ``x0`` / ``guiding`` returned float32; its fused eval
+encode (K7, K8) is refused (:data:`BF16_NOT_PORTED`).  ``ball_impl``
 "fused" makes the eval encode the fused kernels' (K7, K8 in the backbone,
 K4 in ``pcd_attention``).  In training (``model.train()``, the JAX
 ``train=True``) the backbone normalises with batch statistics and drops
@@ -37,10 +41,19 @@ from torch import nn
 from lsdm_tpu_torch.config import SDMConfig
 from lsdm_tpu_torch.diffusion.gaussian import DenoiserOutput
 from lsdm_tpu_torch.models.common import (
-    InputProcess, OutputProcess, PositionalEncoding, TimestepEmbedder, mlp)
+    InputProcess, OutputProcess, PositionalEncoding, TimestepEmbedder,
+    compute_dtype, mlp)
 from lsdm_tpu_torch.models.pointnet2 import PointNet2Backbone
 from lsdm_tpu_torch.models.posa import POSADecoderBackbone
-from lsdm_tpu_torch.ops.attention import TorchMultiheadAttention
+from lsdm_tpu_torch.ops.attention import TorchMultiheadAttention, wide
+
+
+# why a bf16 model does not run the fused eval kernels (the encode's K7 and
+# K8, the denoise loop's K6 and K9)
+BF16_NOT_PORTED = ("the bf16 modes of K6, K7, K8 and K9 (the fused encode and "
+                   "the fused denoise loop) are not ported yet (ROADMAP.md "
+                   "queue 2, the next slice): sample a bf16 model with "
+                   "ball_impl 'pallas' and fused_step None")
 
 
 class CondCache(NamedTuple):
@@ -61,30 +74,32 @@ class SceneDiffusionModel(nn.Module):
         self.cfg = cfg
         D = cfg.latent_dim
         N = cfg.pcd_points
+        dt = self.compute_dtype = compute_dtype(cfg.dtype)
         self.sequence_pos_encoder = PositionalEncoding(D)
-        self.embed_timestep = TimestepEmbedder(D)
-        self.embed_text = mlp(cfg.clip_dim, (cfg.clip_dim // 2, D * 2, D), "gelu")
-        self.embed_cat = mlp(cfg.max_cats, (cfg.cat_emb,), "gelu")
-        self.predict_cat = mlp(D, (D // 2, D // 4, cfg.max_cats), "gelu")
+        self.embed_timestep = TimestepEmbedder(D, dt)
+        self.embed_text = mlp(cfg.clip_dim, (cfg.clip_dim // 2, D * 2, D), "gelu", dt)
+        self.embed_cat = mlp(cfg.max_cats, (cfg.cat_emb,), "gelu", dt)
+        self.predict_cat = mlp(D, (D // 2, D // 4, cfg.max_cats), "gelu", dt)
         self.attn_layer = TorchMultiheadAttention(
-            D, cfg.n_head, kdim=cfg.cat_emb, vdim=N * cfg.pcd_dim)
+            D, cfg.n_head, kdim=cfg.cat_emb, vdim=N * cfg.pcd_dim, dtype=dt)
         self.translation_layer = mlp(D + cfg.cat_emb, (D, cfg.translation_params),
-                                     "gelu")
+                                     "gelu", dt)
         self.point_wise_trans_layer = mlp(
-            cfg.translation_params + cfg.xyz_dim, (cfg.xyz_dim,), "gelu")
+            cfg.translation_params + cfg.xyz_dim, (cfg.xyz_dim,), "gelu", dt)
         self.pcd_attention = TorchMultiheadAttention(
             cfg.translation_params, cfg.translation_params,
-            kdim=cfg.xyz_dim, vdim=cfg.xyz_dim)
+            kdim=cfg.xyz_dim, vdim=cfg.xyz_dim, dtype=dt)
         self.pcd_backbone = PointNet2Backbone(
             out_dim=cfg.pcd_dim,
             sa_npoints=(N, max(N // 4, 4), max(N // 16, 2), max(N // 64, 1)),
             sa_nsample=min(32, N), fps_mode=cfg.fps_mode,
-            ball_impl=cfg.ball_impl)
-        self.human_backbone = POSADecoderBackbone(cfg.vert_dims, N)
-        self.upsampling_layer = mlp(1, (128, 512, N), "gelu")
-        self.combine_extraction = mlp(2 * D, (D,), "gelu")
-        self.input_process = InputProcess(cfg.xyz_dim, D)
-        self.output_process = OutputProcess(cfg.xyz_dim, D, N)
+            ball_impl=cfg.ball_impl, dtype=dt,
+            bn_dtype=compute_dtype(cfg.bn_dtype))
+        self.human_backbone = POSADecoderBackbone(cfg.vert_dims, N, dtype=dt)
+        self.upsampling_layer = mlp(1, (128, 512, N), "gelu", dt)
+        self.combine_extraction = mlp(2 * D, (D,), "gelu", dt)
+        self.input_process = InputProcess(cfg.xyz_dim, D, dt)
+        self.output_process = OutputProcess(cfg.xyz_dim, D, N, dt)
 
     # ------------------------------------------------------------------
     def encode_conditioning(
@@ -101,14 +116,19 @@ class SceneDiffusionModel(nn.Module):
         ``dropout_mask`` / ``generator``: the backbone head's dropout in
         training (``PointNet2Backbone.forward``)."""
         cfg = self.cfg
+        if (self.compute_dtype is not None and cfg.ball_impl == "fused"
+                and not self.training):
+            raise ValueError(f"dtype {cfg.dtype} with ball_impl 'fused': "
+                             + BF16_NOT_PORTED)
         B, num_obj, num_points, xyz = given_objs.shape
         D = cfg.latent_dim
 
         # float32 text features, as JAX casts them, in the weights' dtype
         w = self.embed_text[0].weight
         enc_text = self.embed_text(text_emb.float().to(w.dtype))[:, None, :]  # (B, 1, D)
-        # the category head on detached text features (reference :157)
-        out_cat = torch.softmax(self.predict_cat(enc_text.detach()), dim=2)
+        # the category head on detached text features (reference :157),
+        # its softmax in at least float32 (JAX's astype)
+        out_cat = torch.softmax(wide(self.predict_cat(enc_text.detach())), dim=2)
         emb_cat = self.embed_cat(given_cats)  # (B, num_obj, cat_emb)
 
         hm_out = self.human_backbone(given_objs[:, 0])  # (B, N, 3)
@@ -130,7 +150,7 @@ class SceneDiffusionModel(nn.Module):
 
         # the reference's scrambling reshapes (torch reshape of a permuted
         # tensor == row-major reshape of the transposed array)
-        pcd_out = pcd_out.transpose(1, 2) * attn_w  # (B, N*pcd_dim, num_obj)
+        pcd_out = pcd_out.transpose(1, 2) * attn_w.to(pcd_out.dtype)  # (B, N*pcd_dim, num_obj)
         pcd_out = pcd_out.reshape(B, num_obj, num_points, cfg.pcd_dim)
         pcd_trans = pcd_out.reshape(B * num_obj, cfg.pcd_points, cfg.xyz_dim)
         # head_dim 1: with ball_impl "fused" the K4 kernel in eval, with
@@ -143,7 +163,7 @@ class SceneDiffusionModel(nn.Module):
                                       cfg.translation_params)
         pcd_out = self.point_wise_trans_layer(
             torch.cat([pcd_out, pcd_trans], dim=-1))  # (B, num_obj, N, 3)
-        pcd_out = pcd_out.reshape(num_points, -1, B, num_obj) * mask.float()
+        pcd_out = pcd_out.reshape(num_points, -1, B, num_obj) * mask.to(pcd_out.dtype)
         pcd_out = pcd_out.reshape(B, num_obj, num_points, -1).sum(dim=1)
         cond_pcd = (pcd_out + hm_out) / 2  # (reference :203)
         return CondCache(enc_text=enc_text, out_cat=out_cat, cond_pcd=cond_pcd)
@@ -178,13 +198,14 @@ class SceneDiffusionModel(nn.Module):
 
     def denoise_with_emb(self, cond: CondCache, emb: torch.Tensor,
                          x: torch.Tensor) -> torch.Tensor:
-        """x_t-dependent core (reference :204-212)."""
-        return self.output_process(self.input_process(x + cond.cond_pcd, emb))
+        """x_t-dependent core (reference :204-212), at least float32."""
+        return wide(self.output_process(self.input_process(x + cond.cond_pcd, emb)))
 
     def guiding_from_emb(self, cond: CondCache, emb: torch.Tensor
                          ) -> torch.Tensor:
-        """Guiding points (reference :213-217), x_t-independent."""
-        return self.output_process(self.input_process(cond.cond_pcd, emb))
+        """Guiding points (reference :213-217), x_t-independent, at least
+        float32."""
+        return wide(self.output_process(self.input_process(cond.cond_pcd, emb)))
 
     def denoise_from_cond(self, cond: CondCache, x: torch.Tensor,
                           timesteps: torch.Tensor) -> DenoiserOutput:

@@ -40,11 +40,38 @@ def _check_impl(impl: str) -> None:
 
 def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Batched gather (reference ``pointnet2_utils.py:41-57``):
-    points (B, N, C), idx (B, ...) int -> (B, ..., C)."""
+    points (B, N, C), idx (B, ...) int -> (B, ..., C).  The gradient of a
+    bf16 ``points`` is summed in float32 and rounded once to bf16
+    (:class:`_GatherF32Sum`)."""
     B, N, C = points.shape
-    flat = idx.reshape(B, -1).long()
-    out = torch.gather(points, 1, flat[..., None].expand(-1, -1, C))
+    flat = idx.reshape(B, -1).long()[..., None].expand(-1, -1, C)
+    if points.dtype == torch.bfloat16 and points.requires_grad:
+        out = _GatherF32Sum.apply(points, flat)
+    else:
+        out = torch.gather(points, 1, flat)
     return out.reshape(*idx.shape, C)
+
+
+class _GatherF32Sum(torch.autograd.Function):
+    """``torch.gather(points, 1, index)`` whose backward sums the
+    cotangent rows into their points in float32 and rounds the sums once
+    to ``points``' dtype: the backward of the JAX package's train gathers
+    (``gather_bwd="matmul_fwd"``, ``ops/pointcloud.py:onehot_segment_sum``,
+    a bf16 x bf16 product accumulated in float32).  torch's own backward
+    of a bf16 gather would accumulate in bf16."""
+
+    @staticmethod
+    def forward(ctx, points, index):
+        ctx.save_for_backward(index)
+        ctx.shape, ctx.dtype = points.shape, points.dtype
+        return torch.gather(points, 1, index)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (index,) = ctx.saved_tensors
+        acc = torch.zeros(ctx.shape, dtype=torch.float32, device=grad.device)
+        acc.scatter_add_(1, index, grad.float())
+        return acc.to(ctx.dtype), None
 
 
 def farthest_point_sample(xyz: torch.Tensor, npoint: int,
@@ -106,5 +133,6 @@ def chamfer_distance(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     y (B, M, 3) -> scalar.  The JAX function's optional point masks are not
     ported: evaluation passes none."""
     d = square_distance(x.float(), y.float())  # (B, N, M)
-    return (d.min(dim=2).values.mean(dim=1)
-            + d.min(dim=1).values.mean(dim=1)).mean()
+    # amin shares a tie's gradient evenly among the tied points, as JAX's
+    # min does (points of a bf16 model's output can coincide)
+    return (d.amin(dim=2).mean(dim=1) + d.amin(dim=1).mean(dim=1)).mean()

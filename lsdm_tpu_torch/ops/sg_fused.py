@@ -17,6 +17,15 @@ grad[..., :3]``, and the distance operand ``xyz`` gets zero.  On CUDA the
 ``index_add_`` sums with atomics, so its order, and the last bits of
 ``grad_base``, change from run to run.
 
+A bf16 ``base`` is the bf16 mode (the JAX kernel's
+``compute_dtype=bfloat16``, ``sg_fused_pallas.py:67-73,106-112``): the
+grouped output is bf16, the gather exact, each xyz column ``g - qc`` with
+the center ``qc`` rounded to bf16, computed in float32 and rounded once to
+bf16; the backward sums the bf16 cotangent into ``grad_base`` in float32
+and rounds once to bf16, as ``onehot_segment_sum`` does (its
+``:190-201``).  The kernel counts its bf16 launches as
+``select_gather_bf16``.
+
 A wrapper runs the kernel for CUDA tensors and the plain version for CPU
 tensors; it never falls back from one to the other.
 """
@@ -75,28 +84,30 @@ def select_gather_max_points(nsample: int, queries: int) -> int:
 def select_gather_plain(radius: float, nsample: int, xyz: torch.Tensor,
                         new_xyz: torch.Tensor, base: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K10: (grouped (B, S, nsample, C) float32,
+    """Plain version of K10: (grouped (B, S, nsample, C) in base's dtype,
     idx (B, S, nsample) int32)."""
     idx = query_ball_point_plain(radius, nsample, xyz, new_xyz)
     grouped = index_points(base, idx)
-    center = new_xyz[:, :, None, :]
+    center = new_xyz[:, :, None, :].to(base.dtype)
     return torch.cat([grouped[..., :3] - center, grouped[..., 3:]], -1), idx
 
 
 def select_gather_kernel(radius: float, nsample: int, xyz: torch.Tensor,
                          new_xyz: torch.Tensor, base: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K10: xyz (B, N, 3), new_xyz (B, S, 3), base (B, N, C) float32 ->
-    (grouped (B, S, nsample, C), idx (B, S, nsample) int32).  CUDA kernel
-    for CUDA tensors, plain version for CPU tensors."""
+    """K10: xyz (B, N, 3), new_xyz (B, S, 3) float32, base (B, N, C)
+    float32 or bf16 (the bf16 mode) -> (grouped (B, S, nsample, C) in
+    base's dtype, idx (B, S, nsample) int32).  CUDA kernel for CUDA
+    tensors, plain version for CPU tensors."""
     if kernels.on_cpu(xyz, new_xyz, base):
         return select_gather_plain(radius, nsample, xyz, new_xyz, base)
     B, N, _ = xyz.shape
     S, C = new_xyz.shape[1], base.shape[2]
     dev = xyz.device
+    dt = torch.bfloat16 if base.dtype == torch.bfloat16 else torch.float32
     kernels.require("xyz", xyz, torch.float32, (None, None, 3), dev)
     kernels.require("new_xyz", new_xyz, torch.float32, (B, None, 3), dev)
-    kernels.require("base", base, torch.float32, (B, N, None), dev)
+    kernels.require("base", base, dt, (B, N, None), dev)
     if not 0 < nsample <= min(N, 128):
         raise ValueError(f"nsample {nsample} must lie in [1, min({N}, 128)]")
     if C < 3:
@@ -109,18 +120,19 @@ def select_gather_kernel(radius: float, nsample: int, xyz: torch.Tensor,
                          f"{kernels.SMEM_MAX} B of shared memory), got {N}")
     if B > 65535:
         raise ValueError(f"select-gather kernel grids at most 65535 clouds, got {B}")
-    out = torch.empty((B, S, nsample, C), dtype=torch.float32, device=dev)
+    out = torch.empty((B, S, nsample, C), dtype=dt, device=dev)
     idx = torch.empty((B, S, nsample), dtype=torch.int32, device=dev)
     if idx.numel() == 0:
         return out, idx
     lib = kernels.load()
+    name = "select_gather_bf16" if dt == torch.bfloat16 else "select_gather"
     with torch.cuda.device(dev):
-        rc = lib.lsdm_select_gather(
+        rc = getattr(lib, "lsdm_" + name)(
             xyz.data_ptr(), new_xyz.data_ptr(), base.data_ptr(), B, N, S, C,
             _radius2(radius), nsample, queries, out.data_ptr(), idx.data_ptr(),
             kernels.stream(dev))
-    kernels.check(rc, "select_gather")
-    kernels.LAUNCHES["select_gather"] += 1
+    kernels.check(rc, name)
+    kernels.LAUNCHES[name] += 1
     return out, idx
 
 
@@ -131,25 +143,30 @@ class _SelectGather(torch.autograd.Function):
                                             new_xyz.contiguous(),
                                             base.contiguous())
         ctx.save_for_backward(idx)
-        ctx.shapes = (xyz.shape, base.shape[1])
+        ctx.shapes = (xyz.shape, base.shape[1], xyz.dtype, new_xyz.dtype,
+                      base.dtype)
         return grouped
 
     @staticmethod
     def backward(ctx, grad):
         (idx,) = ctx.saved_tensors
-        xyz_shape, N = ctx.shapes
+        xyz_shape, N, xyz_dt, center_dt, base_dt = ctx.shapes
         B, S, K, C = grad.shape
+        # a bf16 cotangent is summed in float32, then rounded once
+        grad = grad.to(torch.promote_types(grad.dtype, torch.float32))
         flat = (idx.long() + N * torch.arange(B, device=idx.device)[:, None, None])
         grad_base = torch.zeros(B * N, C, dtype=grad.dtype, device=grad.device)
         grad_base.index_add_(0, flat.reshape(-1), grad.reshape(-1, C))
         grad_center = -grad[..., :3].sum(dim=2)
-        grad_xyz = torch.zeros(xyz_shape, dtype=grad.dtype, device=grad.device)
-        return None, None, grad_xyz, grad_center, grad_base.reshape(B, N, C)
+        grad_xyz = torch.zeros(xyz_shape, dtype=xyz_dt, device=grad.device)
+        return (None, None, grad_xyz, grad_center.to(center_dt),
+                grad_base.reshape(B, N, C).to(base_dt))
 
 
 def select_gather_grouped(radius: float, nsample: int, xyz: torch.Tensor,
                           new_xyz: torch.Tensor, base: torch.Tensor
                           ) -> torch.Tensor:
     """Differentiable select-gather (the JAX ``select_gather_grouped``):
-    the SetAbstraction stage's grouped input (B, S, nsample, C)."""
+    the SetAbstraction stage's grouped input (B, S, nsample, C), in
+    base's dtype."""
     return _SelectGather.apply(radius, nsample, xyz, new_xyz, base)

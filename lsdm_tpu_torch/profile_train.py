@@ -2,6 +2,7 @@
 
     python -m lsdm_tpu_torch.profile_train [--batch 6] [--steps 5]
         [--configs default attn_xla sg chamfer_pallas]
+        [--dtype float32 bfloat16] [--bn_dtype float32 bfloat16]
 
 Builds ``sdm_proxd()`` with seeded random weights and trains it on a
 seeded random batch (``--batch`` scenes of ``max_objs`` clouds of 1024
@@ -14,12 +15,15 @@ points, fp32, T=1000 cosine) with the train step of
 * ``sg``: ``--ball_impl sg`` (K10 in the SA stages);
 * ``chamfer_pallas``: the default with the K11 chamfer loss.
 
-For each it prints the wall time per step (host clock around a
-synchronised step, all of ``--steps`` steps after two warm-up steps),
-steps/s and scenes/s of the best step, and the peak device memory.  It
-then traces two more default steps with ``torch.profiler`` and prints the
-device time of each kernel and the busy share: summed kernel time over the
-traced wall.  The last line is one JSON object with all of it.
+Each configuration runs at every compute precision asked for: float32,
+and for ``--dtype bfloat16`` each ``--bn_dtype`` (bf16 compute over
+float32 parameters; K4, K5 and K10 in their bf16 modes).  For each it
+prints the wall time per step (host clock around a synchronised step, all
+of ``--steps`` steps after two warm-up steps), steps/s and scenes/s of the
+best step, and the peak device memory.  It then traces two more default
+steps at each precision with ``torch.profiler`` and prints the device time
+of each kernel and the busy share: summed kernel time over the traced
+wall.  The last line is one JSON object with all of it.
 """
 
 from __future__ import annotations
@@ -73,7 +77,15 @@ def build(cfg: SDMConfig, ball_impl: str, attn_impl: str, seed: int,
     return create_train_state(init_weights(model, seed).to(device))
 
 
-def profile(batch: int, steps: int, seed: int, configs) -> dict:
+def precisions(dtypes, bn_dtypes):
+    """The (dtype, bn_dtype) pairs to run: float32 with float32 BatchNorms,
+    bf16 with each of ``bn_dtypes``."""
+    return [(d, b) for d in dtypes
+            for b in (("float32",) if d == "float32" else bn_dtypes)]
+
+
+def profile(batch: int, steps: int, seed: int, configs,
+            precs=(("float32", "float32"),)) -> dict:
     dev = torch.device("cuda", 0)
     cfg = sdm_proxd()
     schedule = make_schedule("cosine", 1000, device=dev)
@@ -88,44 +100,50 @@ def profile(batch: int, steps: int, seed: int, configs) -> dict:
         torch.cuda.synchronize(dev)
         return time.perf_counter() - t0
 
-    for name in configs:
-        ball, attn_impl, chamfer = CONFIGS[name]
-        state = build(cfg, ball, attn_impl, seed, dev)
-        step = make_train_step(schedule, chamfer_impl=chamfer)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        for _ in range(2):  # warm-up: kernel build, allocator, cuBLAS
-            timed(step, state, gen)
-        torch.cuda.reset_peak_memory_stats(dev)
-        walls = [timed(step, state, gen) for _ in range(steps)]
-        ms = [w * 1e3 for w in walls]
-        result["configs"][name] = {
-            "ball_impl": ball, "attn_impl": attn_impl, "chamfer_impl": chamfer,
-            "step_ms": ms, "best_step_ms": min(ms), "steps_per_s": 1.0 / min(walls),
-            "scenes_per_s": batch / min(walls),
-            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
-        print(f"{name}: step ms {[round(x, 3) for x in ms]}, "
-              f"{1.0 / min(walls):.2f} steps/s, {batch / min(walls):.1f} scenes/s, "
-              f"peak {result['configs'][name]['peak_mem_gib']:.2f} GiB")
-        del state
+    for dtype, bn_dtype in precs:
+        pcfg = dataclasses.replace(cfg, dtype=dtype, bn_dtype=bn_dtype)
+        suffix = "" if dtype == "float32" else f"_bf16_bn_{bn_dtype}"
+        for name in configs:
+            ball, attn_impl, chamfer = CONFIGS[name]
+            state = build(pcfg, ball, attn_impl, seed, dev)
+            step = make_train_step(schedule, chamfer_impl=chamfer)
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            for _ in range(2):  # warm-up: kernel build, allocator, cuBLAS
+                timed(step, state, gen)
+            torch.cuda.reset_peak_memory_stats(dev)
+            walls = [timed(step, state, gen) for _ in range(steps)]
+            ms = [w * 1e3 for w in walls]
+            key = name + suffix
+            result["configs"][key] = {
+                "ball_impl": ball, "attn_impl": attn_impl, "chamfer_impl": chamfer,
+                "dtype": dtype, "bn_dtype": bn_dtype,
+                "step_ms": ms, "best_step_ms": min(ms), "steps_per_s": 1.0 / min(walls),
+                "scenes_per_s": batch / min(walls),
+                "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+            print(f"{key}: step ms {[round(x, 3) for x in ms]}, "
+                  f"{1.0 / min(walls):.2f} steps/s, {batch / min(walls):.1f} scenes/s, "
+                  f"peak {result['configs'][key]['peak_mem_gib']:.2f} GiB")
+            del state
 
-    state = build(cfg, *CONFIGS["default"][:2], seed, dev)
-    step = make_train_step(schedule)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    timed(step, state, gen)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        wall_ms = sum(timed(step, state, gen) for _ in range(2)) * 1e3
-    kernels = sorted(_kernel_times(prof).items(), key=lambda kv: -kv[1][0])
-    busy = sum(ms for ms, _ in dict(kernels).values())
-    print(f"traced 2 default steps: wall {wall_ms:.3f} ms, summed kernel time "
-          f"{busy:.3f} ms, busy share {busy / wall_ms:.3f}")
-    for kname, (ms, calls) in kernels[:20]:
-        print(f"  {ms:10.3f} ms {100 * ms / max(busy, 1e-9):5.1f}%  "
-              f"{calls:6d} calls  {kname[:90]}")
-    result["trace"] = {"steps": 2, "wall_ms": wall_ms, "kernel_ms": busy,
-                       "busy_share": busy / wall_ms,
-                       "kernels": {n: {"ms": ms, "calls": c}
-                                   for n, (ms, c) in kernels}}
+        state = build(pcfg, *CONFIGS["default"][:2], seed, dev)
+        step = make_train_step(schedule)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        timed(step, state, gen)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            wall_ms = sum(timed(step, state, gen) for _ in range(2)) * 1e3
+        kernels = sorted(_kernel_times(prof).items(), key=lambda kv: -kv[1][0])
+        busy = sum(ms for ms, _ in dict(kernels).values())
+        print(f"traced 2 default{suffix} steps: wall {wall_ms:.3f} ms, summed kernel "
+              f"time {busy:.3f} ms, busy share {busy / wall_ms:.3f}")
+        for kname, (ms, calls) in kernels[:20]:
+            print(f"  {ms:10.3f} ms {100 * ms / max(busy, 1e-9):5.1f}%  "
+                  f"{calls:6d} calls  {kname[:90]}")
+        result["trace" + suffix] = {"steps": 2, "wall_ms": wall_ms, "kernel_ms": busy,
+                                    "busy_share": busy / wall_ms,
+                                    "kernels": {n: {"ms": ms, "calls": c}
+                                                for n, (ms, c) in kernels}}
+        del state
     return result
 
 
@@ -136,12 +154,19 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--configs", nargs="+", default=list(CONFIGS),
                     choices=list(CONFIGS))
+    ap.add_argument("--dtype", nargs="+", default=["float32"],
+                    choices=["float32", "bfloat16"])
+    ap.add_argument("--bn_dtype", nargs="+", default=["float32"],
+                    choices=["float32", "bfloat16"],
+                    help="the BatchNorms' dtypes of the bf16 runs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(json.dumps(profile(args.batch, args.steps, args.seed, args.configs)))
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    print(json.dumps(profile(args.batch, args.steps, args.seed, args.configs,
+                             precisions(args.dtype, args.bn_dtype))))
     return 0
 
 

@@ -7,12 +7,17 @@ Counterpart of ``lsdm_tpu/run/train_sdm.py`` (reference
         [--valid_data_dir D/proxd_valid] [--objs_data_dir D/objs] \\
         [--save_dir training_output] [--epochs N] [--batch_size 6] \\
         [--ball_impl auto|pallas|topk|sg] [--attn_impl auto|xla|pallas] \\
+        [--dtype float32|bfloat16] [--bn_dtype float32|bfloat16] \\
         [--load_ckpt ckpt.pt] [--device cuda]
 
 On CUDA ``--ball_impl auto`` runs the selection kernels (K1, K2, K3) and
 ``--attn_impl auto`` resolves to the rank-1 attention pair (K4, K5)
 (``models/sampling.py:resolve_train_attn_impl``); ``--ball_impl sg``
-adds K10.
+adds K10.  ``--dtype bfloat16`` computes in bf16 over float32 parameters,
+with flax's casts (``--bn_dtype`` the BatchNorms' output dtype): K4, K5
+and K10 then run their bf16 modes, validation samples the bf16 model on
+the composed path (``train/trainer.py``), and the checkpoints stay
+float32.
 The K11 chamfer loss (``chamfer_impl="pallas"``) is an argument of
 ``train/trainer.py:make_train_step``, as in the JAX package, whose train
 CLI has no flag for it.  ``--device`` defaults to ``cuda`` and there is
@@ -38,9 +43,8 @@ _NOT_PORTED = {
     "steps_per_dispatch": "a TPU dispatch workaround (ROADMAP.md, 'Not ported')",
     "sa_hoist": "a TPU-only formulation (ROADMAP.md, 'Not ported')",
     "gather_bwd": "one-hot matmul gathers are a TPU workaround (ROADMAP.md, "
-                  "'Not ported'); the port's gathers are exact",
-    "bn_dtype": "a bf16 BatchNorm belongs to bf16 autocast, ROADMAP.md queue 1 "
-                "item 8",
+                  "'Not ported'); the port's gathers are exact, and a bf16 "
+                  "gather's backward sums in float32 as matmul_fwd's does",
 }
 
 
@@ -79,13 +83,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="train-time pcd_attention: 'pallas' = K4 forward and "
                          "K5 backward; 'auto' = pallas on CUDA, xla on the CPU")
     ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
-                    help="only float32 is ported (bf16 is a later slice)")
+                    help="denoiser/backbone compute dtype (parameters stay float32)")
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--steps_per_dispatch", type=int, default=1)
     ap.add_argument("--sa_hoist", action="store_true")
     ap.add_argument("--gather_bwd", default=None)
-    ap.add_argument("--bn_dtype", default="float32",
-                    help="only float32 is ported (bf16 is a later slice)")
+    ap.add_argument("--bn_dtype", default="float32", choices=["float32", "bfloat16"],
+                    help="PointNet++ BatchNorm output dtype (statistics stay float32)")
     ap.add_argument("--fps_batched", action="store_true",
                     help="JAX CLI flag, taken as is: the FPS kernel K3 gives "
                          "the batched kernel's indices")
@@ -103,15 +107,11 @@ def main(argv: Optional[Sequence[str]] = None):
     args = parse_args(argv)
     given = {"mesh": args.mesh is not None,
              "steps_per_dispatch": args.steps_per_dispatch != 1,
-             "sa_hoist": args.sa_hoist, "gather_bwd": args.gather_bwd is not None,
-             "bn_dtype": args.bn_dtype != "float32"}
+             "sa_hoist": args.sa_hoist, "gather_bwd": args.gather_bwd is not None}
     for flag, why in _NOT_PORTED.items():
         if given[flag]:
             raise SystemExit(f"--{flag} is not ported: {why}")
     jax_flags.refuse(args, "platform")
-    if args.dtype != "float32":
-        raise SystemExit("--dtype bfloat16 is not ported: bf16 autocast is a "
-                         "later slice (ROADMAP.md queue 1 item 8)")
     if args.load_ckpt and not args.load_ckpt.endswith(".pt"):
         raise SystemExit(f"--load_ckpt {args.load_ckpt}: only .pt checkpoints "
                          "load into the port")
@@ -119,6 +119,8 @@ def main(argv: Optional[Sequence[str]] = None):
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("train_sdm: no CUDA device; pass --device cpu to run "
                          "on the CPU")
+    # JAX sums a bf16 product in float32: no bf16 split-K reductions
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     from lsdm_tpu_torch import config as cfg_lib
     from lsdm_tpu_torch.data.dataset import DataLoader, Humanise, ProxDatasetTxt
@@ -134,7 +136,8 @@ def main(argv: Optional[Sequence[str]] = None):
             model_cfg, pcd_points=args.pcd_points,
             vert_dims=min(model_cfg.vert_dims, args.pcd_points))
     model_cfg = dataclasses.replace(
-        model_cfg, ball_impl=args.ball_impl,
+        model_cfg, ball_impl=args.ball_impl, dtype=args.dtype,
+        bn_dtype=args.bn_dtype,
         attn_impl=resolve_train_attn_impl(args.attn_impl, dev))
     diff_cfg = cfg_lib.DiffusionConfig(steps=args.diffusion_steps,
                                        noise_schedule=args.noise_schedule)
@@ -165,7 +168,8 @@ def main(argv: Optional[Sequence[str]] = None):
         print(f"resumed from {args.load_ckpt} at step {trainer.state.step}: {extra}")
     print(f"train_sdm on {dev}: {len(train_ds)} sequences, bs={args.batch_size}, "
           f"{args.epochs} epochs, ball_impl={model_cfg.ball_impl}, "
-          f"attn_impl={model_cfg.attn_impl}")
+          f"attn_impl={model_cfg.attn_impl}, dtype={model_cfg.dtype}, "
+          f"bn_dtype={model_cfg.bn_dtype}")
     return trainer.fit(train_loader, valid_loader, epochs=args.epochs,
                        seed=args.seed)
 

@@ -3,7 +3,8 @@
 Counterpart of ``lsdm_tpu/train/checkpoint.py`` (``save``, ``load``).
 :func:`save_checkpoint` writes ``torch.save({"epoch", "model_state_dict",
 "optimizer_state_dict", ...})`` as the reference trainer does
-(``run/train_sdm.py:294-337``), with the train step count, the EMA
+(``run/train_sdm.py:294-337``), with the train step count and the count
+of updates applied (``updates``, which the learning-rate anneal reads), the EMA
 parameters when there are any, and a JSON sidecar of the metadata like
 the JAX package's ``save``.  The JAX package's ``load_torch_checkpoint``
 reads such a file, and so does the port's model loader
@@ -30,7 +31,7 @@ def save_checkpoint(path: str, state: TrainState,
     extra = dict(extra or {})
     ckpt = {**extra, "model_state_dict": state.model.state_dict(),
             "optimizer_state_dict": state.optimizer.state_dict(),
-            "step": state.step}
+            "step": state.step, "updates": state.updates}
     if state.ema_params is not None:
         ckpt["ema_state_dict"] = state.ema_params
     torch.save(ckpt, path)
@@ -44,6 +45,7 @@ def load_checkpoint(path: str, state: TrainState) -> Dict[str, Any]:
     ckpt = read_checkpoint(path, state.model)
     state.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
     state.step = int(ckpt["step"])
+    state.updates = int(ckpt.get("updates", state.step))
     if state.ema_params is not None and "ema_state_dict" in ckpt:
         for k, v in ckpt["ema_state_dict"].items():
             state.ema_params[k].copy_(v)

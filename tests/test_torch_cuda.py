@@ -759,7 +759,100 @@ def test_rank1_attention_train_autograd_runs_both_kernels(dev):
         torch.testing.assert_close(a.grad, w.grad, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("n,s,radius,nsample,c", [
+# K4 and K5 in bf16 against their plain versions: a weight's bf16 rounding
+# can flip between the SFU's exponential and torch's (2^-8 of the weight)
+ATTN_BF16_ATOL = 2.0 ** -7
+
+
+def _bf16_case(dev, b, l, s, h, seeds=(1, 2, 3)):
+    """q (b, l, h), k and v (b, s, h) in bf16 on ``dev``."""
+    return [_cloud(i, b, n, h, scale=sc).to(dev).bfloat16()
+            for i, n, sc in zip(seeds, (l, s, s), (2.0, 2.0, 1.0))]
+
+
+@pytest.mark.parametrize("b,l,s,h", K4_SHAPES)
+def test_rank1_attention_bf16_kernel_matches_plain(dev, b, l, s, h):
+    """K4's bf16 mode (bf16 q, k, v; the weights rounded to bf16): a float32
+    output within ATTN_BF16_ATOL x max(1, max |v|) of the plain version's,
+    the same row denominators as the float32 mode computes from the same
+    values, and the same output with and without them."""
+    q, k, v = _bf16_case(dev, b, l, s, h)
+    before = kernels.LAUNCHES["rank1_attn_bf16"]
+    got, den = attn.rank1_mha_kernel(q, k, v, denominator=True)
+    assert kernels.LAUNCHES["rank1_attn_bf16"] == before + 1
+    want, wden = attn.rank1_mha_plain(q, k, v, denominator=True)
+    torch.cuda.synchronize()
+    assert got.dtype == den.dtype == torch.float32
+    atol = ATTN_BF16_ATOL * max(1.0, v.abs().max().item())
+    torch.testing.assert_close(got, want, atol=atol, rtol=0)
+    torch.testing.assert_close(den, wden, atol=0, rtol=1e-6)
+    assert torch.equal(got, attn.rank1_mha_kernel(q, k, v))
+    assert torch.equal(den, attn.rank1_mha_kernel(q.float(), k.float(), v.float(),
+                                                  denominator=True)[1])
+
+
+@pytest.mark.parametrize("b,l,s,h", [(2, 300, 77, 12), (1, 1024, 1024, 12), (3, 8, 5, 2),
+                                     (2, 100, 2500, 3)])  # three key tiles
+def test_rank1_attention_bwd_bf16_kernel_matches_plain(dev, b, l, s, h):
+    """K5's bf16 mode from K4's bf16 output: bf16 dq, dk, dv within
+    ATTN_BF16_ATOL of each one's largest entry of the plain version's."""
+    q, k, v = _bf16_case(dev, b, l, s, h, seeds=(4, 5, 6))
+    g = _cloud(7, b, l, h).to(dev)
+    out, den = attn.rank1_mha_kernel(q, k, v, denominator=True)
+    before = kernels.LAUNCHES["rank1_attn_bwd_bf16"]
+    got = attn.rank1_mha_bwd_kernel(q, k, v, out, g, den)
+    assert kernels.LAUNCHES["rank1_attn_bwd_bf16"] == before + 1
+    want = attn.rank1_mha_bwd_plain(q, k, v, out, g)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), w.float(), rtol=0,
+                                   atol=ATTN_BF16_ATOL * max(1.0, w.abs().max().item()))
+    again = attn.rank1_mha_bwd_kernel(q, k, v, out, g, den)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+def test_rank1_attention_bf16_autograd_runs_both_kernels(dev):
+    q, k, v = (_cloud(i, 2, 64, 12).to(dev).bfloat16().requires_grad_() for i in (8, 9, 10))
+    before = (kernels.LAUNCHES["rank1_attn_bf16"], kernels.LAUNCHES["rank1_attn_bwd_bf16"])
+    out = attn.rank1_mha_train(q, k, v)
+    assert out.dtype == torch.float32
+    out.square().sum().backward()
+    assert (kernels.LAUNCHES["rank1_attn_bf16"],
+            kernels.LAUNCHES["rank1_attn_bwd_bf16"]) == (before[0] + 1, before[1] + 1)
+    assert all(t.grad.dtype == torch.bfloat16 and torch.isfinite(t.grad).all()
+               for t in (q, k, v))
+
+
+@pytest.mark.parametrize("m,k", [(6, 3072), (54 * 1024, 32), (256, 16384)])
+def test_bf16_linear_sums_in_float32(dev, m, k, monkeypatch):
+    """A bf16 ``Linear`` on the card, with
+    ``allow_bf16_reduced_precision_reduction`` off as the entry points set
+    it: within one bf16 rounding of the float32-summed product (JAX's bf16
+    dot accumulates in float32), measured on the scale of the terms, sum
+    |x| |w|, since sums near zero take any order's float32 rounding at the
+    ulp of the terms, at the SDM's attn_layer value projection (K = 3072),
+    the grouped SA rows and a long K where cuBLAS may split the sum.  The
+    error with the flag on is printed beside it."""
+    from lsdm_tpu_torch.ops.attention import linear
+
+    x = _cloud(1, m, k).to(dev).bfloat16()
+    w = (_cloud(2, 128, k) * k ** -0.5).to(dev).bfloat16()
+    want = x.float() @ w.float().t()
+    scale = x.float().abs() @ w.float().abs().t()
+    step = torch.finfo(torch.bfloat16).eps  # 2^-7, two roundings' worth
+    err = {}
+    for flag in (False, True):
+        monkeypatch.setattr(torch.backends.cuda.matmul,
+                            "allow_bf16_reduced_precision_reduction", flag)
+        got = linear(x, w, None, torch.bfloat16).float()
+        err[flag] = ((got - want).abs() / (step * scale)).max().item()
+    print(f"bf16 product ({m}, {k}) x ({k}, 128): worst error over 2^-7 sum |x||w|, "
+          f"reduced-precision reduction off {err[False]:.3g}, on {err[True]:.3g}")
+    assert err[False] <= 1.0
+
+
+SG_CASES = [
     (64, 13, 0.8, 16, 6),      # 13 centers: not a multiple of a block
     (100, 24, 0.05, 32, 67),   # most balls hold fewer than nsample points
     (1024, 256, 0.2, 32, 67),  # sa2's shapes
@@ -768,7 +861,10 @@ def test_rank1_attention_train_autograd_runs_both_kernels(dev):
     (300, 21, 0.5, 1, 6),      # one sample: slabs of 6 floats
     (200, 9, 0.9, 64, 259),    # 64 samples of sa4's width
     (4096, 1024, 0.1, 32, 6),  # 4096 points
-])
+]
+
+
+@pytest.mark.parametrize("n,s,radius,nsample,c", SG_CASES)
 def test_select_gather_kernel_equals_plain(dev, n, s, radius, nsample, c):
     xyz = _cloud(n, 2, n, 3).to(dev)
     new_xyz = xyz[:, :s].clone()
@@ -781,6 +877,27 @@ def test_select_gather_kernel_equals_plain(dev, n, s, radius, nsample, c):
     torch.cuda.synchronize()
     assert torch.equal(gi, wi) and torch.equal(got, want)  # a copy and one subtraction
     assert (gi[1, 2] == n - 1).all()
+
+
+@pytest.mark.parametrize("n,s,radius,nsample,c", SG_CASES)
+def test_select_gather_bf16_kernel_equals_plain(dev, n, s, radius, nsample, c):
+    """K10's bf16 mode: a bf16 base gives bf16 slabs equal to the plain
+    version's (the gather exact, g - bf16(center) rounded once) and the
+    float32 mode's indices; slabs of C < 8 values a slot put the unaligned
+    head and tail across slots."""
+    xyz = _cloud(n, 2, n, 3).to(dev)
+    new_xyz = xyz[:, :s].clone()
+    new_xyz[1, 2] = 50.0
+    base = torch.cat([xyz, _cloud(n + 1, 2, n, c - 3).to(dev)], -1).bfloat16().contiguous()
+    before = kernels.LAUNCHES["select_gather_bf16"]
+    got, gi = sg_fused.select_gather_kernel(radius, nsample, xyz, new_xyz, base)
+    assert kernels.LAUNCHES["select_gather_bf16"] == before + 1
+    want, wi = sg_fused.select_gather_plain(radius, nsample, xyz, new_xyz, base)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(gi, wi) and torch.equal(got, want)
+    assert torch.equal(gi, sg_fused.select_gather_kernel(radius, nsample, xyz, new_xyz,
+                                                         base.float())[1])
 
 
 @pytest.mark.parametrize("clouds", [9, 54])
@@ -880,8 +997,10 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):  # cond_pcd of another scene count
         denoise.fused_denoise_step(sx, snoise, scpcd.expand(2, -1, -1).contiguous(),
                                    se2, scoef, sp)
-    with pytest.raises(ValueError):  # bf16: the port computes in float32
-        attn.rank1_mha_kernel(xyz.bfloat16(), xyz.bfloat16(), xyz.bfloat16())
+    with pytest.raises(ValueError):  # float64: the kernels take float32 or bf16
+        attn.rank1_mha_kernel(xyz.double(), xyz.double(), xyz.double())
+    with pytest.raises(ValueError):  # q, k, v of two dtypes
+        attn.rank1_mha_kernel(xyz, xyz.bfloat16(), xyz.bfloat16())
     folded = _layers(dev, (6, 8))
     with pytest.raises(ValueError):  # layer 1 takes 6 channels, base has 3
         sa_fused.sa_stage_fused_kernel(0.2, 4, xyz, xyz, xyz, folded)

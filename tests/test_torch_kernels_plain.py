@@ -212,8 +212,19 @@ def test_kernel_wrappers_on_cpu_run_the_plain_versions_and_launch_nothing():
     for a, b in zip(chamfer.directed_nn_kernel(xyz, new_xyz),
                     chamfer.directed_nn_plain(xyz, new_xyz)):
         assert torch.equal(a, b)
+    # the bf16 modes of K4, K5 and K10
+    bq = base.bfloat16()
+    out, den = attn.rank1_mha_kernel(bq, bq, bq, denominator=True)
+    assert torch.equal(out, attn.rank1_mha_plain(bq, bq, bq))
+    for a, b in zip(attn.rank1_mha_bwd_kernel(bq, bq, bq, out, base, den),
+                    attn.rank1_mha_bwd_plain(bq, bq, bq, out, base)):
+        assert torch.equal(a, b)
+    for a, b in zip(sg_fused.select_gather_kernel(0.5, 8, xyz, new_xyz, bq),
+                    sg_fused.select_gather_plain(0.5, 8, xyz, new_xyz, bq)):
+        assert torch.equal(a, b)
     assert kernels.LAUNCHES == {name: 0 for name in kernels.LAUNCHES}
     assert set(kernels.LAUNCHES) == {"ball_query", "three_nn", "fps",
                                      "denoise_chain", "rank1_attn", "sa_fused",
                                      "fp_fused", "rank1_attn_bwd", "select_gather",
-                                     "chamfer_nn", "denoise_step"}
+                                     "chamfer_nn", "denoise_step", "rank1_attn_bf16",
+                                     "rank1_attn_bwd_bf16", "select_gather_bf16"}

@@ -8,6 +8,7 @@ read back by the JAX package's ``load_torch_checkpoint`` and by
 port's ``test_sdm``; and a tiny overfit.
 """
 
+import dataclasses
 import json
 import os
 
@@ -101,6 +102,103 @@ def test_zero_gradient_parameters_still_decay():
     before = w.detach().clone()
     apply_gradients(state)
     torch.testing.assert_close(w.detach(), before * (1 - 1e-2 * 0.5))
+
+
+class _Params(torch.nn.Module):
+    """A few parameters, as the JAX optimizer tests' dict of arrays."""
+
+    def __init__(self, tree):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.from_numpy(np.array(tree["w"])))
+        self.b = torch.nn.Parameter(torch.from_numpy(np.array(tree["b"])))
+
+
+def _set_grads(model, tree):
+    model.w.grad = torch.from_numpy(np.array(tree["w"]))
+    model.b.grad = torch.from_numpy(np.array(tree["b"]))
+
+
+def test_skip_nonfinite_skips_a_nan_step_then_applies():
+    """As tests/test_checkpoint.py:111-126: a NaN step changes nothing, not
+    the parameters, AdamW's moments or the update count; the next finite one
+    applies.  The train step still advances."""
+    model = _Params({"w": np.ones((3, 2), np.float32), "b": np.ones(2, np.float32)})
+    state = create_train_state(model, skip_nonfinite=True)
+    _set_grads(model, {"w": np.full((3, 2), np.nan, np.float32), "b": np.ones(2, np.float32)})
+    apply_gradients(state)
+    assert torch.equal(model.w.detach(), torch.ones(3, 2)) and not state.optimizer.state
+    assert (state.step, state.updates, state.optimizer.notfinite_count) == (1, 0, 1)
+    # the counts travel with the optimizer's state_dict (the checkpoints)
+    again = create_train_state(_Params({"w": np.ones((3, 2), np.float32),
+                                        "b": np.ones(2, np.float32)}), skip_nonfinite=True)
+    again.optimizer.load_state_dict(state.optimizer.state_dict())
+    assert (again.optimizer.notfinite_count, again.optimizer.total_notfinite) == (1, 1)
+    _set_grads(model, {"w": np.ones((3, 2), np.float32), "b": np.ones(2, np.float32)})
+    apply_gradients(state)
+    assert not torch.allclose(model.w.detach(), torch.ones(3, 2))
+    assert (state.step, state.updates, state.optimizer.notfinite_count) == (2, 1, 0)
+    assert state.optimizer.total_notfinite == 1
+
+
+def test_skip_nonfinite_gives_up_after_100_in_a_row():
+    """optax's ``max_consecutive_errors=100``: 100 consecutive non-finite
+    steps are skipped, the 101st is applied (and poisons the parameters),
+    as ``notfinite_count > max_consecutive_errors`` has it."""
+    model = _Params({"w": np.ones((1, 2), np.float32), "b": np.ones(2, np.float32)})
+    state = create_train_state(model, skip_nonfinite=True)
+    bad = {"w": np.array([[np.inf, 1.0]], np.float32), "b": np.ones(2, np.float32)}
+    for _ in range(100):
+        _set_grads(model, bad)
+        apply_gradients(state)
+    assert torch.equal(model.w.detach(), torch.ones(1, 2)) and state.updates == 0
+    _set_grads(model, bad)
+    apply_gradients(state)
+    assert state.updates == 1 and not torch.isfinite(model.w).all()
+
+
+def test_skipped_step_does_not_advance_the_anneal():
+    """The learning-rate anneal reads the count of updates applied, optax's
+    inner count, which a skipped step leaves alone."""
+    from lsdm_tpu_torch.train.state import lr_at
+
+    model = _Params({"w": np.ones((1, 2), np.float32), "b": np.ones(2, np.float32)})
+    state = create_train_state(model, lr=1.0, lr_anneal_steps=4, skip_nonfinite=True)
+    rates = []
+    for g in (1.0, np.nan, np.nan, 1.0):
+        rates.append(lr_at(state))
+        _set_grads(model, {"w": np.full((1, 2), g, np.float32), "b": np.ones(2, np.float32)})
+        apply_gradients(state)
+    assert rates == [1.0, 0.75, 0.75, 0.75] and lr_at(state) == 0.5
+    assert (state.step, state.updates) == (4, 2)
+
+
+def test_skip_nonfinite_matches_optax():
+    """A sequence of finite, NaN, finite, infinite and finite gradients over
+    a few parameters, with weight decay and a learning-rate anneal: the
+    parameters after each step equal optax's ``apply_if_finite(adamw)`` to
+    float32 tolerance."""
+    rs = np.random.RandomState(4)
+    params = {"w": rs.randn(3, 2).astype(np.float32), "b": rs.randn(2).astype(np.float32)}
+    tx = jax_make_optimizer(lr=1e-2, weight_decay=0.1, lr_anneal_steps=6,
+                            skip_nonfinite=True)
+    opt_state = tx.init(params)
+    jparams = params
+    model = _Params(params)
+    state = create_train_state(model, lr=1e-2, weight_decay=0.1, lr_anneal_steps=6,
+                               skip_nonfinite=True)
+    for bad in (None, np.nan, None, np.inf, None, None):
+        grads = {k: rs.randn(*v.shape).astype(np.float32) for k, v in params.items()}
+        if bad is not None:
+            grads["b"][1] = bad
+        updates, opt_state = tx.update(grads, opt_state, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        _set_grads(model, grads)
+        apply_gradients(state)
+        for k in ("w", "b"):
+            np.testing.assert_allclose(getattr(model, k).detach().numpy(),
+                                       np.asarray(jparams[k]), rtol=0, atol=1e-6,
+                                       err_msg=f"{k} after a {bad} step")
+    assert (state.step, state.updates) == (6, 4)
 
 
 def _batch(cfg, B, seed):
@@ -205,19 +303,66 @@ def test_train_cli_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--mesh", "4x2"], ["--steps_per_dispatch", "4"],
                                   ["--sa_hoist"], ["--gather_bwd", "matmul"],
-                                  ["--dtype", "bfloat16"], ["--bn_dtype", "bfloat16"],
                                   ["--platform", "cpu"]])
 def test_train_cli_refuses_what_is_not_ported(flag):
     with pytest.raises(SystemExit, match="not ported"):
         train_sdm.main(["--train_data_dir", "unused", "--device", "cpu", *flag])
 
 
-@pytest.mark.parametrize("flag", [["--fps_batched"], ["--bn_dtype", "float32"]])
+@pytest.mark.parametrize("flag", [["--fps_batched"], ["--bn_dtype", "float32"],
+                                  ["--dtype", "bfloat16"], ["--bn_dtype", "bfloat16"]])
 def test_train_cli_takes_jax_flags_it_runs_as_is(tmp_path, flag):
     # past the flag checks, the run stops at the missing split
     with pytest.raises(FileNotFoundError):
         train_sdm.main(["--train_data_dir", str(tmp_path / "none"), "--device", "cpu",
                         "--save_dir", str(tmp_path / "out"), *flag])
+
+
+def test_train_cli_in_bf16_on_cpu(tmp_path):
+    """``--dtype bfloat16 --bn_dtype bfloat16`` on the synthetic split at 32
+    points, one epoch with validation (the composed sampler of the bf16
+    model): a finite loss, and ``final.pt`` loads into a float32 model."""
+    from lsdm_tpu_torch.checkpoint import load_torch_checkpoint
+
+    root = str(tmp_path)
+    train = generate(root, "proxd", n_scenes=1, n_seqs=4, pnt_size=32, split="train")
+    valid = generate(root, "proxd", n_scenes=1, n_seqs=2, pnt_size=32, seed=1,
+                     split="valid")
+    out = os.path.join(root, "out")
+    state = train_sdm.main(["--train_data_dir", train, "--valid_data_dir", valid,
+                            "--objs_data_dir", os.path.join(root, "objs"),
+                            "--pcd_points", "32", "--diffusion_steps", "4",
+                            "--epochs", "1", "--eval_every", "1", "--batch_size", "2",
+                            "--device", "cpu", "--dtype", "bfloat16",
+                            "--bn_dtype", "bfloat16", "--save_dir", out])
+    assert state.model.cfg.dtype == state.model.cfg.bn_dtype == "bfloat16"
+    assert all(p.dtype == torch.float32 for p in state.model.parameters())
+    with open(os.path.join(out, "logs", "events.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    assert all(np.isfinite(e["train/loss"]) for e in logged if "train/loss" in e)
+    assert any(np.isfinite(e["valid/cfd"]) for e in logged if "valid/cfd" in e)
+    back = SceneDiffusionModel(dataclasses.replace(state.model.cfg, dtype="float32",
+                                                   bn_dtype="float32"))
+    load_torch_checkpoint(os.path.join(out, "final.pt"), back)
+    for name, t in state.model.state_dict().items():
+        torch.testing.assert_close(back.state_dict()[name], t, atol=0, rtol=0, msg=name)
+
+
+@pytest.mark.parametrize("fused_step", ["chain", "step"])
+@pytest.mark.parametrize("ball_impl", ["pallas", "fused"])
+def test_sample_sdm_refuses_bf16_on_the_fused_kernels(fused_step, ball_impl):
+    """A bf16 model would reach K6-K9 (or, with ``ball_impl="fused"``, K7
+    and K8), whose bf16 modes are not ported: ``sample_sdm`` raises with the
+    reason and never samples in float32 instead."""
+    from lsdm_tpu_torch.models.sampling import sample_sdm
+
+    cfg = PortConfig(**TINY_KW, dtype="bfloat16", ball_impl=ball_impl)
+    model = init_weights(SceneDiffusionModel(cfg), 0).eval()
+    mask, objs, cats, _, _, text = _batch(cfg, 2, 0)
+    step = None if ball_impl == "fused" and fused_step == "step" else fused_step
+    with pytest.raises(ValueError, match="K6, K7, K8 and K9"):
+        sample_sdm(model, make_schedule("cosine", 2), mask, objs, cats, text,
+                   fused_step=step)
 
 
 def test_train_cli_refuses_without_a_gpu():
