@@ -72,6 +72,17 @@ Run from the repository root:  python3 chip_smoke.py
    and K6 never; ``test_sdm --fused_step step`` must likewise make its K9
    calls by replays, with no host call beyond the one before the capture.  Prints ms/scene, peak memory and the graph's
    capture and instantiation times.
+8b. The bf16 fused path (``sdm_proxd()`` at ``dtype="bfloat16"``, the JAX
+   bench's ``--dtype bfloat16``): first the bf16 modes of K7 and K8 per
+   stage at 9 clouds on bf16 features, of K6 at b1 and CHAIN_BATCH (clip
+   on; pass 1 timed apart beside its bf16 ``baddbmm`` yardstick) and of K9
+   at b1 and b8, clip off and on, each against its plain bf16 version by
+   the BF16 gate (BF16_RTOL, BF16_GAP_SHARE), its bound its bytes or its
+   products over BF16_TC_OPS_PER_S; then the bf16 model sampled at b1,
+   T=1000, on the chain path (K3 and K7, K8, K4, K6 in their bf16 modes)
+   and on the step path (the K9 bf16 graph replayed T times, no host
+   call), each against its plain versions by the BF16 gate, launching no
+   float32 mode; ms/scene and peak memory beside the float32 paths'.
 9. ``test_sdm --fused_step step`` on the synthetic split, and
    ``lsdm_tpu_torch.run.scene_edit`` on a synthetic proxd test split (2
    sequences x 1024 points, T=1000) whose prompts hit the keyword table:
@@ -111,8 +122,8 @@ Run from the repository root:  python3 chip_smoke.py
 12. ``lsdm_tpu_torch.run.train_sdm`` on a synthetic split (one epoch of
    two steps, validation on the fused path), its ``final.pt`` read back;
    then ``--dtype bfloat16 --bn_dtype bfloat16`` at BF16_CLI_STEPS steps
-   (validation on the composed path), its ``final.pt`` read back into a
-   float32 model.
+   (validation on the fused path in bf16: K7, K8, K4 and K6 in their bf16
+   modes), its ``final.pt`` read back into a float32 model.
 13. The text towers: the full-width CLIP text tower (its tokens from a
    small BPE merges file the phase writes) and BERT-base (read from a
    local snapshot the phase writes, tokens from its WordPiece vocabulary),
@@ -242,9 +253,19 @@ ATTN_BWD_BF16_ATOL = 2e-3
 TRAIN_BF16_LOSS_RTOL = 1e-2
 TRAIN_BF16_GRAD_RTOL = 5e-2
 TRAIN_BF16_PARAM_ATOL = 1e-6
-# --diffusion_steps of the bf16 train_sdm run: its validation samples on
-# the composed loop (the bf16 modes of K6 and K9 are the next slice)
+# --diffusion_steps of the bf16 train_sdm run: its validation samples the
+# bf16 model on the fused path (K7, K8, K4 and K6 in their bf16 modes)
 BF16_CLI_STEPS = 100
+# The bf16 modes of K6-K9 and the bf16 sampling paths (phase 8b), each
+# against its plain bf16 version: tests/test_torch_bf16.py:_check_bf16's
+# criterion, every entry within BF16_RTOL x max(1, |plain|), and the mean
+# absolute difference within BF16_GAP_SHARE of the plain version's own
+# mean gap between its bf16 and float32 results on the same inputs (which
+# shows that bf16 is computed).  Kernel and plain version round the same
+# values; their float32 sums run in other orders, so a rounding that falls
+# near a bf16 boundary can flip and travel through the later layers.
+BF16_RTOL = 3e-2
+BF16_GAP_SHARE = 0.5
 TRAIN_BATCH = 6
 TRAIN_STEPS = 3  # timed steps of each train configuration
 # K9 against its plain version, one step: float32 sums in another order
@@ -279,6 +300,10 @@ FP32_OPS_PER_S = 67e12
 # peak above assumes.  A kernel whose function takes n exponentials cannot
 # take less than n / SFU_EXPS_PER_S, whatever its other operations.
 SFU_EXPS_PER_S = 132 * 16 * 1.98e9
+# dense bf16 operations a second on the tensor cores (the H100 SXM5 data
+# sheet's 989 TFLOP/s, at the 700 W limit): the bound of a bf16 mode's
+# products, whose operands are bf16, whatever units the kernel runs them on
+BF16_TC_OPS_PER_S = 989e12
 # float32 instructions a second outside the tensor cores: 128 lanes a clock
 # per SM on 132 SMs at 1.98 GHz, half of FP32_OPS_PER_S, which counts an FMA
 # as two operations.  The distance kernels round every product and sum on
@@ -324,6 +349,14 @@ KERNELS = {  # name: (source, the TPU kernel it replaces, path it is counted on)
                             "lsdm_tpu/ops/attn_pallas.py:138", "train_bf16"),
     "select_gather_bf16": ("lsdm_tpu_torch/csrc/sg_fused.cu",
                            "lsdm_tpu/ops/sg_fused_pallas.py:128", "train_bf16_sg"),
+    "sa_fused_bf16": ("lsdm_tpu_torch/csrc/sa_fused.cu",
+                      "lsdm_tpu/ops/sa_fused_pallas.py:134", "fused_bf16"),
+    "fp_fused_bf16": ("lsdm_tpu_torch/csrc/fp_fused.cu",
+                      "lsdm_tpu/ops/fp_fused_pallas.py:93", "fused_bf16"),
+    "denoise_chain_bf16": ("lsdm_tpu_torch/csrc/denoise_chain.cu",
+                           "lsdm_tpu/ops/denoise_pallas.py:278", "fused_bf16"),
+    "denoise_step_bf16": ("lsdm_tpu_torch/csrc/denoise_step.cu",
+                          "lsdm_tpu/ops/denoise_pallas.py:173", "step_bf16"),
 }
 PATH_KERNELS = {"pallas": ("ball_query", "three_nn", "fps", "denoise_chain"),
                 "fused": ("fps", "sa_fused", "fp_fused", "rank1_attn",
@@ -353,11 +386,18 @@ PATH_KERNELS = {"pallas": ("ball_query", "three_nn", "fps", "denoise_chain"),
                 "train_bf16_sg": ("select_gather_bf16", "three_nn", "fps",
                                   "rank1_attn_bf16", "rank1_attn_bwd_bf16"),
                 # train_sdm --dtype bfloat16: the bf16 train steps, then
-                # validation on the composed path over K1-K3
+                # validation of the bf16 model on the fused path
                 "train_cli_bf16": ("ball_query", "three_nn", "fps",
-                                   "rank1_attn_bf16", "rank1_attn_bwd_bf16")}
-# kernels no bf16 path may launch: the float32 modes of K4, K5 and K10, and
-# the fused eval kernels, whose bf16 modes are not ported
+                                   "rank1_attn_bf16", "rank1_attn_bwd_bf16",
+                                   "sa_fused_bf16", "fp_fused_bf16",
+                                   "denoise_chain_bf16"),
+                # a bf16 model sampled on the fused path: the fused encode
+                # and the chain, or K9 once per step, in their bf16 modes
+                "fused_bf16": ("fps", "sa_fused_bf16", "fp_fused_bf16",
+                               "rank1_attn_bf16", "denoise_chain_bf16"),
+                "step_bf16": ("fps", "sa_fused_bf16", "fp_fused_bf16",
+                              "rank1_attn_bf16", "denoise_step_bf16")}
+# kernels no bf16 path may launch: the float32 modes of K4-K10
 NOT_ON_BF16_PATHS = ("rank1_attn", "rank1_attn_bwd", "select_gather", "sa_fused",
                      "fp_fused", "denoise_chain", "denoise_step")
 # (module, the name it calls a kernel wrapper by, module, plain version):
@@ -468,15 +508,17 @@ def plain_versions():
 
 
 def _record(rec, name, err, ms, pms, line, nbytes, ops, lib_ms=None, exps=0,
-            instrs=False):
+            instrs=False, bf16=False):
     """Add one call of kernel ``name`` to ``rec``: its error, its and its
     plain version's time, and the least time the card could take for the
     call's work (``nbytes`` moved, ``ops`` float32 operations, of which
     ``exps`` exponentials, which also bound it on the SFUs).  ``instrs``:
-    ``ops`` counts issued float32 instructions, at FP32_INSTR_PER_S."""
+    ``ops`` counts issued float32 instructions, at FP32_INSTR_PER_S;
+    ``bf16``: ``ops`` counts a bf16 mode's products, at BF16_TC_OPS_PER_S."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = max(ops / (FP32_INSTR_PER_S if instrs else FP32_OPS_PER_S),
-                 exps / SFU_EXPS_PER_S) * 1e3
+    rate = (BF16_TC_OPS_PER_S if bf16 else FP32_INSTR_PER_S if instrs
+            else FP32_OPS_PER_S)
+    ops_ms = max(ops / rate, exps / SFU_EXPS_PER_S) * 1e3
     lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
     print(f"{line}; kernel {ms:.4f} ms, plain {pms:.4f} ms{lib}, bound "
           f"{max(bytes_ms, ops_ms):.4f} ms")
@@ -822,10 +864,10 @@ def kernel_checks(dev, model, T: int = T_STEPS) -> dict:
     return rec
 
 
-def _chain_pass1_ms(e2, p, dev) -> float:
+def _chain_pass1_ms(e2, p, dev, compute_dtype=None) -> float:
     """Device ms of K6's first pass over the step rows e2 (B, T, 2D), as the
-    chain runs it: pass 1 alone (``denoise_chain_tables``) over each of the
-    chain's chunks of steps."""
+    chain runs it: pass 1 alone (``denoise_chain_tables``, in
+    ``compute_dtype``'s mode) over each of the chain's chunks of steps."""
     from lsdm_tpu_torch.ops import denoise
 
     B, T = e2.shape[:2]
@@ -834,16 +876,18 @@ def _chain_pass1_ms(e2, p, dev) -> float:
     for steps, count in ((tc, T // tc), (T % tc, 1)):
         if steps and count:
             rows = e2[:, :steps].contiguous()
-            ms += count * _time_ms(lambda: denoise.denoise_chain_tables(rows, p), 3, dev)
+            ms += count * _time_ms(lambda: denoise.denoise_chain_tables(
+                rows, p, compute_dtype), 3, dev)
     return ms
 
 
-def _chain_pass1_library_ms(e2, p, dev) -> float:
+def _chain_pass1_library_ms(e2, p, dev, dtype=None) -> float:
     """Device ms of pass 1's library yardstick over the step rows e2 (B, T,
     2D), chunked as ``_chain_pass1_ms`` chunks them: for each chunk of z =
     B x steps (scene, step) pairs, its four products with their biases as
-    ``torch.baddbmm`` calls (cuBLAS in full float32, TF32 off) on tables of
-    the kernel's shapes.  Without the GELUs and u0, it is a floor for the
+    ``torch.baddbmm`` calls (cuBLAS in full float32, TF32 off; with
+    ``dtype`` bf16 on bf16 tensors, the tensor cores) on tables of the
+    kernel's shapes.  Without the GELUs and u0, it is a floor for the
     kernel rather than the same function; timed here only, never called by
     the port."""
     import torch
@@ -857,22 +901,24 @@ def _chain_pass1_library_ms(e2, p, dev) -> float:
     g = torch.Generator(device=dev).manual_seed(0)
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
+    dt = dtype or torch.float32
+    b_up2, b_up4, bc, bx0 = (b.to(dt) for b in (p.b_up2, p.b_up4, p.bc, p.bx0))
     ms = 0.0
     try:
         for steps, count in ((tc, T // tc), (T % tc, 1)):
             if not (steps and count):
                 continue
             z = B * steps
-            u0, u2, u4, emb = (torch.randn(z, r, c, generator=g, device=dev)
+            u0, u2, u4, emb = (torch.randn(z, r, c, generator=g, device=dev).to(dt)
                                for r, c in ((U0, D2), (U2, D2), (N, D2), (N, D)))
-            w_up2, w_up4, wc, wx = (w.expand(z, -1, -1) for w in (
+            w_up2, w_up4, wc, wx = (w.to(dt).expand(z, -1, -1) for w in (
                 p.w_up2, p.w_up4, p.wc_t, p.wx0_t[D:]))
 
             def products():
-                torch.baddbmm(p.b_up2, w_up2, u0)
-                torch.baddbmm(p.b_up4, w_up4, u2)
-                torch.baddbmm(p.bc, u4, wc)
-                torch.baddbmm(p.bx0, emb, wx)
+                torch.baddbmm(b_up2, w_up2, u0)
+                torch.baddbmm(b_up4, w_up4, u2)
+                torch.baddbmm(bc, u4, wc)
+                torch.baddbmm(bx0, emb, wx)
             ms += count * _time_ms(products, 3, dev)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -1567,6 +1613,240 @@ def step_path(dev, cfg, model, T: int = T_STEPS):
     return launches, errs(s_p, o_p), errs(s_c, o_c), sec_k, peak, info
 
 
+def _bf16_gate(got, want, want32, line: str) -> dict:
+    """The BF16 gate of ``got`` (a bf16 mode's output) against ``want``
+    (its plain bf16 version's), ``want32`` (the plain version's float32
+    result on the same inputs) measuring the bf16 gap.  Raises with
+    ``line`` if it fails; returns the readings: max and mean |got - want|,
+    the bound on the max, the gap, and the share of entries that differ."""
+    import torch
+
+    got, want, want32 = got.float(), want.float(), want32.float()
+    diff = (got - want).abs()
+    r = {"max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item(),
+         "bound": BF16_RTOL * max(1.0, want.abs().max().item()),
+         "gap": (want - want32).abs().mean().item(),
+         "differ": (diff > 0).float().mean().item()}
+    if not (torch.isfinite(got).all() and r["max_abs_err"] <= r["bound"]
+            and r["gap"] > 0 and r["mean_abs_err"] <= BF16_GAP_SHARE * r["gap"]):
+        raise AssertionError(f"{line}: {r}")
+    return r
+
+
+def _bf16_text(r: dict) -> str:
+    return (f"max error {r['max_abs_err']:.3g} (bound {r['bound']:.3g}), mean "
+            f"{r['mean_abs_err']:.3g} against the bf16 gap {r['gap']:.3g} (at most "
+            f"{BF16_GAP_SHARE} of it), {r['differ']:.2%} of entries differ")
+
+
+def bf16_kernel_checks_fused(dev, model, T: int = T_STEPS) -> dict:
+    """Phase 8b, kernels: the bf16 modes of K7 (sa1-sa4) and K8 (fp4-fp1,
+    fp1 with the head) at 9 clouds, their features bf16 as the bf16 stages
+    hand them on; of K6 at b1 and CHAIN_BATCH (clip on), pass 1 timed apart
+    beside its bf16 ``baddbmm`` yardstick; of K9 at b1 and b8, clip off and
+    on.  Each against its plain bf16 version by the BF16 gate, each kernel
+    timed (K7, K8 and K9 queued behind a sleep), its bound its bytes over
+    HBM_BYTES_PER_S or its products over BF16_TC_OPS_PER_S.  The kernels get
+    the weights rounded once (``bf16_step_params``), as the sampler hands
+    them over.  Returns {kernel: record}."""
+    import torch
+
+    from lsdm_tpu_torch.diffusion.schedule import make_schedule
+    from lsdm_tpu_torch.models.sampling import chain_coefficients
+    from lsdm_tpu_torch.ops import denoise, fp_fused, sa_fused
+    from lsdm_tpu_torch.profile_encode import encode_levels, stage_cases
+
+    bf = torch.bfloat16
+    bb = model.pcd_backbone
+    N, D = model.cfg.pcd_points, model.cfg.latent_dim
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    rec: dict = {}
+    for case in stage_cases(bb, encode_levels(bb, 9, g, dev), g, bf):
+        args = case["args"]
+        mod = sa_fused if case["kind"] == "sa" else fp_fused
+        name = "sa_fused_bf16" if case["kind"] == "sa" else "fp_fused_bf16"
+        wrapper = (mod.sa_stage_fused_kernel if case["kind"] == "sa"
+                   else mod.fp_stage_fused_kernel)
+        plain = (mod.sa_stage_fused_plain if case["kind"] == "sa"
+                 else mod.fp_stage_fused_plain)
+        got = wrapper(*args, bf)
+        line = (f"{'K7 fused SA' if case['kind'] == 'sa' else 'K8 fused FP'} bf16 "
+                f"{case['name']} 9 clouds {case['desc']}")
+        r = _bf16_gate(got, plain(*args, bf), plain(*args), line)
+        if got.dtype != bf:
+            raise AssertionError(f"{line}: output {got.dtype}")
+        ms = _time_queued_ms(lambda: wrapper(*args, bf), ENCODE_REPS, dev)[0]
+        _record(rec, name, r["max_abs_err"], ms, _time_ms(lambda: plain(*args, bf), 5, dev),
+                f"{line}: {_bf16_text(r)}; wrapper queued", case["nbytes"],
+                case["products"], bf16=True)
+        rec[name].setdefault("stages_b1", []).append(
+            {"stage": case["name"], "ms": ms, **r,
+             "tflop_s": case["products"] / ms / 1e9})
+
+    p = denoise.extract_step_params(model)
+    pb = denoise.bf16_step_params(p)  # rounded once, as the sampler's are
+    coef = chain_coefficients(make_schedule("cosine", T, device=dev), False)
+    up = sum(w.numel() for w in (p.w_up0, p.w_up2, p.w_up4))  # on 2D rows
+    tail = (p.wp0_t.numel() + p.wp2_t.numel() + D * p.wx0_t.shape[1]
+            + p.wx2_t.numel() + p.wo0_t.numel() + p.wo2_t.numel())
+    table = p.wc_t.numel() + D * p.wx0_t.shape[1]
+    for B, clip in ((1, False), (CHAIN_BATCH, True)):
+        data = (torch.randn(B, N, 3, generator=g, device=dev),
+                torch.randn(B, T, N, 3, generator=g, device=dev),
+                torch.randn(B, N, 3, generator=g, device=dev),
+                torch.randn(B, T, 2 * D, generator=g, device=dev), coef)
+        got = denoise.fused_denoise_chain(*data, pb, clip_denoised=clip,
+                                          compute_dtype=bf)
+        want = denoise.denoise_chain_plain(*data, p, clip, bf)
+        want32 = denoise.denoise_chain_plain(*data, p, clip)
+        line = f"K6 denoise chain bf16 B={B} N={N} D={D} T={T} clip={clip}"
+        reads = [_bf16_gate(a, w, w32, f"{line} {n}")
+                 for a, w, w32, n in zip(got, want, want32, ("final", "last_in"))]
+        del want, want32
+        r = max(reads, key=lambda x: x["max_abs_err"])
+        ms = _time_ms(lambda: denoise.fused_denoise_chain(
+            *data, pb, clip_denoised=clip, compute_dtype=bf), 3, dev)
+        pass1 = _chain_pass1_ms(data[3], pb, dev, bf)
+        ops1 = 2 * B * T * (2 * D * up + N * table)
+        ops2 = 2 * B * T * N * tail
+        pass1_rec = {"source": "lsdm_tpu_torch/csrc/denoise_tables.cu", "ms": pass1,
+                     "bound_ms": ops1 / BF16_TC_OPS_PER_S * 1e3,
+                     "library_ms": _chain_pass1_library_ms(data[3], p, dev, bf),
+                     "tflop_s": ops1 / pass1 * 1e-9}
+        line = (f"{line}: {_bf16_text(r)}; pass 1 {pass1:.3f} ms (bound "
+                f"{pass1_rec['bound_ms']:.3f} on the bf16 tensor cores; "
+                f"{pass1_rec['tflop_s']:.2f} TFLOP/s; bf16 baddbmm floor, no GELU "
+                f"or u0: {pass1_rec['library_ms']:.3f}), pass 2 {ms - pass1:.3f} ms "
+                f"(bound {ops2 / BF16_TC_OPS_PER_S * 1e3:.3f})")
+        if B != 1:
+            print(f"{line}; kernel {ms:.4f} ms")
+            rec["denoise_chain_bf16"]["max_abs_err"] = max(
+                rec["denoise_chain_bf16"]["max_abs_err"], r["max_abs_err"])
+            rec["denoise_chain_bf16"][f"pass1_b{B}"] = pass1_rec
+            rec["denoise_chain_bf16"][f"ms_b{B}"] = ms
+            rec["denoise_chain_bf16"][f"gate_b{B}"] = r
+            continue
+        _record(rec, "denoise_chain_bf16", r["max_abs_err"], ms,
+                _time_ms(lambda: denoise.denoise_chain_plain(*data, p, False, bf), 2,
+                         dev),
+                line, _nbytes(*data, *p, *got), ops1 + ops2,
+                pass1_rec["library_ms"], bf16=True)
+        rec["denoise_chain_bf16"].update(pass1_b1=pass1_rec, pass2_ms=ms - pass1,
+                                         gate_b1=r)
+
+    rows = sum(w.numel() for w in (p.wc_t, p.wp0_t, p.wp2_t, p.wx0_t, p.wx2_t,
+                                   p.wo0_t, p.wo2_t))  # on N rows
+    parts = {}
+    for B in (1, 8):
+        # the loop's last step (t = 0: c1 = 1, c2 = c3 = 0), whose output is
+        # x0 itself, so the bf16 gap is that of the whole tail
+        args = [torch.randn(B, N, 3, generator=g, device=dev),
+                torch.randn(B, N, 3, generator=g, device=dev),
+                torch.randn(B, N, 3, generator=g, device=dev),
+                torch.randn(B, 2 * D, generator=g, device=dev), coef[T - 1]]
+        for clip in (False, True):
+            step = denoise.make_denoise_step(p, N, dev, clip, bf)  # bound once
+            got = step(*args)
+            line = f"K9 denoise step bf16 B={B} N={N} D={D} clip={clip}"
+            r = _bf16_gate(got, denoise.denoise_step_plain(*args, p, clip, bf),
+                           denoise.denoise_step_plain(*args, p, clip), line)
+            ms = _time_queued_ms(lambda: step(*args), STEP_REPS, dev)[0]
+            ops = 2 * B * (2 * D * up + N * rows)
+            nbytes = _nbytes(*args, *p, got)
+            if not clip:
+                parts[f"b{B}"] = {"ms": ms, "bound_ms": max(
+                    nbytes / HBM_BYTES_PER_S, ops / BF16_TC_OPS_PER_S) * 1e3, **r}
+            if B != 1 or clip:  # not the path's case: its error counts
+                print(f"{line}: {_bf16_text(r)}; kernel {ms:.4f} ms per launch")
+                rec["denoise_step_bf16"]["max_abs_err"] = max(
+                    rec["denoise_step_bf16"]["max_abs_err"], r["max_abs_err"])
+                continue
+            _record(rec, "denoise_step_bf16", r["max_abs_err"], ms,
+                    _time_ms(lambda: denoise.denoise_step_plain(*args, p, False, bf),
+                             20, dev),
+                    f"{line}: {_bf16_text(r)}; per launch queued", nbytes, ops,
+                    bf16=True)
+    rec["denoise_step_bf16"].update(parts)
+    return rec
+
+
+def bf16_path(dev, cfg, fused, T: int = T_STEPS):
+    """Phase 8b, paths: ``fused``'s weights as a bf16 model
+    (``dtype="bfloat16"``, the JAX bench's ``--dtype bfloat16``) sampled at
+    batch 1 on the chain path and on the step path (the K9 graph replayed),
+    each through the kernels and through the plain versions of the same
+    configuration, same draws, by the BF16 gate (the gap from the float32
+    model's plain run); the step path's timed sample must replay its graph
+    (T K9 calls, none from the host).  Returns {path: (launches, gates,
+    ms/scene, peak GiB)}."""
+    import torch
+
+    from lsdm_tpu_torch import kernels
+    from lsdm_tpu_torch.diffusion.schedule import make_schedule
+    from lsdm_tpu_torch.models.sampling import sample_sdm, step_loop
+    from lsdm_tpu_torch.models.sdm import SceneDiffusionModel
+    from lsdm_tpu_torch.profile_sampling import seeded_inputs
+
+    model = SceneDiffusionModel(dataclasses.replace(cfg, ball_impl="fused",
+                                                    dtype="bfloat16"))
+    model.load_state_dict(fused.state_dict())
+    model = model.to(dev).eval()
+    B, N = 1, cfg.pcd_points
+    mask, objs, cats, text, x_init, noise = seeded_inputs(cfg, B, T, SEED, dev)
+    schedule = make_schedule("cosine", T, device=dev)
+
+    def run(m, step):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = sample_sdm(m, schedule, mask, objs, cats, text, fused_step=step,
+                         x_init=x_init, noise=noise)
+        _sync(dev)
+        return out, time.perf_counter() - t0
+
+    out = {}
+    for path, step in (("fused_bf16", "chain"), ("step_bf16", "step")):
+        run(model, step)  # warm-up (the step path captures its graph)
+        graph = (step_loop(model, B, N, T, dev, False)
+                 if step == "step" and dev.type == "cuda" else None)
+        replays = graph.replays if graph is not None else 0
+        peak = _reset_peak(dev)
+        kernels.reset_launches()
+        (s_k, o_k), sec = run(model, step)
+        launches = _launches()
+        direct = kernels.LAUNCHES["denoise_step_bf16"]
+        peak = peak()
+        with plain_versions():
+            kernels.reset_launches()
+            (s_p, o_p), _ = run(model, step)
+            (s_32, o_32), _ = run(fused, step)
+            if any(_launches().values()):
+                raise AssertionError(f"the plain run launched kernels: {_launches()}")
+        if s_k.shape != (B, N, 3) or s_k.dtype != torch.float32:
+            raise AssertionError(f"{path}: the sample is not a float32 {(B, N, 3)} cloud")
+        gates = {n: _bf16_gate(a, w, w32, f"{path} sdm_proxd B=1 T={T} {n}")
+                 for n, a, w, w32 in (("sample", s_k, s_p, s_32),
+                                      ("x0", o_k.x0, o_p.x0, o_32.x0),
+                                      ("guiding", o_k.guiding, o_p.guiding,
+                                       o_32.guiding),
+                                      ("cat", o_k.cat, o_p.cat, o_32.cat))}
+        if graph is not None:
+            if direct or graph.replays != replays + 1:
+                raise AssertionError(f"the bf16 step path did not replay its graph: "
+                                     f"{direct} K9 calls from the host, "
+                                     f"{graph.replays - replays} replays")
+            if graph.calls != T or tuple(graph.kernel_nodes[1:]) != (T, T):
+                raise AssertionError(f"the bf16 step graph holds {graph.calls} K9 "
+                                     f"calls and kernel nodes {graph.kernel_nodes}")
+            if launches["denoise_step_bf16"] != T:
+                raise AssertionError(f"K9 bf16 launched {launches['denoise_step_bf16']} "
+                                     f"times, not {T}")
+        print(f"{path} path sdm_proxd bf16 B=1 9x{N} T={T}: launches {launches}; "
+              + "; ".join(f"{n}: {_bf16_text(r)}" for n, r in gates.items()))
+        _check_launches(path, launches)
+        out[path] = (launches, gates, sec * 1e3, peak)
+    return out
+
+
 def scene_edit_phase(dev, points: int = 1024, T: int = T_STEPS) -> dict:
     """Phase 9: the port's scene_edit on a synthetic proxd test split of
     2 sequences of ``points`` points whose prompts name a desk, with the
@@ -1931,13 +2211,17 @@ def _check_launches(path: str, launches: dict) -> None:
     for name in PATH_KERNELS[path]:
         if launches[name] < 1:
             raise AssertionError(f"kernel {name} was not launched on the {path} path")
-    if (path in ("fused", "fused_encode", "step")
+    if (path in ("fused", "fused_encode", "step", "fused_bf16", "step_bf16")
             and launches["ball_query"] + launches["three_nn"]):
         raise AssertionError(f"the {path} path ran K1/K2: {launches}")
     if path == "fused" and launches["denoise_step"]:
         raise AssertionError(f"the fused path ran K9: {launches}")
     if path == "step" and launches["denoise_chain"]:
         raise AssertionError(f"the step path ran K6: {launches}")
+    if path == "fused_bf16" and launches["denoise_step_bf16"]:
+        raise AssertionError(f"the bf16 fused path ran K9: {launches}")
+    if path == "step_bf16" and launches["denoise_chain_bf16"]:
+        raise AssertionError(f"the bf16 step path ran K6: {launches}")
     if path in ("train_sg", "train_bf16_sg") and launches["ball_query"]:
         raise AssertionError(f"the sg train step ran K1: {launches}")
     if "bf16" in path and any(launches[k] for k in NOT_ON_BF16_PATHS):
@@ -2049,6 +2333,19 @@ def main() -> int:
         raise AssertionError("step path disagrees with the chain path")
     print(f"kernel path step at b1 (the graph replayed): {sec_k * 1e3:.1f} ms/scene, "
           f"{T_STEPS / sec_k:.1f} steps/s, peak memory {peak:.2f} GiB")
+    ms["step"], peaks["step"] = sec_k * 1e3, peak
+
+    # phase 8b: a bf16 model on the fused paths, its kernels' bf16 modes
+    records.update(bf16_kernel_checks_fused(dev, fused))
+    for path, (path_launches, gates, ms_b, peak_b) in bf16_path(dev, cfg, fused).items():
+        launches[path] = path_launches
+        f32 = "fused" if path == "fused_bf16" else "step"
+        name = "denoise_chain_bf16" if f32 == "fused" else "denoise_step_bf16"
+        records[name]["path_b1"] = {"ms_scene": ms_b, "peak_gib": peak_b,
+                                    "float32_ms_scene": ms[f32], "gates": gates}
+        print(f"kernel path {path} at b1: {ms_b:.1f} ms/scene, {T_STEPS * 1e3 / ms_b:.1f} "
+              f"steps/s, peak memory {peak_b:.2f} GiB; the float32 {f32} path in this "
+              f"call {ms[f32]:.1f} ms/scene, {peaks[f32]:.2f} GiB")
     _check_launches("step", cli_phase(dev, fused_step="step"))
     _check_launches("scene_edit", scene_edit_phase(dev))
     icp_rec, icp_launches = icp_check(dev)

@@ -64,6 +64,16 @@
 // tables against a plain computation: the chain's final sample barely
 // moves with pass 1's rounding (the sigmoid layers of pass 2 damp it), so
 // it cannot show whether pass 1 computes in exact float32.
+//
+// The bf16 mode (lsdm_denoise_chain_bf16; the TPU kernel at
+// compute_dtype=bfloat16, whose dot() rounds both operands to bf16 and sums
+// in float32, denoise_pallas.py:237-239) is the same two passes with the
+// weights rounded to bf16 by the wrapper: pass 1's bf16 instance (u0 and
+// its tables rounded, denoise_tables.cu), and pass 2's, which rounds x_t +
+// cond_pcd as the operand of the first layer and each layer's output as it
+// is written to shared memory (h1 included, as it crosses to the peer), the
+// products' only consumers.  The carried sample, the noise, the update,
+// the biases and the activations stay float32.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -202,9 +212,9 @@ __device__ void load_matrix(float* dst, const float* __restrict__ src,
 // modulo the layer's parts.  The partials meet in red and every thread
 // finishes outputs from there, four columns of a row at once.  Per k a
 // warp reads its weights (one float4 a lane) and two float4 of the
-// activations, most of them broadcast, for 32 FMAs a lane.  Ends with a
-// block barrier.
-template <bool kGelu>
+// activations, most of them broadcast, for 32 FMAs a lane.  kBf16: each
+// output rounded to bf16.  Ends with a block barrier.
+template <bool kGelu, bool kBf16>
 __device__ __forceinline__ void dense_tile(const float* w, int k_dim,
                                            int out_dim, const float* bias,
                                            const float* gbias, int gld,
@@ -266,8 +276,10 @@ __device__ __forceinline__ void dense_tile(const float* w, int k_dim,
     const float y[4] = {v.x + bv.x, v.y + bv.y, v.z + bv.z, v.w + bv.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      if (4 * g4 + j < out_dim)
-        out[(4 * g4 + j) * rows + r] = kGelu ? gelu(y[j]) : sigmoid(y[j]);
+      if (4 * g4 + j < out_dim) {
+        const float a = kGelu ? gelu(y[j]) : sigmoid(y[j]);
+        out[(4 * g4 + j) * rows + r] = kBf16 ? bf16r(a) : a;
+      }
   }
   __syncthreads();
 }
@@ -284,7 +296,8 @@ __device__ __forceinline__ void dense_tile(const float* w, int k_dim,
 // which land while the first layers run.  g holds the chunk's table emb @
 // wx0_t[D:] + bx0, shape (B * tc, n, d15).  x_in and x_out are the same
 // buffer after the first chunk: every block reads its rows at the start,
-// rank 1 writes them at the end.
+// rank 1 writes them at the end.  kBf16: the bf16 mode (above).
+template <bool kBf16>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kPairThreads)
 chain_pair_kernel(const float* x_in, float* x_out,
                   float* __restrict__ last_in, const float* __restrict__ noise,
@@ -351,18 +364,21 @@ chain_pair_kernel(const float* x_in, float* x_out,
         for (int e = tid; e < rows * dh; e += kPairThreads) {
           const int o = e / rows, r = e - o * rows;
           float v = 0.0f;
-          for (int c = 0; c < 3; ++c)
-            v = fmaf(xs[3 * r + c] + cs[3 * r + c], sm[L.wp0 + c * ld + o], v);
-          sm[L.p + e] = sigmoid(v + sm[L.bp0 + o]);
+          for (int c = 0; c < 3; ++c) {
+            const float xc = xs[3 * r + c] + cs[3 * r + c];
+            v = fmaf(kBf16 ? bf16r(xc) : xc, sm[L.wp0 + c * ld + o], v);
+          }
+          const float a = sigmoid(v + sm[L.bp0 + o]);
+          sm[L.p + e] = kBf16 ? bf16r(a) : a;
         }
         __syncthreads();
       }
-      dense_tile<false>(sm + L.wp2, dh, d, sm + L.bp2, nullptr, 0, sm + L.p,
-                        sm + L.p, sm + L.red, rows);
+      dense_tile<false, kBf16>(sm + L.wp2, dh, d, sm + L.bp2, nullptr, 0,
+                               sm + L.p, sm + L.p, sm + L.red, rows);
       copy_wait();  // this phase's g (dense_tile's barrier shares it)
-      dense_tile<false>(sm + L.wx0, d, d15, nullptr, sm + L.gb, L.gld,
-                        sm + L.p, peer + L.h1 + s * d15 * rows, sm + L.red,
-                        rows);
+      dense_tile<false, kBf16>(sm + L.wx0, d, d15, nullptr, sm + L.gb, L.gld,
+                               sm + L.p, peer + L.h1 + s * d15 * rows,
+                               sm + L.red, rows);
     } else if (rank == 1 && k >= 1) {
       const int s = (k - 1) & 1, t = t0 + ((k - 1) >> 1);
       if (owner)
@@ -374,11 +390,12 @@ chain_pair_kernel(const float* x_in, float* x_out,
         copy4_async(sm + L.nz + tid, coef + (size_t)t * 3 + (tid - 3 * rows),
                     true);
       copy_commit();
-      dense_tile<false>(sm + L.wx2, d15, d, sm + L.bx2, nullptr, 0,
-                        sm + L.h1 + s * d15 * rows, sm + L.h, sm + L.red, rows);
+      dense_tile<false, kBf16>(sm + L.wx2, d15, d, sm + L.bx2, nullptr, 0,
+                               sm + L.h1 + s * d15 * rows, sm + L.h,
+                               sm + L.red, rows);
       copy_wait();  // this phase's noise (wo0's barrier shares it)
-      dense_tile<true>(sm + L.wo0, d, dh2, sm + L.bo0, nullptr, 0, sm + L.h,
-                       sm + L.h, sm + L.red, rows);
+      dense_tile<true, kBf16>(sm + L.wo0, d, dh2, sm + L.bo0, nullptr, 0,
+                              sm + L.h, sm + L.h, sm + L.red, rows);
       // x0 = gelu(h3 @ wo2_t + bo2) and the update, a warp per row: the
       // lanes split k, a butterfly sums, lanes 0-2 update (row, lane)
       const int lane = tid & 31;
@@ -445,6 +462,50 @@ int tile_rows(const ChainDims& d, int sms, size_t smem_limit) {
   return best;
 }
 
+// A chain call in either mode, after the shape checks of the C entries.
+template <bool kBf16>
+int chain_entry(const float* x_init, const float* noise, const float* cpcd,
+                const float* e2, const float* coef, const float* const* w,
+                float* final_x, float* last_in, float* scratch,
+                const int* dims, int clip, void* stream) {
+  const ChainDims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5],
+                    dims[6], dims[7], dims[8], dims[9], dims[10]};
+  if (d.B <= 0 || d.T <= 0 || d.TC <= 0 || d.D2 != 2 * d.D)
+    return (int)cudaErrorInvalidValue;
+  int dev, limit, sms;
+  cudaError_t err;
+  if ((err = tables_check(d, w, scratch))) return (int)err;
+  if ((err = cudaGetDevice(&dev)) ||
+      (err = cudaDeviceGetAttribute(
+           &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)))
+    return (int)err;
+  const int rows = tile_rows(d, sms, (size_t)limit);
+  if (!rows) return (int)cudaErrorInvalidValue;
+  const PairLayout L = pair_layout(d.D, d.DH, d.D15, d.DH2, rows);
+  const size_t smem = sizeof(float) * (size_t)L.total;
+  if ((err = cudaFuncSetAttribute(chain_pair_kernel<kBf16>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)))
+    return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  const TailWeights tail{w[8],  w[9],  w[10], w[11], w[12], w[13],
+                         w[14], w[15], w[16], w[17], w[18], w[19]};
+  const int pairs = (d.N + 2 * rows - 1) / (2 * rows);  // tile pairs a scene
+  if ((err = transpose_weights(st, d, w, scratch))) return (int)err;
+  for (int t0 = 0; t0 < d.T; t0 += d.TC) {
+    const int tc = d.TC < d.T - t0 ? d.TC : d.T - t0;
+    float* g;
+    if ((err = chain_tables(st, d, e2, w, scratch, t0, tc, kBf16, &g)))
+      return (int)err;
+    chain_pair_kernel<kBf16><<<2 * d.B * pairs, kPairThreads, smem, st>>>(
+        t0 == 0 ? x_init : final_x, final_x, last_in, noise, cpcd, g, coef,
+        tail, L, d.N, d.D, d.DH, d.D15, d.DH2, d.T, t0, tc, pairs, clip);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -465,41 +526,19 @@ int lsdm_denoise_chain(const float* x_init, const float* noise,
                        const float* const* w, float* final_x, float* last_in,
                        float* scratch, const int* dims, int clip,
                        void* stream) {
-  const ChainDims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5],
-                    dims[6], dims[7], dims[8], dims[9], dims[10]};
-  if (d.B <= 0 || d.T <= 0 || d.TC <= 0 || d.D2 != 2 * d.D)
-    return (int)cudaErrorInvalidValue;
-  int dev, limit, sms;
-  cudaError_t err;
-  if ((err = tables_check(d, w, scratch))) return (int)err;
-  if ((err = cudaGetDevice(&dev)) ||
-      (err = cudaDeviceGetAttribute(
-           &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)))
-    return (int)err;
-  const int rows = tile_rows(d, sms, (size_t)limit);
-  if (!rows) return (int)cudaErrorInvalidValue;
-  const PairLayout L = pair_layout(d.D, d.DH, d.D15, d.DH2, rows);
-  const size_t smem = sizeof(float) * (size_t)L.total;
-  if ((err = cudaFuncSetAttribute(chain_pair_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem)))
-    return (int)err;
-  cudaStream_t st = (cudaStream_t)stream;
-  const TailWeights tail{w[8],  w[9],  w[10], w[11], w[12], w[13],
-                         w[14], w[15], w[16], w[17], w[18], w[19]};
-  const int pairs = (d.N + 2 * rows - 1) / (2 * rows);  // tile pairs a scene
-  if ((err = transpose_weights(st, d, w, scratch))) return (int)err;
-  for (int t0 = 0; t0 < d.T; t0 += d.TC) {
-    const int tc = d.TC < d.T - t0 ? d.TC : d.T - t0;
-    float* g;
-    if ((err = chain_tables(st, d, e2, w, scratch, t0, tc, &g))) return (int)err;
-    chain_pair_kernel<<<2 * d.B * pairs, kPairThreads, smem, st>>>(
-        t0 == 0 ? x_init : final_x, final_x, last_in, noise, cpcd, g, coef,
-        tail, L, d.N, d.D, d.DH, d.D15, d.DH2, d.T, t0, tc, pairs, clip);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  return 0;
+  return chain_entry<false>(x_init, noise, cpcd, e2, coef, w, final_x,
+                            last_in, scratch, dims, clip, stream);
+}
+
+// The same call in the bf16 mode: the product weights of w (w_up2, w_up4,
+// wc_t and the tail's) rounded to bf16 by the caller, all float32 tensors.
+int lsdm_denoise_chain_bf16(const float* x_init, const float* noise,
+                            const float* cpcd, const float* e2,
+                            const float* coef, const float* const* w,
+                            float* final_x, float* last_in, float* scratch,
+                            const int* dims, int clip, void* stream) {
+  return chain_entry<true>(x_init, noise, cpcd, e2, coef, w, final_x, last_in,
+                           scratch, dims, clip, stream);
 }
 
 }  // extern "C"

@@ -49,6 +49,14 @@
 // On an H100 at N = 1024, D = 128 the pass runs at 36 TFLOP/s, 54% of the
 // FP32 peak, a little ahead of cuBLAS's four products without the GELUs
 // (PERF.md §6).
+//
+// The bf16 mode (the TPU kernel at compute_dtype=bfloat16, its dot() at
+// denoise_pallas.py:237-239) is the same GEMM with kBf16: the weights come
+// rounded to bf16 from the wrapper, u0 is rounded as the producer makes
+// it, and u2, u4^T and emb^T are rounded in the epilogue after their bias
+// and GELU, since their only consumers are products that round them; g
+// stays float32 (pass 2 adds it before its sigmoid).  Each output is still
+// one float32 FMA chain, over bf16-exact operands.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -107,7 +115,7 @@ struct GemmArgs {
 // against others on an H100 (PERF.md §6): 16-deep tiles in four stages,
 // one block an SM with more registers, and warps of 4 x 8 threads (four
 // shared-memory wavefronts a slice instead of six) all ran slower.
-template <int BM, int BN, bool kUp0>
+template <int BM, int BN, bool kUp0, bool kBf16>
 __global__ void __launch_bounds__((BM / 8) * (BN / 8), 2)
 gemm_bias_act(GemmArgs g) {
   constexpr int TX = BN / 8, THREADS = (BM / 8) * TX;
@@ -152,8 +160,10 @@ gemm_bias_act(GemmArgs g) {
           const float w = __ldg(g.w0 + gk), bias = __ldg(g.b0 + gk);
 #pragma unroll
           for (int j = 0; j < 4; ++j)  // torch's rounding: product, then sum
-            if (gn + j < N)
+            if (gn + j < N) {
               v[j] = gelu(__fadd_rn(__fmul_rn(w, __ldg(e_row + gn + j)), bias));
+              if constexpr (kBf16) v[j] = bf16r(v[j]);
+            }
         }
         *reinterpret_cast<float4*>(bs + k * BN + n) =
             make_float4(v[0], v[1], v[2], v[3]);
@@ -234,6 +244,8 @@ gemm_bias_act(GemmArgs g) {
                                : rb;
         v[j] = acc[i][4 * h + j] + bias;
         if (g.act) v[j] = gelu(v[j]);
+        if constexpr (kBf16)
+          if (g.act) v[j] = bf16r(v[j]);
       }
       if (vec && gn + 4 <= N) {
         *reinterpret_cast<float4*>(row + gn) = make_float4(v[0], v[1], v[2], v[3]);
@@ -246,28 +258,34 @@ gemm_bias_act(GemmArgs g) {
   }
 }
 
-template <int BM, int BN, bool kUp0>
+template <int BM, int BN, bool kUp0, bool kBf16>
 cudaError_t launch(cudaStream_t st, const GemmArgs& a, int nz) {
   constexpr int threads = (BM / 8) * (BN / 8);
   constexpr int smem = (int)sizeof(float) * kStages * kBK * (BM + BN);
   cudaError_t err = cudaFuncSetAttribute(
-      gemm_bias_act<BM, BN, kUp0>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      gemm_bias_act<BM, BN, kUp0, kBf16>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err) return err;
   const dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM, nz);
-  gemm_bias_act<BM, BN, kUp0><<<grid, threads, smem, st>>>(a);
+  gemm_bias_act<BM, BN, kUp0, kBf16><<<grid, threads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
 // The tile shape of a product: 96 columns where they waste fewer padded
 // columns than 128 (ties take 128).
+template <bool kBf16>
 cudaError_t gemm(cudaStream_t st, const GemmArgs& a, int nz, bool up0) {
   const bool narrow = (a.N + 95) / 96 * 96 - a.N < (a.N + 127) / 128 * 128 - a.N;
   if (up0)
-    return narrow ? launch<128, 96, true>(st, a, nz)
-                  : launch<128, 128, true>(st, a, nz);
-  return narrow ? launch<128, 96, false>(st, a, nz)
-                : launch<128, 128, false>(st, a, nz);
+    return narrow ? launch<128, 96, true, kBf16>(st, a, nz)
+                  : launch<128, 128, true, kBf16>(st, a, nz);
+  return narrow ? launch<128, 96, false, kBf16>(st, a, nz)
+                : launch<128, 128, false, kBf16>(st, a, nz);
+}
+
+cudaError_t gemm(cudaStream_t st, const GemmArgs& a, int nz, bool up0,
+                 bool bf16) {
+  return bf16 ? gemm<true>(st, a, nz, up0) : gemm<false>(st, a, nz, up0);
 }
 
 // dst (cols, ldd) = src (rows, cols)^T, zeros in the columns rows..ldd-1
@@ -328,7 +346,7 @@ cudaError_t transpose_weights(cudaStream_t st, const ChainDims& d,
 
 cudaError_t chain_tables(cudaStream_t st, const ChainDims& d, const float* e2,
                          const float* const* w, float* scratch, int t0, int tc,
-                         float** g_out) {
+                         bool bf16, float** g_out) {
   const TablesLayout L = tables_layout(d);
   const int nz = d.B * tc;
   float* u2 = scratch + L.tables;
@@ -346,7 +364,7 @@ cudaError_t chain_tables(cudaStream_t st, const ChainDims& d, const float* e2,
   a.bias = b_up2, a.bias_mode = kBiasRow, a.act = 1;
   a.M = d.U2, a.N = d.D2, a.K = d.U0;
   a.e2 = e2, a.w0 = w_up0, a.b0 = b_up0, a.t_total = d.T, a.t0 = t0, a.tc = tc;
-  if ((err = gemm(st, a, nz, true))) return err;
+  if ((err = gemm(st, a, nz, true, bf16))) return err;
   // u4^T = gelu(u2^T @ w_up4^T + b_up4)
   a = GemmArgs{};
   a.at = u2, a.lda = d.D2, a.sa = (long long)L.u2;
@@ -354,7 +372,7 @@ cudaError_t chain_tables(cudaStream_t st, const ChainDims& d, const float* e2,
   a.c = u4t, a.ldc = L.ldn, a.sc = (long long)L.u4t;
   a.bias = b_up4, a.bias_mode = kBiasCol, a.act = 1;
   a.M = d.D2, a.N = d.N, a.K = d.U2;
-  if ((err = gemm(st, a, nz, false))) return err;
+  if ((err = gemm(st, a, nz, false, bf16))) return err;
   // emb^T = gelu(wc_t^T @ u4^T + bc)
   a = GemmArgs{};
   a.at = wc, a.lda = d.D;
@@ -362,7 +380,7 @@ cudaError_t chain_tables(cudaStream_t st, const ChainDims& d, const float* e2,
   a.c = embt, a.ldc = L.ldn, a.sc = (long long)L.embt;
   a.bias = bc, a.bias_mode = kBiasRow, a.act = 1;
   a.M = d.D, a.N = d.N, a.K = d.D2;
-  if ((err = gemm(st, a, nz, false))) return err;
+  if ((err = gemm(st, a, nz, false, bf16))) return err;
   // g = emb @ wx0_t[D:2D] + bx0, no activation (pass 2 adds the rest)
   a = GemmArgs{};
   a.at = embt, a.lda = L.ldn, a.sa = (long long)L.embt;
@@ -370,10 +388,28 @@ cudaError_t chain_tables(cudaStream_t st, const ChainDims& d, const float* e2,
   a.c = g, a.ldc = d.D15, a.sc = (long long)L.g;
   a.bias = bx0, a.bias_mode = kBiasCol, a.act = 0;
   a.M = d.N, a.N = d.D15, a.K = d.D;
-  return gemm(st, a, nz, false);
+  return gemm(st, a, nz, false, bf16);
 }
 
 }  // namespace denoise
+
+namespace {
+
+int chain_tables_entry(const float* e2, const float* const* w, float* scratch,
+                       const int* dims, void* stream, bool bf16) {
+  using namespace denoise;
+  const ChainDims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5],
+                    dims[6], dims[7], dims[8], dims[9], dims[1]};
+  if (d.B <= 0 || d.T <= 0 || d.D2 != 2 * d.D) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if ((err = tables_check(d, w, scratch))) return (int)err;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if ((err = transpose_weights(st, d, w, scratch))) return (int)err;
+  float* g;
+  return (int)chain_tables(st, d, e2, w, scratch, 0, d.T, bf16, &g);
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -385,16 +421,14 @@ extern "C" {
 // cudaErrorInvalidValue for shapes pass 1 does not take.
 int lsdm_denoise_chain_tables(const float* e2, const float* const* w,
                               float* scratch, const int* dims, void* stream) {
-  using namespace denoise;
-  const ChainDims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5],
-                    dims[6], dims[7], dims[8], dims[9], dims[1]};
-  if (d.B <= 0 || d.T <= 0 || d.D2 != 2 * d.D) return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  if ((err = tables_check(d, w, scratch))) return (int)err;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if ((err = transpose_weights(st, d, w, scratch))) return (int)err;
-  float* g;
-  return (int)chain_tables(st, d, e2, w, scratch, 0, d.T, &g);
+  return chain_tables_entry(e2, w, scratch, dims, stream, false);
+}
+
+// The same in the bf16 mode, the weights rounded to bf16 by the caller.
+int lsdm_denoise_chain_tables_bf16(const float* e2, const float* const* w,
+                                   float* scratch, const int* dims,
+                                   void* stream) {
+  return chain_tables_entry(e2, w, scratch, dims, stream, true);
 }
 
 }  // extern "C"

@@ -41,9 +41,11 @@ cudaError_t transpose_weights(cudaStream_t st, const ChainDims& d,
 
 // Pass 1 for steps [t0, t0 + tc) of every scene: fills the chunk's tables
 // u2, u4^T, emb^T and g after the transposed weights, one GEMM launch each.
-// Sets *g_out to g.
+// Sets *g_out to g.  bf16: the bf16 mode (weights rounded by the caller;
+// u0 rounded as it enters its product, u2, u4^T and emb^T rounded as they
+// are stored, g float32).
 cudaError_t chain_tables(cudaStream_t st, const ChainDims& d, const float* e2,
                          const float* const* w, float* scratch, int t0, int tc,
-                         float** g_out);
+                         bool bf16, float** g_out);
 
 }  // namespace denoise

@@ -52,9 +52,10 @@ LAUNCHES = {"ball_query": 0, "three_nn": 0, "fps": 0, "denoise_chain": 0,
             "rank1_attn": 0, "sa_fused": 0, "fp_fused": 0,
             "rank1_attn_bwd": 0, "select_gather": 0, "chamfer_nn": 0,
             "denoise_step": 0,
-            # the bf16 modes of K4, K5 and K10, counted apart
+            # the bf16 modes of K4-K10, counted apart
             "rank1_attn_bf16": 0, "rank1_attn_bwd_bf16": 0,
-            "select_gather_bf16": 0}
+            "select_gather_bf16": 0, "sa_fused_bf16": 0, "fp_fused_bf16": 0,
+            "denoise_chain_bf16": 0, "denoise_step_bf16": 0}
 GRAPH_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 
 _P = ctypes.c_void_p
@@ -68,17 +69,24 @@ _SIGNATURES = {
     # (xyz, start or null, B, N, npoint, warps, points a lane, out, stream)
     "lsdm_fps": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
     # (x_init, noise, cond_pcd, e2, coef, weights[20], final, last_in,
-    #  scratch, dims[11], clip, stream)
+    #  scratch, dims[11], clip, stream); each _bf16 entry is the same call
+    #  of the bf16 mode (weights rounded to bf16 by the caller)
     "lsdm_denoise_chain": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
+    "lsdm_denoise_chain_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
     # (e2, weights[20], scratch, dims[11], stream)
     "lsdm_denoise_chain_tables": (_P, _P, _P, _P, _P),
+    "lsdm_denoise_chain_tables_bf16": (_P, _P, _P, _P, _P),
     # K9's two launches: (e2, weights[20], scratch, dims[9], stream)
     "lsdm_denoise_step_u2": (_P, _P, _P, _P, _P),
+    "lsdm_denoise_step_u2_bf16": (_P, _P, _P, _P, _P),
     # (x, noise, cond_pcd, coefs, weights[20], w_up4^T, out, scratch,
     #  dims[9], cluster, clip, stream)
     "lsdm_denoise_step_tiles": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
-    # (dims[9], cluster) -> clusters of K9's tile kernel the device runs at once
-    "lsdm_denoise_step_max_clusters": (_P, _I),
+    "lsdm_denoise_step_tiles_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _P),
+    # (dims[9], cluster, bf16) -> clusters of K9's tile kernel (its bf16
+    #  instance if bf16) the device runs at once
+    "lsdm_denoise_step_max_clusters": (_P, _I, _I),
     # (cudaGraph_t, counts[3]): kernel nodes, K9's u2 and tile nodes
     "lsdm_graph_kernel_nodes": (_P, _P),
     # (q, k, v, B, L, S, H, out, denom or null, stream); the _bf16 entry
@@ -86,13 +94,19 @@ _SIGNATURES = {
     "lsdm_rank1_attn": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "lsdm_rank1_attn_bf16": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     # (xyz, new_xyz, z1, w1x, params[2(L-1)], widths[L], L, B, N, S,
-    #  radius2, nsample, plan, out, stream)
+    #  radius2, nsample, plan, out, stream); the _bf16 entry takes a bf16 z1
+    #  and writes a bf16 out
     "lsdm_sa_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P,
                       _P),
+    "lsdm_sa_fused_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P,
+                           _P, _P),
     # (xyz1, xyz2, points1, points2, params[2L], widths[L], relu[L], L, B, N,
-    #  S, D1, D2, plan, out, stream)
+    #  S, D1, D2, plan, out, stream); the _bf16 entry takes bf16 points1,
+    #  points2 and writes a bf16 out
     "lsdm_fp_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
                       _P, _P),
+    "lsdm_fp_fused_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _P, _P, _P),
     # (q, k, v, out, g, denom, B, L, S, H, dq, dk, dv, scratch, stream);
     # the _bf16 entry takes bf16 q, k, v and writes bf16 dq, dk, dv
     "lsdm_rank1_attn_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
@@ -218,6 +232,34 @@ def require(name: str, t: torch.Tensor, dtype: torch.dtype,
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def bf16_mode(compute_dtype: Optional[torch.dtype]) -> bool:
+    """Whether a kernel that takes a compute dtype (K6-K9, as the JAX
+    kernels' ``compute_dtype``) runs its bf16 mode: True for
+    ``torch.bfloat16``, False for float32 (None or ``torch.float32``)."""
+    if compute_dtype is None or compute_dtype == torch.float32:
+        return False
+    if compute_dtype == torch.bfloat16:
+        return True
+    raise ValueError(f"compute dtype {compute_dtype}: the kernels take float32 "
+                     "or bfloat16")
+
+
+def bf16_exact(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (to nearest even, as torch and XLA round) and
+    widened to float32: an operand of a bf16 product, whose products are
+    then exact in float32."""
+    return t.to(torch.bfloat16).float()
+
+
+def mode_matmul(a: torch.Tensor, b: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """``a @ b``; in the bf16 mode on operands rounded to bf16, summed in
+    float32: the Pallas kernels' product at ``preferred_element_type``
+    float32, as the plain versions compute it."""
+    if not bf16:
+        return a @ b
+    return bf16_exact(a) @ bf16_exact(b)
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:

@@ -42,9 +42,11 @@ before the gather (K10's bf16 mode under ``"sg"``) and subtracts the
 center rounded to it; each BatchNorm computes its statistics and its
 normalisation in float32 from the ``dtype`` input, keeps its running
 statistics float32 and returns ``bn_dtype`` (flax's promotion); an FP
-stage interpolates in float32 from its sources' features.  bf16 runs
-only the ``"pallas"``, ``"topk"`` and ``"sg"`` paths: the fused stages'
-bf16 modes (K7, K8) are not ported.
+stage interpolates in float32 from its sources' features.  Under
+``"fused"`` a bf16 stage is K7's or K8's bf16 mode (the JAX stages pass
+``compute_dtype=self.dtype``): the stage's input promotes as JAX's
+``concatenate`` does (float32 ``xyz`` beside bf16 features gives float32),
+and its output is bf16.
 """
 
 from __future__ import annotations
@@ -183,7 +185,8 @@ class PointNetSetAbstraction(nn.Module):
             # the whole stage as one kernel (K7): no grouped buffer
             base = torch.cat([xyz, points], dim=-1)
             return new_xyz, sa_stage_fused_kernel(
-                self.radius, nsample, xyz, new_xyz, base, fold_mlp(self))
+                self.radius, nsample, xyz, new_xyz, base, fold_mlp(self),
+                self.compute_dtype)
         # the gathered columns, in the compute dtype before the gather
         base = None if points is None else self._cast(torch.cat([xyz, points], dim=-1))
         if (self.impl == "sg" and points is not None
@@ -225,7 +228,7 @@ class PointNetFeaturePropagation(nn.Module):
                  bn_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.impl = impl
-        self.bn_dtype = bn_dtype
+        self.compute_dtype, self.bn_dtype = dtype, bn_dtype
         self.sel = "pallas" if impl in ("fused", "sg") else impl  # selection ops
         self.mlp_convs = nn.ModuleList()
         self.mlp_bns = nn.ModuleList()
@@ -249,7 +252,7 @@ class PointNetFeaturePropagation(nn.Module):
             folded = fold_mlp(self)
             return fp_stage_fused_kernel(
                 xyz1, xyz2, points1, points2, folded + list(extra_folded),
-                ("relu",) * len(folded) + tuple(extra_acts))
+                ("relu",) * len(folded) + tuple(extra_acts), self.compute_dtype)
         if S == 1:
             interpolated = points2.expand(-1, xyz1.shape[1], -1)
         else:
@@ -262,11 +265,18 @@ class PointNetFeaturePropagation(nn.Module):
             new_points = bn_relu(bn, conv(new_points), self.training,
                                  self.bn_dtype)
         # the trailing layers when the gate above declined, so fused and
-        # composed stages stay interchangeable
+        # composed stages stay interchangeable; in a compute dtype JAX's
+        # casts: the product in it, the float32 bias, the result cast back
+        dt = self.compute_dtype
         for (w, b), act in zip(extra_folded, extra_acts):
-            new_points = new_points @ w + b
+            if dt is None:
+                new_points = new_points @ w + b
+            else:
+                new_points = (new_points.to(dt) @ w.to(dt)).float() + b
             if act == "relu":
                 new_points = F.relu(new_points)
+            if dt is not None:
+                new_points = new_points.to(dt)
         return new_points
 
 

@@ -9,9 +9,9 @@ is the K6 kernel (``ops/denoise.py``); with ``"step"`` a host loop calls
 the K9 kernel once per step (JAX ``_sample_fused``, mode ``"step"``); with
 ``None`` it is the composed Python loop of ``diffusion/sampler.py``
 calling :meth:`SceneDiffusionModel.denoise_from_cond` each step.  A bf16
-model samples on the composed loop only (its encode on ``"pallas"`` or
-``"topk"``): the bf16 modes of K6 and K9 are not ported, and
-:func:`sample_sdm` raises rather than run them in float32.
+model (``SDMConfig.dtype``) samples on every path in bf16: its fused
+encode runs K7's and K8's bf16 modes, and K6 and K9 run theirs, as the JAX
+sampler passes ``compute_dtype=model.cfg.dtype`` to them.
 """
 
 from __future__ import annotations
@@ -24,32 +24,32 @@ import torch
 from lsdm_tpu_torch.diffusion.gaussian import DenoiserOutput
 from lsdm_tpu_torch.diffusion.sampler import ddim_sample_loop, p_sample_loop
 from lsdm_tpu_torch.diffusion.schedule import Schedule
-from lsdm_tpu_torch.models.sdm import (
-    BF16_NOT_PORTED, CondCache, SceneDiffusionModel)
+from lsdm_tpu_torch.models.sdm import CondCache, SceneDiffusionModel
 from lsdm_tpu_torch.ops.denoise import (
-    extract_step_params, fused_denoise_chain, make_denoise_step_loop,
-    step_params_key)
+    fused_denoise_chain, make_denoise_step_loop, step_params, step_params_key)
 
 # the step sampler's loops (on CUDA, captured CUDA graphs), per model: key
-# (factory, B, N, T, clip, weights) -> the loop
+# (factory, B, N, T, clip, compute dtype, weights) -> the loop
 _STEP_LOOPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def step_loop(model: SceneDiffusionModel, B: int, N: int, T: int,
               device: torch.device, clip_denoised: bool):
     """The K9 loop of ``make_denoise_step_loop`` for ``model``'s weights as
-    they stand, built once and kept per (B, N, T, clip, weights): on CUDA
-    a second sample with the same shapes replays the graph the first
-    captured.  A loop of the same shapes over older weights is dropped."""
+    they stand, in the model's compute dtype, built once and kept per (B,
+    N, T, clip, weights): on CUDA a second sample with the same shapes
+    replays the graph the first captured.  A loop of the same shapes over
+    older weights is dropped."""
     factory = make_denoise_step_loop  # the module's, as it stands
+    dt = model.compute_dtype
     weights = step_params_key(model)
     loops = _STEP_LOOPS.setdefault(model, {})
-    key = (factory, B, N, T, bool(clip_denoised), weights)
+    key = (factory, B, N, T, bool(clip_denoised), dt, weights)
     if key not in loops:
-        for k in [k for k in loops if k[:5] == key[:5]]:
+        for k in [k for k in loops if k[:6] == key[:6]]:
             del loops[k]
-        loops[key] = factory(extract_step_params(model), B, N, T, device,
-                             clip_denoised)
+        loops[key] = factory(step_params(model, dt), B, N, T, device,
+                             clip_denoised, dt)
     return loops[key]
 
 
@@ -167,9 +167,6 @@ def sample_sdm(
         raise ValueError("sample_sdm needs the model in eval mode (model.eval()): "
                          "training mode normalises with batch statistics and "
                          "drops out")
-    if model.compute_dtype is not None and fused_step is not None:
-        raise ValueError(f"dtype {model.cfg.dtype} with fused_step "
-                         f"{fused_step!r}: " + BF16_NOT_PORTED)
     B, _, N, _ = given_objs.shape
     dev = given_objs.device
     T = schedule.num_timesteps
@@ -184,14 +181,19 @@ def sample_sdm(
     if fused_step in ("chain", "step"):
         t_seq = torch.arange(T - 1, -1, -1, device=dev)
         tm_seq = ts_model[t_seq]
-        e2_tab = model.step_emb2_table(cond, tm_seq)  # (B, T, 2D)
+        # (B, T, 2D) and cond_pcd in float32, as the Pallas wrappers cast
+        # them (a bf16 model's are bf16, which widen exactly)
+        e2_tab = model.step_emb2_table(cond, tm_seq).float()
         coef_tab = chain_coefficients(schedule, use_ddim).contiguous()
-        cond_pcd = cond.cond_pcd.contiguous()
+        cond_pcd = cond.cond_pcd.float().contiguous()
+        # the kernels' mode: the model's compute dtype (JAX passes
+        # compute_dtype=model.cfg.dtype)
+        dt = model.compute_dtype
         if fused_step == "chain":
             final, last_in = fused_denoise_chain(
                 x_init.contiguous(), noise.transpose(0, 1).contiguous(),
-                cond_pcd, e2_tab.contiguous(), coef_tab,
-                extract_step_params(model), clip_denoised=clip_denoised)
+                cond_pcd, e2_tab.contiguous(), coef_tab, step_params(model, dt),
+                clip_denoised=clip_denoised, compute_dtype=dt)
         else:
             # one K9 call per step, carrying (x, last_in) as the JAX scan
             # does; every step's rows are contiguous rows of the tables,

@@ -22,9 +22,9 @@ PointNet++ object backbone and the POSA human backbone are built.
 JAX module's casts (``lsdm_tpu/models/sdm.py:71-152``): every submodule in
 that dtype, ``cfg.bn_dtype`` for the backbone's BatchNorms, the category
 probabilities and ``x0`` / ``guiding`` returned float32; its fused eval
-encode (K7, K8) is refused (:data:`BF16_NOT_PORTED`).  ``ball_impl``
-"fused" makes the eval encode the fused kernels' (K7, K8 in the backbone,
-K4 in ``pcd_attention``).  In training (``model.train()``, the JAX
+encode runs K7's and K8's bf16 modes.  ``ball_impl`` "fused" makes the
+eval encode the fused kernels' (K7, K8 in the backbone, K4 in
+``pcd_attention``).  In training (``model.train()``, the JAX
 ``train=True``) the backbone normalises with batch statistics and drops
 out in its head, and ``attn_impl="pallas"`` makes ``pcd_attention`` the
 rank-1 kernels K4/K5; the category head sees ``enc_text`` detached, as
@@ -46,14 +46,6 @@ from lsdm_tpu_torch.models.common import (
 from lsdm_tpu_torch.models.pointnet2 import PointNet2Backbone
 from lsdm_tpu_torch.models.posa import POSADecoderBackbone
 from lsdm_tpu_torch.ops.attention import TorchMultiheadAttention, wide
-
-
-# why a bf16 model does not run the fused eval kernels (the encode's K7 and
-# K8, the denoise loop's K6 and K9)
-BF16_NOT_PORTED = ("the bf16 modes of K6, K7, K8 and K9 (the fused encode and "
-                   "the fused denoise loop) are not ported yet (ROADMAP.md "
-                   "queue 2, the next slice): sample a bf16 model with "
-                   "ball_impl 'pallas' and fused_step None")
 
 
 class CondCache(NamedTuple):
@@ -116,10 +108,6 @@ class SceneDiffusionModel(nn.Module):
         ``dropout_mask`` / ``generator``: the backbone head's dropout in
         training (``PointNet2Backbone.forward``)."""
         cfg = self.cfg
-        if (self.compute_dtype is not None and cfg.ball_impl == "fused"
-                and not self.training):
-            raise ValueError(f"dtype {cfg.dtype} with ball_impl 'fused': "
-                             + BF16_NOT_PORTED)
         B, num_obj, num_points, xyz = given_objs.shape
         D = cfg.latent_dim
 

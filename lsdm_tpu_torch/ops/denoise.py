@@ -36,6 +36,19 @@ rows from u4 to the update, each block a slice of every layer's columns
 its T calls into one CUDA graph (:class:`DenoiseStepGraph`) and replays
 it; on the CPU it loops on the host.  The two plain versions share the
 step body, :func:`denoise_step_plain`.
+
+``compute_dtype=torch.bfloat16`` is the Pallas kernels' bf16 mode (a bf16
+``SDMConfig.dtype``): each product ``dot(a, b)`` takes both operands
+rounded to bf16 and sums in float32 (``denoise_pallas.py:136-141``,
+``:237-239``); u0, the biases, the activations (GELU, sigmoid, clip) and
+the posterior update stay float32, and the first combination_extraction
+layer rounds ``concat(p, emb)`` as a whole, so the CUDA version's split of
+that layer takes bf16(emb).  Every input is float32, as the Pallas
+wrappers cast them, so the mode is an argument and not the inputs' dtype.
+The CUDA kernels' bf16 instances take the product weights rounded once
+(:func:`bf16_step_params`; :func:`step_params` keeps them per model) and
+round each activation where it becomes a product's operand; their launches
+count as ``denoise_chain_bf16`` and ``denoise_step_bf16``.
 """
 
 from __future__ import annotations
@@ -43,12 +56,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import time
+import weakref
 from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from lsdm_tpu_torch import kernels
+from lsdm_tpu_torch.kernels import mode_matmul
 
 # Scratch of the kernel's first pass, in float32 elements (512 MiB): it
 # holds the per-step tables of one chunk of steps.
@@ -127,14 +142,60 @@ def extract_step_params(model) -> DenoiseStepParams:
     )
 
 
-def _emb_plain(e2: torch.Tensor, p: DenoiseStepParams) -> torch.Tensor:
+# the weights that enter products, which the bf16 mode rounds to bf16
+# (w_up0 scales e2 elementwise and stays float32, as do the biases)
+PRODUCT_WEIGHTS = ("w_up2", "w_up4", "wc_t", "wp0_t", "wp2_t", "wx0_t",
+                   "wx2_t", "wo0_t", "wo2_t")
+
+
+class Bf16StepParams(DenoiseStepParams):
+    """:class:`DenoiseStepParams` whose :data:`PRODUCT_WEIGHTS` are rounded
+    to bf16 (float32 tensors): the operands of the kernels' bf16 mode, made
+    by :func:`bf16_step_params`."""
+
+    __slots__ = ()
+
+
+def bf16_step_params(p: DenoiseStepParams) -> Bf16StepParams:
+    """``p`` with its product weights rounded to bf16 (to nearest even), as
+    float32 contiguous tensors; ``p`` itself if it is already so."""
+    if isinstance(p, Bf16StepParams):
+        return p
+    return Bf16StepParams(**{
+        f: kernels.bf16_exact(w).contiguous() if f in PRODUCT_WEIGHTS else w
+        for f, w in zip(p._fields, p)})
+
+
+# per model: (step_params_key, compute dtype) -> its DenoiseStepParams
+_STEP_PARAMS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def step_params(model, compute_dtype: Optional[torch.dtype] = None
+                ) -> DenoiseStepParams:
+    """:func:`extract_step_params` of ``model`` for the kernels' mode in
+    ``compute_dtype``, in the bf16 mode with the product weights rounded
+    (:func:`bf16_step_params`): kept per model and made again when its
+    weights change (:func:`step_params_key`), so a sampler rounds them once
+    per model and not once per call."""
+    bf16 = kernels.bf16_mode(compute_dtype)
+    key = (step_params_key(model), bf16)
+    kept = _STEP_PARAMS.get(model)
+    if kept is None or kept[0] != key:
+        p = extract_step_params(model)
+        kept = (key, bf16_step_params(p) if bf16 else p)
+        _STEP_PARAMS[model] = kept
+    return kept[1]
+
+
+def _emb_plain(e2: torch.Tensor, p: DenoiseStepParams,
+               bf16: bool = False) -> torch.Tensor:
     """The t-only embedding (..., N, D) of step rows e2 (..., 2D): the
     upsampling MLP, then combine_extraction."""
-    e2 = e2[..., None, :]                                    # (..., 1, 2D)
-    u0 = F.gelu(p.w_up0 * e2 + p.b_up0)                      # (..., 128, 2D)
-    u2 = F.gelu(p.w_up2 @ u0 + p.b_up2)                      # (..., 512, 2D)
-    u4 = F.gelu(p.w_up4 @ u2 + p.b_up4)                      # (..., N, 2D)
-    return F.gelu(u4 @ p.wc_t + p.bc)                        # (..., N, D)
+    e2 = e2[..., None, :]                                     # (..., 1, 2D)
+    u0 = F.gelu(p.w_up0 * e2 + p.b_up0)                       # (..., 128, 2D)
+    u2 = F.gelu(mode_matmul(p.w_up2, u0, bf16) + p.b_up2)     # (..., 512, 2D)
+    u4 = F.gelu(mode_matmul(p.w_up4, u2, bf16) + p.b_up4)     # (..., N, 2D)
+    return F.gelu(mode_matmul(u4, p.wc_t, bf16) + p.bc)       # (..., N, D)
 
 
 def denoise_step_plain(
@@ -145,16 +206,19 @@ def denoise_step_plain(
     coefs: torch.Tensor,     # (3,) [c1, c2, c3]
     p: DenoiseStepParams,
     clip_denoised: bool = False,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Plain version of K9: one step of the Pallas kernels' body as torch
-    ops.  Returns the next sample (B, N, 3)."""
-    emb = _emb_plain(e2, p)                                  # (B, N, D)
-    h = torch.sigmoid((x + cond_pcd) @ p.wp0_t + p.bp0)
-    h = torch.sigmoid(h @ p.wp2_t + p.bp2)
-    h = torch.sigmoid(torch.cat([h, emb], dim=-1) @ p.wx0_t + p.bx0)
-    h = torch.sigmoid(h @ p.wx2_t + p.bx2)
-    h = F.gelu(h @ p.wo0_t + p.bo0)
-    x0 = F.gelu(h @ p.wo2_t + p.bo2)
+    ops, in ``compute_dtype``'s mode.  Returns the next sample (B, N, 3)."""
+    bf16 = kernels.bf16_mode(compute_dtype)
+    emb = _emb_plain(e2, p, bf16)                            # (B, N, D)
+    h = torch.sigmoid(mode_matmul(x + cond_pcd, p.wp0_t, bf16) + p.bp0)
+    h = torch.sigmoid(mode_matmul(h, p.wp2_t, bf16) + p.bp2)
+    h = torch.sigmoid(mode_matmul(torch.cat([h, emb], dim=-1), p.wx0_t, bf16)
+                      + p.bx0)
+    h = torch.sigmoid(mode_matmul(h, p.wx2_t, bf16) + p.bx2)
+    h = F.gelu(mode_matmul(h, p.wo0_t, bf16) + p.bo0)
+    x0 = F.gelu(mode_matmul(h, p.wo2_t, bf16) + p.bo2)
     if clip_denoised:
         x0 = x0.clamp(-1.0, 1.0)
     return coefs[0] * x0 + coefs[1] * x + coefs[2] * noise
@@ -200,16 +264,19 @@ def step_plan(B: int, N: int, max_clusters: Mapping[int, int]) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def step_occupancy(dims: Tuple[int, ...], device_index: int) -> Dict[int, int]:
-    """Clusters of K9's tile kernel that CUDA device ``device_index`` runs
-    at once, for each size of ``STEP_CLUSTERS``, at the dims {N, 2D, U0,
-    U2, D, DH, D15, DH2} (cudaOccupancyMaxActiveClusters, which the block's
-    shared memory and the GPCs decide), asked once per dims and device."""
+def step_occupancy(dims: Tuple[int, ...], device_index: int,
+                   bf16: bool = False) -> Dict[int, int]:
+    """Clusters of K9's tile kernel (its bf16 instance if ``bf16``) that
+    CUDA device ``device_index`` runs at once, for each size of
+    ``STEP_CLUSTERS``, at the dims {N, 2D, U0, U2, D, DH, D15, DH2}
+    (cudaOccupancyMaxActiveClusters, which the block's shared memory and the
+    GPCs decide), asked once per dims, device and mode."""
     lib = kernels.load()
     occupancy = {}
     with torch.cuda.device(device_index):
         for c in STEP_CLUSTERS:
-            n = lib.lsdm_denoise_step_max_clusters((ctypes.c_int * 9)(1, *dims), c)
+            n = lib.lsdm_denoise_step_max_clusters((ctypes.c_int * 9)(1, *dims), c,
+                                                   int(bf16))
             kernels.check(-min(n, 0), "denoise_step")
             occupancy[c] = n
     return occupancy
@@ -233,26 +300,32 @@ def fused_denoise_step(
     coefs: torch.Tensor,     # (3,) [c1, c2, c3], read on the device
     p: DenoiseStepParams,
     clip_denoised: bool = False,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """K9: one DDPM/DDIM step of every scene, c1 * x0 + c2 * x + c3 * noise.
-    Returns the next sample (B, N, 3) float32.  CUDA kernels for CUDA
-    tensors (two launches, one call: one count in ``LAUNCHES``), plain
-    version for CPU tensors.  A sampler that steps T times binds the
-    weights once with :func:`make_denoise_step` instead, or captures the
-    loop with :func:`make_denoise_step_loop`."""
-    step = make_denoise_step(p, x.shape[1], x.device, clip_denoised)
+    """K9: one DDPM/DDIM step of every scene, c1 * x0 + c2 * x + c3 * noise,
+    in ``compute_dtype``'s mode.  Returns the next sample (B, N, 3)
+    float32.  CUDA kernels for CUDA tensors (two launches, one call: one
+    count in ``LAUNCHES``), plain version for CPU tensors.  A sampler that
+    steps T times binds the weights once with :func:`make_denoise_step`
+    instead, or captures the loop with :func:`make_denoise_step_loop`."""
+    step = make_denoise_step(p, x.shape[1], x.device, clip_denoised,
+                             compute_dtype)
     return step(x, noise, cond_pcd, e2, coefs)
 
 
 class BoundStep:
     """K9's weights for N points on a CUDA device, checked and their
-    addresses taken once, with w_up4^T (the layout in which the tile
+    addresses taken once (in the bf16 mode rounded first,
+    :func:`bf16_step_params`), with w_up4^T (the layout in which the tile
     kernel copies a tile's rows of w_up4), which it keeps alive, and the
     device's occupancy of the tile kernel, from which :meth:`cluster`
-    plans a launch."""
+    plans a launch.  ``name`` is the mode's count in ``kernels.LAUNCHES``."""
 
     def __init__(self, p: DenoiseStepParams, N: int, device: torch.device,
-                 clip_denoised: bool):
+                 clip_denoised: bool, compute_dtype: Optional[torch.dtype] = None):
+        bf16 = kernels.bf16_mode(compute_dtype)
+        if bf16:
+            p = bf16_step_params(p)
         self.dims = _check(p, N, {}, device)
         self.N, self.D2, self.U2 = N, self.dims[1], self.dims[3]
         self.device = device
@@ -261,8 +334,13 @@ class BoundStep:
         self.ptrs = _pointers(p)
         self.clip = int(bool(clip_denoised))
         self.lib = kernels.load()
+        self.name = "denoise_step_bf16" if bf16 else "denoise_step"
+        self._u2 = (self.lib.lsdm_denoise_step_u2_bf16 if bf16
+                    else self.lib.lsdm_denoise_step_u2)
+        self._tiles = (self.lib.lsdm_denoise_step_tiles_bf16 if bf16
+                       else self.lib.lsdm_denoise_step_tiles)
         index = device.index if device.index is not None else torch.cuda.current_device()
-        self.occupancy = step_occupancy(self.dims, index)
+        self.occupancy = step_occupancy(self.dims, index, bf16)
 
     def cluster(self, B: int) -> int:
         """Blocks a cluster of the tile launch for B scenes (:func:`step_plan`)."""
@@ -291,16 +369,15 @@ class BoundStep:
         self.launch_u2(e2, scratch, stream)
         self.launch_tiles(x, noise, cond_pcd, coefs, out, scratch, stream)
         if not torch.cuda.is_current_stream_capturing():
-            kernels.LAUNCHES["denoise_step"] += 1
+            kernels.LAUNCHES[self.name] += 1
 
     def launch_u2(self, e2, scratch, stream) -> None:
         """The first of a K9 call's two launches: u2 into scratch (not
         counted)."""
         with torch.cuda.device(self.device):
-            rc = self.lib.lsdm_denoise_step_u2(
-                e2.data_ptr(), self.ptrs, scratch.data_ptr(),
-                (ctypes.c_int * 9)(e2.shape[0], *self.dims), stream)
-        kernels.check(rc, "denoise_step")
+            rc = self._u2(e2.data_ptr(), self.ptrs, scratch.data_ptr(),
+                          (ctypes.c_int * 9)(e2.shape[0], *self.dims), stream)
+        kernels.check(rc, self.name)
 
     def launch_tiles(self, x, noise, cond_pcd, coefs, out, scratch, stream,
                      cluster: Optional[int] = None) -> None:
@@ -308,24 +385,25 @@ class BoundStep:
         counted), on clusters of ``cluster`` blocks (by default the plan's)."""
         B = x.shape[0]
         with torch.cuda.device(self.device):
-            rc = self.lib.lsdm_denoise_step_tiles(
+            rc = self._tiles(
                 x.data_ptr(), noise.data_ptr(), cond_pcd.data_ptr(),
                 coefs.data_ptr(), self.ptrs, self.w4t.data_ptr(), out.data_ptr(),
                 scratch.data_ptr(), (ctypes.c_int * 9)(B, *self.dims),
                 cluster or self.cluster(B), self.clip, stream)
-        kernels.check(rc, "denoise_step")
+        kernels.check(rc, self.name)
 
 
 def make_denoise_step(p: DenoiseStepParams, N: int, device: torch.device,
-                      clip_denoised: bool = False):
-    """K9 with ``p`` and ``clip_denoised`` bound, for a loop over the
-    steps: returns ``step(x, noise, cond_pcd, e2, coefs)``, which computes
-    :func:`fused_denoise_step` of those arguments.  On a CUDA ``device``
-    the weights (for N points) are checked and their addresses taken here,
-    once; each call checks its five data tensors only and launches on the
-    stream that is current on ``device`` when it is called.  The returned
-    step runs the plain version for CPU tensors."""
-    plain = make_denoise_step_plain(p, N, device, clip_denoised)
+                      clip_denoised: bool = False,
+                      compute_dtype: Optional[torch.dtype] = None):
+    """K9 with ``p``, ``clip_denoised`` and the mode of ``compute_dtype``
+    bound, for a loop over the steps: returns ``step(x, noise, cond_pcd, e2,
+    coefs)``, which computes :func:`fused_denoise_step` of those arguments.
+    On a CUDA ``device`` the weights (for N points) are checked and their
+    addresses taken here, once; each call checks its five data tensors only
+    and launches on the stream that is current on ``device`` when it is
+    called.  The returned step runs the plain version for CPU tensors."""
+    plain = make_denoise_step_plain(p, N, device, clip_denoised, compute_dtype)
     if device.type != "cuda":
         def step(x, noise, cond_pcd, e2, coefs):
             if not kernels.on_cpu(x, noise, cond_pcd, e2, coefs):
@@ -334,7 +412,7 @@ def make_denoise_step(p: DenoiseStepParams, N: int, device: torch.device,
             return plain(x, noise, cond_pcd, e2, coefs)
         return step
 
-    bound = BoundStep(p, N, device, clip_denoised)
+    bound = BoundStep(p, N, device, clip_denoised, compute_dtype)
 
     def step(x, noise, cond_pcd, e2, coefs):
         if kernels.on_cpu(x, noise, cond_pcd, e2, coefs):
@@ -348,9 +426,11 @@ def make_denoise_step(p: DenoiseStepParams, N: int, device: torch.device,
 
 
 def make_denoise_step_plain(p: DenoiseStepParams, N: int, device: torch.device,
-                            clip_denoised: bool = False):
+                            clip_denoised: bool = False,
+                            compute_dtype: Optional[torch.dtype] = None):
     """Plain version of :func:`make_denoise_step`, on any device."""
-    return functools.partial(denoise_step_plain, p=p, clip_denoised=clip_denoised)
+    return functools.partial(denoise_step_plain, p=p, clip_denoised=clip_denoised,
+                             compute_dtype=compute_dtype)
 
 
 class DenoiseStepGraph:
@@ -377,15 +457,17 @@ class DenoiseStepGraph:
     tile nodes, is what each replay adds to ``kernels.GRAPH_LAUNCHES``.
     ``capture_s`` and ``instantiate_s`` time the capture and the graph's
     instantiation apart.  A capture that fails raises: there is no host
-    loop to fall back to."""
+    loop to fall back to.  ``compute_dtype`` bf16 captures K9's bf16 mode,
+    counted as ``denoise_step_bf16``."""
 
     def __init__(self, p: DenoiseStepParams, B: int, N: int, T: int,
-                 device: torch.device, clip_denoised: bool = False):
+                 device: torch.device, clip_denoised: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None):
         if device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, got {device}")
         if T < 1:
             raise ValueError("the step loop needs at least one step")
-        bound = BoundStep(p, N, device, clip_denoised)
+        bound = BoundStep(p, N, device, clip_denoised, compute_dtype)
         self.T = T
         f32 = dict(dtype=torch.float32, device=device)
         self.x = torch.zeros(2, B, N, 3, **f32)
@@ -445,7 +527,7 @@ class DenoiseStepGraph:
         self.coef.copy_(coef_tab)
         self.graph.replay()
         self.replays += 1
-        kernels.GRAPH_LAUNCHES["denoise_step"] += self.calls
+        kernels.GRAPH_LAUNCHES[self.bound.name] += self.calls
         T = self.T
         return self.x[T % 2].clone(), self.x[(T - 1) % 2].clone()
 
@@ -464,27 +546,29 @@ def _step_loop(step, x_init, noise_tab, cond_pcd, e2_tab, coef_tab):
 
 
 def make_denoise_step_loop(p: DenoiseStepParams, B: int, N: int, T: int,
-                           device: torch.device, clip_denoised: bool = False):
-    """K9's T-step loop with ``p`` bound: returns ``run(x_init, noise_tab,
-    cond_pcd, e2_tab, coef_tab)`` -> (final sample, input of the last
-    step), tables as :class:`DenoiseStepGraph` takes them.  On a CUDA
-    ``device`` the T K9 calls are captured into one CUDA graph (a
-    :class:`DenoiseStepGraph`, which a sampler keeps and replays); on the
-    CPU it is the host loop over :func:`make_denoise_step`, whose steps are
-    the plain version."""
+                           device: torch.device, clip_denoised: bool = False,
+                           compute_dtype: Optional[torch.dtype] = None):
+    """K9's T-step loop with ``p`` and the mode of ``compute_dtype`` bound:
+    returns ``run(x_init, noise_tab, cond_pcd, e2_tab, coef_tab)`` ->
+    (final sample, input of the last step), tables as
+    :class:`DenoiseStepGraph` takes them.  On a CUDA ``device`` the T K9
+    calls are captured into one CUDA graph (a :class:`DenoiseStepGraph`,
+    which a sampler keeps and replays); on the CPU it is the host loop over
+    :func:`make_denoise_step`, whose steps are the plain version."""
     if device.type == "cuda":
-        return DenoiseStepGraph(p, B, N, T, device, clip_denoised)
-    return functools.partial(_step_loop,
-                             make_denoise_step(p, N, device, clip_denoised))
+        return DenoiseStepGraph(p, B, N, T, device, clip_denoised, compute_dtype)
+    return functools.partial(_step_loop, make_denoise_step(
+        p, N, device, clip_denoised, compute_dtype))
 
 
 def make_denoise_step_loop_plain(p: DenoiseStepParams, B: int, N: int, T: int,
                                  device: torch.device,
-                                 clip_denoised: bool = False):
+                                 clip_denoised: bool = False,
+                                 compute_dtype: Optional[torch.dtype] = None):
     """Plain version of :func:`make_denoise_step_loop`, on any device: the
     host loop over :func:`denoise_step_plain`."""
-    return functools.partial(
-        _step_loop, make_denoise_step_plain(p, N, device, clip_denoised))
+    return functools.partial(_step_loop, make_denoise_step_plain(
+        p, N, device, clip_denoised, compute_dtype))
 
 
 def denoise_chain_plain(
@@ -495,16 +579,18 @@ def denoise_chain_plain(
     coef_tab: torch.Tensor,   # (T, 3)
     p: DenoiseStepParams,
     clip_denoised: bool = False,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K6: the Pallas kernel body as a loop of torch ops.
-    Returns (final sample, input of the last step), both (B, N, 3)."""
+    """Plain version of K6: the Pallas kernel body as a loop of torch ops,
+    in ``compute_dtype``'s mode.  Returns (final sample, input of the last
+    step), both (B, N, 3)."""
     T = noise_tab.shape[1]
     x = x_init
     last_in = x_init
     for t in range(T):
         last_in = x
         x = denoise_step_plain(x, noise_tab[:, t], cond_pcd, e2_tab[:, t],
-                               coef_tab[t], p, clip_denoised)
+                               coef_tab[t], p, clip_denoised, compute_dtype)
     return x, last_in
 
 
@@ -516,13 +602,18 @@ def fused_denoise_chain(
     coef_tab: torch.Tensor,   # (T, 3) per-step [c1, c2, c3]
     p: DenoiseStepParams,
     clip_denoised: bool = False,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K6: the whole sampling loop.  Returns (final sample, input of the
-    last step), both (B, N, 3) float32.  CUDA kernel for CUDA tensors,
-    plain version for CPU tensors."""
+    """K6: the whole sampling loop, in ``compute_dtype``'s mode (float32
+    inputs either way).  Returns (final sample, input of the last step),
+    both (B, N, 3) float32.  CUDA kernel for CUDA tensors, plain version
+    for CPU tensors."""
     if kernels.on_cpu(x_init, noise_tab, cond_pcd, e2_tab, coef_tab, *p):
         return denoise_chain_plain(x_init, noise_tab, cond_pcd, e2_tab,
-                                   coef_tab, p, clip_denoised)
+                                   coef_tab, p, clip_denoised, compute_dtype)
+    bf16 = kernels.bf16_mode(compute_dtype)
+    if bf16:
+        p = bf16_step_params(p)
     B, T, N, _ = noise_tab.shape
     dims = (B, T) + _check(p, N, {
         "x_init": (x_init, (B, N, 3)), "noise_tab": (noise_tab, (B, T, N, 3)),
@@ -535,15 +626,17 @@ def fused_denoise_chain(
     final = torch.empty_like(x_init)
     last_in = torch.empty_like(x_init)
     lib = kernels.load()
+    entry = lib.lsdm_denoise_chain_bf16 if bf16 else lib.lsdm_denoise_chain
+    name = "denoise_chain_bf16" if bf16 else "denoise_chain"
     with torch.cuda.device(dev):
-        rc = lib.lsdm_denoise_chain(
+        rc = entry(
             x_init.data_ptr(), noise_tab.data_ptr(), cond_pcd.data_ptr(),
             e2_tab.data_ptr(), coef_tab.data_ptr(), _pointers(p),
             final.data_ptr(), last_in.data_ptr(), scratch.data_ptr(),
             (ctypes.c_int * 11)(*dims[:10], tc),
             int(bool(clip_denoised)), kernels.stream(dev))
-    kernels.check(rc, "denoise_chain")
-    kernels.LAUNCHES["denoise_chain"] += 1
+    kernels.check(rc, name)
+    kernels.LAUNCHES[name] += 1
     return final, last_in
 
 
@@ -558,23 +651,32 @@ def chain_chunk_steps(B: int, T: int, p: DenoiseStepParams) -> int:
                       65535 // B))
 
 
-def denoise_chain_tables_plain(e2_tab: torch.Tensor, p: DenoiseStepParams
+def denoise_chain_tables_plain(e2_tab: torch.Tensor, p: DenoiseStepParams,
+                               compute_dtype: Optional[torch.dtype] = None
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`denoise_chain_tables`."""
-    emb = _emb_plain(e2_tab, p)
+    bf16 = kernels.bf16_mode(compute_dtype)
+    emb = _emb_plain(e2_tab, p, bf16)
+    if bf16:  # emb's one consumer is a product, which rounds it
+        emb = kernels.bf16_exact(emb)
     D = p.wc_t.shape[1]
-    return emb, emb @ p.wx0_t[D:] + p.bx0
+    return emb, mode_matmul(emb, p.wx0_t[D:], bf16) + p.bx0
 
 
-def denoise_chain_tables(e2_tab: torch.Tensor, p: DenoiseStepParams
+def denoise_chain_tables(e2_tab: torch.Tensor, p: DenoiseStepParams,
+                         compute_dtype: Optional[torch.dtype] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6's first pass alone, for every step row of e2_tab (B, T, 2D):
     the embedding emb (B, T, N, D) and its half of the first
     combination_extraction layer, g = emb @ wx0_t[D:] + bx0
-    (B, T, N, 1.5D).  CUDA kernels for CUDA tensors, plain version for
-    CPU tensors."""
+    (B, T, N, 1.5D); in the bf16 mode emb rounded to bf16 and g the
+    product of bf16 operands.  CUDA kernels for CUDA tensors (counted under
+    the chain's mode), plain version for CPU tensors."""
     if kernels.on_cpu(e2_tab, *p):
-        return denoise_chain_tables_plain(e2_tab, p)
+        return denoise_chain_tables_plain(e2_tab, p, compute_dtype)
+    bf16 = kernels.bf16_mode(compute_dtype)
+    if bf16:
+        p = bf16_step_params(p)
     B, T, _ = e2_tab.shape
     N = p.w_up4.shape[0]
     if B * T > 65535:
@@ -584,12 +686,14 @@ def denoise_chain_tables(e2_tab: torch.Tensor, p: DenoiseStepParams
     scratch = torch.empty(_weights_floats(dims) + B * T * _per_step(dims),
                           dtype=torch.float32, device=dev)
     lib = kernels.load()
+    entry = (lib.lsdm_denoise_chain_tables_bf16 if bf16
+             else lib.lsdm_denoise_chain_tables)
+    name = "denoise_chain_bf16" if bf16 else "denoise_chain"
     with torch.cuda.device(dev):
-        rc = lib.lsdm_denoise_chain_tables(
-            e2_tab.data_ptr(), _pointers(p), scratch.data_ptr(),
-            (ctypes.c_int * 11)(*dims[:10], T), kernels.stream(dev))
-    kernels.check(rc, "denoise_chain")
-    kernels.LAUNCHES["denoise_chain"] += 1
+        rc = entry(e2_tab.data_ptr(), _pointers(p), scratch.data_ptr(),
+                   (ctypes.c_int * 11)(*dims[:10], T), kernels.stream(dev))
+    kernels.check(rc, name)
+    kernels.LAUNCHES[name] += 1
     return _table_views(scratch, dims)
 
 

@@ -24,6 +24,13 @@ one rule (:func:`_rule`).  The C side recomputes what it needs from the
 plan, checks it, and refuses one it cannot run with
 ``cudaErrorInvalidValue``: the wrapper then raises.
 
+The kernels' bf16 modes (``compute_dtype=torch.bfloat16``) take the same
+plans and caps: their activations stay float32 in shared memory (each
+rounded to a bf16 value as it is stored) and their weights stream through
+the same ring as float32 values rounded on the host, so no buffer changes
+size; only their device-memory inputs (Z1, the FP features) and outputs
+are bf16.
+
 What the plans launch at b1 (9 clouds): sa1-sa4 288-1152 blocks, fp2
 288, fp1 144, fp3 72 and fp4 36.  fp3 and fp4 fill fewer SMs because
 more blocks ran slower in the sweep: each block of a cluster repeats its

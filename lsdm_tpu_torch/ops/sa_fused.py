@@ -16,6 +16,16 @@ TPU kernel has: a center with no point in its radius gathers point 0 in
 every slot (K1's index rule gives ``N - 1``).  In the model every center is
 one of the points, so the case arises only in tests.
 
+``compute_dtype=torch.bfloat16`` is the TPU kernel's bf16 mode
+(``sa_fused_pallas.py:61-129``, ``:158-162``, ``:187``): every product takes
+operands rounded to bf16 and sums in float32, ``Z1 = bf16(base) @
+bf16(W1') + b1'`` is rounded to bf16 after its bias, the center term is
+``bf16(center) @ bf16(W1'[:3])`` (the ball query keeps the float32
+centers), each layer's ReLU output is rounded to bf16 (its bias added
+unrounded), and the output is bf16.  The kernel's bf16 instance takes
+``Z1`` in bf16 and the weights rounded here; it counts its launches as
+``sa_fused_bf16``.
+
 A wrapper runs the kernel for CUDA tensors and the plain version for CPU
 tensors; it never falls back from one to the other.
 """
@@ -23,13 +33,14 @@ tensors; it never falls back from one to the other.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from lsdm_tpu_torch import kernels
+from lsdm_tpu_torch.kernels import mode_matmul
 from lsdm_tpu_torch.ops import rowmlp
 from lsdm_tpu_torch.ops.ballquery import _radius2, query_ball_point_plain
 from lsdm_tpu_torch.ops.pointcloud import index_points
@@ -55,31 +66,43 @@ def fold_conv_bn(conv: nn.Module, bn: nn.BatchNorm1d
 
 def sa_stage_fused_plain(radius: float, nsample: int, xyz: torch.Tensor,
                          new_xyz: torch.Tensor, base: torch.Tensor,
-                         folded: Folded) -> torch.Tensor:
+                         folded: Folded,
+                         compute_dtype: Optional[torch.dtype] = None
+                         ) -> torch.Tensor:
     """Plain version of K7 -> (B, S, F_last): the kernel's folded,
     hoisted math, with gathers where the TPU kernel multiplies one-hot
-    masks."""
+    masks; in ``compute_dtype`` bf16 the TPU kernel's bf16 roundings and a
+    bf16 output."""
+    bf16 = kernels.bf16_mode(compute_dtype)
+    rnd = kernels.bf16_exact if bf16 else (lambda t: t)
     w1, b1 = folded[0]
-    z1 = torch.matmul(base, w1) + b1                         # (B, N, F1)
+    z1 = rnd(mode_matmul(base, w1, bf16) + b1)               # (B, N, F1)
     # K1's selection on the same distance bits; an empty ball gathers point 0
     idx = query_ball_point_plain(radius, nsample, xyz, new_xyz, empty=0)
-    h = F.relu(index_points(z1, idx) - (new_xyz @ w1[:3])[:, :, None, :])
+    h = rnd(F.relu(index_points(z1, idx)
+                   - mode_matmul(new_xyz, w1[:3], bf16)[:, :, None, :]))
     for w, b in folded[1:]:
-        h = F.relu(h @ w + b)
-    return h.max(dim=2).values
+        h = rnd(F.relu(mode_matmul(h, w, bf16) + b))
+    out = h.max(dim=2).values
+    return out.to(torch.bfloat16) if bf16 else out
 
 
 def sa_stage_fused_kernel(radius: float, nsample: int, xyz: torch.Tensor,
                           new_xyz: torch.Tensor, base: torch.Tensor,
-                          folded: Folded) -> torch.Tensor:
+                          folded: Folded,
+                          compute_dtype: Optional[torch.dtype] = None
+                          ) -> torch.Tensor:
     """K7: the eval SetAbstraction stage.  xyz (B, N, 3) points, new_xyz
     (B, S, 3) centers, base (B, N, Cin) = [xyz, features], ``folded`` the
     stage's (W' (F_{l-1}, F_l), b' (F_l,)) from :func:`fold_conv_bn`, all
-    float32 -> (B, S, F_last).  CUDA kernel for CUDA tensors, plain version
-    for CPU tensors."""
+    float32 -> (B, S, F_last) float32; in ``compute_dtype`` bf16 the bf16
+    mode, a bf16 output.  CUDA kernel for CUDA tensors, plain version for
+    CPU tensors."""
     flat = [t for wb in folded for t in wb]
     if kernels.on_cpu(xyz, new_xyz, base, *flat):
-        return sa_stage_fused_plain(radius, nsample, xyz, new_xyz, base, folded)
+        return sa_stage_fused_plain(radius, nsample, xyz, new_xyz, base, folded,
+                                    compute_dtype)
+    bf16 = kernels.bf16_mode(compute_dtype)
     B, N, _ = xyz.shape
     S = new_xyz.shape[1]
     dev = xyz.device
@@ -96,38 +119,64 @@ def sa_stage_fused_kernel(radius: float, nsample: int, xyz: torch.Tensor,
         raise ValueError(f"fused SA kernel takes at most {cap} points at these "
                          f"widths (the cloud beside its smallest plan within "
                          f"{rowmlp.SMEM_MAX} B of shared memory), got {N}")
+    z1, w1x, rest = sa_operands(base, folded, compute_dtype)
+    return sa_stage_launch(radius, nsample, xyz, new_xyz, z1, w1x, rest, widths,
+                           compute_dtype)
+
+
+def sa_operands(base: torch.Tensor, folded: Folded,
+                compute_dtype: Optional[torch.dtype] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, Folded]:
+    """What K7's launch reads besides the points: layer 1 at the N points,
+    ``Z1 = base @ W1' + b1'`` (a plain product, as on the TPU), W1'[:3], and
+    the stage's ``folded`` layers; in the bf16 mode Z1 rounded to bf16 after
+    its bias (from operands rounded to bf16) and the weights rounded to bf16
+    (float32 tensors), the biases as they are."""
+    bf16 = kernels.bf16_mode(compute_dtype)
     w1, b1 = folded[0]
-    z1 = torch.matmul(base, w1) + b1  # layer 1 at the N points, as on the TPU
-    return sa_stage_launch(radius, nsample, xyz, new_xyz, z1,
-                           w1[:3].contiguous(), folded, widths)
+    z1 = mode_matmul(base, w1, bf16) + b1
+    if not bf16:
+        return z1, w1[:3].contiguous(), folded
+    rest: List[Tuple[torch.Tensor, torch.Tensor]] = [
+        (kernels.bf16_exact(w).contiguous(), b) for w, b in folded]
+    return (z1.to(torch.bfloat16), rest[0][0][:3].contiguous(), rest)
 
 
 def sa_stage_launch(radius: float, nsample: int, xyz: torch.Tensor,
                     new_xyz: torch.Tensor, z1: torch.Tensor,
                     w1x: torch.Tensor, folded: Folded,
-                    widths: Sequence[int]) -> torch.Tensor:
+                    widths: Sequence[int],
+                    compute_dtype: Optional[torch.dtype] = None
+                    ) -> torch.Tensor:
     """The launch of K7 alone, after :func:`sa_stage_fused_kernel` has
-    checked its inputs and computed layer 1 at the N points: ``z1`` (B, N,
-    F1) and ``w1x`` = W1'[:3] (3, F1), CUDA float32, contiguous."""
+    checked its inputs and :func:`sa_operands` made ``z1`` (B, N, F1) and
+    ``w1x`` = W1'[:3] (3, F1), CUDA, contiguous: float32, or in the bf16
+    mode a bf16 ``z1`` and rounded weights."""
+    bf16 = kernels.bf16_mode(compute_dtype)
     B, N, _ = xyz.shape
     S = new_xyz.shape[1]
-    out = torch.empty((B, S, widths[-1]), dtype=torch.float32,
+    out = torch.empty((B, S, widths[-1]),
+                      dtype=torch.bfloat16 if bf16 else torch.float32,
                       device=xyz.device)
     if out.numel() == 0:
         return out
+    if z1.dtype != out.dtype:
+        raise ValueError(f"z1: expected {out.dtype}, got {z1.dtype}")
     plan = rowmlp.plan_sa(B, N, S, nsample, tuple(widths)).ints()
     flat = [t for wb in folded[1:] for t in wb]
     params = (ctypes.c_void_p * max(1, len(flat)))(
         *[t.data_ptr() for t in flat])
     lib = kernels.load()
+    entry = lib.lsdm_sa_fused_bf16 if bf16 else lib.lsdm_sa_fused
+    name = "sa_fused_bf16" if bf16 else "sa_fused"
     with torch.cuda.device(xyz.device):
-        rc = lib.lsdm_sa_fused(
+        rc = entry(
             xyz.data_ptr(), new_xyz.data_ptr(), z1.data_ptr(), w1x.data_ptr(),
             params, (ctypes.c_int * len(widths))(*widths), len(widths), B, N,
             S, _radius2(radius), nsample, (ctypes.c_int * len(plan))(*plan),
             out.data_ptr(), kernels.stream(xyz.device))
-    kernels.check(rc, "sa_fused")
-    kernels.LAUNCHES["sa_fused"] += 1
+    kernels.check(rc, name)
+    kernels.LAUNCHES[name] += 1
     return out
 
 

@@ -2,6 +2,7 @@
 (fp4-fp1 with the head), on a CUDA device.
 
     python -m lsdm_tpu_torch.profile_encode [--clouds 9 72] [--reps 50]
+        [--dtype float32 bfloat16]
     python -m lsdm_tpu_torch.profile_encode --sweep [--clouds 9 18 36 72]
 
 Builds the PointNet++ backbone of ``sdm_proxd()`` with seeded random
@@ -12,7 +13,10 @@ stage it holds the kernel wrapper to its plain version (max abs error)
 and times, queued behind a sleep on the card so that the host's pace does
 not count: the wrapper (for K7 with its layer-1 matmul ``Z1 = base @ W1'
 + b1'``) and, for K7, that matmul alone (``z1_ms``); and the host's time
-to enqueue a wrapper call (``host_ms``).  It prints a line a
+to enqueue a wrapper call (``host_ms``).  ``--dtype bfloat16`` times the
+bf16 modes instead (bf16 features, as the bf16 stages hand them on; the
+error against the plain bf16 version; K7's ``z1_ms`` its bf16 operands,
+``ops/sa_fused.py:sa_operands``).  It prints a line a
 stage and, as its last line, one JSON object with all of it, the card's
 name and power limit included.  It uses only the wrappers' public
 functions, so the same script times any tree of the package.
@@ -86,16 +90,22 @@ def encode_levels(backbone, clouds: int, g: torch.Generator, dev):
     return levels
 
 
-def stage_cases(backbone, levels, g: torch.Generator):
+def stage_cases(backbone, levels, g: torch.Generator, compute_dtype=None):
     """The K7 and K8 calls of one encode at these levels, features random
     of order 1 at each stage's widths: a list of dicts with ``name``,
     ``kind`` ("sa" or "fp"), ``args`` of the wrapper and of its plain
     version, ``layer_flops`` (layers 2..L of an SA stage, every layer of an
-    FP stage), ``ops`` and ``nbytes`` (the stage's whole function, for its
-    bound) and ``desc``."""
+    FP stage), ``products`` (the operations of every product: those layers,
+    an SA stage's Z1 and center term, an FP stage's interpolation), ``ops``
+    and ``nbytes`` (the stage's whole function, for its bound) and
+    ``desc``.  With ``compute_dtype`` bf16 the features are bf16, as the
+    bf16 stages hand them on, and ``nbytes`` counts bf16 outputs; the
+    caller passes ``compute_dtype`` after ``args``."""
     from lsdm_tpu_torch.models.pointnet2 import HEAD_ACTS, fold_mlp
 
     dev = levels[0].device
+    feat = (lambda t: t.to(compute_dtype)) if compute_dtype is not None else (lambda t: t)
+    out_bytes = 2 if compute_dtype is not None else 4
     sas = (backbone.sa1, backbone.sa2, backbone.sa3, backbone.sa4)
     cases, feats = [], [levels[0]]
     for i, (st, xyz, new_xyz) in enumerate(zip(sas, levels[:4], levels[1:5])):
@@ -105,16 +115,18 @@ def stage_cases(backbone, levels, g: torch.Generator):
         widths = [base.shape[2]] + [w.shape[1] for w, _ in folded]
         B, N, S = xyz.shape[0], xyz.shape[1], new_xyz.shape[1]
         layers = 2 * B * S * ns * sum(a * b for a, b in zip(widths[1:-1], widths[2:]))
-        ops = (2 * B * N * widths[0] * widths[1]  # Z1 at the N points
-               + 2 * B * S * 3 * widths[1]        # the center term
-               + layers + DIST_OPS * ball_scan(r, ns, xyz, new_xyz))
+        products = (2 * B * N * widths[0] * widths[1]  # Z1 at the N points
+                    + 2 * B * S * 3 * widths[1]        # the center term
+                    + layers)
+        ops = products + DIST_OPS * ball_scan(r, ns, xyz, new_xyz)
         nbytes = _nbytes(xyz, new_xyz, base, *(t for wb in folded for t in wb))
-        nbytes += 4 * B * S * widths[-1]
+        nbytes += out_bytes * B * S * widths[-1]
         cases.append({"name": f"sa{i + 1}", "kind": "sa",
                       "args": (r, ns, xyz, new_xyz, base, folded),
-                      "layer_flops": layers, "ops": ops, "nbytes": nbytes,
+                      "layer_flops": layers, "products": products, "ops": ops,
+                      "nbytes": nbytes,
                       "desc": f"N={N} S={S} K={ns} {tuple(widths[1:])}"})
-        feats.append(torch.randn(B, S, widths[-1], generator=g, device=dev))
+        feats.append(feat(torch.randn(B, S, widths[-1], generator=g, device=dev)))
     fps_ = (backbone.fp4, backbone.fp3, backbone.fp2, backbone.fp1)
     for i, fp in zip((3, 2, 1, 0), fps_):
         folded = fold_mlp(fp)
@@ -125,15 +137,18 @@ def stage_cases(backbone, levels, g: torch.Generator):
             acts += HEAD_ACTS
         xyz1, xyz2 = levels[i], levels[i + 1]
         d2 = folded[0][0].shape[0] - (0 if p1 is None else p1.shape[2])
-        p2 = torch.randn(xyz2.shape[0], xyz2.shape[1], d2, generator=g, device=dev)
+        p2 = feat(torch.randn(xyz2.shape[0], xyz2.shape[1], d2, generator=g,
+                              device=dev))
         B, N, S = xyz1.shape[0], xyz1.shape[1], xyz2.shape[1]
         layers = 2 * B * N * sum(w.numel() for w, _ in folded)
-        ops = (DIST_OPS + 1) * B * N * S + 2 * B * N * min(3, S) * d2 + layers
+        products = 2 * B * N * min(3, S) * d2 + layers
+        ops = (DIST_OPS + 1) * B * N * S + products
         nbytes = _nbytes(xyz1, xyz2, p1, p2, *(t for wb in folded for t in wb))
-        nbytes += 4 * B * N * folded[-1][0].shape[1]
+        nbytes += out_bytes * B * N * folded[-1][0].shape[1]
         cases.append({"name": f"fp{i + 1}", "kind": "fp",
                       "args": (xyz1, xyz2, p1, p2, folded, acts),
-                      "layer_flops": layers, "ops": ops, "nbytes": nbytes,
+                      "layer_flops": layers, "products": products, "ops": ops,
+                      "nbytes": nbytes,
                       "desc": f"N={N} S={S} in {folded[0][0].shape[0]} "
                               f"{tuple(w.shape[1] for w, _ in folded)}"})
     return cases
@@ -146,7 +161,7 @@ def card() -> str:
     return res.stdout.strip()
 
 
-def profile(clouds_list, reps: int, seed: int) -> dict:
+def profile(clouds_list, reps: int, seed: int, dtype=None) -> dict:
     from lsdm_tpu_torch.config import sdm_proxd
     from lsdm_tpu_torch.models.sdm import SceneDiffusionModel
     from lsdm_tpu_torch.ops import fp_fused, sa_fused
@@ -159,19 +174,17 @@ def profile(clouds_list, reps: int, seed: int) -> dict:
     out = {}
     for clouds in clouds_list:
         rows = []
-        for case in stage_cases(bb, encode_levels(bb, clouds, g, dev), g):
+        for case in stage_cases(bb, encode_levels(bb, clouds, g, dev), g, dtype):
             args = case["args"]
             if case["kind"] == "sa":
-                kernel = lambda: sa_fused.sa_stage_fused_kernel(*args)
+                kernel = lambda: sa_fused.sa_stage_fused_kernel(*args, dtype)
                 plain = sa_fused.sa_stage_fused_plain
-                w1, b1 = args[5][0]
-                base = args[4]
-                z1 = lambda: (torch.matmul(base, w1) + b1, w1[:3].contiguous())
+                z1 = lambda: sa_fused.sa_operands(args[4], args[5], dtype)
             else:
-                kernel = lambda: fp_fused.fp_stage_fused_kernel(*args)
+                kernel = lambda: fp_fused.fp_stage_fused_kernel(*args, dtype)
                 plain = fp_fused.fp_stage_fused_plain
                 z1 = None
-            err = (kernel() - plain(*args)).abs().max().item()
+            err = (kernel().float() - plain(*args, dtype).float()).abs().max().item()
             ms, host_ms = time_queued_ms(kernel, reps, dev)
             rec = {"stage": case["name"], "max_abs_err": err, "ms": ms,
                    "host_ms": host_ms,
@@ -255,16 +268,22 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sweep", action="store_true",
                     help="time every launch plan of each stage")
+    ap.add_argument("--dtype", nargs="+", default=["float32"],
+                    choices=["float32", "bfloat16"],
+                    help="the modes to time (not with --sweep)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_encode needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    run = sweep if args.sweep else profile
-    res = run(args.clouds, args.reps, args.seed)
+    if args.sweep:
+        res = {"sweep": sweep(args.clouds, args.reps, args.seed)}
+    else:
+        res = {("stages" if dt == "float32" else "stages_bf16"): profile(
+            args.clouds, args.reps, args.seed,
+            None if dt == "float32" else torch.bfloat16) for dt in args.dtype}
     print(json.dumps({"card": card(), "device": torch.cuda.get_device_name(0),
-                      "seconds": time.perf_counter() - t0,
-                      ("sweep" if args.sweep else "stages"): res}))
+                      "seconds": time.perf_counter() - t0, **res}))
     return 0
 
 

@@ -31,7 +31,9 @@ sets (the stages' widths 6, 67, 131, 259 columns, 32 samples) at each
 cloud count, with whether its indices and values equal the plain
 version's; K9 per launch at b1 and b8 (N = 1024, D = 128, seeded weights
 at the flagship widths), clip off, with its error against the plain
-version, through the bound step a sampler calls (``make_denoise_step``).
+version, through the bound step a sampler calls (``make_denoise_step``),
+and the same in its bf16 mode (``denoise_step_bf16``, the error against
+the plain bf16 version).
 Prints one JSON line per case and the card's name and power limit.
 
 ``--fps_sweep`` times every launch plan (warps a cloud, points a lane,
@@ -325,15 +327,18 @@ def main() -> None:
     if on("chamfer"):
         chamfer_all(g, args, card)
     if on("step"):
-        for B in (1, 8):
-            step_args, p = step_case(B)
-            step = denoise.make_denoise_step(p, step_args[0].shape[1],
-                                             step_args[0].device)
-            err = (step(*step_args) - denoise.denoise_step_plain(*step_args, p)
-                   ).abs().max().item()
-            print(json.dumps({"kernel": "denoise_step", "batch": B, "points": 1024,
-                              "ms": queued_ms(lambda: step(*step_args)),
-                              "max_abs_err": err, "card": card}))
+        for dtype, name in ((None, "denoise_step"),
+                            (torch.bfloat16, "denoise_step_bf16")):
+            for B in (1, 8):
+                step_args, p = step_case(B)
+                step = denoise.make_denoise_step(p, step_args[0].shape[1],
+                                                 step_args[0].device,
+                                                 compute_dtype=dtype)
+                err = (step(*step_args) - denoise.denoise_step_plain(
+                    *step_args, p, compute_dtype=dtype)).abs().max().item()
+                print(json.dumps({"kernel": name, "batch": B, "points": 1024,
+                                  "ms": queued_ms(lambda: step(*step_args)),
+                                  "max_abs_err": err, "card": card}))
         if args.step_sweep:
             for B in range(1, 9):
                 step_sweep(B, card)

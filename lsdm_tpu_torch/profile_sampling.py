@@ -1,7 +1,8 @@
 """Where the time of one SDM sample goes, on a CUDA device.
 
     python -m lsdm_tpu_torch.profile_sampling [--batch 1 4 8] [--steps 1000]
-        [--ball_impl fused|pallas] [--fused_step chain|step|none] [--csrc DIR]
+        [--ball_impl fused|pallas] [--fused_step chain|step|none]
+        [--dtype float32|bfloat16] [--csrc DIR]
 
 Builds ``sdm_proxd()`` with seeded random weights and samples seeded
 random inputs through the kernel path (``sample_sdm`` with
@@ -12,7 +13,9 @@ composed loop): the fused encode
 (K7, K8, K4, K3; the default, what ``resolve_fast_path`` gives on CUDA)
 or, with ``--ball_impl pallas``, the composed encode over the selection
 kernels (K1, K2, K3).  ``--ball_impl pallas --fused_step none`` is how
-``scene_edit`` samples.  For each
+``scene_edit`` samples.  ``--dtype bfloat16`` samples the model at
+``SDMConfig.dtype="bfloat16"`` (JAX's ``bench.py --dtype bfloat16``): the
+bf16 modes of the fused encode's kernels and of K6 or K9.  For each
 batch size it prints the wall time per scene (host clock around a
 synchronised call, best and all of ``--repeats`` runs after one warm-up),
 the DDPM steps per second, the peak device memory and the wall time of
@@ -78,14 +81,16 @@ def _kernel_times(prof) -> dict:
 
 
 def profile(batches, steps: int, repeats: int, seed: int,
-            ball_impl: str = "fused", fused_step: str = "chain") -> dict:
+            ball_impl: str = "fused", fused_step: str = "chain",
+            dtype: str = "float32") -> dict:
     dev = torch.device("cuda", 0)
     ball_impl, step = resolve_fast_path(ball_impl, fused_step, dev)
-    cfg = dataclasses.replace(sdm_proxd(), ball_impl=ball_impl)
+    cfg = dataclasses.replace(sdm_proxd(), ball_impl=ball_impl, dtype=dtype)
     model = init_weights(SceneDiffusionModel(cfg), seed).to(dev).eval()
     schedule = make_schedule("cosine", steps, device=dev)
     result = {"card": torch.cuda.get_device_name(0), "steps": steps,
-              "ball_impl": ball_impl, "fused_step": step, "batches": {}}
+              "ball_impl": ball_impl, "fused_step": step, "dtype": dtype,
+              "batches": {}}
 
     def run(inputs):
         mask, objs, cats, text, x_init, noise = inputs
@@ -156,6 +161,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ball_impl", default="fused", choices=["fused", "pallas"])
     ap.add_argument("--fused_step", default="chain", choices=["chain", "step", "none"])
+    ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                    help="the model's compute dtype (parameters stay float32)")
     ap.add_argument("--csrc", help="build the kernels from this copy of csrc/")
     args = ap.parse_args(argv)
     if args.csrc:
@@ -163,9 +170,11 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_sampling: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    # JAX sums a bf16 product in float32: no bf16 split-K reductions
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     with torch.no_grad():
         result = profile(args.batch, args.steps, args.repeats, args.seed,
-                         args.ball_impl, args.fused_step)
+                         args.ball_impl, args.fused_step, args.dtype)
     print(json.dumps(result))
     return 0
 

@@ -16,8 +16,9 @@ On CUDA ``--ball_impl auto`` runs the selection kernels (K1, K2, K3) and
 adds K10.  ``--dtype bfloat16`` computes in bf16 over float32 parameters,
 with flax's casts (``--bn_dtype`` the BatchNorms' output dtype): K4, K5
 and K10 then run their bf16 modes, validation samples the bf16 model on
-the composed path (``train/trainer.py``), and the checkpoints stay
-float32.
+the fast path in bf16 (on CUDA the fused encode's K7, K8 and K4 and the
+K6 chain in their bf16 modes, ``train/trainer.py``), and the checkpoints
+stay float32.
 The K11 chamfer loss (``chamfer_impl="pallas"``) is an argument of
 ``train/trainer.py:make_train_step``, as in the JAX package, whose train
 CLI has no flag for it.  ``--device`` defaults to ``cuda`` and there is

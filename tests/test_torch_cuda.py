@@ -1018,3 +1018,217 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
         fps.farthest_point_sample_kernel(_cloud(1, 1, fps.MAX_POINTS + 1, 3).to(dev), 4)
     with pytest.raises(ValueError):
         chamfer.directed_nn_kernel(xyz, xyz[:, :0].contiguous())
+
+
+# --- the bf16 modes of K6-K9 ------------------------------------------------------
+
+# The bf16 modes against their plain bf16 versions, with the criterion of
+# tests/test_torch_bf16.py:_check_bf16: every entry within BF16_RTOL x
+# max(1, |plain|), and the mean absolute difference within half of the plain
+# version's own mean gap between its bf16 and float32 modes on the same
+# inputs.  The kernels and the plain versions round the same values; they
+# sum in another order, so a rounding near a bf16 boundary can flip.
+BF16_RTOL = 3e-2
+
+
+def _bf16_gate(got, want, want32, what):
+    got, want, want32 = got.float(), want.float(), want32.float()
+    assert got.shape == want.shape and torch.isfinite(got).all(), what
+    err = (got - want).abs()
+    assert err.max().item() <= BF16_RTOL * max(1.0, want.abs().max().item()), (
+        what, err.max().item())
+    gap = (want - want32).abs().mean().item()
+    assert gap > 0 and err.mean().item() <= 0.5 * gap, (what, err.mean().item(), gap)
+
+
+@pytest.mark.parametrize("b,n,s,radius,nsample,mlp,cluster", [
+    (9, 1024, 1024, 0.1, 32, (32, 32, 64), 0),   # sa1-sa4 at b1
+    (9, 1024, 256, 0.2, 32, (64, 64, 128), 0),
+    (9, 256, 64, 0.4, 32, (128, 128, 256), 0),
+    (9, 64, 16, 0.8, 32, (256, 256, 512), 0),
+    (2, 37, 5, 0.3, 8, (8,), 0),                 # one layer: the max of layer 1
+    (3, 100, 37, 0.5, 16, (64, 67, 20), 4),      # ragged, clusters of 4
+])
+def test_sa_fused_bf16_kernel_matches_plain(dev, b, n, s, radius, nsample, mlp, cluster,
+                                            monkeypatch):
+    _forced_cluster(monkeypatch, "plan_sa", cluster)
+    xyz = _cloud(n, b, n, 3).to(dev)
+    new_xyz = xyz[:, :s].clone()
+    new_xyz[1, 2] = 50.0  # a center with no point in its radius
+    base = torch.cat([xyz, _cloud(n + 1, b, n, 5).to(dev)], -1).contiguous()
+    folded = _layers(dev, (8,) + mlp)
+    args = (radius, nsample, xyz, new_xyz, base, folded)
+    before = {k: kernels.LAUNCHES[k] for k in ("sa_fused", "sa_fused_bf16")}
+    got = sa_fused.sa_stage_fused_kernel(*args, torch.bfloat16)
+    assert (kernels.LAUNCHES["sa_fused_bf16"], kernels.LAUNCHES["sa_fused"]) == (
+        before["sa_fused_bf16"] + 1, before["sa_fused"])
+    want = sa_fused.sa_stage_fused_plain(*args, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (b, s, mlp[-1])
+    _bf16_gate(got, want, sa_fused.sa_stage_fused_plain(*args), "K7 bf16")
+
+
+@pytest.mark.parametrize("b,n,s,d1,d2,mlp,acts,cluster", [
+    (9, 64, 16, 256, 512, (256, 256), None, 0),  # fp4-fp1 at b1, fp1 with the head
+    (9, 256, 64, 128, 256, (256, 256), None, 0),
+    (9, 1024, 256, 64, 256, (256, 128), None, 0),
+    (9, 1024, 1024, 0, 128, (128, 128, 128, 128, 3), HEAD, 0),
+    (2, 64, 2, 6, 10, (8, 16), None, 0),         # S = 2: k = 2
+    (2, 45, 11, 30, 37, (36, 5), ("relu", "none"), 2),  # ragged, odd widths
+])
+def test_fp_fused_bf16_kernel_matches_plain(dev, b, n, s, d1, d2, mlp, acts, cluster,
+                                            monkeypatch):
+    _forced_cluster(monkeypatch, "plan_fp", cluster)
+    xyz1 = _cloud(n, b, n, 3).to(dev)
+    xyz2 = xyz1[:, :s].contiguous() if s == n else _cloud(s + 3, b, s, 3).to(dev)
+    # the features as the stages hand them on: bf16
+    p1 = _cloud(n + 5, b, n, d1).to(dev).bfloat16() if d1 else None
+    p2 = _cloud(s + 9, b, s, d2).to(dev).bfloat16()
+    folded = _layers(dev, (d1 + d2,) + mlp)
+    args = (xyz1, xyz2, p1, p2, folded, acts)
+    before = {k: kernels.LAUNCHES[k] for k in ("fp_fused", "fp_fused_bf16")}
+    got = fp_fused.fp_stage_fused_kernel(*args, torch.bfloat16)
+    assert (kernels.LAUNCHES["fp_fused_bf16"], kernels.LAUNCHES["fp_fused"]) == (
+        before["fp_fused_bf16"] + 1, before["fp_fused"])
+    want = fp_fused.fp_stage_fused_plain(*args, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (b, n, mlp[-1])
+    _bf16_gate(got, want, fp_fused.fp_stage_fused_plain(*args), "K8 bf16")
+    with pytest.raises(ValueError):  # the float32 mode takes float32 features
+        fp_fused.fp_stage_fused_kernel(*args)
+
+
+@pytest.mark.parametrize("b,n,d,t,chunked,clip", [
+    (1, 1024, 128, 5, False, False),  # the flagship widths
+    (8, 1024, 128, 3, False, True),   # taller tiles
+    (2, 37, 16, 7, True, True),       # several chunks, a partial tile pair
+])
+def test_denoise_chain_bf16_kernel_matches_plain(dev, b, n, d, t, chunked, clip,
+                                                 monkeypatch):
+    if chunked:
+        monkeypatch.setattr(denoise, "CHAIN_SCRATCH_FLOATS", 1 << 16)
+    args = _chain_inputs(dev, B=b, T=t, N=n, D=d)
+    before = {k: kernels.LAUNCHES[k] for k in ("denoise_chain", "denoise_chain_bf16")}
+    got = denoise.fused_denoise_chain(*args, clip_denoised=clip,
+                                      compute_dtype=torch.bfloat16)
+    assert (kernels.LAUNCHES["denoise_chain_bf16"], kernels.LAUNCHES["denoise_chain"]) == (
+        before["denoise_chain_bf16"] + 1, before["denoise_chain"])
+    want = denoise.denoise_chain_plain(*args, clip_denoised=clip,
+                                       compute_dtype=torch.bfloat16)
+    want32 = denoise.denoise_chain_plain(*args, clip_denoised=clip)
+    torch.cuda.synchronize()
+    for a, w, w32, name in zip(got, want, want32, ("final", "last_in")):
+        assert a.dtype == torch.float32
+        _bf16_gate(a, w, w32, f"K6 bf16 {name}")
+    # the weights rounded once beforehand give the same launch
+    p = denoise.bf16_step_params(args[-1])
+    again = denoise.fused_denoise_chain(*args[:-1], p, clip_denoised=clip,
+                                        compute_dtype=torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("b,t,n,d", [(1, 8, 1024, 128), (2, 5, 37, 16)])
+def test_denoise_chain_tables_bf16_kernel_matches_plain(dev, b, t, n, d):
+    *_, e2, _, p = _chain_inputs(dev, B=b, T=t, N=n, D=d)
+    got = denoise.denoise_chain_tables(e2, p, torch.bfloat16)
+    want = denoise.denoise_chain_tables_plain(e2, p, torch.bfloat16)
+    want32 = denoise.denoise_chain_tables_plain(e2, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], got[0].bfloat16().float())  # emb rounded
+    for a, w, w32, name in zip(got, want, want32, ("emb", "g")):
+        _bf16_gate(a, w, w32, f"K6 bf16 tables {name}")
+
+
+@pytest.mark.parametrize("b,n,d,clip", [
+    (1, 1024, 128, False), (8, 1024, 128, True), (3, 37, 16, True), (1, 5, 16, False)])
+def test_denoise_step_bf16_kernel_matches_plain(dev, b, n, d, clip):
+    args = _step_args(dev, b, n, d)
+    before = {k: kernels.LAUNCHES[k] for k in ("denoise_step", "denoise_step_bf16")}
+    got = denoise.fused_denoise_step(*args, clip_denoised=clip,
+                                     compute_dtype=torch.bfloat16)
+    assert (kernels.LAUNCHES["denoise_step_bf16"], kernels.LAUNCHES["denoise_step"]) == (
+        before["denoise_step_bf16"] + 1, before["denoise_step"])
+    want = denoise.denoise_step_plain(*args, clip_denoised=clip,
+                                      compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    _bf16_gate(got, want, denoise.denoise_step_plain(*args, clip_denoised=clip),
+               "K9 bf16")
+
+
+def test_bf16_step_graph_replays_the_host_loop_bit_for_bit(dev):
+    b, n, d, t = 1, 1024, 128, 6
+    x, noise, cpcd, e2, coef, p = _chain_inputs(dev, b, t, n, d)
+    noise_tab = noise.transpose(0, 1).contiguous()
+    e2_tab = e2.transpose(0, 1).contiguous()
+    before = kernels.LAUNCHES["denoise_step_bf16"]
+    graph = denoise.DenoiseStepGraph(p, b, n, t, dev, compute_dtype=torch.bfloat16)
+    assert kernels.LAUNCHES["denoise_step_bf16"] == before + 1
+    assert graph.calls == t and tuple(graph.kernel_nodes) == (2 * t, t, t)
+    replayed = kernels.GRAPH_LAUNCHES["denoise_step_bf16"]
+    final, last_in = graph.run(x, noise_tab, cpcd, e2_tab, coef)
+    assert kernels.GRAPH_LAUNCHES["denoise_step_bf16"] == replayed + t
+    host = denoise.make_denoise_step(p, n, dev, compute_dtype=torch.bfloat16)
+    want_final, want_last = denoise._step_loop(host, x, noise_tab, cpcd, e2_tab, coef)
+    torch.cuda.synchronize()
+    assert torch.equal(final, want_final) and torch.equal(last_in, want_last)
+
+
+@pytest.mark.parametrize("fused_step", ["chain", "step"])
+def test_bf16_model_launches_the_bf16_modes_only(dev, fused_step):
+    """A bf16 model on CUDA tensors with the fused encode: K7, K8, K4 and
+    K6 (or K9) in their bf16 modes, and no float32 mode of any of them.  At
+    512 points (stages of 512, 128, 32, 8) every stage passes its gate."""
+    from lsdm_tpu_torch.config import SDMConfig
+    from lsdm_tpu_torch.diffusion.schedule import make_schedule
+    from lsdm_tpu_torch.models.sampling import sample_sdm
+    from lsdm_tpu_torch.models.sdm import SceneDiffusionModel
+    from lsdm_tpu_torch.weights import init_weights
+
+    cfg = SDMConfig(clip_dim=32, latent_dim=16, cat_emb=8, n_head=4, vert_dims=256,
+                    pcd_points=512, ball_impl="fused", dtype="bfloat16",
+                    bn_dtype="bfloat16")
+    model = init_weights(SceneDiffusionModel(cfg), 0).to(dev).eval()
+    g = torch.Generator(device=dev).manual_seed(0)
+    mask = torch.zeros(2, 9, device=dev)
+    mask[:, 1:4] = 1.0
+    cats = torch.nn.functional.one_hot(
+        torch.randint(0, 13, (2, 9), generator=g, device=dev), 13).float()
+    args = (mask, torch.randn(2, 9, 512, 3, generator=g, device=dev), cats,
+            torch.randn(2, 32, generator=g, device=dev))
+    kernels.reset_launches()
+    sample, last = sample_sdm(model, make_schedule("cosine", 4, device=dev), *args,
+                              generator=g, fused_step=fused_step)
+    torch.cuda.synchronize()
+    launched = {k: v + kernels.GRAPH_LAUNCHES[k] for k, v in kernels.LAUNCHES.items()}
+    loop = "denoise_chain_bf16" if fused_step == "chain" else "denoise_step_bf16"
+    assert all(launched[k] for k in ("sa_fused_bf16", "fp_fused_bf16",
+                                     "rank1_attn_bf16", "fps", loop)), launched
+    assert not any(launched[k] for k in (
+        "sa_fused", "fp_fused", "rank1_attn", "denoise_chain", "denoise_step",
+        "ball_query", "three_nn")), launched
+    assert sample.dtype == torch.float32 and torch.isfinite(sample).all()
+    assert torch.isfinite(last.x0).all()
+
+
+def test_failed_bf16_build_raises_without_a_plain_fallback(dev, tmp_path, monkeypatch):
+    """A kernel library whose bf16 source does not compile: the bf16 wrapper
+    raises the build's error and never returns the plain version."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in kernels.CSRC.glob("*.cuh"):
+        shutil.copy(f, csrc)
+    broken = (kernels.CSRC / "sa_fused.cu").read_text().replace(
+        "int lsdm_sa_fused_bf16(", "int lsdm_sa_fused_bf16(undeclared_type t, ")
+    (csrc / "sa_fused.cu").write_text(broken)
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(kernels, "_lib", None)
+    xyz = _cloud(0, 2, 64, 3).to(dev)
+    base = torch.cat([xyz, xyz], -1).contiguous()
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        sa_fused.sa_stage_fused_kernel(0.5, 8, xyz, xyz[:, :16].contiguous(), base,
+                                       _layers(dev, (6, 16, 32)), torch.bfloat16)
+    assert kernels.LAUNCHES == before

@@ -227,4 +227,6 @@ def test_kernel_wrappers_on_cpu_run_the_plain_versions_and_launch_nothing():
                                      "denoise_chain", "rank1_attn", "sa_fused",
                                      "fp_fused", "rank1_attn_bwd", "select_gather",
                                      "chamfer_nn", "denoise_step", "rank1_attn_bf16",
-                                     "rank1_attn_bwd_bf16", "select_gather_bf16"}
+                                     "rank1_attn_bwd_bf16", "select_gather_bf16",
+                                     "sa_fused_bf16", "fp_fused_bf16",
+                                     "denoise_chain_bf16", "denoise_step_bf16"}

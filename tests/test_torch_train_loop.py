@@ -350,19 +350,39 @@ def test_train_cli_in_bf16_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("fused_step", ["chain", "step"])
 @pytest.mark.parametrize("ball_impl", ["pallas", "fused"])
-def test_sample_sdm_refuses_bf16_on_the_fused_kernels(fused_step, ball_impl):
-    """A bf16 model would reach K6-K9 (or, with ``ball_impl="fused"``, K7
-    and K8), whose bf16 modes are not ported: ``sample_sdm`` raises with the
-    reason and never samples in float32 instead."""
+def test_sample_sdm_refuses_bf16_on_the_fused_kernels(fused_step, ball_impl,
+                                                      monkeypatch):
+    """A bf16 model reaches K6 or K9 (and, with ``ball_impl="fused"``, K7
+    and K8), whose bf16 modes are ported: ``sample_sdm`` no longer refuses
+    it, and each of those kernels is called in its bf16 mode, never in
+    float32.  The fourth case is the fused encode with the composed loop.
+    (The bf16 results are held to JAX in ``tests/test_torch_fused_bf16.py``.)"""
+    from lsdm_tpu_torch.models import pointnet2, sampling
     from lsdm_tpu_torch.models.sampling import sample_sdm
 
     cfg = PortConfig(**TINY_KW, dtype="bfloat16", ball_impl=ball_impl)
     model = init_weights(SceneDiffusionModel(cfg), 0).eval()
     mask, objs, cats, _, _, text = _batch(cfg, 2, 0)
     step = None if ball_impl == "fused" and fused_step == "step" else fused_step
-    with pytest.raises(ValueError, match="K6, K7, K8 and K9"):
-        sample_sdm(model, make_schedule("cosine", 2), mask, objs, cats, text,
-                   fused_step=step)
+    modes = []
+    for mod, name in ((pointnet2, "sa_stage_fused_kernel"),
+                      (pointnet2, "fp_stage_fused_kernel"),
+                      (sampling, "fused_denoise_chain"),
+                      (sampling, "make_denoise_step_loop")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _fn=fn, _n=name, **k: (
+            modes.append((_n, k.get("compute_dtype", a[-1]))), _fn(*a, **k))[1])
+    sample, last = sample_sdm(model, make_schedule("cosine", 2), mask, objs, cats,
+                              text, fused_step=step)
+    assert sample.shape == (2, cfg.pcd_points, 3) and sample.dtype == torch.float32
+    assert torch.isfinite(sample).all() and torch.isfinite(last.x0).all()
+    called = {n for n, _ in modes}
+    assert {dt for _, dt in modes} == {torch.bfloat16}
+    want = {"fused_denoise_chain"} if step == "chain" else (
+        {"make_denoise_step_loop"} if step == "step" else set())
+    if ball_impl == "fused":
+        want |= {"sa_stage_fused_kernel", "fp_stage_fused_kernel"}
+    assert called == want
 
 
 def test_train_cli_refuses_without_a_gpu():
