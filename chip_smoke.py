@@ -75,7 +75,9 @@ Run from the repository root:  python3 chip_smoke.py
 8b. The bf16 fused path (``sdm_proxd()`` at ``dtype="bfloat16"``, the JAX
    bench's ``--dtype bfloat16``): first the bf16 modes of K7 and K8 per
    stage at 9 clouds on bf16 features, of K6 at b1 and CHAIN_BATCH (clip
-   on; pass 1 timed apart beside its bf16 ``baddbmm`` yardstick) and of K9
+   on; pass 1 timed apart, as the chain runs it, beside its bf16
+   ``baddbmm`` yardstick and the bytes its tables move, and its tables emb
+   and g held to their plain bf16 versions) and of K9
    at b1 and b8, clip off and on, each against its plain bf16 version by
    the BF16 gate (BF16_RTOL, BF16_GAP_SHARE), its bound its bytes or its
    products over BF16_TC_OPS_PER_S; then the bf16 model sampled at b1,
@@ -104,7 +106,9 @@ Run from the repository root:  python3 chip_smoke.py
    (K11, each way) equal to their plain versions.
    Then the bf16 modes at those shapes (phase 10b): K4 and K5 on bf16
    q, k, v within ATTN_BF16_ATOL / ATTN_BWD_BF16_ATOL of their plain bf16
-   versions, K10 on bf16 stage columns equal to its plain version, each
+   versions (K4's row denominators the float32 mode's bits; K4 also at the
+   bf16 encode's 9 clouds, timed beside SDPA's bf16 forward, the record's
+   ``clouds9``), K10 on bf16 stage columns equal to its plain version, each
    timed queued with its bound (records ``rank1_attn_bf16``,
    ``rank1_attn_bwd_bf16``, ``select_gather_bf16``).
 11. The train step of ``sdm_proxd()`` at batch 6 (fp32, T=1000, seeded
@@ -147,6 +151,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import importlib
 import json
 import math
@@ -866,19 +871,41 @@ def kernel_checks(dev, model, T: int = T_STEPS) -> dict:
 
 def _chain_pass1_ms(e2, p, dev, compute_dtype=None) -> float:
     """Device ms of K6's first pass over the step rows e2 (B, T, 2D), as the
-    chain runs it: pass 1 alone (``denoise_chain_tables``, in
-    ``compute_dtype``'s mode) over each of the chain's chunks of steps."""
+    chain runs it: pass 1 alone (the launches of ``denoise_chain_tables``,
+    in ``compute_dtype``'s mode, emb^T not kept, as the chain does not
+    keep it, and not read back) over each of the chain's chunks of steps."""
     from lsdm_tpu_torch.ops import denoise
 
     B, T = e2.shape[:2]
-    tc = denoise.chain_chunk_steps(B, T, p)
+    tc = denoise.chain_chunk_steps(B, T, p, compute_dtype)
     ms = 0.0
     for steps, count in ((tc, T // tc), (T % tc, 1)):
         if steps and count:
             rows = e2[:, :steps].contiguous()
-            ms += count * _time_ms(lambda: denoise.denoise_chain_tables(
-                rows, p, compute_dtype), 3, dev)
+            if dev.type == "cuda":
+                fn = functools.partial(denoise._tables_scratch, rows, p, compute_dtype,
+                                       keep_emb=False)
+            else:
+                fn = functools.partial(denoise.denoise_chain_tables, rows, p, compute_dtype)
+            ms += count * _time_ms(fn, 3, dev)
     return ms
+
+
+def _chain_pass1_bytes(B: int, T: int, p) -> int:
+    """Bytes the bf16 mode's first pass moves over B scenes and T steps as
+    ``_chain_pass1_ms`` runs it: its bf16 tables u0, u2 and u4^T each
+    written once and read once, g (float32) written once, the step rows e2
+    read once, and its bf16 operand copies read once a chunk (the weights'
+    reads beyond the first come from L2).  emb^T stays on chip."""
+    import torch
+
+    from lsdm_tpu_torch.ops import denoise
+
+    N, D2, U0, U2, D15 = (p.w_up4.shape[0], p.wc_t.shape[0], p.w_up0.shape[0],
+                          p.w_up2.shape[0], p.wx0_t.shape[1])
+    tables = 2 * 2 * ((U0 + U2) * D2 + D2 * denoise._ldn(N, True)) + 4 * N * D15
+    chunks = -(-T // denoise.chain_chunk_steps(B, T, p, torch.bfloat16))
+    return B * T * (tables + 4 * D2) + chunks * _nbytes(*p.operands)
 
 
 def _chain_pass1_library_ms(e2, p, dev, dtype=None) -> float:
@@ -897,7 +924,7 @@ def _chain_pass1_library_ms(e2, p, dev, dtype=None) -> float:
     B, T, D2 = e2.shape
     N, U0, U2, D = (p.w_up4.shape[0], p.w_up0.shape[0], p.w_up2.shape[0],
                     p.wc_t.shape[1])
-    tc = denoise.chain_chunk_steps(B, T, p)
+    tc = denoise.chain_chunk_steps(B, T, p, dtype)
     g = torch.Generator(device=dev).manual_seed(0)
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1052,7 +1079,9 @@ def bf16_kernel_checks(dev, model, batch: int = TRAIN_BATCH) -> dict:
     denominators, each of dq, dk, dv within ATTN_BWD_BF16_ATOL x max(1, its
     largest entry), SDPA's bf16 backward beside it; K10 on bf16 stage
     columns at sa1-sa4, equal to its plain version, outputs and indices.
-    Each timed queued behind a sleep.  Returns {kernel: record}."""
+    Each timed queued behind a sleep; K4 also at 9 clouds without
+    denominators, as the bf16 encode calls it, beside SDPA's bf16 forward
+    (``clouds9``).  Returns {kernel: record}."""
     import torch
 
     from lsdm_tpu_torch.ops import attn, fps, sg_fused
@@ -1074,6 +1103,11 @@ def bf16_kernel_checks(dev, model, batch: int = TRAIN_BATCH) -> dict:
     if not (torch.isfinite(out).all() and err <= tol and derr <= ATTN_DEN_RTOL):
         raise AssertionError(f"rank-1 attention bf16: max error {err} (tolerance {tol}), "
                              f"denominators {derr} (tolerance {ATTN_DEN_RTOL})")
+    # the float32 mode's summation order, which K5 relies on: the same bits
+    if not torch.equal(den, attn.rank1_mha_kernel(q.float(), k.float(), v.float(),
+                                                  denominator=True)[1]):
+        raise AssertionError("rank-1 attention bf16: row denominators differ from the "
+                             "float32 mode's on the same values")
     del want, wden
     q4, k4, v4 = (t.transpose(1, 2)[..., None].contiguous() for t in (q, k, v))
     _record(rec, "rank1_attn_bf16", err,
@@ -1087,6 +1121,26 @@ def bf16_kernel_checks(dev, model, batch: int = TRAIN_BATCH) -> dict:
             _time_queued_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 q4, k4, v4, scale=1.0), QUEUED_REPS, dev)[0], exps=C_ * H * N * N)
     rec["rank1_attn_bf16"]["den_max_rel_err"] = derr
+    # the bf16 encode's call: 9 clouds (a b1 sample), no denominators
+    q9, k9, v9 = (t[:9].contiguous() for t in (q, k, v))
+    got9 = attn.rank1_mha_kernel(q9, k9, v9)
+    err9 = (got9 - attn.rank1_mha_plain(q9, k9, v9)).abs().max().item()
+    tol9 = ATTN_BF16_ATOL * max(1.0, v9.abs().max().item())
+    if not (torch.isfinite(got9).all() and err9 <= tol9):
+        raise AssertionError(f"rank-1 attention bf16 (9,{N},{H}): max error {err9} "
+                             f"(tolerance {tol9})")
+    sdpa9 = [t.transpose(1, 2)[..., None].contiguous() for t in (q9, k9, v9)]
+    ms9 = _time_queued_ms(lambda: attn.rank1_mha_kernel(q9, k9, v9), QUEUED_REPS, dev)[0]
+    lib9 = _time_queued_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        *sdpa9, scale=1.0), QUEUED_REPS, dev)[0]
+    bound9 = max(_nbytes(q9, k9, v9, got9) / HBM_BYTES_PER_S,
+                 6 * 9 * H * N * N / FP32_OPS_PER_S, 9 * H * N * N / SFU_EXPS_PER_S) * 1e3
+    print(f"K4 rank-1 attention bf16 (9,{N},{H}), the bf16 encode's call: max error "
+          f"{err9:.3g} (tolerance {tol9:.3g}); kernel {ms9:.4f} ms, SDPA bf16 forward "
+          f"{lib9:.4f} ms, bound {bound9:.4f} ms")
+    rec["rank1_attn_bf16"]["clouds9"] = {"ms": ms9, "library_ms": lib9,
+                                         "bound_ms": bound9, "max_abs_err": err9}
+    del sdpa9, got9
 
     got = attn.rank1_mha_bwd_kernel(q, k, v, out, gout, den)
     want = attn.rank1_mha_bwd_plain(q, k, v, out, gout)
@@ -1643,7 +1697,8 @@ def bf16_kernel_checks_fused(dev, model, T: int = T_STEPS) -> dict:
     """Phase 8b, kernels: the bf16 modes of K7 (sa1-sa4) and K8 (fp4-fp1,
     fp1 with the head) at 9 clouds, their features bf16 as the bf16 stages
     hand them on; of K6 at b1 and CHAIN_BATCH (clip on), pass 1 timed apart
-    beside its bf16 ``baddbmm`` yardstick; of K9 at b1 and b8, clip off and
+    beside its bf16 ``baddbmm`` yardstick and the bytes its tables move, and
+    pass 1's tables alone (emb, g) at b1; of K9 at b1 and b8, clip off and
     on.  Each against its plain bf16 version by the BF16 gate, each kernel
     timed (K7, K8 and K9 queued behind a sleep), its bound its bytes over
     HBM_BYTES_PER_S or its products over BF16_TC_OPS_PER_S.  The kernels get
@@ -1709,13 +1764,18 @@ def bf16_kernel_checks_fused(dev, model, T: int = T_STEPS) -> dict:
         pass1 = _chain_pass1_ms(data[3], pb, dev, bf)
         ops1 = 2 * B * T * (2 * D * up + N * table)
         ops2 = 2 * B * T * N * tail
+        moved = _chain_pass1_bytes(B, T, pb)
         pass1_rec = {"source": "lsdm_tpu_torch/csrc/denoise_tables.cu", "ms": pass1,
                      "bound_ms": ops1 / BF16_TC_OPS_PER_S * 1e3,
                      "library_ms": _chain_pass1_library_ms(data[3], p, dev, bf),
-                     "tflop_s": ops1 / pass1 * 1e-9}
+                     "tflop_s": ops1 / pass1 * 1e-9, "table_bytes": moved,
+                     "table_bytes_ms": moved / HBM_BYTES_PER_S * 1e3,
+                     "gb_s": moved / pass1 * 1e-6}
         line = (f"{line}: {_bf16_text(r)}; pass 1 {pass1:.3f} ms (bound "
                 f"{pass1_rec['bound_ms']:.3f} on the bf16 tensor cores; "
-                f"{pass1_rec['tflop_s']:.2f} TFLOP/s; bf16 baddbmm floor, no GELU "
+                f"{pass1_rec['tflop_s']:.2f} TFLOP/s; its tables move "
+                f"{moved / 1e9:.3f} GB, {pass1_rec['table_bytes_ms']:.3f} ms at the HBM "
+                f"rate, {pass1_rec['gb_s']:.0f} GB/s; bf16 baddbmm floor, no GELU "
                 f"or u0: {pass1_rec['library_ms']:.3f}), pass 2 {ms - pass1:.3f} ms "
                 f"(bound {ops2 / BF16_TC_OPS_PER_S * 1e3:.3f})")
         if B != 1:
@@ -1733,6 +1793,18 @@ def bf16_kernel_checks_fused(dev, model, T: int = T_STEPS) -> dict:
                 pass1_rec["library_ms"], bf16=True)
         rec["denoise_chain_bf16"].update(pass1_b1=pass1_rec, pass2_ms=ms - pass1,
                                          gate_b1=r)
+        # pass 1 alone, its tables emb and g (emb stored as bf16)
+        e2 = data[3][:, -TABLE_STEPS:].contiguous()
+        got = denoise.denoise_chain_tables(e2, pb, bf)
+        if not torch.equal(got[0], got[0].to(bf).float()):
+            raise AssertionError("K6 bf16 pass 1: emb is not bf16")
+        reads = [_bf16_gate(a, w, w32, f"K6 bf16 pass 1 tables {n}") for a, w, w32, n in
+                 zip(got, denoise.denoise_chain_tables_plain(e2, p, bf),
+                     denoise.denoise_chain_tables_plain(e2, p), ("emb", "g"))]
+        print(f"K6 bf16 pass 1 tables (emb, g) of {e2.shape[1]} steps: "
+              + "; ".join(_bf16_text(x) for x in reads))
+        rec["denoise_chain_bf16"]["tables_gate"] = reads
+        del got
 
     rows = sum(w.numel() for w in (p.wc_t, p.wp0_t, p.wp2_t, p.wx0_t, p.wx2_t,
                                    p.wo0_t, p.wo2_t))  # on N rows

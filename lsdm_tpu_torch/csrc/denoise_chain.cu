@@ -58,7 +58,8 @@
 //
 // The sample is carried in the output buffer from chunk to chunk.  The
 // chunk length comes from the caller, which sizes the scratch (pass 1's
-// transposed weights and the tables of one chunk).  Every product is a hand-written FMA loop: no cuBLAS.
+// transposed weights and the tables of one chunk).  Every product is
+// hand-written (FMA loops; the bf16 mode's pass 1 on mma.sync): no cuBLAS.
 //
 // lsdm_denoise_chain_tables runs pass 1 alone, so a check can hold its
 // tables against a plain computation: the chain's final sample barely
@@ -67,9 +68,11 @@
 //
 // The bf16 mode (lsdm_denoise_chain_bf16; the TPU kernel at
 // compute_dtype=bfloat16, whose dot() rounds both operands to bf16 and sums
-// in float32, denoise_pallas.py:237-239) is the same two passes with the
-// weights rounded to bf16 by the wrapper: pass 1's bf16 instance (u0 and
-// its tables rounded, denoise_tables.cu), and pass 2's, which rounds x_t +
+// in float32, denoise_pallas.py:237-239) is two passes with the weights
+// rounded to bf16 by the wrapper: pass 1's bf16 kernel (its four products
+// on the bf16 tensor cores from bf16 operand copies of the weights, its
+// tables u2, u4^T and emb^T stored as bf16, denoise_tables.cu), and pass
+// 2's bf16 instance, which reads g as the float32 mode does and rounds x_t +
 // cond_pcd as the operand of the first layer and each layer's output as it
 // is written to shared memory (h1 included, as it crosses to the peer), the
 // products' only consumers.  The carried sample, the noise, the update,
@@ -474,7 +477,7 @@ int chain_entry(const float* x_init, const float* noise, const float* cpcd,
     return (int)cudaErrorInvalidValue;
   int dev, limit, sms;
   cudaError_t err;
-  if ((err = tables_check(d, w, scratch))) return (int)err;
+  if ((err = tables_check(d, w, scratch, kBf16))) return (int)err;
   if ((err = cudaGetDevice(&dev)) ||
       (err = cudaDeviceGetAttribute(
            &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) ||
@@ -492,11 +495,11 @@ int chain_entry(const float* x_init, const float* noise, const float* cpcd,
   const TailWeights tail{w[8],  w[9],  w[10], w[11], w[12], w[13],
                          w[14], w[15], w[16], w[17], w[18], w[19]};
   const int pairs = (d.N + 2 * rows - 1) / (2 * rows);  // tile pairs a scene
-  if ((err = transpose_weights(st, d, w, scratch))) return (int)err;
+  if (!kBf16 && (err = transpose_weights(st, d, w, scratch))) return (int)err;
   for (int t0 = 0; t0 < d.T; t0 += d.TC) {
     const int tc = d.TC < d.T - t0 ? d.TC : d.T - t0;
     float* g;
-    if ((err = chain_tables(st, d, e2, w, scratch, t0, tc, kBf16, &g)))
+    if ((err = chain_tables(st, d, e2, w, scratch, t0, tc, kBf16, false, &g)))
       return (int)err;
     chain_pair_kernel<kBf16><<<2 * d.B * pairs, kPairThreads, smem, st>>>(
         t0 == 0 ? x_init : final_x, final_x, last_in, noise, cpcd, g, coef,
@@ -531,7 +534,10 @@ int lsdm_denoise_chain(const float* x_init, const float* noise,
 }
 
 // The same call in the bf16 mode: the product weights of w (w_up2, w_up4,
-// wc_t and the tail's) rounded to bf16 by the caller, all float32 tensors.
+// wc_t and the tail's) rounded to bf16 by the caller, all float32 tensors,
+// followed by pass 1's four bf16 operand copies (w[20..23], as for
+// lsdm_denoise_chain_tables_bf16); scratch: B * tc * ((U0*2D + U2*2D +
+// 2D*ldn) / 2 + N*D15) floats, ldn = N rounded up to 8 (denoise_tables.cuh).
 int lsdm_denoise_chain_bf16(const float* x_init, const float* noise,
                             const float* cpcd, const float* e2,
                             const float* coef, const float* const* w,

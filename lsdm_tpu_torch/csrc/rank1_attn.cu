@@ -43,11 +43,25 @@
 // q, k and v are bf16 in memory, half the bytes, read as float32, and every
 // weight w = e / Z is rounded to bf16 before its product with v, the sum
 // of the products accumulating in float32; the output and the denominators
-// stay float32.  A weight needs its row's Z first, so the block sweeps its
-// keys twice: the first sweep sums e as the float32 mode does (the same
-// denominators), the second recomputes each e and adds bf16(e / Z) v with
-// one FMA (rank1_attn.cuh's bf16_weight, which K5 shares).  Two
-// exponentials a pair, twice the float32 mode's SFU bound.
+// stay float32.  The function needs one exponential a pair, so the same
+// SFU bound as the float32 mode (0.163 ms at 54 clouds), but a weight
+// needs its row's Z first, before any product.  Where a row's keys fit in
+// one chunk (S <= kChunk = 1024, every SDM shape) the block therefore
+// takes one row tile (kRowTile = 8 rows) at a time: each thread keeps the
+// tile's e for its 4 keys in registers (32 floats), sums them per row and
+// reduces the rows across the warp as the float32 mode does, one block
+// barrier, then each lane adds row (lane & 7)'s 8 warp partials in order
+// 0..7 (the float32 mode's order, so the denominators are the same bits),
+// takes its reciprocal and hands it to the warp by shuffles, and the
+// thread forms bf16(e / Z) v from its registers with one FMA a pair
+// (rank1_attn.cuh's bf16_weight, which K5 shares).  One exponential a
+// pair, one barrier a row tile (16 a block).  More keys than one chunk
+// keep two sweeps: the first sums e as the float32 mode does, the second
+// recomputes each e and adds bf16(e / Z) v, two exponentials a pair.
+// Registers (ptxas, sm_90a): the one-sweep instances 64, the two-sweep
+// bf16 ones 40 and 44, the float32 ones 40; no spills.  On an H100 the one
+// sweep took the bf16 mode from 0.5555 to ~0.39 ms at 54 clouds with
+// denominators, below SDPA's bf16 forward (PERF.md section 6, PR 16).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -92,8 +106,10 @@ __device__ __forceinline__ float pair_exp(float2 rd, float kj, bool ok) {
 }
 
 // kMasked: the last key chunk is ragged.  T: float (the float32 mode) or
-// __nv_bfloat16 (the bf16 mode).
-template <bool kMasked, typename T>
+// __nv_bfloat16 (the bf16 mode).  kOneSweep (bf16 mode, S <= kChunk): each
+// pair's exponential computed once and kept in registers until its row's
+// Z is known.
+template <bool kMasked, typename T, bool kOneSweep = false>
 __global__ void __launch_bounds__(kThreads)
 rank1_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, int l, int s, int h,
@@ -125,7 +141,45 @@ rank1_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int rsel = rank1::row_of_lane(lane);
   float kk[kKeys], vv[kKeys];
   bool ok[kKeys];
-  if constexpr (kBf16) {
+  if constexpr (kOneSweep) {
+    static_assert(kBf16, "one sweep is the bf16 mode's");
+    load_keys<kMasked>(k, v, b, s, h, hh, 0, kk, vv, ok);
+    for (int rt = 0; rt < rp; rt += kRowTile) {
+      float e[kRowTile][kKeys], ae[kRowTile];
+#pragma unroll
+      for (int r = 0; r < kRowTile; ++r) {
+        const float2 rd = rows[rt + r];
+#pragma unroll
+        for (int j = 0; j < kKeys; ++j) {
+          e[r][j] = pair_exp<kMasked>(rd, kk[j], ok[j]);
+          ae[r] = j == 0 ? e[r][j] : ae[r] + e[r][j];
+        }
+      }
+      const float te = rank1::reduce_rows(ae, lane);
+      if ((lane & 3) == 0) red_e[warp][rt + rsel] = te;
+      __syncthreads();  // the tile's partials of every warp
+      // lane: row (lane & 7) of the tile, its warps added in order
+      const int ri = rt + (lane & 7);
+      float z = red_e[0][ri];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) z += red_e[w][ri];
+      if (denom != nullptr && warp == 0 && lane < kRowTile && ri < nr)
+        denom[((size_t)b * h + hh) * l + r0 + ri] = z;
+      const float rzl = __frcp_rn(z);
+      float av[kRowTile];
+#pragma unroll
+      for (int r = 0; r < kRowTile; ++r) {
+        const float rzr = __shfl_sync(0xffffffffu, rzl, r);
+        float sv = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kKeys; ++j)
+          sv = fmaf(rank1::bf16_weight(e[r][j], rzr), vv[j], sv);
+        av[r] = sv;
+      }
+      const float tv = rank1::reduce_rows(av, lane);
+      if ((lane & 3) == 0) red_v[warp][rt + rsel] = tv;
+    }
+  } else if constexpr (kBf16) {
     // first sweep: the denominators, summed as the float32 mode sums them
     for (int c0 = 0; c0 < s; c0 += kChunk) {
       load_keys<kMasked>(k, v, b, s, h, hh, c0, kk, vv, ok);
@@ -160,37 +214,39 @@ rank1_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
   }
-  for (int c0 = 0; c0 < s; c0 += kChunk) {
-    load_keys<kMasked>(k, v, b, s, h, hh, c0, kk, vv, ok);
-    for (int rt = 0; rt < rp; rt += kRowTile) {
-      float ae[kRowTile], av[kRowTile];
+  if constexpr (!kOneSweep) {  // the float32 mode; the bf16 mode's second sweep
+    for (int c0 = 0; c0 < s; c0 += kChunk) {
+      load_keys<kMasked>(k, v, b, s, h, hh, c0, kk, vv, ok);
+      for (int rt = 0; rt < rp; rt += kRowTile) {
+        float ae[kRowTile], av[kRowTile];
 #pragma unroll
-      for (int r = 0; r < kRowTile; ++r) {
-        const float2 rd = rows[rt + r];
-        const float rzr = kBf16 ? rz[rt + r] : 0.0f;
-        float se = 0.0f, sv = 0.0f;
+        for (int r = 0; r < kRowTile; ++r) {
+          const float2 rd = rows[rt + r];
+          const float rzr = kBf16 ? rz[rt + r] : 0.0f;
+          float se = 0.0f, sv = 0.0f;
 #pragma unroll
-        for (int j = 0; j < kKeys; ++j) {
-          const float e = pair_exp<kMasked>(rd, kk[j], ok[j]);
-          if constexpr (kBf16) {
-            // bf16(e / Z) v is exact in float32: one FMA adds it
-            sv = fmaf(rank1::bf16_weight(e, rzr), vv[j], sv);
-          } else {
-            // the first key starts each sum (0 + e and fmaf(e, v, 0) would
-            // round to the same values, one instruction later)
-            se = j == 0 ? e : se + e;
-            sv = j == 0 ? __fmul_rn(e, vv[j]) : fmaf(e, vv[j], sv);
+          for (int j = 0; j < kKeys; ++j) {
+            const float e = pair_exp<kMasked>(rd, kk[j], ok[j]);
+            if constexpr (kBf16) {
+              // bf16(e / Z) v is exact in float32: one FMA adds it
+              sv = fmaf(rank1::bf16_weight(e, rzr), vv[j], sv);
+            } else {
+              // the first key starts each sum (0 + e and fmaf(e, v, 0) would
+              // round to the same values, one instruction later)
+              se = j == 0 ? e : se + e;
+              sv = j == 0 ? __fmul_rn(e, vv[j]) : fmaf(e, vv[j], sv);
+            }
           }
+          ae[r] = se;
+          av[r] = sv;
         }
-        ae[r] = se;
-        av[r] = sv;
-      }
-      const float tv = rank1::reduce_rows(av, lane);
-      const float te = kBf16 ? 0.0f : rank1::reduce_rows(ae, lane);
-      if ((lane & 3) == 0) {
-        const int i = rt + rsel;
-        if (!kBf16) red_e[warp][i] = c0 == 0 ? te : red_e[warp][i] + te;
-        red_v[warp][i] = c0 == 0 ? tv : red_v[warp][i] + tv;
+        const float tv = rank1::reduce_rows(av, lane);
+        const float te = kBf16 ? 0.0f : rank1::reduce_rows(ae, lane);
+        if ((lane & 3) == 0) {
+          const int i = rt + rsel;
+          if (!kBf16) red_e[warp][i] = c0 == 0 ? te : red_e[warp][i] + te;
+          red_v[warp][i] = c0 == 0 ? tv : red_v[warp][i] + tv;
+        }
       }
     }
   }
@@ -219,6 +275,17 @@ int launch_rank1_attn(const T* q, const T* k, const T* v, int b, int l, int s,
   if (s < 1 || b > 65535 || h > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((l + kRows - 1) / kRows, h, b);
   const cudaStream_t st = (cudaStream_t)stream;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (s <= kChunk) {  // one sweep: every key of a row in one chunk
+      if (s < kChunk)
+        rank1_attn_kernel<true, T, true><<<grid, kThreads, 0, st>>>(
+            q, k, v, l, s, h, out, denom);
+      else
+        rank1_attn_kernel<false, T, true><<<grid, kThreads, 0, st>>>(
+            q, k, v, l, s, h, out, denom);
+      return (int)cudaGetLastError();
+    }
+  }
   if (s % kChunk != 0) {
     rank1_attn_kernel<true, T><<<grid, kThreads, 0, st>>>(q, k, v, l, s, h, out,
                                                           denom);

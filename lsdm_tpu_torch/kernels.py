@@ -70,10 +70,11 @@ _SIGNATURES = {
     "lsdm_fps": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
     # (x_init, noise, cond_pcd, e2, coef, weights[20], final, last_in,
     #  scratch, dims[11], clip, stream); each _bf16 entry is the same call
-    #  of the bf16 mode (weights rounded to bf16 by the caller)
+    #  of the bf16 mode (weights rounded to bf16 by the caller, then pass
+    #  1's four bf16 operand copies: weights[24])
     "lsdm_denoise_chain": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
     "lsdm_denoise_chain_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
-    # (e2, weights[20], scratch, dims[11], stream)
+    # (e2, weights[20] (bf16: [24]), scratch, dims[11], stream)
     "lsdm_denoise_chain_tables": (_P, _P, _P, _P, _P),
     "lsdm_denoise_chain_tables_bf16": (_P, _P, _P, _P, _P),
     # K9's two launches: (e2, weights[20], scratch, dims[9], stream)

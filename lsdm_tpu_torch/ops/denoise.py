@@ -45,10 +45,14 @@ the posterior update stay float32, and the first combination_extraction
 layer rounds ``concat(p, emb)`` as a whole, so the CUDA version's split of
 that layer takes bf16(emb).  Every input is float32, as the Pallas
 wrappers cast them, so the mode is an argument and not the inputs' dtype.
-The CUDA kernels' bf16 instances take the product weights rounded once
+The CUDA kernels' bf16 modes take the product weights rounded once
 (:func:`bf16_step_params`; :func:`step_params` keeps them per model) and
-round each activation where it becomes a product's operand; their launches
-count as ``denoise_chain_bf16`` and ``denoise_step_bf16``.
+round each activation where it becomes a product's operand; K6's first
+pass runs its products on the bf16 tensor cores (wgmma) from bf16 copies of
+its four weights (:class:`Bf16Operands`, made once per kept weights),
+keeps its tables u0, u2 and u4^T as bf16 and hands emb^T to g's product in
+shared memory.  Their launches count as ``denoise_chain_bf16`` and
+``denoise_step_bf16``.
 """
 
 from __future__ import annotations
@@ -148,12 +152,38 @@ PRODUCT_WEIGHTS = ("w_up2", "w_up4", "wc_t", "wp0_t", "wp2_t", "wx0_t",
                    "wx2_t", "wo0_t", "wo2_t")
 
 
+class Bf16Operands(NamedTuple):
+    """K6 pass 1's weights in the bf16 mode: bf16 copies of the rounded
+    product weights, in the layouts its kernel reads (A^T (K, M) or B (K, N),
+    ``csrc/denoise_tables.cu``), each row padded with zeros to a multiple of
+    8 elements (16 bytes)."""
+
+    w2t: torch.Tensor  # (U0, U2 up to 8)  w_up2^T
+    w4t: torch.Tensor  # (U2, N up to 8)   w_up4^T
+    wc: torch.Tensor   # (2D, D up to 8)   wc_t
+    wx: torch.Tensor   # (D, D15 up to 8)  wx0_t[D:], g's half of the layer
+
+
+def _bf16_rows(w: torch.Tensor) -> torch.Tensor:
+    """``w`` (rows, cols), bf16-exact, as bf16 with rows of ``cols``
+    rounded up to 8 elements, zero-padded."""
+    out = torch.zeros(w.shape[0], -(-w.shape[1] // 8) * 8, dtype=torch.bfloat16,
+                      device=w.device)
+    out[:, :w.shape[1]] = w
+    return out
+
+
 class Bf16StepParams(DenoiseStepParams):
     """:class:`DenoiseStepParams` whose :data:`PRODUCT_WEIGHTS` are rounded
     to bf16 (float32 tensors): the operands of the kernels' bf16 mode, made
-    by :func:`bf16_step_params`."""
+    by :func:`bf16_step_params`.  ``operands`` holds K6 pass 1's bf16
+    copies of them, made at the first use and kept with these weights."""
 
-    __slots__ = ()
+    @functools.cached_property
+    def operands(self) -> Bf16Operands:
+        D = self.wc_t.shape[1]
+        return Bf16Operands(*map(_bf16_rows, (
+            self.w_up2.t(), self.w_up4.t(), self.wc_t, self.wx0_t[D:])))
 
 
 def bf16_step_params(p: DenoiseStepParams) -> Bf16StepParams:
@@ -619,9 +649,9 @@ def fused_denoise_chain(
         "x_init": (x_init, (B, N, 3)), "noise_tab": (noise_tab, (B, T, N, 3)),
         "cond_pcd": (cond_pcd, (B, N, 3)), "coef_tab": (coef_tab, (T, 3)),
         "e2_tab": (e2_tab, (B, T, p.wc_t.shape[0]))})
-    tc = chain_chunk_steps(B, T, p)
+    tc = chain_chunk_steps(B, T, p, compute_dtype)
     dev = x_init.device
-    scratch = torch.empty(_weights_floats(dims) + B * tc * _per_step(dims),
+    scratch = torch.empty(_weights_floats(dims, bf16) + B * tc * _per_step(dims, bf16),
                           dtype=torch.float32, device=dev)
     final = torch.empty_like(x_init)
     last_in = torch.empty_like(x_init)
@@ -631,7 +661,7 @@ def fused_denoise_chain(
     with torch.cuda.device(dev):
         rc = entry(
             x_init.data_ptr(), noise_tab.data_ptr(), cond_pcd.data_ptr(),
-            e2_tab.data_ptr(), coef_tab.data_ptr(), _pointers(p),
+            e2_tab.data_ptr(), coef_tab.data_ptr(), _pointers(p, bf16),
             final.data_ptr(), last_in.data_ptr(), scratch.data_ptr(),
             (ctypes.c_int * 11)(*dims[:10], tc),
             int(bool(clip_denoised)), kernels.stream(dev))
@@ -640,15 +670,17 @@ def fused_denoise_chain(
     return final, last_in
 
 
-def chain_chunk_steps(B: int, T: int, p: DenoiseStepParams) -> int:
-    """Steps per chunk of K6 for B scenes and T steps: as many as the first
-    pass's tables fit in ``CHAIN_SCRATCH_FLOATS``, and no more than let the
-    first pass grid its batch of B * tc GEMMs on gridDim.z <= 65535."""
+def chain_chunk_steps(B: int, T: int, p: DenoiseStepParams,
+                      compute_dtype: Optional[torch.dtype] = None) -> int:
+    """Steps per chunk of K6 for B scenes and T steps in ``compute_dtype``'s
+    mode: as many as the first pass's tables fit in
+    ``CHAIN_SCRATCH_FLOATS``, and no more than let the first pass grid its
+    batch of B * tc GEMMs on gridDim.z <= 65535."""
     dims = (B, T, p.w_up4.shape[0], p.wc_t.shape[0], p.w_up0.shape[0],
             p.w_up2.shape[0], p.wc_t.shape[1], p.wp0_t.shape[1],
             p.wx0_t.shape[1], p.wo0_t.shape[1])
-    return max(1, min(T, CHAIN_SCRATCH_FLOATS // (B * _per_step(dims)),
-                      65535 // B))
+    per_step = _per_step(dims, kernels.bf16_mode(compute_dtype))
+    return max(1, min(T, CHAIN_SCRATCH_FLOATS // (B * per_step), 65535 // B))
 
 
 def denoise_chain_tables_plain(e2_tab: torch.Tensor, p: DenoiseStepParams,
@@ -674,6 +706,17 @@ def denoise_chain_tables(e2_tab: torch.Tensor, p: DenoiseStepParams,
     the chain's mode), plain version for CPU tensors."""
     if kernels.on_cpu(e2_tab, *p):
         return denoise_chain_tables_plain(e2_tab, p, compute_dtype)
+    return _table_views(*_tables_scratch(e2_tab, p, compute_dtype),
+                        kernels.bf16_mode(compute_dtype))
+
+
+def _tables_scratch(e2_tab: torch.Tensor, p: DenoiseStepParams,
+                    compute_dtype: Optional[torch.dtype] = None,
+                    keep_emb: bool = True):
+    """K6's first pass alone on CUDA tensors: (its scratch, the dims), the
+    scratch laid out as ``csrc/denoise_tables.cuh`` says for the mode.
+    ``keep_emb`` False leaves emb^T out of the bf16 mode's scratch, as the
+    chain runs pass 1 (the float32 mode always keeps it)."""
     bf16 = kernels.bf16_mode(compute_dtype)
     if bf16:
         p = bf16_step_params(p)
@@ -683,55 +726,79 @@ def denoise_chain_tables(e2_tab: torch.Tensor, p: DenoiseStepParams,
         raise ValueError(f"B * T = {B * T} tables exceed one grid (65535)")
     dims = (B, T) + _check(p, N, {"e2_tab": (e2_tab, (B, T, p.wc_t.shape[0]))})
     dev = e2_tab.device
-    scratch = torch.empty(_weights_floats(dims) + B * T * _per_step(dims),
+    scratch = torch.empty(_weights_floats(dims, bf16)
+                          + B * T * _per_step(dims, bf16, keep_emb),
                           dtype=torch.float32, device=dev)
     lib = kernels.load()
     entry = (lib.lsdm_denoise_chain_tables_bf16 if bf16
              else lib.lsdm_denoise_chain_tables)
     name = "denoise_chain_bf16" if bf16 else "denoise_chain"
     with torch.cuda.device(dev):
-        rc = entry(e2_tab.data_ptr(), _pointers(p), scratch.data_ptr(),
-                   (ctypes.c_int * 11)(*dims[:10], T), kernels.stream(dev))
+        rc = entry(e2_tab.data_ptr(), _pointers(p, bf16), scratch.data_ptr(),
+                   (ctypes.c_int * 11)(*dims[:10], int(keep_emb)),
+                   kernels.stream(dev))
     kernels.check(rc, name)
     kernels.LAUNCHES[name] += 1
-    return _table_views(scratch, dims)
+    return scratch, dims
 
 
-def _table_views(scratch: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
+def _table_views(scratch: torch.Tensor, dims, bf16: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """emb (B, T, N, D) and g (B, T, N, D15) in the scratch of
-    ``lsdm_denoise_chain_tables`` (``csrc/denoise_tables.cuh``): the
-    transposed weights, then u2, u4^T, emb^T and g of every (scene, step).
-    emb is a transposed view of emb^T, whose rows are ``_ldn(N)`` long."""
-    B, T, N, D2, _, U2, D, _, D15, _ = dims[:10]
-    ldn, z = _ldn(N), B * T
-    o_emb = _weights_floats(dims) + z * (U2 * D2 + D2 * ldn)
-    o_g = o_emb + z * D * ldn
-    emb = scratch[o_emb:o_g].view(B, T, D, ldn)[..., :N].transpose(-1, -2)
-    return emb, scratch[o_g:o_g + z * N * D15].view(B, T, N, D15)
+    ``lsdm_denoise_chain_tables`` (``csrc/denoise_tables.cuh``): in the
+    float32 mode the transposed weights, then u2, u4^T, emb^T and g of every
+    (scene, step); in the bf16 mode u0, u2 and u4^T (bf16), g, then emb^T
+    (bf16, kept).  emb is read from emb^T, whose rows are ``_ldn(N, bf16)`` long:
+    a transposed view in the float32 mode, widened from its bf16 table in
+    the bf16 mode; g is a view, float32 in both."""
+    B, T, N, D2, U0, U2, D, _, D15, _ = dims[:10]
+    ldn, z = _ldn(N, bf16), B * T
+    if bf16:
+        o_g = z * ((U0 + U2) * D2 + D2 * ldn) // 2
+        o_emb = o_g + z * N * D15
+        embt = scratch[o_emb:o_emb + z * D * ldn // 2].view(torch.bfloat16)
+    else:
+        o_emb = _weights_floats(dims) + z * (U2 * D2 + D2 * ldn)
+        o_g = o_emb + z * D * ldn
+        embt = scratch[o_emb:o_g]
+    emb = embt.view(B, T, D, ldn)[..., :N].transpose(-1, -2)
+    return emb.float() if bf16 else emb, scratch[o_g:o_g + z * N * D15].view(B, T, N, D15)
 
 
-def _ldn(N: int) -> int:
+def _ldn(N: int, bf16: bool = False) -> int:
     """Row length of pass 1's tables with a point column: N rounded up to
-    4, so that every row starts on 16 bytes."""
-    return (N + 3) // 4 * 4
+    4 floats, or to 8 bf16 in the bf16 mode, so that every row starts on
+    16 bytes."""
+    r = 8 if bf16 else 4
+    return -(-N // r) * r
 
 
-def _per_step(dims) -> int:
-    """Floats of the first pass's tables per (scene, step): u2, u4^T,
-    emb^T, g (csrc/denoise_tables.cuh)."""
-    _, _, N, D2, _, U2, D, _, D15, _ = dims[:10]
+def _per_step(dims, bf16: bool = False, emb: bool = False) -> int:
+    """Floats of the first pass's tables per (scene, step)
+    (csrc/denoise_tables.cuh): u2, u4^T, emb^T and g in the float32 mode;
+    u0, u2 and u4^T as bf16, two to a float, and g in the bf16 mode, and
+    with ``emb`` emb^T (bf16) after them, which only pass 1 alone keeps."""
+    _, _, N, D2, U0, U2, D, _, D15, _ = dims[:10]
+    if bf16:
+        ldn = _ldn(N, True)
+        return ((U0 + U2) * D2 + (D2 + (D if emb else 0)) * ldn) // 2 + N * D15
     return U2 * D2 + D2 * _ldn(N) + D * _ldn(N) + N * D15
 
 
-def _weights_floats(dims) -> int:
-    """Floats of the weights the first pass transposes once a call:
-    w_up2^T (U0, U2) and w_up4^T (U2, ldn), ahead of the tables."""
+def _weights_floats(dims, bf16: bool = False) -> int:
+    """Floats of the weights the first pass transposes once a call, ahead
+    of the tables: w_up2^T (U0, U2) and w_up4^T (U2, ldn) in the float32
+    mode; none in the bf16 mode, whose bf16 copies come transposed
+    (:class:`Bf16Operands`)."""
     _, _, N, _, U0, U2 = dims[:6]
-    return U0 * U2 + U2 * _ldn(N)
+    return 0 if bf16 else U0 * U2 + U2 * _ldn(N)
 
 
-def _pointers(p: DenoiseStepParams):
-    return (ctypes.c_void_p * len(p))(*[w.data_ptr() for w in p])
+def _pointers(p: DenoiseStepParams, operands: bool = False):
+    """The addresses of ``p``'s 20 tensors, then, with ``operands``, those
+    of its :class:`Bf16Operands` (``p`` a :class:`Bf16StepParams`)."""
+    ws = list(p) + (list(p.operands) if operands else [])
+    return (ctypes.c_void_p * len(ws))(*[w.data_ptr() for w in ws])
 
 
 def _check(p: DenoiseStepParams, N: int, data: dict,

@@ -1102,6 +1102,7 @@ def test_fp_fused_bf16_kernel_matches_plain(dev, b, n, s, d1, d2, mlp, acts, clu
     (1, 1024, 128, 5, False, False),  # the flagship widths
     (8, 1024, 128, 3, False, True),   # taller tiles
     (2, 37, 16, 7, True, True),       # several chunks, a partial tile pair
+    (2, 1000, 16, 5, True, False),    # chunks of ragged points: masked columns
 ])
 def test_denoise_chain_bf16_kernel_matches_plain(dev, b, n, d, t, chunked, clip,
                                                  monkeypatch):
@@ -1127,7 +1128,12 @@ def test_denoise_chain_bf16_kernel_matches_plain(dev, b, n, d, t, chunked, clip,
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("b,t,n,d", [(1, 8, 1024, 128), (2, 5, 37, 16)])
+@pytest.mark.parametrize("b,t,n,d", [
+    (1, 8, 1024, 128),  # the flagship widths
+    (2, 5, 37, 16),     # ragged to the MMA tile: rows, columns and k (g's K = 16)
+    (3, 4, 1000, 16),   # ragged points: a part-filled 16-byte chunk, 12 z
+    (1, 6, 1000, 128),  # ragged points at the flagship width
+])
 def test_denoise_chain_tables_bf16_kernel_matches_plain(dev, b, t, n, d):
     *_, e2, _, p = _chain_inputs(dev, B=b, T=t, N=n, D=d)
     got = denoise.denoise_chain_tables(e2, p, torch.bfloat16)
@@ -1137,6 +1143,39 @@ def test_denoise_chain_tables_bf16_kernel_matches_plain(dev, b, t, n, d):
     assert torch.equal(got[0], got[0].bfloat16().float())  # emb rounded
     for a, w, w32, name in zip(got, want, want32, ("emb", "g")):
         _bf16_gate(a, w, w32, f"K6 bf16 tables {name}")
+
+
+@pytest.mark.parametrize("b,t,n,d", [(1, 3, 1024, 128), (2, 3, 37, 16)])
+def test_denoise_chain_tables_bf16_are_stored_as_bf16(dev, b, t, n, d):
+    """Pass 1's bf16 scratch holds u0, u2 and u4^T as bf16 tables in the
+    layout of csrc/denoise_tables.cuh: read back as bf16 they are the plain
+    bf16 computation's, rounded (through the BF16 gate), and the scratch is
+    the bf16 layout's size (emb^T kept, as pass 1 alone keeps it), below
+    the float32 one's."""
+    *_, e2, _, p = _chain_inputs(dev, B=b, T=t, N=n, D=d)
+    bf = torch.bfloat16
+    scratch, dims = denoise._tables_scratch(e2, p, bf)
+    torch.cuda.synchronize()
+    U0, U2, D2, z = p.w_up0.shape[0], p.w_up2.shape[0], 2 * d, b * t
+    assert scratch.numel() == z * denoise._per_step(dims, True, emb=True)
+    assert denoise._per_step(dims, True, emb=True) < denoise._per_step(dims)
+    ldn = denoise._ldn(n, True)
+    h = scratch.view(bf)
+    u0 = h[:z * U0 * D2].view(b, t, U0, D2)
+    u2 = h[z * U0 * D2:z * (U0 + U2) * D2].view(b, t, U2, D2)
+    o = z * (U0 + U2) * D2
+    u4t = h[o:o + z * D2 * ldn].view(b, t, D2, ldn)[..., :n]
+
+    def plain(bf16):
+        mm = (lambda a, c: a.to(bf).float() @ c.to(bf).float()) if bf16 else torch.matmul
+        u0 = torch.nn.functional.gelu(p.w_up0 * e2[..., None, :] + p.b_up0)
+        u2 = torch.nn.functional.gelu(mm(p.w_up2, u0) + p.b_up2)
+        u4 = torch.nn.functional.gelu(mm(p.w_up4, u2) + p.b_up4)
+        return u0, u2, u4.transpose(-1, -2)
+
+    for a, w, w32, name in zip((u0, u2, u4t), plain(True), plain(False),
+                               ("u0", "u2", "u4^T")):
+        _bf16_gate(a, w.to(bf), w32, f"K6 bf16 table {name}")  # stored rounded
 
 
 @pytest.mark.parametrize("b,n,d,clip", [

@@ -391,3 +391,100 @@ def test_bf16_step_params_round_the_products_once_per_model():
     again = denoise.step_params(model, T_BF16)
     assert again is not p and not torch.equal(again.wc_t, p.wc_t)
     assert not isinstance(denoise.step_params(model), denoise.Bf16StepParams)
+
+
+# --- K6 pass 1's scratch and weights in the bf16 mode -----------------------------
+
+
+def _tables_dims(B, T, N, D):
+    return (B, T, N, 2 * D, 128, 512, D, D // 2, D * 3 // 2, D // 2)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("B,T,N,D", [(1, 2, 1024, 128), (2, 5, 37, 16), (3, 4, 1000, 16)])
+def test_chain_tables_layout_in_each_mode(B, T, N, D, bf16):
+    """K6 pass 1's scratch per mode, as csrc/denoise_tables.cuh lays it out.
+    float32: w_up2^T and w_up4^T, then u2, u4^T, emb^T and g, all float32,
+    rows of N rounded up to 4.  bf16: no weights, then u0, u2 and u4^T as
+    bf16 (two to a float), rows of N rounded up to 8, g float32, then, kept
+    only by pass 1 alone, emb^T as bf16."""
+    dims = _tables_dims(B, T, N, D)
+    U0, U2, D15 = 128, 512, D * 3 // 2
+    r = 8 if bf16 else 4
+    ldn = -(-N // r) * r
+    assert denoise._ldn(N, bf16) == ldn and ldn * (2 if bf16 else 4) % 16 == 0
+    if bf16:
+        assert denoise._per_step(dims, True) == (U0 + U2) * D + D * ldn + N * D15
+        assert denoise._per_step(dims, True, emb=True) == (
+            (U0 + U2) * D + 3 * D * ldn // 2 + N * D15)
+    else:
+        assert denoise._per_step(dims) == U2 * 2 * D + 3 * D * ldn + N * D15
+    assert denoise._weights_floats(dims, bf16) == (0 if bf16 else U0 * U2 + U2 * ldn)
+    # the defaults are the float32 mode's
+    assert denoise._per_step(dims) == denoise._per_step(dims, False)
+    assert denoise._weights_floats(dims) == denoise._weights_floats(dims, False)
+
+
+@pytest.mark.parametrize("B,T,N,D", [(1, 2, 1024, 128), (2, 5, 37, 16)])
+def test_chain_table_views_read_the_bf16_layout(B, T, N, D):
+    """``_table_views`` in the bf16 mode, on a scratch filled by hand in the
+    kernel's layout: g a float32 view after the bf16 u0, u2 and u4^T, then
+    emb from the bf16 emb^T table after g (rows of ldn, padding never read),
+    widened to float32."""
+    dims = _tables_dims(B, T, N, D)
+    U0, U2, D15 = 128, 512, D * 3 // 2
+    ldn, z = denoise._ldn(N, True), B * T
+    rs = np.random.RandomState(3)
+    emb = torch.from_numpy(rs.randn(B, T, N, D).astype(np.float32)).to(T_BF16)
+    g = torch.from_numpy(rs.randn(B, T, N, D15).astype(np.float32))
+    scratch = torch.full((z * denoise._per_step(dims, True, emb=True),), float("nan"))
+    o_g = z * ((U0 + U2) * D + D * ldn)  # floats of u0, u2 and u4^T
+    scratch[o_g:o_g + z * N * D15] = g.reshape(-1)
+    h = scratch[o_g + z * N * D15:].view(T_BF16)
+    h.view(B, T, D, ldn)[..., :N] = emb.transpose(-1, -2)
+    got_emb, got_g = denoise._table_views(scratch, dims, True)
+    assert got_emb.dtype == got_g.dtype == torch.float32
+    assert got_emb.shape == (B, T, N, D) and got_g.shape == (B, T, N, D15)
+    assert torch.equal(got_emb, emb.float()) and torch.equal(got_g, g)
+    assert got_g.data_ptr() == scratch[o_g:].data_ptr()  # a view
+
+
+def test_chain_chunks_in_each_mode_at_the_flagship_width():
+    """Steps a chunk at N = 1024, D = 128: the float32 mode's unchanged
+    (720,896 floats a (scene, step)), the bf16 mode's from its 409,600."""
+    _, params = _chain_inputs(N=1024, D=128)
+    p = DenoiseStepParams(*map(torch.from_numpy, params))
+    for dt in (None, torch.float32):
+        assert [denoise.chain_chunk_steps(b, 1000, p, dt) for b in (1, 8)] == [186, 23]
+    assert [denoise.chain_chunk_steps(b, 1000, p, T_BF16) for b in (1, 8)] == [327, 40]
+    dims = _tables_dims(1, 1000, 1024, 128)
+    assert (denoise._per_step(dims), denoise._per_step(dims, True)) == (720896, 409600)
+
+
+def test_bf16_operands_are_made_once_per_model_from_the_rounded_weights():
+    """K6 pass 1's bf16 copies of w_up2^T, w_up4^T, wc_t and wx0_t[D:] hang
+    on the weights ``step_params`` keeps: made once per model and weights,
+    bf16, rows padded with zeros to 8 elements, equal to the rounded float32
+    weights; the pointers of the bf16 launch are the 20 weights', then
+    theirs."""
+    model = init_weights(SceneDiffusionModel(PortConfig(**TINY_KW, dtype="bfloat16")),
+                         0).eval()
+    p = denoise.step_params(model, T_BF16)
+    ops = p.operands
+    assert denoise.step_params(model, T_BF16).operands is ops
+    f32 = denoise.extract_step_params(model)
+    D = f32.wc_t.shape[1]
+    for name, o, w in zip(ops._fields, ops, (f32.w_up2.t(), f32.w_up4.t(), f32.wc_t,
+                                             f32.wx0_t[D:])):
+        rows, cols = w.shape
+        assert o.dtype == T_BF16 and o.is_contiguous(), name
+        assert o.shape == (rows, -(-cols // 8) * 8), name
+        assert torch.equal(o[:, :cols], w.to(T_BF16)), name
+        assert not o[:, cols:].any(), name
+    ptrs = denoise._pointers(p, True)
+    assert len(ptrs) == 24 and list(ptrs)[:20] == list(denoise._pointers(p))
+    assert list(ptrs)[20:] == [o.data_ptr() for o in ops]
+    with torch.no_grad():
+        model.upsampling_layer[4].weight.mul_(2.0)
+    again = denoise.step_params(model, T_BF16).operands
+    assert again is not ops and torch.equal(again.w4t.float(), 2 * ops.w4t.float())
