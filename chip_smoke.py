@@ -76,8 +76,9 @@ Run from the repository root:  python3 chip_smoke.py
    bench's ``--dtype bfloat16``): first the bf16 modes of K7 and K8 per
    stage at 9 clouds on bf16 features, of K6 at b1 and CHAIN_BATCH (clip
    on; pass 1 timed apart, as the chain runs it, beside its bf16
-   ``baddbmm`` yardstick and the bytes its tables move, and its tables emb
-   and g held to their plain bf16 versions) and of K9
+   ``baddbmm`` yardstick and the bytes its tables move, pass 2 with its
+   TFLOP/s and its plan's warps a tile, and its tables emb and g held to
+   their plain bf16 versions) and of K9
    at b1 and b8, clip off and on, each against its plain bf16 version by
    the BF16 gate (BF16_RTOL, BF16_GAP_SHARE), its bound its bytes or its
    products over BF16_TC_OPS_PER_S; then the bf16 model sampled at b1,
@@ -358,7 +359,7 @@ KERNELS = {  # name: (source, the TPU kernel it replaces, path it is counted on)
                       "lsdm_tpu/ops/sa_fused_pallas.py:134", "fused_bf16"),
     "fp_fused_bf16": ("lsdm_tpu_torch/csrc/fp_fused.cu",
                       "lsdm_tpu/ops/fp_fused_pallas.py:93", "fused_bf16"),
-    "denoise_chain_bf16": ("lsdm_tpu_torch/csrc/denoise_chain.cu",
+    "denoise_chain_bf16": ("lsdm_tpu_torch/csrc/denoise_chain_bf16.cu",
                            "lsdm_tpu/ops/denoise_pallas.py:278", "fused_bf16"),
     "denoise_step_bf16": ("lsdm_tpu_torch/csrc/denoise_step.cu",
                           "lsdm_tpu/ops/denoise_pallas.py:173", "step_bf16"),
@@ -1697,10 +1698,11 @@ def bf16_kernel_checks_fused(dev, model, T: int = T_STEPS) -> dict:
     """Phase 8b, kernels: the bf16 modes of K7 (sa1-sa4) and K8 (fp4-fp1,
     fp1 with the head) at 9 clouds, their features bf16 as the bf16 stages
     hand them on; of K6 at b1 and CHAIN_BATCH (clip on), pass 1 timed apart
-    beside its bf16 ``baddbmm`` yardstick and the bytes its tables move, and
-    pass 1's tables alone (emb, g) at b1; of K9 at b1 and b8, clip off and
-    on.  Each against its plain bf16 version by the BF16 gate, each kernel
-    timed (K7, K8 and K9 queued behind a sleep), its bound its bytes over
+    beside its bf16 ``baddbmm`` yardstick and the bytes its tables move,
+    pass 2 (the rest) with its TFLOP/s and its plan (warps a tile, tiles a
+    block), and pass 1's tables alone (emb, g) at b1; of K9 at b1 and b8,
+    clip off and on.  Each against its plain bf16 version by the BF16 gate,
+    each kernel timed (K7, K8 and K9 queued behind a sleep), its bound its bytes over
     HBM_BYTES_PER_S or its products over BF16_TC_OPS_PER_S.  The kernels get
     the weights rounded once (``bf16_step_params``), as the sampler hands
     them over.  Returns {kernel: record}."""
@@ -1771,18 +1773,25 @@ def bf16_kernel_checks_fused(dev, model, T: int = T_STEPS) -> dict:
                      "tflop_s": ops1 / pass1 * 1e-9, "table_bytes": moved,
                      "table_bytes_ms": moved / HBM_BYTES_PER_S * 1e3,
                      "gb_s": moved / pass1 * 1e-6}
+        plan = denoise.chain_bf16_plan(B, N)
+        pass2_rec = {"source": "lsdm_tpu_torch/csrc/denoise_chain_bf16.cu",
+                     "ms": ms - pass1, "bound_ms": ops2 / BF16_TC_OPS_PER_S * 1e3,
+                     "tflop_s": ops2 / (ms - pass1) * 1e-9, "warps_a_tile": plan[0],
+                     "tiles_a_block": plan[1]}
         line = (f"{line}: {_bf16_text(r)}; pass 1 {pass1:.3f} ms (bound "
                 f"{pass1_rec['bound_ms']:.3f} on the bf16 tensor cores; "
                 f"{pass1_rec['tflop_s']:.2f} TFLOP/s; its tables move "
                 f"{moved / 1e9:.3f} GB, {pass1_rec['table_bytes_ms']:.3f} ms at the HBM "
                 f"rate, {pass1_rec['gb_s']:.0f} GB/s; bf16 baddbmm floor, no GELU "
                 f"or u0: {pass1_rec['library_ms']:.3f}), pass 2 {ms - pass1:.3f} ms "
-                f"(bound {ops2 / BF16_TC_OPS_PER_S * 1e3:.3f})")
+                f"(bound {pass2_rec['bound_ms']:.3f}; {pass2_rec['tflop_s']:.2f} "
+                f"TFLOP/s; {plan[0]} warps a tile, {plan[1]} tiles a block)")
         if B != 1:
             print(f"{line}; kernel {ms:.4f} ms")
             rec["denoise_chain_bf16"]["max_abs_err"] = max(
                 rec["denoise_chain_bf16"]["max_abs_err"], r["max_abs_err"])
             rec["denoise_chain_bf16"][f"pass1_b{B}"] = pass1_rec
+            rec["denoise_chain_bf16"][f"pass2_b{B}"] = pass2_rec
             rec["denoise_chain_bf16"][f"ms_b{B}"] = ms
             rec["denoise_chain_bf16"][f"gate_b{B}"] = r
             continue
@@ -1792,7 +1801,7 @@ def bf16_kernel_checks_fused(dev, model, T: int = T_STEPS) -> dict:
                 line, _nbytes(*data, *p, *got), ops1 + ops2,
                 pass1_rec["library_ms"], bf16=True)
         rec["denoise_chain_bf16"].update(pass1_b1=pass1_rec, pass2_ms=ms - pass1,
-                                         gate_b1=r)
+                                         pass2_b1=pass2_rec, gate_b1=r)
         # pass 1 alone, its tables emb and g (emb stored as bf16)
         e2 = data[3][:, -TABLE_STEPS:].contiguous()
         got = denoise.denoise_chain_tables(e2, pb, bf)

@@ -59,7 +59,7 @@
 // The sample is carried in the output buffer from chunk to chunk.  The
 // chunk length comes from the caller, which sizes the scratch (pass 1's
 // transposed weights and the tables of one chunk).  Every product is
-// hand-written (FMA loops; the bf16 mode's pass 1 on mma.sync): no cuBLAS.
+// hand-written (FMA loops): no cuBLAS.
 //
 // lsdm_denoise_chain_tables runs pass 1 alone, so a check can hold its
 // tables against a plain computation: the chain's final sample barely
@@ -68,15 +68,11 @@
 //
 // The bf16 mode (lsdm_denoise_chain_bf16; the TPU kernel at
 // compute_dtype=bfloat16, whose dot() rounds both operands to bf16 and sums
-// in float32, denoise_pallas.py:237-239) is two passes with the weights
-// rounded to bf16 by the wrapper: pass 1's bf16 kernel (its four products
-// on the bf16 tensor cores from bf16 operand copies of the weights, its
-// tables u2, u4^T and emb^T stored as bf16, denoise_tables.cu), and pass
-// 2's bf16 instance, which reads g as the float32 mode does and rounds x_t +
-// cond_pcd as the operand of the first layer and each layer's output as it
-// is written to shared memory (h1 included, as it crosses to the peer), the
-// products' only consumers.  The carried sample, the noise, the update,
-// the biases and the activations stay float32.
+// in float32, denoise_pallas.py:237-239) is its own design on the bf16
+// tensor cores in both passes: pass 1's bf16 kernels in denoise_tables.cu,
+// pass 2 in denoise_chain_bf16.cu (one block holds the tail's bf16 weights,
+// warps carry 16-row tiles through the six layers in registers).  This
+// file is the float32 mode.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -215,9 +211,9 @@ __device__ void load_matrix(float* dst, const float* __restrict__ src,
 // modulo the layer's parts.  The partials meet in red and every thread
 // finishes outputs from there, four columns of a row at once.  Per k a
 // warp reads its weights (one float4 a lane) and two float4 of the
-// activations, most of them broadcast, for 32 FMAs a lane.  kBf16: each
-// output rounded to bf16.  Ends with a block barrier.
-template <bool kGelu, bool kBf16>
+// activations, most of them broadcast, for 32 FMAs a lane.  Ends with a
+// block barrier.
+template <bool kGelu>
 __device__ __forceinline__ void dense_tile(const float* w, int k_dim,
                                            int out_dim, const float* bias,
                                            const float* gbias, int gld,
@@ -281,7 +277,7 @@ __device__ __forceinline__ void dense_tile(const float* w, int k_dim,
     for (int j = 0; j < 4; ++j)
       if (4 * g4 + j < out_dim) {
         const float a = kGelu ? gelu(y[j]) : sigmoid(y[j]);
-        out[(4 * g4 + j) * rows + r] = kBf16 ? bf16r(a) : a;
+        out[(4 * g4 + j) * rows + r] = a;
       }
   }
   __syncthreads();
@@ -299,8 +295,7 @@ __device__ __forceinline__ void dense_tile(const float* w, int k_dim,
 // which land while the first layers run.  g holds the chunk's table emb @
 // wx0_t[D:] + bx0, shape (B * tc, n, d15).  x_in and x_out are the same
 // buffer after the first chunk: every block reads its rows at the start,
-// rank 1 writes them at the end.  kBf16: the bf16 mode (above).
-template <bool kBf16>
+// rank 1 writes them at the end.
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kPairThreads)
 chain_pair_kernel(const float* x_in, float* x_out,
                   float* __restrict__ last_in, const float* __restrict__ noise,
@@ -369,19 +364,17 @@ chain_pair_kernel(const float* x_in, float* x_out,
           float v = 0.0f;
           for (int c = 0; c < 3; ++c) {
             const float xc = xs[3 * r + c] + cs[3 * r + c];
-            v = fmaf(kBf16 ? bf16r(xc) : xc, sm[L.wp0 + c * ld + o], v);
+            v = fmaf(xc, sm[L.wp0 + c * ld + o], v);
           }
-          const float a = sigmoid(v + sm[L.bp0 + o]);
-          sm[L.p + e] = kBf16 ? bf16r(a) : a;
+          sm[L.p + e] = sigmoid(v + sm[L.bp0 + o]);
         }
         __syncthreads();
       }
-      dense_tile<false, kBf16>(sm + L.wp2, dh, d, sm + L.bp2, nullptr, 0,
-                               sm + L.p, sm + L.p, sm + L.red, rows);
+      dense_tile<false>(sm + L.wp2, dh, d, sm + L.bp2, nullptr, 0, sm + L.p,
+                        sm + L.p, sm + L.red, rows);
       copy_wait();  // this phase's g (dense_tile's barrier shares it)
-      dense_tile<false, kBf16>(sm + L.wx0, d, d15, nullptr, sm + L.gb, L.gld,
-                               sm + L.p, peer + L.h1 + s * d15 * rows,
-                               sm + L.red, rows);
+      dense_tile<false>(sm + L.wx0, d, d15, nullptr, sm + L.gb, L.gld, sm + L.p,
+                        peer + L.h1 + s * d15 * rows, sm + L.red, rows);
     } else if (rank == 1 && k >= 1) {
       const int s = (k - 1) & 1, t = t0 + ((k - 1) >> 1);
       if (owner)
@@ -393,12 +386,11 @@ chain_pair_kernel(const float* x_in, float* x_out,
         copy4_async(sm + L.nz + tid, coef + (size_t)t * 3 + (tid - 3 * rows),
                     true);
       copy_commit();
-      dense_tile<false, kBf16>(sm + L.wx2, d15, d, sm + L.bx2, nullptr, 0,
-                               sm + L.h1 + s * d15 * rows, sm + L.h,
-                               sm + L.red, rows);
+      dense_tile<false>(sm + L.wx2, d15, d, sm + L.bx2, nullptr, 0,
+                        sm + L.h1 + s * d15 * rows, sm + L.h, sm + L.red, rows);
       copy_wait();  // this phase's noise (wo0's barrier shares it)
-      dense_tile<true, kBf16>(sm + L.wo0, d, dh2, sm + L.bo0, nullptr, 0,
-                              sm + L.h, sm + L.h, sm + L.red, rows);
+      dense_tile<true>(sm + L.wo0, d, dh2, sm + L.bo0, nullptr, 0, sm + L.h,
+                       sm + L.h, sm + L.red, rows);
       // x0 = gelu(h3 @ wo2_t + bo2) and the update, a warp per row: the
       // lanes split k, a butterfly sums, lanes 0-2 update (row, lane)
       const int lane = tid & 31;
@@ -465,50 +457,6 @@ int tile_rows(const ChainDims& d, int sms, size_t smem_limit) {
   return best;
 }
 
-// A chain call in either mode, after the shape checks of the C entries.
-template <bool kBf16>
-int chain_entry(const float* x_init, const float* noise, const float* cpcd,
-                const float* e2, const float* coef, const float* const* w,
-                float* final_x, float* last_in, float* scratch,
-                const int* dims, int clip, void* stream) {
-  const ChainDims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5],
-                    dims[6], dims[7], dims[8], dims[9], dims[10]};
-  if (d.B <= 0 || d.T <= 0 || d.TC <= 0 || d.D2 != 2 * d.D)
-    return (int)cudaErrorInvalidValue;
-  int dev, limit, sms;
-  cudaError_t err;
-  if ((err = tables_check(d, w, scratch, kBf16))) return (int)err;
-  if ((err = cudaGetDevice(&dev)) ||
-      (err = cudaDeviceGetAttribute(
-           &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)))
-    return (int)err;
-  const int rows = tile_rows(d, sms, (size_t)limit);
-  if (!rows) return (int)cudaErrorInvalidValue;
-  const PairLayout L = pair_layout(d.D, d.DH, d.D15, d.DH2, rows);
-  const size_t smem = sizeof(float) * (size_t)L.total;
-  if ((err = cudaFuncSetAttribute(chain_pair_kernel<kBf16>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem)))
-    return (int)err;
-  cudaStream_t st = (cudaStream_t)stream;
-  const TailWeights tail{w[8],  w[9],  w[10], w[11], w[12], w[13],
-                         w[14], w[15], w[16], w[17], w[18], w[19]};
-  const int pairs = (d.N + 2 * rows - 1) / (2 * rows);  // tile pairs a scene
-  if (!kBf16 && (err = transpose_weights(st, d, w, scratch))) return (int)err;
-  for (int t0 = 0; t0 < d.T; t0 += d.TC) {
-    const int tc = d.TC < d.T - t0 ? d.TC : d.T - t0;
-    float* g;
-    if ((err = chain_tables(st, d, e2, w, scratch, t0, tc, kBf16, false, &g)))
-      return (int)err;
-    chain_pair_kernel<kBf16><<<2 * d.B * pairs, kPairThreads, smem, st>>>(
-        t0 == 0 ? x_init : final_x, final_x, last_in, noise, cpcd, g, coef,
-        tail, L, d.N, d.D, d.DH, d.D15, d.DH2, d.T, t0, tc, pairs, clip);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  return 0;
-}
-
 }  // namespace
 
 extern "C" {
@@ -523,28 +471,48 @@ extern "C" {
 // the kernel does not take: 2D != 2 * D, shapes pass 1 does not take
 // (tables_check), or a pass-2 block whose weights and buffers exceed the
 // shared memory a block may opt into (232,448 bytes on an H100: D up to
-// about 160).
+// about 160).  The bf16 mode's entry is in denoise_chain_bf16.cu.
 int lsdm_denoise_chain(const float* x_init, const float* noise,
                        const float* cpcd, const float* e2, const float* coef,
                        const float* const* w, float* final_x, float* last_in,
                        float* scratch, const int* dims, int clip,
                        void* stream) {
-  return chain_entry<false>(x_init, noise, cpcd, e2, coef, w, final_x,
-                            last_in, scratch, dims, clip, stream);
-}
-
-// The same call in the bf16 mode: the product weights of w (w_up2, w_up4,
-// wc_t and the tail's) rounded to bf16 by the caller, all float32 tensors,
-// followed by pass 1's four bf16 operand copies (w[20..23], as for
-// lsdm_denoise_chain_tables_bf16); scratch: B * tc * ((U0*2D + U2*2D +
-// 2D*ldn) / 2 + N*D15) floats, ldn = N rounded up to 8 (denoise_tables.cuh).
-int lsdm_denoise_chain_bf16(const float* x_init, const float* noise,
-                            const float* cpcd, const float* e2,
-                            const float* coef, const float* const* w,
-                            float* final_x, float* last_in, float* scratch,
-                            const int* dims, int clip, void* stream) {
-  return chain_entry<true>(x_init, noise, cpcd, e2, coef, w, final_x, last_in,
-                           scratch, dims, clip, stream);
+  const ChainDims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5],
+                    dims[6], dims[7], dims[8], dims[9], dims[10]};
+  if (d.B <= 0 || d.T <= 0 || d.TC <= 0 || d.D2 != 2 * d.D)
+    return (int)cudaErrorInvalidValue;
+  int dev, limit, sms;
+  cudaError_t err;
+  if ((err = tables_check(d, w, scratch, false))) return (int)err;
+  if ((err = cudaGetDevice(&dev)) ||
+      (err = cudaDeviceGetAttribute(
+           &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)))
+    return (int)err;
+  const int rows = tile_rows(d, sms, (size_t)limit);
+  if (!rows) return (int)cudaErrorInvalidValue;
+  const PairLayout L = pair_layout(d.D, d.DH, d.D15, d.DH2, rows);
+  const size_t smem = sizeof(float) * (size_t)L.total;
+  if ((err = cudaFuncSetAttribute(chain_pair_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)))
+    return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  const TailWeights tail{w[8],  w[9],  w[10], w[11], w[12], w[13],
+                         w[14], w[15], w[16], w[17], w[18], w[19]};
+  const int pairs = (d.N + 2 * rows - 1) / (2 * rows);  // tile pairs a scene
+  if ((err = transpose_weights(st, d, w, scratch))) return (int)err;
+  for (int t0 = 0; t0 < d.T; t0 += d.TC) {
+    const int tc = d.TC < d.T - t0 ? d.TC : d.T - t0;
+    float* g;
+    if ((err = chain_tables(st, d, e2, w, scratch, t0, tc, false, false, &g)))
+      return (int)err;
+    chain_pair_kernel<<<2 * d.B * pairs, kPairThreads, smem, st>>>(
+        t0 == 0 ? x_init : final_x, final_x, last_in, noise, cpcd, g, coef,
+        tail, L, d.N, d.D, d.DH, d.D15, d.DH2, d.T, t0, tc, pairs, clip);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // extern "C"

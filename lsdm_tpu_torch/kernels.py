@@ -69,12 +69,18 @@ _SIGNATURES = {
     # (xyz, start or null, B, N, npoint, warps, points a lane, out, stream)
     "lsdm_fps": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
     # (x_init, noise, cond_pcd, e2, coef, weights[20], final, last_in,
-    #  scratch, dims[11], clip, stream); each _bf16 entry is the same call
-    #  of the bf16 mode (weights rounded to bf16 by the caller, then pass
-    #  1's four bf16 operand copies: weights[24])
+    #  scratch, dims[11], clip, stream); the _bf16 entry is the same call
+    #  of the bf16 mode (weights rounded to bf16 by the caller, then the
+    #  ten bf16 operand copies of both passes: weights[30]) with pass 2's
+    #  plan (warps a tile, tiles a block) before clip
     "lsdm_denoise_chain": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
-    "lsdm_denoise_chain_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
-    # (e2, weights[20] (bf16: [24]), scratch, dims[11], stream)
+    "lsdm_denoise_chain_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _P),
+    # (first, last float32 bit pattern, mismatches (a zeroed uint64 on the
+    #  device), stream): where pass 2's branch-free reciprocal and 1.0f / y
+    #  differ
+    "lsdm_denoise_recip_check": (_I, _I, _P, _P),
+    # (e2, weights[20] (bf16: [30]), scratch, dims[11], stream)
     "lsdm_denoise_chain_tables": (_P, _P, _P, _P, _P),
     "lsdm_denoise_chain_tables_bf16": (_P, _P, _P, _P, _P),
     # K9's two launches: (e2, weights[20], scratch, dims[9], stream)

@@ -20,7 +20,11 @@ layer) does not depend on the sample, so a first pass
 pipelined batched FP32 GEMMs over the whole card, and a second
 pass carries pairs of tiles of point rows through the chunk's steps on
 clusters of two blocks, which hold the tail's weights in their shared
-memory between them (half the layers each) for the whole chunk.
+memory between them (half the layers each) for the whole chunk.  The bf16
+mode's second pass is its own design (``csrc/denoise_chain_bf16.cu``):
+one block holds the tail's bf16 weights, and warps carry tiles of 16
+point rows through the six layers on ``mma.sync``, 4 or 8 warps a tile
+as :func:`chain_bf16_plan` chooses.
 GELU is the exact erf form (the Pallas kernel approximates erf only
 because Mosaic has no erf).  :func:`denoise_chain_tables` runs the first
 pass alone, so a check can see its numerics, which the chain's output
@@ -47,12 +51,12 @@ that layer takes bf16(emb).  Every input is float32, as the Pallas
 wrappers cast them, so the mode is an argument and not the inputs' dtype.
 The CUDA kernels' bf16 modes take the product weights rounded once
 (:func:`bf16_step_params`; :func:`step_params` keeps them per model) and
-round each activation where it becomes a product's operand; K6's first
-pass runs its products on the bf16 tensor cores (wgmma) from bf16 copies of
-its four weights (:class:`Bf16Operands`, made once per kept weights),
-keeps its tables u0, u2 and u4^T as bf16 and hands emb^T to g's product in
-shared memory.  Their launches count as ``denoise_chain_bf16`` and
-``denoise_step_bf16``.
+round each activation where it becomes a product's operand; K6 runs
+both passes on the bf16 tensor cores from bf16 copies of its weights
+(:class:`Bf16Operands`, made once per kept weights): its first pass on
+wgmma, keeping its tables u0, u2 and u4^T as bf16 and handing emb^T to g's
+product in shared memory, its second on mma.sync.  Their launches count as
+``denoise_chain_bf16`` and ``denoise_step_bf16``.
 """
 
 from __future__ import annotations
@@ -153,15 +157,36 @@ PRODUCT_WEIGHTS = ("w_up2", "w_up4", "wc_t", "wp0_t", "wp2_t", "wx0_t",
 
 
 class Bf16Operands(NamedTuple):
-    """K6 pass 1's weights in the bf16 mode: bf16 copies of the rounded
-    product weights, in the layouts its kernel reads (A^T (K, M) or B (K, N),
-    ``csrc/denoise_tables.cu``), each row padded with zeros to a multiple of
-    8 elements (16 bytes)."""
+    """K6's weights in the bf16 mode: bf16 copies of the rounded product
+    weights, in the layouts its kernels read.  Pass 1's four as A^T (K, M)
+    or B (K, N) (``csrc/denoise_tables.cu``), each row padded with zeros to
+    a multiple of 8 elements (16 bytes).  Pass 2's six, the tail's layers,
+    as (out, k) rows, the B operand of ``mma.sync.m16n8k16.row.col``
+    (``csrc/denoise_chain_bf16.cu``), padded with zeros to the widths the
+    kernel is compiled for (``_TAIL_LAYERS``; k to 16 for wp0, out to 8 for
+    wo2), each row an odd number of 16-byte chunks (:func:`_odd_row`)."""
 
     w2t: torch.Tensor  # (U0, U2 up to 8)  w_up2^T
     w4t: torch.Tensor  # (U2, N up to 8)   w_up4^T
     wc: torch.Tensor   # (2D, D up to 8)   wc_t
     wx: torch.Tensor   # (D, D15 up to 8)  wx0_t[D:], g's half of the layer
+    wp0: torch.Tensor  # (64, 24)    wp0_t^T
+    wp2: torch.Tensor  # (128, 72)   wp2_t^T
+    wx0: torch.Tensor  # (192, 136)  wx0_t[:D]^T, the pose features' half
+    wx2: torch.Tensor  # (128, 200)  wx2_t^T
+    wo0: torch.Tensor  # (64, 136)   wo0_t^T
+    wo2: torch.Tensor  # (8, 72)     wo2_t^T
+
+
+_CAPS_TEXT = ("its pass 2 takes tails of DH <= 64, D <= 128, D15 <= 192, DH2 <= 64: "
+              "the model's widths up to its pass 1's cap of D = 128; the float32 "
+              "mode takes the model's D up to 136")
+# each tail layer's weight (in (in, out) layout) and the k and out it is
+# padded to: the widths K6's bf16 pass 2 is compiled for
+# (csrc/denoise_chain_bf16.cu), the model's DH = D / 2, D15 = 1.5 D, DH2 =
+# D / 2 at pass 1's cap of D = 128 (k of 3 to 16, out of 3 to 8)
+_TAIL_LAYERS = (("wp0_t", 16, 64), ("wp2_t", 64, 128), ("wx0_t", 128, 192),
+                ("wx2_t", 192, 128), ("wo0_t", 128, 64), ("wo2_t", 64, 8))
 
 
 def _bf16_rows(w: torch.Tensor) -> torch.Tensor:
@@ -173,17 +198,41 @@ def _bf16_rows(w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _odd_row(k: int) -> int:
+    """Row length (bf16 elements) of k, a multiple of 8, padded to an odd
+    number of 16-byte chunks, so the eight rows of an ``ldmatrix`` read lie
+    in eight different bank groups."""
+    return k if (k // 8) % 2 else k + 8
+
+
+def _bf16_tail(w_t: torch.Tensor, k_cap: int, n_cap: int) -> torch.Tensor:
+    """A tail layer's weight ``w_t`` (k, out), bf16-exact, as bf16 (out, k)
+    rows in pass 2's layout: (n_cap, _odd_row(k_cap)), zeros past (out,
+    k)."""
+    k, n = w_t.shape
+    if k > k_cap or n > n_cap:
+        raise ValueError(f"a tail layer of {k} -> {n} exceeds K6 bf16's "
+                         f"{k_cap} -> {n_cap} ({_CAPS_TEXT})")
+    out = torch.zeros(n_cap, _odd_row(k_cap), dtype=torch.bfloat16, device=w_t.device)
+    out[:n, :k] = w_t.t()
+    return out
+
+
 class Bf16StepParams(DenoiseStepParams):
     """:class:`DenoiseStepParams` whose :data:`PRODUCT_WEIGHTS` are rounded
     to bf16 (float32 tensors): the operands of the kernels' bf16 mode, made
-    by :func:`bf16_step_params`.  ``operands`` holds K6 pass 1's bf16
-    copies of them, made at the first use and kept with these weights."""
+    by :func:`bf16_step_params`.  ``operands`` holds K6's bf16 copies of
+    them (:class:`Bf16Operands`), made at the first use and kept with these
+    weights."""
 
     @functools.cached_property
     def operands(self) -> Bf16Operands:
         D = self.wc_t.shape[1]
+        tail = dict(zip(self._fields, self))
+        tail["wx0_t"] = self.wx0_t[:D]
         return Bf16Operands(*map(_bf16_rows, (
-            self.w_up2.t(), self.w_up4.t(), self.wc_t, self.wx0_t[D:])))
+            self.w_up2.t(), self.w_up4.t(), self.wc_t, self.wx0_t[D:])),
+            *(_bf16_tail(tail[f], k, n) for f, k, n in _TAIL_LAYERS))
 
 
 def bf16_step_params(p: DenoiseStepParams) -> Bf16StepParams:
@@ -656,18 +705,44 @@ def fused_denoise_chain(
     final = torch.empty_like(x_init)
     last_in = torch.empty_like(x_init)
     lib = kernels.load()
-    entry = lib.lsdm_denoise_chain_bf16 if bf16 else lib.lsdm_denoise_chain
     name = "denoise_chain_bf16" if bf16 else "denoise_chain"
-    with torch.cuda.device(dev):
-        rc = entry(
-            x_init.data_ptr(), noise_tab.data_ptr(), cond_pcd.data_ptr(),
+    args = (x_init.data_ptr(), noise_tab.data_ptr(), cond_pcd.data_ptr(),
             e2_tab.data_ptr(), coef_tab.data_ptr(), _pointers(p, bf16),
             final.data_ptr(), last_in.data_ptr(), scratch.data_ptr(),
-            (ctypes.c_int * 11)(*dims[:10], tc),
-            int(bool(clip_denoised)), kernels.stream(dev))
+            (ctypes.c_int * 11)(*dims[:10], tc))
+    with torch.cuda.device(dev):
+        if bf16:
+            rc = lib.lsdm_denoise_chain_bf16(*args, *chain_bf16_plan(B, N),
+                                             int(bool(clip_denoised)),
+                                             kernels.stream(dev))
+        else:
+            rc = lib.lsdm_denoise_chain(*args, int(bool(clip_denoised)),
+                                        kernels.stream(dev))
     kernels.check(rc, name)
     kernels.LAUNCHES[name] += 1
     return final, last_in
+
+
+# point rows a tile of K6 bf16's pass 2 (csrc/denoise_chain_bf16.cu)
+CHAIN_BF16_ROWS = 16
+
+
+def chain_bf16_plan(B: int, N: int, sms: int = kernels.SMS) -> Tuple[int, int]:
+    """(warps a tile, tiles a block) of K6 bf16's pass 2 for B scenes of N
+    points on ``sms`` SMs.  A block holds the tail's weights (143 KB of
+    shared memory), so it runs alone on its SM; it takes the fewest tiles,
+    up to 4, that put every tile in one wave, on 8 warps a tile where it
+    holds one and 4 where it holds more (at most 16 warps a block).  A warp
+    alone on a sub-partition waits on its own chain of loads, MMAs and
+    activations, so more warps a tile win while the SMs outnumber the
+    tiles, and more tiles a block once they do not.  On an NVIDIA H100 at N
+    = 1024 it takes the fastest of the plans timed at each of B = 1 to 8
+    and 16 (``profile_kernels.py --chain_sweep``, PERF.md §6): (8, 1) at b1
+    and b2, (4, 2) at b3 and b4, (4, 3) at b5 and b6, (4, 4) from b7."""
+    if B < 1 or N < 1:
+        raise ValueError(f"the chain needs scenes and points, got {B} and {N}")
+    tpb = min(4, -(-B * -(-N // CHAIN_BF16_ROWS) // sms))
+    return (8 if tpb == 1 else 4), tpb
 
 
 def chain_chunk_steps(B: int, T: int, p: DenoiseStepParams,
@@ -796,7 +871,8 @@ def _weights_floats(dims, bf16: bool = False) -> int:
 
 def _pointers(p: DenoiseStepParams, operands: bool = False):
     """The addresses of ``p``'s 20 tensors, then, with ``operands``, those
-    of its :class:`Bf16Operands` (``p`` a :class:`Bf16StepParams`)."""
+    of its :class:`Bf16Operands` (``p`` a :class:`Bf16StepParams`): pass
+    1's four, then pass 2's six."""
     ws = list(p) + (list(p.operands) if operands else [])
     return (ctypes.c_void_p * len(ws))(*[w.data_ptr() for w in ws])
 

@@ -7,6 +7,7 @@ the card, queued behind a sleep so that only the device's time counts.
                                              [--fps_sweep [--ppt 1 2 4]]
                                              [--bq_sweep] [--nn_sweep]
                                              [--sg_sweep] [--step_sweep]
+                                             [--chain_sweep]
                                              [--only step sg ...]
                                              [--csrc DIR]
 
@@ -33,7 +34,14 @@ version's; K9 per launch at b1 and b8 (N = 1024, D = 128, seeded weights
 at the flagship widths), clip off, with its error against the plain
 version, through the bound step a sampler calls (``make_denoise_step``),
 and the same in its bf16 mode (``denoise_step_bf16``, the error against
-the plain bf16 version).
+the plain bf16 version); K6 in its bf16 mode (``denoise_chain_bf16``) at b1
+and b8, T = 1000 (N = 1024, D = 128, the cosine schedule's DDPM
+coefficients) in an event loop, with its first pass alone over the
+chain's chunks, the second pass as the rest, the second pass's product
+TFLOP/s and bound at 989 TFLOP/s, the plan (warps a tile, tiles a block)
+and the sample's BF16 gate readings against the
+plain bf16 version (``chip_smoke._bf16_gate``'s), beside the float32
+mode's time.
 Prints one JSON line per case and the card's name and power limit.
 
 ``--fps_sweep`` times every launch plan (warps a cloud, points a lane,
@@ -49,8 +57,11 @@ were chosen; ``--sg_sweep`` every plan (centers a warp 1, 2 or 4) of the
 select-gather entry at K10's shapes; ``--step_sweep`` K9's two launches
 apart, u2 and the tile kernel at every cluster size the card runs (1 to
 8), with the card's occupancy of the tile kernel at each, at b1 to b8,
-against which ``ops/denoise.py:step_plan`` was chosen.  ``--only``
-times those kernels alone (names: attn, fps, bq, nn, chamfer, sg, step).
+against which ``ops/denoise.py:step_plan`` was chosen; ``--chain_sweep``
+K6 bf16 at every plan of its second pass (``chain_plans``, each forced by
+standing in for ``ops/denoise.py:chain_bf16_plan``) at b1 to b8 and b16,
+against which that planner was chosen.  ``--only`` times those
+kernels alone (names: attn, fps, bq, nn, chamfer, sg, step, chain).
 ``--csrc DIR`` builds the kernels from another copy of
 ``csrc/`` (an edited copy for an ablation, such as another
 ``kBallWarps``, kept in a git-ignored directory), so variants are timed
@@ -273,6 +284,88 @@ def step_sweep(B: int, card: str) -> None:
                       "plan": bound.cluster(B), "card": card}))
 
 
+def event_ms(fn, reps: int = 3) -> float:
+    """Device ms per call of fn() over ``reps`` calls after one warm-up,
+    by CUDA events around the loop."""
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def chain_plans(sweep: bool):
+    """The pass-2 plans to time: the planner's (None), and with ``sweep``
+    every (warps a tile, tiles a block) the kernel takes: 4 or 8 warps a
+    tile, up to 16 warps a block."""
+    yield None
+    if sweep:
+        yield from ((w, t) for w in (4, 8) for t in range(1, 16 // w + 1))
+
+
+def chain_cases(B: int, sweep: bool, card: str, T: int = 1000) -> None:
+    """K6 at B scenes of 1024 points, T steps, in the bf16 mode (at the
+    plan's choice; with ``sweep`` also at each plan of ``chain_plans``)
+    and in the float32 mode: ms of the whole call, of pass 1 alone over its
+    chunks and of pass 2 (the rest), pass 2's TFLOP/s and bound."""
+    from lsdm_tpu_torch.diffusion.schedule import make_schedule
+    from lsdm_tpu_torch.models.sampling import chain_coefficients
+
+    (x, _, cpcd, _, _), p = step_case(B, seed=B)
+    g = torch.Generator(device="cuda").manual_seed(B + 1)
+    N, D = x.shape[1], p.wc_t.shape[1]
+    noise = torch.randn(B, T, N, 3, generator=g, device="cuda")
+    e2 = torch.randn(B, T, 2 * D, generator=g, device="cuda")
+    coef = chain_coefficients(make_schedule("cosine", T, device="cuda"), False)
+    data = (x, noise, cpcd, e2, coef)
+    tail = sum(w.numel() for w in (p.wp0_t, p.wp2_t, p.wx2_t, p.wo0_t, p.wo2_t))
+    ops2 = 2 * B * T * N * (tail + D * p.wx0_t.shape[1])
+    bf = torch.bfloat16
+    pb = denoise.bf16_step_params(p)
+    want = denoise.denoise_chain_plain(*data, p, compute_dtype=bf)
+    want32 = denoise.denoise_chain_plain(*data, p)
+    for dtype in (bf, None):
+        q = pb if dtype else p
+        tc = denoise.chain_chunk_steps(B, T, q, dtype)
+        pass1 = 0.0
+        for steps, count in ((tc, T // tc), (T % tc, 1)):
+            if steps and count:
+                rows = e2[:, :steps].contiguous()
+                pass1 += count * event_ms(lambda: denoise._tables_scratch(
+                    rows, q, dtype, keep_emb=False))
+        planner = denoise.chain_bf16_plan
+        for plan in chain_plans(sweep) if dtype else [None]:
+            if plan:
+                denoise.chain_bf16_plan = lambda *_, plan=plan: plan
+            try:
+                got = denoise.fused_denoise_chain(*data, q, compute_dtype=dtype)
+                ms = event_ms(lambda: denoise.fused_denoise_chain(
+                    *data, q, compute_dtype=dtype))
+            finally:
+                denoise.chain_bf16_plan = planner
+            rec = {"kernel": "denoise_chain_bf16" if dtype else "denoise_chain",
+                   "batch": B, "steps": T, "points": N, "ms": ms, "pass1_ms": pass1,
+                   "pass2_ms": ms - pass1, "card": card}
+            if dtype:
+                diff = [(a - w).abs() for a, w in zip(got, want)]
+                rec.update(
+                    forced=plan is not None,
+                    plan=plan or planner(B, N),
+                    pass2_tflop_s=ops2 / (ms - pass1) * 1e-9,
+                    pass2_bound_ms=ops2 / 989e12 * 1e3,
+                    max_abs_err=max(d.max().item() for d in diff),
+                    mean_abs_err=max(d.mean().item() for d in diff),
+                    bf16_gap=min((w - w32).abs().mean().item()
+                                 for w, w32 in zip(want, want32)))
+            else:
+                rec["max_abs_err"] = max((a - w).abs().max().item() for a, w in zip(
+                    got, want32))
+            print(json.dumps(rec))
+
+
 def plans(n: int, ppts=(1, 2, 4)):
     """Every (warps, points a lane in ``ppts``) that covers n points."""
     for ppt in ppts:
@@ -291,8 +384,9 @@ def main() -> None:
     ap.add_argument("--nn_sweep", action="store_true")
     ap.add_argument("--sg_sweep", action="store_true")
     ap.add_argument("--step_sweep", action="store_true")
+    ap.add_argument("--chain_sweep", action="store_true")
     ap.add_argument("--only", nargs="+",
-                    choices=["attn", "fps", "bq", "nn", "chamfer", "sg", "step"])
+                    choices=["attn", "fps", "bq", "nn", "chamfer", "sg", "step", "chain"])
     ap.add_argument("--csrc", help="build the kernels from this copy of csrc/")
     args = ap.parse_args()
     if args.csrc:
@@ -342,6 +436,9 @@ def main() -> None:
         if args.step_sweep:
             for B in range(1, 9):
                 step_sweep(B, card)
+    if on("chain"):
+        for B in (*range(1, 9), 16) if args.chain_sweep else (1, 8):
+            chain_cases(B, args.chain_sweep, card)
 
 
 def attn_cases(card: str) -> None:

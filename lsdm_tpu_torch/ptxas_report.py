@@ -1,17 +1,22 @@
-"""Registers and spills of the port's CUDA kernels, and where their spill
-loads sit, from the compiler (needs ``nvcc`` and ``cuobjdump``).
+"""Registers and spills of the port's CUDA kernels, where their spill
+loads sit, and which units their instructions use, from the compiler
+(needs ``nvcc`` and ``cuobjdump``).
 
     python -m lsdm_tpu_torch.ptxas_report [sa_fused fp_fused ...]
 
 Compiles each source of ``csrc/`` named (default: the row-MLP kernels K7
 and K8, the ball query and 3-NN kernels K1 and K2, the chamfer nearest
-neighbour K11 and FPS, K3) with the package's ``NVCC_FLAGS`` plus
-``-Xptxas -v`` to a cubin under the build directory and prints, per
-function (each instance of a template), what ptxas reports: registers,
-stack frame, spill stores and spill loads.  For the row-MLP sources it
-then reads the cubin's SASS and splits it at the targets of its calls
-(the functions that are not inlined, such as ``rowmlp::dense_tiles<T>``,
-in address order; the kernel body first): per part, its FFMA count, its
+neighbour K11, FPS, K3, and K6's pass 2 in both modes) with the package's
+``NVCC_FLAGS`` plus ``-Xptxas -v`` to a cubin under the build directory and
+prints, per function (each instance of a template), what ptxas reports:
+registers, stack frame, spill stores and spill loads.  For every source it
+then counts, per function of the cubin's SASS, its tensor-core products
+(``HMMA``: ``mma.sync``; ``HGMMA``: ``wgmma``), its FFMAs, ``ldmatrix``
+loads (``LDSM``), SFU operations (``MUFU``), barriers (``BAR``) and
+branches (``BRA``).  For the row-MLP sources it splits the SASS at the
+targets of its calls (the functions that are not inlined, such as
+``rowmlp::dense_tiles<T>``, in address order; the kernel body first): per
+part, its FFMA count, its
 spill loads (``LDL``) and those of them inside a loop that holds FFMAs
 and no inner loop (the FMA loops of the layers).  The last line is one
 JSON object with all of it.
@@ -27,8 +32,11 @@ from pathlib import Path
 
 from lsdm_tpu_torch import kernels
 
-SOURCES = ("sa_fused", "fp_fused", "ballquery", "chamfer", "fps")
+SOURCES = ("sa_fused", "fp_fused", "ballquery", "chamfer", "fps", "denoise_chain",
+           "denoise_chain_bf16")
 SASS_SOURCES = ("sa_fused", "fp_fused")
+# the opcodes counted per function of the SASS
+OPCODES = ("HMMA", "HGMMA", "FFMA", "LDSM", "MUFU", "BAR", "BRA")
 _FUNC = re.compile(r"Function properties for (\S+)")
 _PROPS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                     r"(\d+) bytes spill loads")
@@ -55,13 +63,34 @@ def ptxas(src: str, cubin: str) -> list:
     return funcs
 
 
+def _sass(cubin: str) -> str:
+    cuobjdump = Path(kernels._nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(cuobjdump), "-sass", cubin], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def sass_counts(cubin: str) -> dict:
+    """Per function of the cubin's SASS, how many of its instructions have
+    each opcode of OPCODES (the mnemonic before its first dot, past any
+    predicate)."""
+    out, cur = {}, None
+    for line in _sass(cubin).splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), dict.fromkeys(OPCODES, 0))
+            continue
+        m = _INSTR.search(line)
+        if m and cur is not None:
+            op = re.sub(r"^@!?U?P\w+\s+", "", m.group(2)).split()[0].split(".")[0]
+            if op in cur:
+                cur[op] += 1
+    return out
+
+
 def sass_parts(cubin: str) -> list:
     """The SASS split at its call targets: per part, its FFMAs, spill loads
     and spill loads inside an innermost loop that holds FFMAs."""
-    cuobjdump = Path(kernels._nvcc()).with_name("cuobjdump")
-    text = subprocess.run([str(cuobjdump), "-sass", cubin], capture_output=True,
-                          text=True, check=True).stdout
-    ins = [(int(a, 16), t) for a, t in _INSTR.findall(text)]
+    ins = [(int(a, 16), t) for a, t in _INSTR.findall(_sass(cubin))]
     calls = sorted({int(x, 16) for _, t in ins
                     for x in re.findall(r"CALL\.REL\.NOINC (0x[0-9a-f]+)", t)})
     starts, parts = [0] + calls, []
@@ -95,15 +124,18 @@ def main(argv=None) -> int:
         funcs = ptxas(src, cubin)
         # one kernel and its out-of-line tiles: the split reads one address space
         parts = sass_parts(cubin) if src in SASS_SOURCES else []
+        counts = sass_counts(cubin)
         for f in funcs:
+            ops = ", ".join(f"{n} {op}" for op, n in
+                            counts.get(f["function"], {}).items())
             print(f"{src} {f['function']}: {f.get('registers', '-')} registers, "
                   f"{f['stack']} B stack, {f['spill_stores']} B spill stores, "
-                  f"{f['spill_loads']} B spill loads")
+                  f"{f['spill_loads']} B spill loads; SASS {ops or 'not found'}")
         for p in parts:
             print(f"{src} SASS part at {p['at']}: {p['instructions']} "
                   f"instructions, {p['ffma']} FFMA, {p['ldl']} LDL, "
                   f"{p['ldl_in_fma_loops']} of them in FMA loops")
-        out[src] = {"ptxas": funcs, "sass": parts}
+        out[src] = {"ptxas": funcs, "sass": parts, "opcodes": counts}
     print(json.dumps(out))
     return 0
 

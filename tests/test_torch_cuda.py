@@ -1098,16 +1098,31 @@ def test_fp_fused_bf16_kernel_matches_plain(dev, b, n, s, d1, d2, mlp, acts, clu
         fp_fused.fp_stage_fused_kernel(*args)
 
 
-@pytest.mark.parametrize("b,n,d,t,chunked,clip", [
-    (1, 1024, 128, 5, False, False),  # the flagship widths
-    (8, 1024, 128, 3, False, True),   # taller tiles
-    (2, 37, 16, 7, True, True),       # several chunks, a partial tile pair
-    (2, 1000, 16, 5, True, False),    # chunks of ragged points: masked columns
+@pytest.mark.parametrize("b,n,d,t,chunked,clip,plan", [
+    # the flagship widths (D = 128, the largest the bf16 mode takes) at the
+    # planner's choice, b1 (8 warps a tile) and b8 (4 tiles of 4 warps a
+    # block); at T = 1000 with the clip chip_smoke.py's gates leave out (b1
+    # on, b8 off: 4 and 25 chunks)
+    (1, 1024, 128, 5, False, False, None),
+    (8, 1024, 128, 3, False, True, None),
+    (1, 1024, 128, 1000, False, True, None),
+    (8, 1024, 128, 1000, False, False, None),
+    (4, 1000, 128, 3, False, False, None),    # (4, 2), a last tile of 8 rows
+    (2, 37, 16, 7, True, True, None),         # (8, 1), several chunks, masked rows
+    # forced plans (warps a tile, tiles a block)
+    (1, 1024, 128, 4, False, True, (4, 1)),   # 4 warps a tile alone in a block
+    (8, 1024, 128, 2, False, False, (8, 2)),  # 16 warps a block, 8 a tile
+    (8, 1024, 128, 2, False, True, (4, 3)),   # the last block holds 2 tiles
+    (1, 1000, 128, 3, False, False, (8, 2)),  # 63 tiles: the last block holds 1
+    (2, 1000, 16, 5, True, False, (4, 3)),    # chunks of ragged points
+    (3, 37, 16, 4, False, True, (4, 2)),      # 5-row tiles
 ])
-def test_denoise_chain_bf16_kernel_matches_plain(dev, b, n, d, t, chunked, clip,
+def test_denoise_chain_bf16_kernel_matches_plain(dev, b, n, d, t, chunked, clip, plan,
                                                  monkeypatch):
     if chunked:
         monkeypatch.setattr(denoise, "CHAIN_SCRATCH_FLOATS", 1 << 16)
+    if plan:
+        monkeypatch.setattr(denoise, "chain_bf16_plan", lambda *_: plan)
     args = _chain_inputs(dev, B=b, T=t, N=n, D=d)
     before = {k: kernels.LAUNCHES[k] for k in ("denoise_chain", "denoise_chain_bf16")}
     got = denoise.fused_denoise_chain(*args, clip_denoised=clip,
@@ -1126,6 +1141,48 @@ def test_denoise_chain_bf16_kernel_matches_plain(dev, b, n, d, t, chunked, clip,
     again = denoise.fused_denoise_chain(*args[:-1], p, clip_denoised=clip,
                                         compute_dtype=torch.bfloat16)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("plan", [(1, 1), (2, 4), (4, 5), (8, 3), (4, 0)])
+def test_denoise_chain_bf16_refuses_plans_it_has_no_instance_for(dev, plan,
+                                                                 monkeypatch):
+    """Pass 2 takes 4 or 8 warps a tile and up to 16 warps a block: another
+    plan raises and counts no launch."""
+    monkeypatch.setattr(denoise, "chain_bf16_plan", lambda *_: plan)
+    args = _chain_inputs(dev, B=1, T=2, N=40, D=16)
+    before = kernels.LAUNCHES["denoise_chain_bf16"]
+    with pytest.raises(RuntimeError, match="denoise_chain_bf16"):
+        denoise.fused_denoise_chain(*args, compute_dtype=torch.bfloat16)
+    assert kernels.LAUNCHES["denoise_chain_bf16"] == before
+
+
+def test_denoise_chain_bf16_reciprocal_is_the_ieee_division(dev):
+    """K6 bf16's pass 2 divides its sigmoids by a branch-free reciprocal
+    (``csrc/denoise_chain_bf16.cu:recip``) where 1 + exp(-y) lies in [1,
+    2^126): there it gives the bits of ``1.0f / y`` at every float32."""
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    rc = kernels.load().lsdm_denoise_recip_check(0x3F800000, 0x7E800000, count.data_ptr(),
+                                                 kernels.stream(dev))
+    kernels.check(rc, "denoise_chain_bf16")
+    torch.cuda.synchronize()
+    assert count.item() == 0
+
+
+def test_denoise_chain_bf16_refuses_what_pass_1_refused(dev):
+    """D = 136, the float32 mode's largest model width: the bf16 mode
+    refuses it (pass 1 did before pass 2 was redesigned; now its tail
+    copies name the widths it takes) and launches nothing, while the float32
+    mode runs it."""
+    args = _chain_inputs(dev, B=1, T=2, N=40, D=136)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="D <= 128"):
+        denoise.fused_denoise_chain(*args, compute_dtype=torch.bfloat16)
+    assert kernels.LAUNCHES == before
+    got = denoise.fused_denoise_chain(*args)
+    want = denoise.denoise_chain_plain(*args)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=2e-5, rtol=0)
 
 
 @pytest.mark.parametrize("b,t,n,d", [

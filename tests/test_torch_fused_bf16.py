@@ -466,7 +466,7 @@ def test_bf16_operands_are_made_once_per_model_from_the_rounded_weights():
     on the weights ``step_params`` keeps: made once per model and weights,
     bf16, rows padded with zeros to 8 elements, equal to the rounded float32
     weights; the pointers of the bf16 launch are the 20 weights', then
-    theirs."""
+    theirs, then pass 2's six."""
     model = init_weights(SceneDiffusionModel(PortConfig(**TINY_KW, dtype="bfloat16")),
                          0).eval()
     p = denoise.step_params(model, T_BF16)
@@ -482,7 +482,8 @@ def test_bf16_operands_are_made_once_per_model_from_the_rounded_weights():
         assert torch.equal(o[:, :cols], w.to(T_BF16)), name
         assert not o[:, cols:].any(), name
     ptrs = denoise._pointers(p, True)
-    assert len(ptrs) == 24 and list(ptrs)[:20] == list(denoise._pointers(p))
+    # pass 1's four, then pass 2's six (tests/test_torch_chain_bf16.py)
+    assert len(ptrs) == 30 and list(ptrs)[:20] == list(denoise._pointers(p))
     assert list(ptrs)[20:] == [o.data_ptr() for o in ops]
     with torch.no_grad():
         model.upsampling_layer[4].weight.mul_(2.0)

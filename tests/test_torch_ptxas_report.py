@@ -55,3 +55,34 @@ def test_sass_parts_split_at_calls_and_find_spills_in_fma_loops(monkeypatch):
          "ldl_in_fma_loops": 0},
         {"at": "0x100", "instructions": 7, "ffma": 2, "ldl": 2,
          "ldl_in_fma_loops": 1}]
+
+
+# two functions; predicated and dotted opcodes count by their mnemonic
+SASS_FUNCS = """\
+        Function : _Z17chain_bf16_kernelILi4EEv8TailArgs
+        .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDSM.16.M88.4 R4, [R2] ;
+        /*0010*/                   HMMA.16816.F32.BF16 R8, R12, R4, R8 ;
+        /*0020*/              @!P0 HMMA.16816.F32.BF16 R16, R12, R6, R16 ;
+        /*0030*/                   MUFU.EX2 R3, R3 ;
+        /*0040*/                   BAR.SYNC R5, R6 ;
+        /*0050*/              @P1  BRA 0x20 ;
+        /*0060*/                   EXIT ;
+        Function : _Z15emb_g_kernel8EmbGArgs
+        /*0000*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24 ;
+        /*0010*/              @P1  FFMA R2, R3, R4, R2 ;
+        /*0020*/                   EXIT ;
+"""
+
+
+def test_sass_counts_count_each_functions_opcodes(monkeypatch):
+    monkeypatch.setattr(kernels, "_nvcc", lambda: "/cuda/bin/nvcc")
+    monkeypatch.setattr(subprocess, "run", _fake_run(stdout=SASS_FUNCS))
+    counts = ptxas_report.sass_counts("out.cubin")
+    assert counts == {
+        "_Z17chain_bf16_kernelILi4EEv8TailArgs": {
+            "HMMA": 2, "HGMMA": 0, "FFMA": 0, "LDSM": 1, "MUFU": 1, "BAR": 1,
+            "BRA": 1},
+        "_Z15emb_g_kernel8EmbGArgs": {
+            "HMMA": 0, "HGMMA": 1, "FFMA": 1, "LDSM": 0, "MUFU": 0, "BAR": 0,
+            "BRA": 0}}
