@@ -141,7 +141,27 @@ Run from the repository root:  python3 chip_smoke.py
    PLMS_STEPS-step respacing (the fused encode, then the composed
    denoiser), through the kernels and through the plain versions from the
    same initial image, agreeing to PLMS_ATOL.
-15. Prints one JSON line of kernel records, then, as its last line,
+15. The alternate backbones (``backbones_phase``): ``sdm_proxd()`` with
+   ``pcd_backbone_type="DGCNN"`` and ``human_backbone_type="P2R"`` at full
+   width (9 x 1024, T=1000, b1, seeded weights), sampled on the fused
+   chain path (K4, K6) and on the step path (K4, the K9 graph replayed T
+   times), each through the kernels and through the plain versions with
+   the same draws (FUSED_ATOL; the fused encode's ``cond_pcd`` against the
+   composed one at the COND bound; the step path against the chain at
+   CHAIN_ATOL), then one train step at batch 6 with ``attn_impl="pallas"``
+   (K4, K5) against the plain step at the TRAIN_* gates (DGCNN's two
+   dropouts on given keep-masks).  None of these may launch K1, K2, K3,
+   K7, K8 or K10.  Prints ms/scene, ms/step and peak memory.
+16. Fitting (``fitting_phase``): ``lsdm_tpu_torch.run.fit_custom_obj`` on
+   the card (its default ``--device cuda``) over a synthetic library of
+   two table meshes, a 64-frame human sequence of 655 vertices and a
+   1024-point predicted table top, at ``--sdf_dim`` FIT_SDF_DIM with the
+   full 36 x 11 x 11 grid and 200 Adam steps; every ``grid_search`` and
+   ``refine_pose`` call it makes is replayed on the CPU: equal grid poses
+   (or, where the picks differ, losses within FIT_GRID_RTOL), refined
+   losses within FIT_REFINE_RTOL and poses within FIT_REFINE_ATOL.
+   Prints the card's ms per grid search and per refinement.
+17. Prints one JSON line of kernel records, then, as its last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is non-zero and no result line is
@@ -274,6 +294,18 @@ BF16_RTOL = 3e-2
 BF16_GAP_SHARE = 0.5
 TRAIN_BATCH = 6
 TRAIN_STEPS = 3  # timed steps of each train configuration
+# the alternate backbones of backbones_phase (JAX models/sdm.py:96-118)
+ALT_BACKBONES = {"pcd_backbone_type": "DGCNN", "human_backbone_type": "P2R"}
+# fitting_phase: the fitting CLIs' default SDF grid; the card's grid losses
+# against the CPU's (float32 sums in another order) and its refined losses
+# after 200 Adam steps from equal starts; its refined poses (radians,
+# metres) within one Adam step at the default lr 0.003, which is as far
+# apart as the two runs' best-so-far steps can lie where neighbouring steps'
+# losses differ by rounding
+FIT_SDF_DIM = 256
+FIT_GRID_RTOL = 1e-5
+FIT_REFINE_RTOL = 1e-4
+FIT_REFINE_ATOL = 3e-3
 # K9 against its plain version, one step: float32 sums in another order
 # (FMA loops against cuBLAS) and erff against torch's erf.  H100 reading
 # 2.4e-07 at b1 and b8, clip off and on.
@@ -402,7 +434,15 @@ PATH_KERNELS = {"pallas": ("ball_query", "three_nn", "fps", "denoise_chain"),
                 "fused_bf16": ("fps", "sa_fused_bf16", "fp_fused_bf16",
                                "rank1_attn_bf16", "denoise_chain_bf16"),
                 "step_bf16": ("fps", "sa_fused_bf16", "fp_fused_bf16",
-                              "rank1_attn_bf16", "denoise_step_bf16")}
+                              "rank1_attn_bf16", "denoise_step_bf16"),
+                # a DGCNN + P2R model: K4 in pcd_attention, K6 or K9 in the
+                # loop, K4/K5 in its train step; no PointNet++ kernel
+                "backbones_fused": ("rank1_attn", "denoise_chain"),
+                "backbones_step": ("rank1_attn", "denoise_step"),
+                "backbones_train": ("rank1_attn", "rank1_attn_bwd")}
+# the PointNet++ kernels, which no path of the alternate backbones launches
+POINTNET2_KERNELS = ("ball_query", "three_nn", "fps", "sa_fused", "fp_fused",
+                     "select_gather")
 # kernels no bf16 path may launch: the float32 modes of K4-K10
 NOT_ON_BF16_PATHS = ("rank1_attn", "rank1_attn_bwd", "select_gather", "sa_fused",
                      "fp_fused", "denoise_chain", "denoise_step")
@@ -1202,8 +1242,21 @@ def bf16_kernel_checks(dev, model, batch: int = TRAIN_BATCH) -> dict:
     return rec
 
 
+def _dropout_draws(cfg, batch: int, g, dev):
+    """The object backbone's dropout keep-masks for a train step:
+    PointNet++'s head (rate 0.5), or DGCNN's two (rate 0.1)."""
+    import torch
+
+    clouds = batch * cfg.max_objs
+    if cfg.pcd_backbone_type == "DGCNN":
+        return [torch.rand(clouds, n, generator=g, device=dev) < 0.9
+                for n in (512, 256)]
+    return torch.rand(clouds, cfg.pcd_points, 128, generator=g, device=dev) < 0.5
+
+
 def train_step_check(dev, cfg, label: str, chamfer_impl: str = "xla",
-                     batch: int = TRAIN_BATCH, T: int = T_STEPS, **impls):
+                     batch: int = TRAIN_BATCH, T: int = T_STEPS,
+                     noise_leaves=(), **impls):
     """Phase 11, one configuration: a train step at ``batch`` scenes through
     the kernels and through the plain versions, from the same weights, t,
     noise and dropout keep-mask.  Returns (launch counts of the kernel
@@ -1211,7 +1264,12 @@ def train_step_check(dev, cfg, label: str, chamfer_impl: str = "xla",
     steps after the compared one, peak GiB of the kernel steps).  A bf16
     configuration (``cfg.dtype``) measures its gradients by each leaf's
     relative 2-norm and its parameters where the gradient exceeds 5e-2 of
-    the leaf's largest entry (TRAIN_BF16_*)."""
+    the leaf's largest entry (TRAIN_BF16_*).  ``noise_leaves``: parameters
+    whose gradient is analytically zero, so that both runs hold rounding
+    noise there and Adam's first step, which moves every entry by about
+    the learning rate whatever its gradient's size, moves them apart; they
+    stay in the gradient check (held to its floor) and leave the
+    parameter check."""
     import torch
 
     from lsdm_tpu_torch import kernels
@@ -1226,8 +1284,7 @@ def train_step_check(dev, cfg, label: str, chamfer_impl: str = "xla",
     draws = dict(
         t=torch.randint(0, T, (batch,), generator=g, device=dev),
         noise=torch.randn(batch, cfg.pcd_points, 3, generator=g, device=dev),
-        dropout_mask=torch.rand(batch * cfg.max_objs, cfg.pcd_points, 128,
-                                generator=g, device=dev) < 0.5)
+        dropout_mask=_dropout_draws(cfg, batch, g, dev))
 
     def run(state):
         metrics = step(state, *inputs, **draws)
@@ -1263,7 +1320,7 @@ def train_step_check(dev, cfg, label: str, chamfer_impl: str = "xla",
         if e > grad_err:
             grad_err, worst["grad"] = e, n
         real = gp.abs() > (5e-2 if bf16 else 1e-4) * gp.abs().max()  # not noise
-        if bf16 and scale < floor:  # a leaf of bf16 rounding noise
+        if (bf16 and scale < floor) or n in noise_leaves:  # a leaf of rounding noise
             real = torch.zeros_like(real)
         noise += int((~real).sum())
         if real.any():
@@ -1283,12 +1340,13 @@ def train_step_check(dev, cfg, label: str, chamfer_impl: str = "xla",
         _sync(dev)
         sec.append(time.perf_counter() - t0)
     ms = [x * 1e3 for x in sec]
+    left = f"; left out as rounding noise: {', '.join(noise_leaves)}" if noise_leaves else ""
     print(f"train step {label} B={batch} ({batch * cfg.max_objs} clouds of "
           f"{cfg.pcd_points}): loss {loss_k:.6f} (plain {loss_p:.6f}); errors "
           f"{errs} (tolerances loss {gates[0]}, grad {gates[1]}, "
           f"param {gates[2]}; {noise} gradient entries below "
           f"{5e-2 if bf16 else 1e-4} of their leaf's max left out of the parameter "
-          f"check; worst leaves {worst}); step ms {[round(x, 3) for x in ms]}; "
+          f"check{left}; worst leaves {worst}); step ms {[round(x, 3) for x in ms]}; "
           f"peak {peak():.2f} GiB; launches {launches}")
     if errs["loss"] > gates[0] or errs["grad"] > gates[1] or errs["param"] > gates[2]:
         raise AssertionError(f"train step {label} disagrees with its plain versions")
@@ -2288,6 +2346,173 @@ def plms_phase(dev, cfg, model) -> tuple:
     return launches
 
 
+def backbones_phase(dev, T: int = T_STEPS, cfg=None,
+                    batch: int = TRAIN_BATCH) -> dict:
+    """Phase 15: a DGCNN + P2R ``sdm_proxd()`` (or ``cfg``) on the fused
+    chain path, the step path and one train step at ``batch``, each against
+    its plain versions.  Returns {path: launch counts}."""
+    from lsdm_tpu_torch.config import sdm_proxd
+    from lsdm_tpu_torch.models.sdm import SceneDiffusionModel
+    from lsdm_tpu_torch.weights import init_weights
+
+    cfg = dataclasses.replace(cfg or sdm_proxd(), **ALT_BACKBONES)
+    fused = init_weights(SceneDiffusionModel(dataclasses.replace(
+        cfg, ball_impl="fused")), SEED).to(dev).eval()
+    composed = SceneDiffusionModel(dataclasses.replace(cfg, ball_impl="pallas"))
+    composed.load_state_dict(fused.state_dict())
+    composed = composed.to(dev).eval()
+    label = f"DGCNN + P2R sdm_proxd B=1 9x{cfg.pcd_points} T={T}"
+    launches = {}
+
+    path_launches, errs, cond, (sec_k, sec_p), peak = fused_path(dev, cfg, fused,
+                                                                 composed, T)
+    print(f"backbones fused path {label}: launches {path_launches}; max |kernel - "
+          f"plain| {errs} (tolerance {FUSED_ATOL}); fused vs composed cond_pcd: "
+          f"worst |a - b| / ({COND_ATOL} + {COND_RTOL} |b|) = {cond:.3g} "
+          f"(must be <= 1); kernels {sec_k * 1e3:.1f} ms/scene, plain "
+          f"{sec_p * 1e3:.1f} ms/scene, peak memory {peak:.2f} GiB")
+    _check_launches("backbones_fused", path_launches)
+    if max(errs.values()) > FUSED_ATOL or cond > 1.0:
+        raise AssertionError("the DGCNN + P2R fused path disagrees with its plain "
+                             "versions or with the composed encode")
+    launches["backbones_fused"] = path_launches
+    del composed
+
+    path_launches, errs, vs_chain, sec_k, peak, _ = step_path(dev, cfg, fused, T)
+    print(f"backbones step path {label}: launches {path_launches}; max |kernel - "
+          f"plain| {errs} (tolerance {FUSED_ATOL}); max |step - chain| {vs_chain} "
+          f"(tolerance {CHAIN_ATOL}); kernels {sec_k * 1e3:.1f} ms/scene (the graph "
+          f"replayed), peak memory {peak:.2f} GiB")
+    _check_launches("backbones_step", path_launches)
+    if dev.type == "cuda" and path_launches["denoise_step"] != T:
+        raise AssertionError(f"K9 launched {path_launches['denoise_step']} times, "
+                             f"not {T}")
+    if max(errs.values()) > FUSED_ATOL or max(vs_chain.values()) > CHAIN_ATOL:
+        raise AssertionError("the DGCNN + P2R step path disagrees")
+    launches["backbones_step"] = path_launches
+    del fused
+
+    # one frame: the positional branch's BatchNorm sees equal rows, which
+    # it normalises to zero, so the gradient of the bias before it and of
+    # its scale is rounding noise
+    step_launches, errs, step_ms, peak = train_step_check(
+        dev, dataclasses.replace(cfg, attn_impl="pallas"), "DGCNN + P2R",
+        batch=batch, T=T, noise_leaves=("human_backbone.pos_embed_0.conv.bias",
+                                        "human_backbone.pos_embed_0.bn.weight"))
+    _check_launches("backbones_train", step_launches)
+    print(f"backbones train step DGCNN + P2R at B={batch}: {min(step_ms):.1f} "
+          f"ms/step, {batch * 1e3 / min(step_ms):.1f} scenes/s, peak memory "
+          f"{peak:.2f} GiB")
+    launches["backbones_train"] = step_launches
+    return launches
+
+
+def _fitting_inputs(root: str) -> dict:
+    """A library of two table meshes (boxes, 12 triangles each), a 64-frame
+    human sequence of 655 vertices standing on the floor beside a table
+    top, and a 1024-point predicted cloud of that top."""
+    import numpy as np
+
+    from lsdm_tpu_torch.fitting.meshio import write_obj
+
+    rs = np.random.RandomState(SEED)
+    faces = np.array([[0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7], [0, 1, 5],
+                      [0, 5, 4], [1, 2, 6], [1, 6, 5], [2, 3, 7], [2, 7, 6],
+                      [3, 0, 4], [3, 4, 7]], np.int32)
+    lib = os.path.join(root, "lib", "table")
+    os.makedirs(lib)
+    for name, (sx, sy, sz) in (("small", (0.8, 0.5, 0.72)), ("large", (1.6, 0.9, 0.74))):
+        verts = np.array([[x, y, z] for z in (0.0, sz) for x, y in
+                          ((-sx / 2, -sy / 2), (sx / 2, -sy / 2), (sx / 2, sy / 2),
+                           (-sx / 2, sy / 2))], np.float32)
+        write_obj(os.path.join(lib, f"{name}.obj"), verts, faces)
+    body = np.concatenate([
+        (rs.rand(455, 3) - 0.5) * [0.35, 0.25, 0.0] + [0.0, 0.0, 0.1]
+        + rs.rand(455, 1) * [0.0, 0.0, 1.6],                            # body
+        (rs.rand(150, 3) - 0.5) * [0.25, 0.25, 0.02] + [0.0, 0.0, 0.01],  # feet
+        (rs.rand(50, 3) - 0.5) * [0.3, 0.3, 0.02] + [0.7, 0.1, 0.75]])    # hands
+    verts = body[None] + rs.randn(64, 1, 3) * [0.01, 0.01, 0.0]
+    pred = (rs.rand(1024, 3) - 0.5) * [1.0, 0.6, 0.02] + [0.9, 0.1, 0.73]
+    paths = {"lib": os.path.join(root, "lib")}
+    for name, arr in (("verts", verts), ("pred", pred)):
+        paths[name] = os.path.join(root, f"{name}.npy")
+        np.save(paths[name], arr.astype(np.float32))
+    return paths
+
+
+def fitting_phase(dev, sdf_dim: int = FIT_SDF_DIM) -> dict:
+    """Phase 16: ``fit_custom_obj`` on the card, each of its grid searches
+    and refinements replayed on the CPU.  Returns the card's times."""
+    import tempfile
+
+    import torch
+
+    from lsdm_tpu_torch.fitting import fit_objects
+    from lsdm_tpu_torch.run import fit_custom_obj
+
+    calls = []
+
+    def timed(kind, fn):
+        def run(*args, **kw):
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            _sync(dev)
+            calls.append((kind, (time.perf_counter() - t0) * 1e3, args, kw, out))
+            return out
+        return run
+
+    saved = fit_objects.grid_search, fit_objects.refine_pose
+    fit_objects.grid_search = timed("grid", saved[0])
+    fit_objects.refine_pose = timed("refine", saved[1])
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            d = _fitting_inputs(root)
+            results = fit_custom_obj.main([
+                "--file_name", d["pred"], "--label", "table", "--vertices_path",
+                d["verts"], "--obj_lib", d["lib"], "--sdf_dim", str(sdf_dim),
+                "--output_dir", os.path.join(root, "out")]
+                + ([] if dev.type == "cuda" else ["--device", dev.type]))
+    finally:
+        fit_objects.grid_search, fit_objects.refine_pose = saved
+    if not results or not all(math.isfinite(r["loss"]) for r in results):
+        raise AssertionError(f"fit_custom_obj fitted nothing finite: {results}")
+    cpu = torch.device("cpu")
+    worst = {"grid_loss": 0.0, "refine_loss": 0.0, "refine_pose": 0.0}
+    for kind, _, args, kw, out in calls:
+        if out.points.device.type != dev.type:
+            raise AssertionError(f"{kind} ran on {out.points.device}, not {dev}")
+        args = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+        want = saved[kind == "refine"](*args, **dict(kw, device=cpu))
+        rel = abs(float(out.loss) - float(want.loss)) / abs(float(want.loss))
+        if kind == "grid":
+            pose = [float(out.rot_deg), float(out.transl_x), float(out.transl_y)]
+            if pose != [float(want.rot_deg), float(want.transl_x),
+                        float(want.transl_y)]:
+                print(f"grid search: the card picked {pose}, the CPU "
+                      f"{[float(want.rot_deg), float(want.transl_x), float(want.transl_y)]}"
+                      f" (losses {float(out.loss)!r}, {float(want.loss)!r})")
+            worst["grid_loss"] = max(worst["grid_loss"], rel)
+        else:
+            worst["refine_loss"] = max(worst["refine_loss"], rel)
+            worst["refine_pose"] = max(worst["refine_pose"], max(
+                abs(float(getattr(out, n)) - float(getattr(want, n)))
+                for n in ("rot", "transl_x", "transl_y")))
+    ms = {k: [round(c[1], 3) for c in calls if c[0] == k] for k in ("grid", "refine")}
+    contact, obj = calls[0][2][2], calls[0][2][0]
+    print(f"fitting fit_custom_obj sdf {sdf_dim}^3, {len(results)} cluster(s) of "
+          f"{len(contact)} contact points, {len(ms['grid'])} candidate fit(s) "
+          f"(object {len(obj)} points first), 4356 poses, 200 Adam steps: card ms "
+          f"per grid search {ms['grid']}, per refinement {ms['refine']}; worst "
+          f"against the CPU {worst} (tolerances grid loss {FIT_GRID_RTOL}, refine "
+          f"loss {FIT_REFINE_RTOL}, refine pose {FIT_REFINE_ATOL}); best "
+          f"{[(r['obj_id'], round(r['loss'], 6)) for r in results]}")
+    if (worst["grid_loss"] > FIT_GRID_RTOL or worst["refine_loss"] > FIT_REFINE_RTOL
+            or worst["refine_pose"] > FIT_REFINE_ATOL):
+        raise AssertionError("the fitting on the card disagrees with the CPU")
+    return ms
+
+
 def _check_launches(path: str, launches: dict) -> None:
     for name in PATH_KERNELS[path]:
         if launches[name] < 1:
@@ -2295,9 +2520,11 @@ def _check_launches(path: str, launches: dict) -> None:
     if (path in ("fused", "fused_encode", "step", "fused_bf16", "step_bf16")
             and launches["ball_query"] + launches["three_nn"]):
         raise AssertionError(f"the {path} path ran K1/K2: {launches}")
-    if path == "fused" and launches["denoise_step"]:
+    if path.startswith("backbones") and any(launches[k] for k in POINTNET2_KERNELS):
+        raise AssertionError(f"the {path} path ran a PointNet++ kernel: {launches}")
+    if path in ("fused", "backbones_fused") and launches["denoise_step"]:
         raise AssertionError(f"the fused path ran K9: {launches}")
-    if path == "step" and launches["denoise_chain"]:
+    if path in ("step", "backbones_step") and launches["denoise_chain"]:
         raise AssertionError(f"the step path ran K6: {launches}")
     if path == "fused_bf16" and launches["denoise_step_bf16"]:
         raise AssertionError(f"the bf16 fused path ran K9: {launches}")
@@ -2479,6 +2706,8 @@ def main() -> int:
               f"({TRAIN_BATCH * 1e3 / min(step_ms):.1f} scenes/s), peak memory "
               f"{peak:.2f} GiB; float32 in this call {f32[0]:.1f} ms/step, "
               f"{f32[1]:.2f} GiB")
+    launches.update(backbones_phase(dev))
+    fitting_phase(dev)
     _check_launches("train_cli", train_cli_phase(dev))
     _check_launches("train_cli_bf16", train_cli_phase(
         dev, T=BF16_CLI_STEPS, dtype_args=("--dtype", "bfloat16", "--bn_dtype",

@@ -29,8 +29,8 @@ class SDMConfig:
     max_cats: int = 13
     translation_params: int = 12
     max_objs: int = 9  # 8 scene objects + slot 0 = human
-    pcd_backbone_type: str = "PNT2"  # the port builds PNT2 only
-    human_backbone_type: str = "POSA"  # the port builds POSA only
+    pcd_backbone_type: str = "PNT2"  # "PNT2" | "DGCNN"
+    human_backbone_type: str = "POSA"  # "POSA" | "P2R" (the STGCN)
     # "auto" skips FPS where it would select every point (sa1 at N=1024);
     # "exact" always runs it
     fps_mode: str = "auto"

@@ -228,8 +228,11 @@ class DataLoader:
         stop = object()
 
         def producer():
-            for c in chunks:
-                q.put(self._make_batch(c))
+            try:
+                for c in chunks:
+                    q.put(self._make_batch(c))
+            except Exception as e:  # raised in the consumer, not lost with the thread
+                q.put(e)
             q.put(stop)
 
         t = threading.Thread(target=producer, daemon=True)
@@ -238,4 +241,6 @@ class DataLoader:
             item = q.get()
             if item is stop:
                 break
+            if isinstance(item, Exception):
+                raise item
             yield item

@@ -16,8 +16,14 @@ Reference quirks reproduced on purpose (trained weights depend on them):
     object and feature axes in row-major order instead of transposing;
   * ``OutputProcess`` ends in GELU and ``predict_cat`` in Softmax.
 
-Module and parameter names follow the reference ``state_dict``.  Only the
-PointNet++ object backbone and the POSA human backbone are built.
+Module and parameter names follow the reference ``state_dict``.  The
+object backbone is PointNet++ or, with ``pcd_backbone_type="DGCNN"``,
+``models/dgcnn.py``; the human backbone POSA's decoder or, with
+``human_backbone_type="P2R"``, the STGCN of ``models/stgcn.py``, which
+normalises with batch statistics in training as the object backbone does
+(JAX ``models/sdm.py:96-118,180-183``).  ``ball_impl`` and ``bn_dtype``
+select among PointNet++'s paths only; ``pcd_attention`` takes K4 (K5) by
+its own gates whatever the backbones.
 ``cfg.dtype`` "bfloat16" computes in bf16 over float32 parameters with the
 JAX module's casts (``lsdm_tpu/models/sdm.py:71-152``): every submodule in
 that dtype, ``cfg.bn_dtype`` for the backbone's BatchNorms, the category
@@ -43,8 +49,10 @@ from lsdm_tpu_torch.diffusion.gaussian import DenoiserOutput
 from lsdm_tpu_torch.models.common import (
     InputProcess, OutputProcess, PositionalEncoding, TimestepEmbedder,
     compute_dtype, mlp)
+from lsdm_tpu_torch.models.dgcnn import DGCNN
 from lsdm_tpu_torch.models.pointnet2 import PointNet2Backbone
 from lsdm_tpu_torch.models.posa import POSADecoderBackbone
+from lsdm_tpu_torch.models.stgcn import STGCN
 from lsdm_tpu_torch.ops.attention import TorchMultiheadAttention, wide
 
 
@@ -59,10 +67,6 @@ class CondCache(NamedTuple):
 class SceneDiffusionModel(nn.Module):
     def __init__(self, cfg: SDMConfig):
         super().__init__()
-        if cfg.pcd_backbone_type != "PNT2" or cfg.human_backbone_type != "POSA":
-            raise NotImplementedError(
-                "only the PNT2 object backbone and the POSA human backbone "
-                "are ported (DGCNN/STGCN: ROADMAP.md queue 1 item 11)")
         self.cfg = cfg
         D = cfg.latent_dim
         N = cfg.pcd_points
@@ -81,13 +85,21 @@ class SceneDiffusionModel(nn.Module):
         self.pcd_attention = TorchMultiheadAttention(
             cfg.translation_params, cfg.translation_params,
             kdim=cfg.xyz_dim, vdim=cfg.xyz_dim, dtype=dt)
-        self.pcd_backbone = PointNet2Backbone(
-            out_dim=cfg.pcd_dim,
-            sa_npoints=(N, max(N // 4, 4), max(N // 16, 2), max(N // 64, 1)),
-            sa_nsample=min(32, N), fps_mode=cfg.fps_mode,
-            ball_impl=cfg.ball_impl, dtype=dt,
-            bn_dtype=compute_dtype(cfg.bn_dtype))
-        self.human_backbone = POSADecoderBackbone(cfg.vert_dims, N, dtype=dt)
+        if cfg.pcd_backbone_type == "DGCNN":
+            self.pcd_backbone = DGCNN(emb_dims=cfg.clip_dim,
+                                      output_channels=N * cfg.xyz_dim, dtype=dt)
+        else:
+            self.pcd_backbone = PointNet2Backbone(
+                out_dim=cfg.pcd_dim,
+                sa_npoints=(N, max(N // 4, 4), max(N // 16, 2), max(N // 64, 1)),
+                sa_nsample=min(32, N), fps_mode=cfg.fps_mode,
+                ball_impl=cfg.ball_impl, dtype=dt,
+                bn_dtype=compute_dtype(cfg.bn_dtype))
+        if cfg.human_backbone_type == "P2R":
+            self.human_backbone = STGCN(joint_num=N, out_channels=N * cfg.xyz_dim,
+                                        dtype=dt)
+        else:
+            self.human_backbone = POSADecoderBackbone(cfg.vert_dims, N, dtype=dt)
         self.upsampling_layer = mlp(1, (128, 512, N), "gelu", dt)
         self.combine_extraction = mlp(2 * D, (D,), "gelu", dt)
         self.input_process = InputProcess(cfg.xyz_dim, D, dt)
@@ -105,8 +117,9 @@ class SceneDiffusionModel(nn.Module):
     ) -> CondCache:
         """Reference ``model/sdm.py`` :145-161 (text/category embeddings,
         category head) and :169-204 (backbones, attentions, translation).
-        ``dropout_mask`` / ``generator``: the backbone head's dropout in
-        training (``PointNet2Backbone.forward``)."""
+        ``dropout_mask`` / ``generator``: the object backbone's dropout in
+        training (``PointNet2Backbone.forward``: one keep-mask;
+        ``DGCNN.forward``: a pair)."""
         cfg = self.cfg
         B, num_obj, num_points, xyz = given_objs.shape
         D = cfg.latent_dim
@@ -119,7 +132,7 @@ class SceneDiffusionModel(nn.Module):
         out_cat = torch.softmax(wide(self.predict_cat(enc_text.detach())), dim=2)
         emb_cat = self.embed_cat(given_cats)  # (B, num_obj, cat_emb)
 
-        hm_out = self.human_backbone(given_objs[:, 0])  # (B, N, 3)
+        hm_out = self.human_backbone(given_objs[:, 0].detach())  # (B, N, 3)
         objs_flat = given_objs.reshape(B * num_obj, num_points, xyz).contiguous()
         pcd_out = self.pcd_backbone(objs_flat, dropout_mask, generator)
         pcd_out = pcd_out.reshape(B, num_obj, num_points * cfg.pcd_dim)

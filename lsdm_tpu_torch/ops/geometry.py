@@ -60,13 +60,23 @@ def read_sdf(vertices: torch.Tensor, sdf_grid: torch.Tensor,
     D = sdf_grid.shape[0]
     coords = (vertices - grid_min) / (grid_max - grid_min) * (D - 1)
     coords = torch.clamp(coords, 0, D - 1)         # padding_mode='border'
+    return trilinear(coords, sdf_grid)
+
+
+def trilinear(coords: torch.Tensor, sdf_grid: torch.Tensor) -> torch.Tensor:
+    """Trilinear sample of ``sdf_grid`` (D, D, D) at grid coordinates
+    (..., 3) within [0, D - 1]: the 8 corners in
+    ``jax.scipy.ndimage.map_coordinates(order=1, mode="nearest")``'s order,
+    each weight the product of its three axis weights, summed corner after
+    corner.  Differentiable in ``coords``."""
+    D = sdf_grid.shape[0]
     lo = torch.floor(coords)
     frac = coords - lo
     lo = lo.long()
     hi = torch.clamp(lo + 1, max=D - 1)
     flat = sdf_grid.reshape(-1)
-    out = torch.zeros(vertices.shape[:-1], dtype=sdf_grid.dtype,
-                      device=vertices.device)
+    out = torch.zeros(coords.shape[:-1], dtype=sdf_grid.dtype,
+                      device=coords.device)
     for corner in range(8):
         idx, w = [], torch.ones_like(out)
         for axis in range(3):

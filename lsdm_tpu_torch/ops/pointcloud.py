@@ -27,7 +27,8 @@ from lsdm_tpu_torch.ops.fps import (
     farthest_point_sample_kernel, farthest_point_sample_plain)
 
 __all__ = ["square_distance", "index_points", "farthest_point_sample",
-           "query_ball_point", "three_nn_interpolate", "chamfer_distance"]
+           "query_ball_point", "three_nn_interpolate", "chamfer_distance",
+           "knn"]
 
 IMPLS = ("pallas", "topk")
 
@@ -124,6 +125,34 @@ def three_nn_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
     weight = dist_recip / dist_recip.sum(dim=2, keepdim=True)
     gathered = index_points(points2, idx)  # (B, N, k, C)
     return (gathered * weight[..., None]).sum(dim=2)
+
+
+def knn(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices (B, N, k) int64 of each row's k nearest rows of x (B, N, C)
+    by squared distance, self included (reference
+    ``model/pcd_backbone/dgcnn.py:21-27``; JAX ``ops/pointcloud.py:knn``,
+    ``lax.top_k`` of the negated distances).  The distances are the JAX
+    function's expansion ``-2 x.y + |x|^2 + |y|^2`` (``Precision.HIGHEST``):
+    three channels through :func:`square_distance`, elementwise and
+    bit-stable, wider features through one batched product with TF32 off
+    (its 10-bit mantissa would reorder near neighbours).  Ties go to the
+    lowest index, as ``lax.top_k``'s do: a stable sort of each row
+    (``torch.topk`` does not promise an order among ties, and a cloud of
+    equal points, an empty object slot, ties every distance).  Not
+    differentiable."""
+    with torch.no_grad():
+        if x.shape[-1] == 3:
+            d = square_distance(x, x)
+        else:
+            tf32 = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+            try:
+                d = -2.0 * torch.bmm(x, x.transpose(1, 2))
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+            sq = (x * x).sum(-1)
+            d = (d + sq[:, :, None]) + sq[:, None, :]
+        return torch.sort(d, dim=-1, stable=True).indices[..., :k]
 
 
 def chamfer_distance(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

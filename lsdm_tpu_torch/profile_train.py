@@ -3,6 +3,7 @@
     python -m lsdm_tpu_torch.profile_train [--batch 6] [--steps 5]
         [--configs default attn_xla sg chamfer_pallas]
         [--dtype float32 bfloat16] [--bn_dtype float32 bfloat16]
+        [--human_backbone POSA|P2R]
 
 Builds ``sdm_proxd()`` with seeded random weights and trains it on a
 seeded random batch (``--batch`` scenes of ``max_objs`` clouds of 1024
@@ -14,6 +15,9 @@ points, fp32, T=1000 cosine) with the train step of
 * ``attn_xla``: the same with the composed attention (``--attn_impl xla``);
 * ``sg``: ``--ball_impl sg`` (K10 in the SA stages);
 * ``chamfer_pallas``: the default with the K11 chamfer loss.
+
+``--human_backbone`` overrides the human tower, as the JAX package's
+``tools/bench_train.py --human_backbone`` does (P2R: the STGCN).
 
 Each configuration runs at every compute precision asked for: float32,
 and for ``--dtype bfloat16`` each ``--bn_dtype`` (bf16 compute over
@@ -85,9 +89,11 @@ def precisions(dtypes, bn_dtypes):
 
 
 def profile(batch: int, steps: int, seed: int, configs,
-            precs=(("float32", "float32"),)) -> dict:
+            precs=(("float32", "float32"),), human_backbone=None) -> dict:
     dev = torch.device("cuda", 0)
     cfg = sdm_proxd()
+    if human_backbone:
+        cfg = dataclasses.replace(cfg, human_backbone_type=human_backbone)
     schedule = make_schedule("cosine", 1000, device=dev)
     inputs = seeded_batch(cfg, batch, seed, dev)
     result = {"card": torch.cuda.get_device_name(0), "batch": batch,
@@ -159,6 +165,8 @@ def main(argv=None) -> int:
     ap.add_argument("--bn_dtype", nargs="+", default=["float32"],
                     choices=["float32", "bfloat16"],
                     help="the BatchNorms' dtypes of the bf16 runs")
+    ap.add_argument("--human_backbone", default=None, choices=["POSA", "P2R"],
+                    help="override the human tower (default: the config's, POSA)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: needs a CUDA device")
@@ -166,7 +174,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     print(json.dumps(profile(args.batch, args.steps, args.seed, args.configs,
-                             precisions(args.dtype, args.bn_dtype))))
+                             precisions(args.dtype, args.bn_dtype),
+                             args.human_backbone)))
     return 0
 
 

@@ -7,7 +7,10 @@ JAX ``params``/``batch_stats`` trees (as numpy arrays) into the port's
 ``state_dict``, whose keys are the reference torch model's.  Flax Dense
 kernels (in, out) become (out, in) conv weights with trailing 1x1 dims,
 ``scale`` becomes ``weight`` and ``mean``/``var`` become
-``running_mean``/``running_var``.  :func:`load_adamw_state_from_optax`
+``running_mean``/``running_var``.  The DGCNN and STGCN backbones keep the
+JAX modules' names: their Dense kernels are transposed, their flax
+``Conv`` kernels (kh, kw, in, out) become (out, in, kh, kw) and their
+edge importances cross as they are.  :func:`load_adamw_state_from_optax`
 carries optax's Adam moments (``ScaleByAdamState``: mu, nu, count) over
 to ``torch.optim.AdamW``'s state, so both optimizers can start from the
 same point.
@@ -30,6 +33,7 @@ from torch import nn
 
 from lsdm_tpu_torch.models.common import PositionalEncoding
 from lsdm_tpu_torch.models.pointnet2 import Conv1x1
+from lsdm_tpu_torch.models.stgcn import TemporalConv
 from lsdm_tpu_torch.ops.attention import TorchMultiheadAttention
 
 
@@ -41,7 +45,8 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     Linear and 1x1 conv weights and biases draw U(-1/sqrt(fan_in),
     1/sqrt(fan_in)) as torch's defaults do; attention projections are
     Xavier-uniform with zero in-projection bias; norms start at unit scale
-    and zero shift with zero-mean, unit-variance running statistics.
+    and zero shift with zero-mean, unit-variance running statistics; the
+    STGCN's edge importances keep their initial ones, as flax's do.
     """
     g = torch.Generator().manual_seed(seed)
 
@@ -49,10 +54,11 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
         t.copy_((torch.rand(t.shape, generator=g) * 2 - 1) * bound)
 
     for m in model.modules():
-        if isinstance(m, (nn.Linear, Conv1x1)):
+        if isinstance(m, (nn.Linear, Conv1x1, TemporalConv)):
             bound = m.weight[0].numel() ** -0.5
             uniform_(m.weight, bound)
-            uniform_(m.bias, bound)
+            if m.bias is not None:
+                uniform_(m.bias, bound)
         elif isinstance(m, TorchMultiheadAttention):
             for w in (m.q_proj_weight, m.k_proj_weight, m.v_proj_weight):
                 uniform_(w, (6.0 / (w.shape[0] + w.shape[1])) ** 0.5)
@@ -83,6 +89,18 @@ def _conv(spatial_dims: int):
     return lambda v: v.T.reshape(v.shape[1], v.shape[0], *([1] * spatial_dims))
 
 
+def _kernel(v: np.ndarray) -> np.ndarray:
+    # flax Dense kernel (in, out) -> Linear weight (out, in); flax Conv
+    # kernel (kh, kw, in, out) -> torch conv weight (out, in, kh, kw)
+    return v.T if v.ndim == 2 else v.transpose(3, 2, 0, 1)
+
+
+# the DGCNN object backbone and the STGCN human backbone keep the JAX
+# modules' names: kernels are reordered, BatchNorm scales renamed
+_BACKBONE = (r"(pcd_backbone\.(?:conv\d|linear\d|bn[67])"
+             r"|human_backbone\.(?:pos_embed|sk_feat|st_gcn|conv_joint)\w*)")
+
+
 # (pattern on the dotted JAX path, replacement, value transform or None)
 _PARAM_RULES = (
     (r"embed_timestep\.time_embed_(\d)\.(weight|bias)",
@@ -107,6 +125,8 @@ _PARAM_RULES = (
     (r"pcd_backbone\.head\.bn\.bias", "pcd_backbone.bn1.bias", None),
     (r"pcd_backbone\.conv2\.kernel", "pcd_backbone.conv2.weight", _conv(1)),
     (r"pcd_backbone\.conv2\.bias", "pcd_backbone.conv2.bias", None),
+    (_BACKBONE + r"(\..+)?\.kernel", r"\1\2.weight", _kernel),
+    (_BACKBONE + r"(\..+)?\.scale", r"\1\2.weight", None),
     # MLPs, attentions, input/output process: the dotted path is the key
     (r"(.+)", r"\1", None),
 )
@@ -114,6 +134,7 @@ _STAT_RULES = (
     (r"pcd_backbone\.((?:sa|fp)\d)\.mlp_(\d)\.bn\.(mean|var)",
      r"pcd_backbone.\1.mlp_bns.\2.running_\3"),
     (r"pcd_backbone\.head\.bn\.(mean|var)", r"pcd_backbone.bn1.running_\1"),
+    (_BACKBONE + r"(\..+)?\.(mean|var)", r"\1\2.running_\3"),
 )
 
 

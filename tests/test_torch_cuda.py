@@ -1328,3 +1328,99 @@ def test_failed_bf16_build_raises_without_a_plain_fallback(dev, tmp_path, monkey
         sa_fused.sa_stage_fused_kernel(0.5, 8, xyz, xyz[:, :16].contiguous(), base,
                                        _layers(dev, (6, 16, 32)), torch.bfloat16)
     assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("fused_step", ["chain", "step"])
+def test_alternate_backbones_launch_no_pointnet2_kernel(dev, fused_step):
+    """A DGCNN + P2R model on CUDA tensors with the fused configuration:
+    K4 in ``pcd_attention`` and K6 (or K9) in the loop, and none of the
+    PointNet++ kernels (K1, K2, K3, K7, K8)."""
+    from lsdm_tpu_torch.config import SDMConfig
+    from lsdm_tpu_torch.diffusion.schedule import make_schedule
+    from lsdm_tpu_torch.models.sampling import sample_sdm
+    from lsdm_tpu_torch.models.sdm import SceneDiffusionModel
+    from lsdm_tpu_torch.weights import init_weights
+
+    cfg = SDMConfig(clip_dim=32, latent_dim=16, cat_emb=8, n_head=4, vert_dims=64,
+                    pcd_points=128, ball_impl="fused", pcd_backbone_type="DGCNN",
+                    human_backbone_type="P2R")
+    model = init_weights(SceneDiffusionModel(cfg), 0).to(dev).eval()
+    g = torch.Generator(device=dev).manual_seed(0)
+    mask = torch.zeros(2, 9, device=dev)
+    mask[:, 1:4] = 1.0
+    cats = torch.nn.functional.one_hot(
+        torch.randint(0, 13, (2, 9), generator=g, device=dev), 13).float()
+    args = (mask, torch.randn(2, 9, 128, 3, generator=g, device=dev), cats,
+            torch.randn(2, 32, generator=g, device=dev))
+    kernels.reset_launches()
+    sample, _ = sample_sdm(model, make_schedule("cosine", 4, device=dev), *args,
+                           generator=g, fused_step=fused_step)
+    torch.cuda.synchronize()
+    launched = {k: v + kernels.GRAPH_LAUNCHES[k] for k, v in kernels.LAUNCHES.items()}
+    loop = "denoise_chain" if fused_step == "chain" else "denoise_step"
+    assert launched["rank1_attn"] and launched[loop], launched
+    assert not any(launched[k] for k in ("ball_query", "three_nn", "fps", "sa_fused",
+                                         "fp_fused")), launched
+    assert torch.isfinite(sample).all()
+
+
+def test_knn_on_cuda_equals_the_cpu(dev):
+    """``knn`` on the card: the CPU's indices, ties to the lowest index
+    (an all-equal cloud, duplicated points, 64-channel features)."""
+    from lsdm_tpu_torch.ops.pointcloud import knn
+
+    x = _cloud(3, 4, 1024, 3)
+    x[1] = 0.0
+    x[2, 512:] = x[2, :512]
+    f = torch.randn(2, 1024, 64, generator=torch.Generator().manual_seed(4))
+    for t in (x, f):
+        assert torch.equal(knn(t.to(dev), 10).cpu(), knn(t, 10))
+
+
+def test_grid_search_and_refine_on_cuda_match_the_cpu(dev):
+    """The pose grid (4356 poses, chunked) and 50 Adam steps on the card
+    against the same calls on the CPU, on a 64^3 SDF."""
+    import numpy as np
+
+    from lsdm_tpu_torch.fitting import place_obj
+
+    rs = np.random.RandomState(0)
+    sdf = rs.rand(64, 64, 64).astype(np.float32) - 0.5
+    cen, ext = np.array([0.1, 0.2, 0.5], np.float32), np.array([2, 2, 1.5], np.float32)
+    obj = ((rs.rand(512, 3) - 0.5) * [0.6, 0.4, 0.8]).astype(np.float32)
+    con = ((rs.rand(300, 3) - 0.5) * 0.5 + [0.3, 0.1, 0.4]).astype(np.float32)
+    args = (obj, np.zeros(2, np.float32), con, sdf, cen, ext)
+    got = place_obj.grid_search(*args, device=dev, chunk=500)
+    want = place_obj.grid_search(*args)
+    assert got.points.device.type == "cuda"
+    assert abs(float(got.loss) - float(want.loss)) <= 1e-5 * abs(float(want.loss))
+    start = (obj, np.array([float(want.transl_x), float(want.transl_y)], np.float32),
+             float(want.rot_deg), con, sdf, cen, ext)
+    got = place_obj.refine_pose(*start, opt_steps=50, device=dev)
+    want = place_obj.refine_pose(*start, opt_steps=50)
+    assert abs(float(got.loss) - float(want.loss)) <= 1e-4 * abs(float(want.loss))
+    for name in ("rot", "transl_x", "transl_y"):
+        assert abs(float(getattr(got, name)) - float(getattr(want, name))) <= 1e-4
+
+
+def test_refine_pose_steps_never_wait_for_the_host(dev):
+    """The refinement's Adam steps and its best-so-far pose stay on the
+    card: no call in ``refine_pose`` synchronises with the host
+    (``torch.cuda.set_sync_debug_mode("error")``), its inputs on the card."""
+    import numpy as np
+
+    from lsdm_tpu_torch.fitting import place_obj
+
+    rs = np.random.RandomState(1)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    args = (t((rs.rand(256, 3) - 0.5) * 0.6), t([0.1, -0.2]), 30.0,
+            t((rs.rand(100, 3) - 0.5) * 0.5), t(rs.rand(32, 32, 32) - 0.5),
+            t([0.0, 0.0, 0.5]), t([2.0, 2.0, 1.5]))
+    place_obj.refine_pose(*args, opt_steps=3)  # warm-up: lazy inits
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = place_obj.refine_pose(*args, opt_steps=20)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out.loss.device.type == "cuda" and torch.isfinite(out.loss)

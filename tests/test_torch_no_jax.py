@@ -2,11 +2,13 @@
 
 A fresh interpreter imports every module of the port (``train/``,
 ``utils/logger.py``, ``run/train_sdm.py``, ``run/scene_edit.py``,
-``profile_train.py`` and the editing ops included) and ``chip_smoke.py``,
+``profile_train.py``, the editing ops, the DGCNN and STGCN backbones,
+``fitting/`` and the fitting CLIs included) and ``chip_smoke.py``,
 samples at a tiny size on the CPU with the composed and the fused encode,
 the chain and the step sampler, runs the ``test_sdm`` (both samplers),
 ``scene_edit`` (a keyword hit: ICP) and ``train_sdm`` entry points on a
-synthetic split and the editing metrics, and then must hold no ``jax``,
+synthetic split and the editing metrics, samples a DGCNN + P2R model, runs
+``fit_custom_obj`` and ``gen_human_meshes``, and then must hold no ``jax``,
 ``jaxlib``, ``flax`` or ``optax`` module, and nothing of the JAX package
 ``lsdm_tpu``.
 """
@@ -85,6 +87,33 @@ with tempfile.TemporaryDirectory() as d:
                     "--save_dir", os.path.join(d, "out"), "--device", "cpu",
                     "--pcd_points", "32", "--diffusion_steps", "2", "--epochs", "1",
                     "--batch_size", "2", "--ball_impl", "sg", "--attn_impl", "pallas"])
+# the alternate backbones: a DGCNN + P2R model samples on the chain
+alt = SceneDiffusionModel(dataclasses.replace(cfg, pcd_backbone_type="DGCNN",
+                                              human_backbone_type="P2R"))
+sample, _ = sample_sdm(init_weights(alt, 0).eval(), make_schedule("cosine", 3), mask,
+                       torch.randn(1, 9, 32, 3, generator=g), cats.float(),
+                       torch.randn(1, 32, generator=g), generator=g, fused_step="chain")
+assert sample.shape == (1, 32, 3) and torch.isfinite(sample).all()
+# the fitting CLIs: a box library, a short human sequence, a predicted cloud
+from lsdm_tpu_torch.fitting.meshio import write_obj
+from lsdm_tpu_torch.run import fit_custom_obj, gen_human_meshes
+with tempfile.TemporaryDirectory() as d:
+    os.makedirs(os.path.join(d, "lib", "table"))
+    box = np.array([[x, y, z] for x in (-0.3, 0.3) for y in (-0.2, 0.2)
+                    for z in (0.0, 0.7)], np.float32)
+    write_obj(os.path.join(d, "lib", "table", "box.obj"), box)
+    rs = np.random.RandomState(0)
+    np.save(os.path.join(d, "verts.npy"), rs.rand(8, 64, 3).astype(np.float32))
+    np.save(os.path.join(d, "pred.npy"), rs.rand(40, 3).astype(np.float32))
+    res = fit_custom_obj.main(["--file_name", os.path.join(d, "pred.npy"),
+                               "--label", "table", "--vertices_path",
+                               os.path.join(d, "verts.npy"), "--obj_lib",
+                               os.path.join(d, "lib"), "--output_dir",
+                               os.path.join(d, "fit"), "--sdf_dim", "16",
+                               "--device", "cpu"])
+    assert res and np.isfinite(res[0]["loss"]), res
+    gen_human_meshes.main(["--vertices_path", os.path.join(d, "verts.npy"),
+                           "--output_dir", os.path.join(d, "meshes")])
 frameworks = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
 assert not frameworks, frameworks

@@ -64,17 +64,28 @@ def _jax_variables(port_model, seed, prefix=""):
 
 @pytest.fixture
 def keep_mask(monkeypatch):
-    """Make flax's Dropout apply a given keep-mask: returns a setter."""
+    """Make flax's Dropout apply given keep-masks: returns a setter that
+    takes one mask, applied by every call, or a list, one mask a call in
+    call order (DGCNN's head drops out twice).  A Dropout of rate 0 (the
+    STGCN blocks') passes its input through, as flax's does."""
     box = {}
 
     def call(self, inputs, deterministic=None, rng=None):
-        if deterministic or (deterministic is None and self.deterministic):
+        if (self.rate == 0.0 or deterministic
+                or (deterministic is None and self.deterministic)):
             return inputs
-        assert box["mask"].shape == inputs.shape
-        return jnp.where(box["mask"], inputs / (1.0 - self.rate), 0.0)
+        mask = box["mask"]
+        if isinstance(mask, list):
+            mask = box["calls"][box["n"] % len(mask)]
+            box["n"] += 1
+        assert mask.shape == inputs.shape
+        return jnp.where(mask, inputs / (1.0 - self.rate), 0.0)
+
+    def set_mask(m):
+        box.update(mask=m, calls=m, n=0)
 
     monkeypatch.setattr(fnn.Dropout, "__call__", call)
-    return lambda m: box.__setitem__("mask", m)
+    return set_mask
 
 
 def _check_grads(got, want, what):
