@@ -161,6 +161,19 @@ Run from the repository root:  python3 chip_smoke.py
    (or, where the picks differ, losses within FIT_GRID_RTOL), refined
    losses within FIT_REFINE_RTOL and poses within FIT_REFINE_ATOL.
    Prints the card's ms per grid search and per refinement.
+16b. ContactFormer (``contactformer_phase``; no port kernel may launch):
+   each decoder mode 0-4 at ``train_contactformer``'s widths (d_hid 512,
+   6 + 6 layers, 8 heads) over CF_FRAMES frames of the synthetic 655-vertex
+   body, on the card against the same weights and noise on the CPU
+   (CF_RTOL), timed; one Adam step of mode 1 against the CPU at
+   CF_TRAIN_FRAMES frames, in float32 and in float64 (CF_GRAD_RTOL,
+   CF_F64_RTOL); CF_STEPS timed steps at
+   CF_FRAMES with their peak memory; ``train_contactformer`` for 2 epochs of
+   2 steps on the card over a synthetic contact split.
+16c. ``lsdm_tpu_torch.run.predict_contact`` on a synthetic proxd test split
+   (4 sequences x 1024 points, batch 2, T=1000) on the card: 4 finite
+   predictions, and the fused path's kernels (K3, K7, K8, K4, K6; no K1, K2
+   or K9); the sampling's ms per scene.
 17. Prints one JSON line of kernel records, then, as its last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -306,6 +319,38 @@ FIT_SDF_DIM = 256
 FIT_GRID_RTOL = 1e-5
 FIT_REFINE_RTOL = 1e-4
 FIT_REFINE_ATOL = 3e-3
+# ContactFormer (contactformer_phase, no port kernel: the JAX model reaches
+# no Pallas kernel) on the card against the same weights and noise on the
+# CPU, TF32 off: float32 sums in another order through the POSA VAE and the
+# temporal decoder.  Bound: |card - CPU| <= CF_RTOL * max(1, |CPU|) on the
+# logits, mu and logvar of each decoder mode.  H100 reading (NVIDIA H100
+# 80GB HBM3, 700 W) at 256 frames: 1.65e-6 to 2.38e-6.
+CF_RTOL = 1e-5
+# Its train step (mode 1, CF_TRAIN_FRAMES frames) on the card against the
+# CPU, TF32 off.  In float32 the loss and the parameters by the train
+# step's gates (TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL) and each gradient leaf's
+# 2-norm distance over its 2-norm (a leaf below 1e-3 of the largest leaf
+# norm measured against that floor) within CF_GRAD_RTOL.  Some of these
+# gradients are sums of cancelling terms, whose float32 value depends on
+# the order of the sum: against the CPU's float64 gradients
+# (profile_contact.py --grad_check, NVIDIA H100 80GB HBM3, 700 W) the
+# card's float32 ones lie 1.8e-4 away in mode 1 and 1.3e-6 in mode 4, the
+# CPU's 1.3e-6 in mode 1 and 1.0e-3 in mode 4.  H100 reading of the mode-1
+# check: 1.80e-4 on posa.encoder.en_log_var.weight; with TF32 products
+# 6.9e-2 (tests/test_torch_cuda.py).  In float64 the card's gradients lie
+# within 1.6e-14 of the CPU's, so the step itself is the same: float64 is
+# held to CF_F64_RTOL.  The parameters are compared where the gradient
+# exceeds CF_PARAM_CUT of its leaf's max (train_step_check's cut is
+# 1e-4): a smaller gradient may change sign between the two, and Adam's
+# first step moves an entry by about lr either way (1.0e-5 read with the
+# 1e-4 cut).
+CF_GRAD_RTOL = 5e-4
+CF_PARAM_CUT = 1e-3
+CF_F64_RTOL = 1e-12
+CF_FRAMES = 256  # seg_len = --max_frame, train_contactformer's default
+CF_TRAIN_FRAMES = 32  # the train step compared with the CPU (the CPU's time)
+CF_REPS = 5  # forwards timed per decoder mode
+CF_STEPS = 3  # timed train steps at CF_FRAMES, after one warm-up step
 # K9 against its plain version, one step: float32 sums in another order
 # (FMA loops against cuBLAS) and erff against torch's erf.  H100 reading
 # 2.4e-07 at b1 and b8, clip off and on.
@@ -2513,6 +2558,225 @@ def fitting_phase(dev, sdf_dim: int = FIT_SDF_DIM) -> dict:
     return ms
 
 
+def contactformer_step_check(dev, frames: int = CF_TRAIN_FRAMES,
+                             dtype: str = "float32", mode: int = 1,
+                             cpu_dtype: str = "") -> dict:
+    """One Adam step of decoder ``mode`` (1, the trainer's default) at
+    ``frames`` frames in ``dtype`` on ``dev`` and in ``cpu_dtype`` (else
+    ``dtype``) on the CPU from the same weights and noise.  Returns the {loss, grad, param} errors and the
+    worst leaves: the loss relative to the CPU's, each gradient leaf's
+    2-norm distance over its 2-norm (no less than 1e-3 of the largest leaf
+    norm), the parameters where the gradient exceeds CF_PARAM_CUT of its
+    leaf's max (float32) or CF_F64_RTOL (float64): an attention's key bias
+    has a gradient that is zero in exact arithmetic, and Adam's first step
+    moves an entry by about lr whatever its size, as ``train_step_check``
+    has it."""
+    import torch
+
+    from lsdm_tpu_torch.profile_contact import contact_inputs
+    from lsdm_tpu_torch.train.contact import contact_train_step
+
+    runs = []
+    for d, dt in ((torch.device("cpu"), getattr(torch, cpu_dtype or dtype)),
+                  (dev, getattr(torch, dtype))):
+        model, inputs, eps = contact_inputs(mode, frames, SEED)
+        model.to(d, dt).train()
+        opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+        loss, _, _ = contact_train_step(model, opt, *(t.to(d, dt) for t in inputs),
+                                        1e-3, eps=eps.to(d, dt))
+        runs.append((float(loss), {n: (p.grad.cpu(), p.detach().cpu())
+                                   for n, p in model.named_parameters()
+                                   if p.grad is not None}))
+    (loss_c, want), (loss_d, got) = runs
+    cut = CF_PARAM_CUT if dtype == "float32" else CF_F64_RTOL
+    errs = {"loss": abs(loss_d - loss_c) / abs(loss_c), "grad": 0.0, "param": 0.0,
+            "worst": {}}
+    floor = 1e-3 * max(float(g.norm()) for g, _ in want.values())
+    for n, (g, p) in want.items():
+        e = float((got[n][0] - g).norm()) / max(float(g.norm()), floor)
+        if e > errs["grad"]:
+            errs["grad"], errs["worst"]["grad"] = e, n
+        real = g.abs() > cut * g.abs().max()
+        if real.any():
+            e = float((got[n][1] - p)[real].abs().max())
+            if e > errs["param"]:
+                errs["param"], errs["worst"]["param"] = e, n
+    return errs
+
+
+def _step_gates(dtype: str) -> tuple:
+    """(loss, grad, param) bounds of ``contactformer_step_check``."""
+    return ((TRAIN_LOSS_RTOL, CF_GRAD_RTOL, TRAIN_PARAM_ATOL) if dtype == "float32"
+            else (CF_F64_RTOL, CF_F64_RTOL, CF_F64_RTOL))
+
+
+def contactformer_phase(dev, frames: int = CF_FRAMES,
+                        train_frames: int = CF_TRAIN_FRAMES) -> dict:
+    """Phase 16b: ContactFormer at full width.  Each decoder mode 0-4 forward
+    at ``frames`` frames on the card against the CPU (CF_RTOL), timed; one
+    Adam step of mode 1 against the CPU at ``train_frames`` frames in
+    float32 and in float64 (``_step_gates``); CF_STEPS timed steps at ``frames`` with their peak memory; then
+    ``train_contactformer`` for 2 epochs of 2 steps on ``dev`` over a
+    synthetic contact split.  No port kernel may launch.  Returns the
+    card's figures."""
+    import numpy as np
+    import torch
+
+    from lsdm_tpu_torch.profile_contact import contact_inputs
+    from lsdm_tpu_torch.run import train_contactformer
+    from lsdm_tpu_torch.train.contact import contact_train_step
+
+    before = _launches()
+    out = {"forward_ms": {}, "forward_err": {}}
+    for mode in range(5):
+        model, inputs, eps = contact_inputs(mode, frames, SEED)
+        with torch.no_grad():
+            want = model.eval()(*inputs, eps=eps)
+            args = [t.to(dev) for t in (*inputs, eps)]
+            model.to(dev)
+            got = model(*args)
+            err = max(float(((g.cpu() - w).abs() / w.abs().clamp(min=1.0)).max())
+                      for g, w in zip(got, want))
+            ms = _time_ms(lambda: model(*args), CF_REPS, dev)
+        out["forward_ms"][mode], out["forward_err"][mode] = ms, err
+        print(f"ContactFormer mode {mode} forward, {frames} frames x 655 vertices: "
+              f"{ms:.3f} ms; max |card - CPU| / max(1, |CPU|) {err:.3g} "
+              f"(tolerance {CF_RTOL})")
+        if not all(torch.isfinite(g).all() for g in got) or err > CF_RTOL:
+            raise AssertionError(f"ContactFormer mode {mode} on the card disagrees "
+                                 "with the CPU")
+        del model, got
+    for dtype in ("float32", "float64"):
+        errs = contactformer_step_check(dev, train_frames, dtype)
+        gates = _step_gates(dtype)
+        print(f"ContactFormer mode 1 train step in {dtype}, {train_frames} frames: "
+              f"card against the CPU {errs} (tolerances loss, grad, param {gates})")
+        if any(errs[k] > gate for k, gate in zip(("loss", "grad", "param"), gates)):
+            raise AssertionError(f"the ContactFormer train step in {dtype} on the card "
+                                 "disagrees with the CPU")
+    model, inputs, _ = contact_inputs(1, frames, SEED)
+    model.to(dev).train()
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+    args = [t.to(dev) for t in inputs]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    ms = []
+    for i in range(CF_STEPS + 1):
+        if i == 1:
+            peak = _reset_peak(dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        loss, _, _ = contact_train_step(model, opt, *args, 1e-3, generator=g)
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out["step_ms"], out["peak_gib"] = ms[1:], peak()
+    print(f"ContactFormer mode 1 train step, {frames} frames x 655 vertices: ms/step "
+          f"{[round(x, 3) for x in ms[1:]]} (warm-up {ms[0]:.1f}), peak memory "
+          f"{out['peak_gib']:.2f} GiB, loss {float(loss):.5f}")
+    del model, opt, args
+    with tempfile.TemporaryDirectory() as root:
+        data = contact_split(os.path.join(root, "data"), n_seqs=2,
+                             frames=frames * 8 + 52, seed=SEED)
+        save = os.path.join(root, "out")
+        t0 = time.perf_counter()
+        res = train_contactformer.main([
+            "--train_data_dir", data, "--mesh_ds_dir", os.path.join(root, "none"),
+            "--save_dir", save, "--epochs", "2", "--steps_per_epoch", "2",
+            "--max_frame", str(frames), "--device", str(dev)])
+        sec = time.perf_counter() - t0
+        with open(os.path.join(save, "logs", "events.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        losses = [e["train/loss"] for e in logged if "train/loss" in e]
+        if (not os.path.exists(os.path.join(save, "best_model_recon_acc.pt"))
+                or len(losses) != 2 or not np.isfinite(losses).all()):
+            raise AssertionError(f"train_contactformer wrote no checkpoint or "
+                                 f"non-finite logs: {res}, {losses}")
+    print(f"CLI train_contactformer, 2 epochs of 2 steps at --max_frame {frames}: "
+          f"{res}; {sec:.1f} s")
+    if _launches() != before:
+        raise AssertionError(f"the ContactFormer phase launched a port kernel: "
+                             f"{before} -> {_launches()}")
+    return out
+
+
+def predict_contact_phase(dev, T: int = T_STEPS) -> tuple:
+    """Phase 16c: ``predict_contact`` on a synthetic proxd test split of 4
+    sequences at 1024 points, batch 2, T steps, on ``dev``: 4 finite
+    (1024, 3) float32 files under ``predictions/``.  Returns (the launch
+    counts of the run, the sampling's ms per scene by batch)."""
+    import numpy as np
+
+    from lsdm_tpu_torch import kernels
+    from lsdm_tpu_torch.data.synthetic import generate
+    from lsdm_tpu_torch.run import predict_contact, test_sdm
+
+    sampled = []
+    sample_batch = test_sdm.sample_batch
+
+    def timed(s, batch, *args, **kw):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = sample_batch(s, batch, *args, **kw)
+        _sync(dev)
+        sampled.append((time.perf_counter() - t0) * 1e3 / len(batch.seq_names))
+        return out
+
+    test_sdm.sample_batch = timed
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            data = generate(root, "proxd", n_scenes=1, n_seqs=4, pnt_size=1024,
+                            seed=SEED, split="test")
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            written = predict_contact.main([
+                data, "--objs_data_dir", os.path.join(root, "objs"), "--output_dir",
+                os.path.join(root, "out"), "--batch_size", "2", "--diffusion_steps",
+                str(T), "--device", str(dev)])
+            sec = time.perf_counter() - t0
+            launches = _launches()
+            names = sorted(os.listdir(os.path.join(root, "out", "predictions")))
+            if len(written) != 4 or len(names) != 4:
+                raise AssertionError(f"predict_contact wrote {names}, not 4 files")
+            for path in written:
+                a = np.load(path)
+                if a.shape != (1024, 3) or a.dtype != np.float32 or not np.isfinite(a).all():
+                    raise AssertionError(f"{path}: not a finite (1024, 3) float32 array")
+    finally:
+        test_sdm.sample_batch = sample_batch
+    print(f"CLI predict_contact, 4 synthetic sequences, batch 2, T={T}: {sec:.1f} s "
+          f"in all; sampling ms/scene by batch {[round(x, 1) for x in sampled]}; "
+          f"launches {launches}")
+    return launches, sampled
+
+
+def contact_split(root: str, n_seqs: int = 2, frames: int = 96, nv: int = 655,
+                  seed: int = SEED) -> str:
+    """A synthetic contact split under ``root`` (the layout of
+    ``data/contact_dataset.py``: ``vertices_can/<seq>verts_can.npy``,
+    ``vertices/<seq>verts.npy``, ``semantics/<seq>cfs.npy``): ``n_seqs``
+    sequences of ``frames`` frames of ``nv`` vertices, a body-sized cloud
+    swaying in its canonical frame and walking in the world frame, each
+    vertex's contact class (0-7) from its height and side.  Returns
+    ``root``."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    for sub in ("vertices_can", "vertices", "semantics"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for s in range(n_seqs):
+        body = (rs.rand(nv, 3) - 0.5) * [0.4, 0.3, 1.7] + [0.0, 0.0, 0.85]
+        t = np.arange(frames)[:, None, None] / frames
+        can = body[None] + 0.03 * np.sin(2 * np.pi * t + body[None, :, :1])
+        world = can + t * [2.0, 1.0, 0.0] + rs.randn(1, 1, 3) * [1.0, 1.0, 0.0]
+        cls = np.clip((can[..., 2] * 4).astype(np.int64), 0, 3) + 4 * (can[..., 0] > 0)
+        name = f"seq{s}_"
+        np.save(os.path.join(root, "vertices_can", name + "verts_can.npy"),
+                can.astype(np.float32))
+        np.save(os.path.join(root, "vertices", name + "verts.npy"),
+                world.astype(np.float32))
+        np.save(os.path.join(root, "semantics", name + "cfs.npy"), cls.astype(np.int64))
+    return root
+
+
 def _check_launches(path: str, launches: dict) -> None:
     for name in PATH_KERNELS[path]:
         if launches[name] < 1:
@@ -2708,6 +2972,9 @@ def main() -> int:
               f"{f32[1]:.2f} GiB")
     launches.update(backbones_phase(dev))
     fitting_phase(dev)
+    contactformer_phase(dev)
+    path_launches, _ = predict_contact_phase(dev)
+    _check_launches("fused", path_launches)
     _check_launches("train_cli", train_cli_phase(dev))
     _check_launches("train_cli_bf16", train_cli_phase(
         dev, T=BF16_CLI_STEPS, dtype_args=("--dtype", "bfloat16", "--bn_dtype",

@@ -1,8 +1,7 @@
 """Mesh / point-cloud IO and surface sampling — no open3d/trimesh.
 
-A copy of ``lsdm_tpu/fitting/meshio.py`` with its OBJ reader,
-``lsdm_tpu/ops/spiral.py:load_obj``, copied in (importing the JAX
-package's ``ops`` imports jax).
+A copy of ``lsdm_tpu/fitting/meshio.py``; its OBJ reader is the port's
+``ops/spiral.py:load_obj``, as the JAX module's is ``lsdm_tpu/ops/spiral.py``'s.
 
 Replaces the reference's mesh utilities (``utils.py``): OBJ/PLY read/write
 (``write_verts_faces_obj`` ``utils.py:340``), mesh merging (``:312``),
@@ -18,22 +17,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-
-
-# copied from lsdm_tpu/ops/spiral.py:load_obj
-def load_obj(path: str) -> Tuple[np.ndarray, np.ndarray]:
-    """Minimal OBJ loader (v / f lines only) — replaces trimesh for the
-    template meshes in ``mesh_ds/mesh_{0..5}.obj``."""
-    verts: List[List[float]] = []
-    faces: List[List[int]] = []
-    with open(path) as f:
-        for line in f:
-            if line.startswith("v "):
-                verts.append([float(x) for x in line.split()[1:4]])
-            elif line.startswith("f "):
-                idx = [int(tok.split("/")[0]) - 1 for tok in line.split()[1:4]]
-                faces.append(idx)
-    return np.asarray(verts, np.float64), np.asarray(faces, np.int32)
+from lsdm_tpu_torch.ops.spiral import load_obj
 
 
 def write_obj(path: str, verts: np.ndarray, faces: Optional[np.ndarray] = None):

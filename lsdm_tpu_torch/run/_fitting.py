@@ -1,31 +1,8 @@
-"""What the fitting CLIs share: the device flag and the human surface."""
+"""What the fitting CLIs share: the human surface."""
 
 from __future__ import annotations
 
-import argparse
-
 import numpy as np
-import torch
-
-from lsdm_tpu_torch.run import jax_flags
-
-
-def add_device(ap: argparse.ArgumentParser) -> None:
-    """``--platform`` (refused) and ``--device`` (cuda by default)."""
-    jax_flags.add(ap, "platform")
-    ap.add_argument("--device", default="cuda",
-                    help="torch device of the pose search and refinement; "
-                         "'cpu' must be asked for explicitly")
-
-
-def device(args: argparse.Namespace, prog: str) -> torch.device:
-    """The device the CLI computes on; no silent CPU run."""
-    jax_flags.refuse(args, "platform")
-    dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"{prog}: no CUDA device; pass --device cpu to run on "
-                         "the CPU")
-    return dev
 
 
 def human_surface(verts_seq: np.ndarray, faces) -> np.ndarray:

@@ -15,7 +15,7 @@ import argparse
 import os
 from typing import Optional, Sequence
 
-from lsdm_tpu_torch.run import _fitting
+from lsdm_tpu_torch.run import jax_flags
 
 
 def main(argv: Optional[Sequence[str]] = None) -> float:
@@ -26,9 +26,9 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
     ap.add_argument("--objs_data_dir", default=None)
     ap.add_argument("--datatype", default="proxd", choices=["proxd", "humanise"])
     ap.add_argument("--threshold", type=float, default=0.1)
-    _fitting.add_device(ap)
+    jax_flags.add_device(ap)
     args = ap.parse_args(argv)
-    dev = _fitting.device(args, "custom_collision")
+    dev = jax_flags.device(args, "custom_collision")
 
     import numpy as np
     import torch

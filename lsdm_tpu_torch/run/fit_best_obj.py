@@ -19,7 +19,7 @@ import argparse
 import os
 from typing import List, Optional, Sequence
 
-from lsdm_tpu_torch.run import _fitting
+from lsdm_tpu_torch.run import _fitting, jax_flags
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
@@ -33,9 +33,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     ap.add_argument("--output_dir", default="fitting_results")
     ap.add_argument("--sdf_dim", type=int, default=256)
     ap.add_argument("--down_sample", type=int, default=8)
-    _fitting.add_device(ap)
+    jax_flags.add_device(ap)
     args = ap.parse_args(argv)
-    dev = _fitting.device(args, "fit_best_obj")
+    dev = jax_flags.device(args, "fit_best_obj")
 
     import numpy as np
 

@@ -19,7 +19,7 @@ import argparse
 import os
 from typing import List, Optional, Sequence
 
-from lsdm_tpu_torch.run import _fitting
+from lsdm_tpu_torch.run import _fitting, jax_flags
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
@@ -35,9 +35,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     ap.add_argument("--sdf_dim", type=int, default=256)
     ap.add_argument("--down_sample", type=int, default=8)
     ap.add_argument("--floor_height", type=float, default=None)
-    _fitting.add_device(ap)
+    jax_flags.add_device(ap)
     args = ap.parse_args(argv)
-    dev = _fitting.device(args, "fit_custom_obj")
+    dev = jax_flags.device(args, "fit_custom_obj")
 
     import numpy as np
 

@@ -45,7 +45,7 @@ import json
 import os
 from typing import Optional, Sequence
 
-from lsdm_tpu_torch.run import _fitting
+from lsdm_tpu_torch.run import _fitting, jax_flags
 
 
 def sample_label_draws(probs, sample_count: int, seed: int = 0):
@@ -99,9 +99,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--sdf_dim", type=int, default=256)
     ap.add_argument("--down_sample", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
-    _fitting.add_device(ap)
+    jax_flags.add_device(ap)
     args = ap.parse_args(argv)
-    dev = _fitting.device(args, "fit_prob_obj")
+    dev = jax_flags.device(args, "fit_prob_obj")
 
     import numpy as np
 

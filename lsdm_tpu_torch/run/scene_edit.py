@@ -91,9 +91,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--bpe_path", default=None,
                     help="CLIP BPE merges file or directory (default: "
                          "$LSDM_TPU_CLIP_BPE, the vendored asset, the HF cache)")
-    jax_flags.add(ap, "platform")
-    ap.add_argument("--device", default="cuda",
-                    help="torch device; 'cpu' must be asked for explicitly")
+    jax_flags.add_device(ap)
     return ap.parse_args(argv)
 
 
@@ -120,15 +118,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Run the evaluation; returns the final metrics (and the mean ICP
     statistics when a keyword hit)."""
     args = parse_args(argv)
-    jax_flags.refuse(args, "platform")
     if args.load_model and not args.load_model.endswith(".pt"):
         raise SystemExit(f"--load_model {args.load_model}: only reference "
                          "torch .pt checkpoints load into the port (a flax "
                          ".ckpt needs the JAX package's scene_edit)")
-    dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("scene_edit: no CUDA device; pass --device cpu to run "
-                         "on the CPU")
+    dev = jax_flags.device(args, "scene_edit")
 
     from lsdm_tpu_torch import config as cfg_lib
     from lsdm_tpu_torch.checkpoint import load_torch_checkpoint

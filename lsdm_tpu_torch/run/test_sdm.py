@@ -29,7 +29,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -77,52 +77,55 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--clip_weights", default=None,
                     help="a torch CLIP text state dict (OpenAI or HF naming) "
                          "for --text_encoder CLIP")
-    jax_flags.add(ap, "platform")
-    ap.add_argument("--device", default="cuda",
-                    help="torch device; 'cpu' must be asked for explicitly")
+    jax_flags.add_device(ap)
     return ap.parse_args(argv)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> dict:
-    """Run the evaluation; returns the five final metrics."""
-    args = parse_args(argv)
-    if args.gather_bwd != "scatter":
-        raise SystemExit(f"--gather_bwd {args.gather_bwd} is not ported: "
-                         "one-hot matmul gathers are a TPU workaround "
-                         "(ROADMAP.md, 'Not ported'); the port's gathers are "
-                         "exact, as 'scatter'")
-    jax_flags.refuse(args, "platform")
+class Sampling(NamedTuple):
+    """What an SDM sampling entry point builds from its flags."""
+
+    model: torch.nn.Module
+    schedule: object
+    loader: object
+    text_encoder: object
+    fused_step: Optional[str]
+    timestep_map: Optional[torch.Tensor]
+
+
+def refuse_flax_checkpoint(args: argparse.Namespace, prog: str) -> None:
+    """Stop unless ``--load_model`` is empty or a torch ``.pt`` file."""
     if args.load_model and not args.load_model.endswith(".pt"):
         raise SystemExit(f"--load_model {args.load_model}: only reference "
                          "torch .pt checkpoints load into the port (a flax "
-                         ".ckpt needs the JAX package's test_sdm)")
-    dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("test_sdm: no CUDA device; pass --device cpu to run "
-                         "on the CPU")
+                         f".ckpt needs the JAX package's {prog})")
 
+
+def setup_sampling(args: argparse.Namespace, dev: torch.device) -> Sampling:
+    """The model (seeded, or ``--load_model``), the test split's loader, the
+    schedule and the text encoder for ``args``, on the fast path that
+    ``resolve_fast_path`` gives on ``dev``.  Flags an entry point lacks
+    take their defaults (``--pcd_points``, ``--ball_impl``,
+    ``--fused_step``, ``--timestep_respacing``, the CLIP flags)."""
     from lsdm_tpu_torch import config as cfg_lib
     from lsdm_tpu_torch.checkpoint import load_torch_checkpoint
     from lsdm_tpu_torch.data.dataset import DataLoader, Humanise, ProxDatasetTxt
     from lsdm_tpu_torch.diffusion.schedule import make_schedule, spaced_schedule
-    from lsdm_tpu_torch.models.sampling import resolve_fast_path, sample_sdm
+    from lsdm_tpu_torch.models.sampling import resolve_fast_path
     from lsdm_tpu_torch.models.sdm import SceneDiffusionModel
     from lsdm_tpu_torch.models.text import TextEncoder, resolve_text_encoder
-    from lsdm_tpu_torch.ops.metrics import emd, fscore, topk_accuracy
-    from lsdm_tpu_torch.ops.pointcloud import chamfer_distance
     from lsdm_tpu_torch.weights import clip_text_state_dict, init_weights
 
-    for sub in ("predictions", "guiding_points"):
-        os.makedirs(os.path.join(args.output_dir, sub), exist_ok=True)
+    def flag(name, default=None):
+        return getattr(args, name, default)
 
     model_cfg = (cfg_lib.sdm_proxd() if args.datatype == "proxd"
                  else cfg_lib.sdm_humanise())
-    if args.pcd_points:
+    if flag("pcd_points"):
         model_cfg = dataclasses.replace(
             model_cfg, pcd_points=args.pcd_points,
             vert_dims=min(model_cfg.vert_dims, args.pcd_points))
-    ball_impl, fused_step = resolve_fast_path(args.ball_impl, args.fused_step,
-                                              dev)
+    ball_impl, fused_step = resolve_fast_path(flag("ball_impl", "auto"),
+                                              flag("fused_step", "auto"), dev)
     model_cfg = dataclasses.replace(model_cfg, ball_impl=ball_impl)
     ds_cls = ProxDatasetTxt if args.datatype == "proxd" else Humanise
     objs_kw = {"objs_data_dir": args.objs_data_dir} if args.objs_data_dir else {}
@@ -130,21 +133,22 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                 pnt_size=model_cfg.pcd_points, **objs_kw)
     loader = DataLoader(ds, args.batch_size, shuffle=False)
 
-    if args.timestep_respacing:
-        schedule = spaced_schedule("cosine", args.diffusion_steps,
-                                   args.timestep_respacing, device=dev)
+    respacing = flag("timestep_respacing", "")
+    if respacing:
+        schedule = spaced_schedule("cosine", args.diffusion_steps, respacing,
+                                   device=dev)
     else:
         schedule = make_schedule("cosine", args.diffusion_steps, device=dev)
 
     clip_sd = None
-    if args.clip_weights:
+    if flag("clip_weights"):
         sd = torch.load(args.clip_weights, map_location="cpu", weights_only=False)
         clip_sd = clip_text_state_dict(sd.get("state_dict", sd))
         print(f"converted CLIP text tower: {args.clip_weights}")
-    encoder = resolve_text_encoder(args.text_encoder, args.bpe_path)
+    encoder = resolve_text_encoder(args.text_encoder, flag("bpe_path"))
     text_encoder = TextEncoder(
         encoder, dim=model_cfg.clip_dim, state_dict=clip_sd,
-        bpe_path=args.bpe_path, device=dev,
+        bpe_path=flag("bpe_path"), device=dev,
         # evaluating a checkpoint with a mismatched tokenizer silently
         # gives wrong numbers: refuse instead
         require_parity=bool(args.load_model) and encoder in ("CLIP", "BERT"))
@@ -158,23 +162,54 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         extra = load_torch_checkpoint(args.load_model, model)
         print(f"loaded torch checkpoint {args.load_model}: {extra}")
     model = model.to(dev).eval()
-    print(f"test_sdm: {len(ds)} sequences on {dev}, text_encoder={encoder}, "
-          f"ball_impl={ball_impl}, "
-          f"fused_step={fused_step}, T={schedule.num_timesteps}")
+    print(f"{len(ds)} sequences on {dev}, text_encoder={encoder}, "
+          f"ball_impl={ball_impl}, fused_step={fused_step}, "
+          f"T={schedule.num_timesteps}")
+    return Sampling(model, schedule, loader, text_encoder, fused_step,
+                    schedule.timestep_map if respacing else None)
+
+
+def sample_batch(s: Sampling, batch, generator: torch.Generator,
+                 use_ddim: bool = False, cond_chunk: Optional[int] = None):
+    """``sample_sdm`` over one loader batch on the model's device; returns
+    (sample (B, N, 3), the last step's DenoiserOutput)."""
+    from lsdm_tpu_torch.models.sampling import sample_sdm
+
+    dev = next(s.model.parameters()).device
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return sample_sdm(
+        s.model, s.schedule, put(batch.mask), put(batch.given_objs),
+        put(batch.given_cats), put(s.text_encoder.encode(batch.text)),
+        generator=generator, use_ddim=use_ddim, timestep_map=s.timestep_map,
+        cond_chunk=cond_chunk, fused_step=s.fused_step)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    """Run the evaluation; returns the five final metrics."""
+    args = parse_args(argv)
+    if args.gather_bwd != "scatter":
+        raise SystemExit(f"--gather_bwd {args.gather_bwd} is not ported: "
+                         "one-hot matmul gathers are a TPU workaround "
+                         "(ROADMAP.md, 'Not ported'); the port's gathers are "
+                         "exact, as 'scatter'")
+    refuse_flax_checkpoint(args, "test_sdm")
+    dev = jax_flags.device(args, "test_sdm")
+
+    from lsdm_tpu_torch.ops.metrics import emd, fscore, topk_accuracy
+    from lsdm_tpu_torch.ops.pointcloud import chamfer_distance
+
+    for sub in ("predictions", "guiding_points"):
+        os.makedirs(os.path.join(args.output_dir, sub), exist_ok=True)
+    s = setup_sampling(args, dev)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     chamfers, emds, f1s, accs, top3s, lines = [], [], [], [], [], []
-    for bi, batch in enumerate(loader):
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-        pred, last = sample_sdm(
-            model, schedule, put(batch.mask), put(batch.given_objs),
-            put(batch.given_cats), put(text_encoder.encode(batch.text)),
-            generator=gen, use_ddim=args.use_ddim,
-            timestep_map=schedule.timestep_map if args.timestep_respacing else None,
-            cond_chunk=args.cond_chunk, fused_step=fused_step)
-        target = put(batch.target_verts)
+    for bi, batch in enumerate(s.loader):
+        pred, last = sample_batch(s, batch, gen, args.use_ddim, args.cond_chunk)
+        target = torch.from_numpy(batch.target_verts).to(dev)
         nvalid = len(set(batch.seq_names))  # the padded tail repeats the last seq
         for i, seq in enumerate(batch.seq_names[:nvalid]):
             p, tgt = pred[i:i + 1], target[i:i + 1]
@@ -182,7 +217,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             chamfers.append(cfd)
             emds.append(emd(p, tgt))
             f1s.append(float(fscore(p[0], tgt[0], 0.1)[0]))
-            tcat = put(batch.target_cat[i:i + 1]).argmax(dim=1)
+            tcat = torch.from_numpy(batch.target_cat[i:i + 1]).to(dev).argmax(dim=1)
             probs = last.cat[i:i + 1, 0, :]
             (top1,) = topk_accuracy(probs, tcat, (1,))
             (top3,) = topk_accuracy(probs, tcat, (3,))

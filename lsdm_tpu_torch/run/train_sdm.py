@@ -97,9 +97,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--bpe_path", default=None,
                     help="CLIP BPE merges file or directory (default: "
                          "$LSDM_TPU_CLIP_BPE, the vendored asset, the HF cache)")
-    jax_flags.add(ap, "platform")
-    ap.add_argument("--device", default="cuda",
-                    help="torch device; 'cpu' must be asked for explicitly")
+    jax_flags.add_device(ap)
     return ap.parse_args(argv)
 
 
@@ -112,14 +110,10 @@ def main(argv: Optional[Sequence[str]] = None):
     for flag, why in _NOT_PORTED.items():
         if given[flag]:
             raise SystemExit(f"--{flag} is not ported: {why}")
-    jax_flags.refuse(args, "platform")
     if args.load_ckpt and not args.load_ckpt.endswith(".pt"):
         raise SystemExit(f"--load_ckpt {args.load_ckpt}: only .pt checkpoints "
                          "load into the port")
-    dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("train_sdm: no CUDA device; pass --device cpu to run "
-                         "on the CPU")
+    dev = jax_flags.device(args, "train_sdm")
     # JAX sums a bf16 product in float32: no bf16 split-K reductions
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 

@@ -15,6 +15,10 @@ carries optax's Adam moments (``ScaleByAdamState``: mu, nu, count) over
 to ``torch.optim.AdamW``'s state, so both optimizers can start from the
 same point.
 
+:func:`contactformer_state_dict_from_jax` carries a JAX ``ContactFormer``
+(or ``POSA``) across: the port keeps the JAX modules' names, so only the
+norms' ``scale`` and mode 4's LSTM cells change.
+
 The text towers' bridges: :func:`clip_text_state_dict` (a torch CLIP text
 state dict in OpenAI's or HF's naming, the port's names being OpenAI's)
 and :func:`bert_state_dict` (an HF torch BERT checkpoint) for released
@@ -31,7 +35,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from lsdm_tpu_torch.models.atiss import TorchTransformerEncoderLayer
 from lsdm_tpu_torch.models.common import PositionalEncoding
+from lsdm_tpu_torch.models.contactformer import TorchTransformerDecoderLayer
 from lsdm_tpu_torch.models.pointnet2 import Conv1x1
 from lsdm_tpu_torch.models.stgcn import TemporalConv
 from lsdm_tpu_torch.ops.attention import TorchMultiheadAttention
@@ -43,10 +49,13 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     generator, in module order (deterministic for a given seed).
 
     Linear and 1x1 conv weights and biases draw U(-1/sqrt(fan_in),
-    1/sqrt(fan_in)) as torch's defaults do; attention projections are
-    Xavier-uniform with zero in-projection bias; norms start at unit scale
-    and zero shift with zero-mean, unit-variance running statistics; the
-    STGCN's edge importances keep their initial ones, as flax's do.
+    1/sqrt(fan_in)) as torch's defaults do; attention projections (the
+    ContactFormer's transformer layers' too) are Xavier-uniform with zero
+    in-projection bias; an LSTM's weights draw U(-1/sqrt(hidden),
+    1/sqrt(hidden)) with zero biases (flax's cell has no input bias);
+    norms start at unit scale and zero shift with zero-mean, unit-variance
+    running statistics; the STGCN's edge importances keep their initial
+    ones, as flax's do.
     """
     g = torch.Generator().manual_seed(seed)
 
@@ -59,11 +68,20 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
             uniform_(m.weight, bound)
             if m.bias is not None:
                 uniform_(m.bias, bound)
-        elif isinstance(m, TorchMultiheadAttention):
-            for w in (m.q_proj_weight, m.k_proj_weight, m.v_proj_weight):
-                uniform_(w, (6.0 / (w.shape[0] + w.shape[1])) ** 0.5)
-            m.in_proj_bias.zero_()
-        elif isinstance(m, (nn.GroupNorm, nn.BatchNorm1d)):
+        elif isinstance(m, (TorchMultiheadAttention, TorchTransformerEncoderLayer,
+                            TorchTransformerDecoderLayer)):
+            for name, w in m.named_parameters(recurse=False):
+                if name.endswith("proj_weight"):
+                    uniform_(w, (6.0 / (w.shape[0] + w.shape[1])) ** 0.5)
+                else:
+                    w.zero_()
+        elif isinstance(m, nn.LSTM):
+            for name, w in m.named_parameters():
+                if name.startswith("weight"):
+                    uniform_(w, m.hidden_size ** -0.5)
+                else:
+                    w.zero_()
+        elif isinstance(m, (nn.GroupNorm, nn.BatchNorm1d, nn.LayerNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
             if isinstance(m, nn.BatchNorm1d):
@@ -189,6 +207,44 @@ def load_adamw_state_from_optax(optimizer: torch.optim.Optimizer,
             "step": torch.tensor(float(count)),
             "exp_avg": m[name].to(p.device).reshape(p.shape).clone(),
             "exp_avg_sq": v[name].to(p.device).reshape(p.shape).clone()}
+
+
+# ---------------------------------------------------------------------------
+# ContactFormer and its POSA VAE (models/contactformer.py, models/posa.py)
+
+_LSTM_GATES = ("i", "f", "g", "o")  # torch.nn.LSTM's row blocks, in order
+
+
+def contactformer_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's ``ContactFormer`` state dict from the JAX module's
+    ``params`` tree (numpy arrays; any decoder mode, or a bare ``POSA``'s
+    tree).  The names are the JAX modules', so a norm's ``scale`` becomes
+    ``weight`` and the rest crosses as it is, but for mode 4's LSTMs:
+    flax's ``OptimizedLSTMCell`` keeps one Dense a gate, ``ii``/``if``/
+    ``ig``/``io`` with kernel (in, H) and no bias and ``hi``/``hf``/``hg``/
+    ``ho`` with kernel (H, H) and a bias; torch stacks the gates' rows as
+    (i, f, g, o) and has two biases.  ``lstm_fwd`` becomes the ``_l0``
+    direction of the port's bidirectional ``lstm``, ``lstm_bwd`` the
+    ``_l0_reverse`` one; the hidden bias is ``bias_hh`` and ``bias_ih`` is
+    zero."""
+    sd: Dict[str, torch.Tensor] = {}
+    cells: Dict[str, Dict[str, np.ndarray]] = {}
+    for path, v in _flatten(params).items():
+        m = re.fullmatch(r"lstm_(fwd|bwd)\.cell\.(\w\w)\.(kernel|bias)", path)
+        if m:
+            cells.setdefault(m.group(1), {})[f"{m.group(2)}.{m.group(3)}"] = v
+            continue
+        sd[re.sub(r"(norm\d?)\.scale$", r"\1.weight", path)] = _f32(v)
+    for direction, c in cells.items():
+        suffix = "_l0" if direction == "fwd" else "_l0_reverse"
+        sd[f"lstm.weight_ih{suffix}"] = _f32(np.concatenate(
+            [c[f"i{g}.kernel"].T for g in _LSTM_GATES]))
+        sd[f"lstm.weight_hh{suffix}"] = _f32(np.concatenate(
+            [c[f"h{g}.kernel"].T for g in _LSTM_GATES]))
+        sd[f"lstm.bias_hh{suffix}"] = _f32(np.concatenate(
+            [c[f"h{g}.bias"] for g in _LSTM_GATES]))
+        sd[f"lstm.bias_ih{suffix}"] = torch.zeros_like(sd[f"lstm.bias_hh{suffix}"])
+    return sd
 
 
 # ---------------------------------------------------------------------------

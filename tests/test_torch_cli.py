@@ -324,3 +324,74 @@ def test_test_sdm_cli_runs_the_clip_tower(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="Provide the CLIP BPE merges via --bpe_path"):
         test_sdm.main([data, "--output_dir", os.path.join(root, "out2"), "--text_encoder",
                        "CLIP", "--load_model", str(tmp_path / "model.pt")] + common)
+
+
+def test_predict_contact_cli_samples_as_test_sdm(tmp_path):
+    """``predict_contact`` at full width (1024 points, T = 2) on the CPU:
+    one finite (1024, 3) float32 file a sequence under ``predictions/``,
+    equal to what ``test_sdm`` writes from the same checkpoint and seed
+    (the same sampling loop without the metrics)."""
+    from lsdm_tpu_torch.run import predict_contact
+
+    root = str(tmp_path)
+    data = generate(root, "proxd", n_scenes=1, n_seqs=3, pnt_size=1024, seed=5,
+                    split="test")
+    model = init_weights(SceneDiffusionModel(SDMConfig()), 3)
+    torch.save({"model_state_dict": model.state_dict()}, tmp_path / "model.pt")
+    common = [data, "--objs_data_dir", os.path.join(root, "objs"), "--load_model",
+              str(tmp_path / "model.pt"), "--diffusion_steps", "2", "--batch_size",
+              "2", "--seed", "4", "--device", "cpu"]
+    written = predict_contact.main(common + ["--output_dir", os.path.join(root, "p")])
+    assert len(written) == 3
+    test_sdm.main(common + ["--output_dir", os.path.join(root, "t")])
+    for path in written:
+        arr = np.load(path)
+        assert arr.shape == (1024, 3) and arr.dtype == np.float32
+        assert np.isfinite(arr).all()
+        np.testing.assert_array_equal(
+            arr, np.load(os.path.join(root, "t", "predictions", os.path.basename(path))))
+
+
+def test_train_contactformer_cli_on_cpu(tmp_path):
+    """``train_contactformer`` at its default width (mode 1: 6 + 6 layers,
+    d_hid 512) on a synthetic 16-vertex contact split (synthetic mesh
+    assets): 2 epochs of 2 steps write ``best_model_recon_acc.pt`` with its
+    metadata, which loads into a ContactFormer, and finite logs."""
+    import json
+
+    import chip_smoke
+    from lsdm_tpu_torch.data.mesh_assets import load_mesh_assets
+    from lsdm_tpu_torch.models.contactformer import ContactFormer
+    from lsdm_tpu_torch.run import train_contactformer
+
+    data = chip_smoke.contact_split(str(tmp_path / "data"), n_seqs=2, frames=40,
+                                    nv=16, seed=1)
+    out = tmp_path / "out"
+    res = train_contactformer.main([
+        "--train_data_dir", data, "--mesh_ds_dir", str(tmp_path / "none"),
+        "--save_dir", str(out), "--epochs", "2", "--steps_per_epoch", "2",
+        "--max_frame", "8", "--jump_step", "2", "--device", "cpu"])
+    assert np.isfinite(res["loss"]) and 0.0 <= res["acc"] <= 1.0
+    ckpt = torch.load(out / "best_model_recon_acc.pt", weights_only=False)
+    extra = json.loads((out / "best_model_recon_acc.pt.json").read_text())
+    assert set(extra) == {"epoch", "loss", "acc"} and extra["loss"] == res["best_loss"]
+    assets = load_mesh_assets(str(tmp_path / "none"), nv_override=(16, 4, 1))
+    model = ContactFormer(assets.spiral_indices, assets.down_mats, seg_len=8)
+    model.load_state_dict(ckpt["model_state_dict"])
+    events = [json.loads(line) for line in (out / "logs" / "events.jsonl").open()]
+    losses = [e["train/loss"] for e in events if "train/loss" in e]
+    assert len(losses) == 2 and np.isfinite(losses).all()
+
+
+@pytest.mark.parametrize("cli", ["predict_contact", "train_contactformer"])
+def test_contact_clis_refuse_platform_and_a_missing_gpu(tmp_path, monkeypatch, cli):
+    import importlib
+
+    mod = importlib.import_module(f"lsdm_tpu_torch.run.{cli}")
+    argv = ([str(tmp_path)] if cli == "predict_contact"
+            else ["--train_data_dir", str(tmp_path)])
+    with pytest.raises(SystemExit, match="--platform .*not ported"):
+        mod.main(argv + ["--platform", "cpu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="--device cpu"):
+        mod.main(argv)

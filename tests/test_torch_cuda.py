@@ -1424,3 +1424,80 @@ def test_refine_pose_steps_never_wait_for_the_host(dev):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert out.loss.device.type == "cuda" and torch.isfinite(out.loss)
+
+
+@pytest.mark.parametrize("mode", [1, 4])
+def test_contactformer_forward_on_cuda_matches_the_cpu(dev, mode, monkeypatch):
+    """ContactFormer's forward (64 frames at the trainer's widths; mode 1's
+    transformers, mode 4's cuDNN LSTM) on the card against the CPU, within
+    chip_smoke's CF_RTOL x max(1, |CPU|), TF32 off; no port kernel launches
+    (the JAX model reaches no Pallas kernel)."""
+    import chip_smoke
+    from lsdm_tpu_torch.profile_contact import contact_inputs
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    model, inputs, eps = contact_inputs(mode, 64)
+    with torch.no_grad():
+        want = model.eval()(*inputs, eps=eps)
+        before = dict(kernels.LAUNCHES)
+        got = model.to(dev)(*(t.to(dev) for t in inputs), eps=eps.to(dev))
+        torch.cuda.synchronize()
+    assert kernels.LAUNCHES == before
+    for g_, w, what in zip(got, want, ("logits", "mu", "logvar")):
+        err = ((g_.cpu() - w).abs() / w.abs().clamp(min=1.0)).max()
+        assert float(err) <= chip_smoke.CF_RTOL, (what, float(err))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_contactformer_train_step_on_cuda_matches_the_cpu(dev, monkeypatch, dtype):
+    """One Adam step of mode 1 (32 frames) on the card against the CPU from
+    the same weights and noise, by chip_smoke's gates for ``dtype``."""
+    import chip_smoke
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    errs = chip_smoke.contactformer_step_check(dev, 32, dtype)
+    for key, gate in zip(("loss", "grad", "param"), chip_smoke._step_gates(dtype)):
+        assert errs[key] <= gate, errs
+
+
+def test_contactformer_lstm_keeps_float32_with_cudnn_tf32_on(dev, monkeypatch):
+    """Decoder mode 4 as a user runs it, cuDNN's TF32 setting at its
+    default (on): the forward (64 frames) on the card against the CPU
+    within chip_smoke's CF_RTOL, and one Adam step (32 frames) in float32
+    on the card against the CPU's float64 step, each gradient leaf within
+    TRAIN_GRAD_RTOL by its relative 2-norm (reading 1.3e-6; 2.4e-4 when the
+    backward runs cuDNN in TF32, ``profile_contact.py --grad_check``); the
+    setting is restored after."""
+    import chip_smoke
+    from lsdm_tpu_torch.profile_contact import contact_inputs
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    model, inputs, eps = contact_inputs(4, 64)
+    with torch.no_grad():
+        want = model.eval()(*inputs, eps=eps)
+        got = model.to(dev)(*(t.to(dev) for t in inputs), eps=eps.to(dev))
+        torch.cuda.synchronize()
+    for g_, w, what in zip(got, want, ("logits", "mu", "logvar")):
+        err = ((g_.cpu() - w).abs() / w.abs().clamp(min=1.0)).max()
+        assert float(err) <= chip_smoke.CF_RTOL, (what, float(err))
+    errs = chip_smoke.contactformer_step_check(dev, 32, "float32", mode=4,
+                                               cpu_dtype="float64")
+    print(f"mode 4 train step, cuDNN TF32 on, against float64: {errs}")
+    gates = (chip_smoke.TRAIN_LOSS_RTOL, chip_smoke.TRAIN_GRAD_RTOL,
+             chip_smoke.TRAIN_PARAM_ATOL)
+    for key, gate in zip(("loss", "grad", "param"), gates):
+        assert errs[key] <= gate, errs
+    assert torch.backends.cudnn.allow_tf32
+
+
+def test_contactformer_grad_gate_sees_tf32_products(dev, monkeypatch):
+    """The float32 step's gradient gate (CF_GRAD_RTOL) rejects a mode-1
+    train step whose products run in TF32 on the card."""
+    import chip_smoke
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    errs = chip_smoke.contactformer_step_check(dev, 32, "float32")
+    print(f"mode 1 train step, TF32 products: {errs}")
+    assert errs["grad"] > chip_smoke.CF_GRAD_RTOL, errs

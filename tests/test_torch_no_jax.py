@@ -8,7 +8,10 @@ samples at a tiny size on the CPU with the composed and the fused encode,
 the chain and the step sampler, runs the ``test_sdm`` (both samplers),
 ``scene_edit`` (a keyword hit: ICP) and ``train_sdm`` entry points on a
 synthetic split and the editing metrics, samples a DGCNN + P2R model, runs
-``fit_custom_obj`` and ``gen_human_meshes``, and then must hold no ``jax``,
+``fit_custom_obj`` and ``gen_human_meshes``, the contact-semantics entry
+points ``train_contactformer`` (on a synthetic contact split) and
+``predict_contact``, and the viewers ``vis_fitting_results`` and
+``vis_dataset`` (``--no_png --html``), and then must hold no ``jax``,
 ``jaxlib``, ``flax`` or ``optax`` module, and nothing of the JAX package
 ``lsdm_tpu``.
 """
@@ -18,7 +21,7 @@ import sys
 from pathlib import Path
 
 _SCRIPT = r"""
-import dataclasses, importlib, os, pkgutil, sys, tempfile
+import dataclasses, importlib, os, pkgutil, shutil, sys, tempfile
 import numpy as np
 import torch
 import lsdm_tpu_torch
@@ -114,6 +117,35 @@ with tempfile.TemporaryDirectory() as d:
     assert res and np.isfinite(res[0]["loss"]), res
     gen_human_meshes.main(["--vertices_path", os.path.join(d, "verts.npy"),
                            "--output_dir", os.path.join(d, "meshes")])
+    from lsdm_tpu_torch.run import vis_fitting_results
+    fit = os.path.join(d, "fit", "fit_best_obj")
+    shutil.copytree(os.path.join(d, "lib", "table"), os.path.join(fit, "t", "0", "box"))
+    os.rename(os.path.join(fit, "t", "0", "box", "box.obj"),
+              os.path.join(fit, "t", "0", "box", "opt_best.obj"))
+    out = vis_fitting_results.main(["--fitting_results_path", os.path.join(d, "fit"),
+                                    "--vertices_path", os.path.join(d, "verts.npy"),
+                                    "--no_png", "--html"])
+    assert os.path.exists(os.path.join(out, "scene.html"))
+# the contact-semantics entry points and the dataset viewer
+from lsdm_tpu_torch.run import predict_contact, train_contactformer, vis_dataset
+with tempfile.TemporaryDirectory() as d:
+    contact = chip_smoke.contact_split(os.path.join(d, "contact"), n_seqs=2,
+                                       frames=24, nv=16)
+    res = train_contactformer.main(["--train_data_dir", contact, "--save_dir",
+                                    os.path.join(d, "cf"), "--epochs", "1",
+                                    "--steps_per_epoch", "1", "--max_frame", "8",
+                                    "--mesh_ds_dir", os.path.join(d, "none"),
+                                    "--decoder_mode", "4", "--device", "cpu"])
+    assert np.isfinite(res["loss"]), res
+    assert os.path.exists(os.path.join(d, "cf", "best_model_recon_acc.pt"))
+    out = vis_dataset.main(["--data_dir", contact, "--seq_name", "seq0",
+                            "--save_dir", os.path.join(d, "vis"), "--no_png", "--html"])
+    assert os.listdir(out) == ["scene.html"]
+    data = generate(d, "proxd", n_scenes=1, n_seqs=1, pnt_size=1024, split="test")
+    written = predict_contact.main([data, "--objs_data_dir", os.path.join(d, "objs"),
+                                    "--output_dir", os.path.join(d, "pred"),
+                                    "--diffusion_steps", "2", "--device", "cpu"])
+    assert len(written) == 1 and np.isfinite(np.load(written[0])).all()
 frameworks = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
 assert not frameworks, frameworks
