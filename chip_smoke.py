@@ -174,6 +174,20 @@ Run from the repository root:  python3 chip_smoke.py
    (4 sequences x 1024 points, batch 2, T=1000) on the card: 4 finite
    predictions, and the fused path's kernels (K3, K7, K8, K4, K6; no K1, K2
    or K9); the sampling's ms per scene.
+16d. ATISS / MIME (``atiss_phase``; no port kernel may launch), at the
+   reference widths (ResNet18 features, 4 layers of 512, MIME 528, 8 heads,
+   ff 1024, 20 classes) with cuDNN's TF32 setting left on (the extractors
+   and the backward turn it off themselves): the forward of ATISS, its
+   batch-axis quirk, the PE variant and MIME at ATISS_BATCH scenes of 9
+   slots on the card against the CPU (ATISS_RTOL), timed; one AdamW step
+   of ATISS and of MIME against the CPU in float32 and in float64
+   (``_step_gates``); ATISS_STEPS
+   timed steps with their peak memory; ``generate_boxes`` and
+   ``complete_scene`` replaying the CPU's draws (float64 to ATISS_GEN_RTOL,
+   equal classes and counts), the ms a box of a float32 scene; then
+   ``train_atiss``, ``test_atiss``, ``test_mime``, ``test_cf_atiss``,
+   ``generate_scenes`` and ``get_next_obj_class`` on a synthetic split on
+   the card.
 17. Prints one JSON line of kernel records, then, as its last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -351,6 +365,25 @@ CF_FRAMES = 256  # seg_len = --max_frame, train_contactformer's default
 CF_TRAIN_FRAMES = 32  # the train step compared with the CPU (the CPU's time)
 CF_REPS = 5  # forwards timed per decoder mode
 CF_STEPS = 3  # timed train steps at CF_FRAMES, after one warm-up step
+# ATISS / MIME (atiss_phase; no port kernel: the JAX models reach no Pallas
+# kernel) at the reference widths, ATISS_BATCH scenes of 9 box slots, on the
+# card against the same weights and inputs on the CPU, with cuDNN's TF32
+# setting left at its default (on): the extractors and the train step's
+# backward turn it off themselves (models/cudnn.py).  Bound on the forward:
+# |card - CPU| <= ATISS_RTOL * max(1, |CPU|) on every BBoxPrediction
+# member; the train step of ATISS and of MIME by _step_gates (each float32
+# gradient leaf's relative 2-norm within CF_GRAD_RTOL: 1.6e-6 on an NVIDIA
+# H100 80GB HBM3, 700 W, and 4.0e-2 with the extractor's convolutions in
+# TF32, test_atiss_grad_gate_sees_tf32_convolutions).  Generation in float64 (a scalar
+# head's outputs feed the next box's sin/cos encoding, which turns float32
+# roundings into visible differences): equal classes and counts, values
+# within ATISS_GEN_RTOL; the float32 reading is printed beside it.
+ATISS_RTOL = 1e-5
+ATISS_GEN_RTOL = 1e-9
+ATISS_BATCH = 4
+ATISS_REPS = 5  # forwards timed per kind
+ATISS_STEPS = 3  # timed train steps, after one warm-up step
+ATISS_GEN_BOXES = 12  # slots of a generated scene
 # K9 against its plain version, one step: float32 sums in another order
 # (FMA loops against cuBLAS) and erff against torch's erf.  H100 reading
 # 2.4e-07 at b1 and b8, clip off and on.
@@ -484,7 +517,9 @@ PATH_KERNELS = {"pallas": ("ball_query", "three_nn", "fps", "denoise_chain"),
                 # loop, K4/K5 in its train step; no PointNet++ kernel
                 "backbones_fused": ("rank1_attn", "denoise_chain"),
                 "backbones_step": ("rank1_attn", "denoise_step"),
-                "backbones_train": ("rank1_attn", "rank1_attn_bwd")}
+                "backbones_train": ("rank1_attn", "rank1_attn_bwd"),
+                # ATISS / MIME: plain convolutions and attention, no kernel
+                "atiss": ()}
 # the PointNet++ kernels, which no path of the alternate backbones launches
 POINTNET2_KERNELS = ("ball_query", "three_nn", "fps", "sa_fused", "fp_fused",
                      "select_gather")
@@ -2587,8 +2622,16 @@ def contactformer_step_check(dev, frames: int = CF_TRAIN_FRAMES,
         runs.append((float(loss), {n: (p.grad.cpu(), p.detach().cpu())
                                    for n, p in model.named_parameters()
                                    if p.grad is not None}))
+    return _step_errors(runs, dtype)
+
+
+def _step_errors(runs, dtype: str, param_cut=None) -> dict:
+    """The {loss, grad, param} errors of a train step on the card against
+    the CPU (``runs``: [(loss, {name: (grad, param)})] for the CPU, then the
+    card), as ``contactformer_step_check`` documents them; ``param_cut``,
+    where given, in place of its cut."""
     (loss_c, want), (loss_d, got) = runs
-    cut = CF_PARAM_CUT if dtype == "float32" else CF_F64_RTOL
+    cut = param_cut or (CF_PARAM_CUT if dtype == "float32" else CF_F64_RTOL)
     errs = {"loss": abs(loss_d - loss_c) / abs(loss_c), "grad": 0.0, "param": 0.0,
             "worst": {}}
     floor = 1e-3 * max(float(g.norm()) for g, _ in want.values())
@@ -2748,6 +2791,187 @@ def predict_contact_phase(dev, T: int = T_STEPS) -> tuple:
     return launches, sampled
 
 
+def atiss_step_check(dev, dtype: str = "float32", kind: str = "atiss",
+                     cpu_dtype: str = "") -> dict:
+    """One ``train_baseline`` step (AdamW, lr 1e-3, weight decay 0.01) of
+    ``kind`` at the reference widths, ATISS_BATCH scenes, in ``dtype`` on
+    ``dev`` and in ``cpu_dtype`` (else ``dtype``) on the CPU from the same
+    weights and batch: the errors of ``_step_errors``, the parameters
+    compared where the gradient exceeds CF_PARAM_CUT of its leaf's max in
+    both dtypes.  Adam's first step moves an entry by lr * g / (|g| + 1e-8),
+    which turns a float64 gradient's last-bit difference at |g| ~ 1e-9 into
+    ~1e-12 (the attention's key projections hold such entries: 8.9e-13 with
+    the float64 cut of 1e-12 of the leaf's max, H100 reading)."""
+    import torch
+
+    from lsdm_tpu_torch.profile_atiss import atiss_inputs
+    from lsdm_tpu_torch.run._baseline_common import baseline_step
+    from lsdm_tpu_torch.train.state import create_train_state
+
+    runs = []
+    for d, dt in ((torch.device("cpu"), getattr(torch, cpu_dtype or dtype)),
+                  (dev, getattr(torch, dtype))):
+        model, boxes, targets = atiss_inputs(kind, ATISS_BATCH, SEED)
+        state = create_train_state(model.to(d, dt), lr=1e-3, weight_decay=0.01)
+        loss = baseline_step(state, {k: v.to(d, dt) for k, v in boxes.items()},
+                             *(t.to(d, dt) for t in targets))
+        runs.append((float(loss), {n: (p.grad.cpu(), p.detach().cpu())
+                                   for n, p in model.named_parameters()}))
+    return _step_errors(runs, dtype, CF_PARAM_CUT)
+
+
+def _gen_errors(got, want, count_got, count_want) -> float:
+    """max |got - want| / max(1, |want|) over a generated scene's boxes;
+    raises unless the counts and the classes are equal."""
+    if count_got != count_want:
+        raise AssertionError(f"{count_got} boxes generated, {count_want} on the CPU")
+    if not bool((got["class_labels"].cpu() == want["class_labels"]).all()):
+        raise AssertionError("generated classes differ from the CPU's")
+    return max(float(((got[k].cpu().double() - want[k].double()).abs()
+                      / want[k].double().abs().clamp(min=1.0)).max())
+               for k in ("translations", "sizes", "angles", "valid_mask"))
+
+
+def atiss_phase(dev) -> dict:
+    """Phase 16d: the ATISS / MIME baselines at the reference widths
+    (``profile_atiss.atiss_inputs``: ResNet18 features, 4 layers of 512,
+    MIME 528, ATISS_BATCH scenes of 9 slots), cuDNN's TF32 setting left on.
+    The forward of ATISS, its batch-axis quirk, the PE variant and MIME on
+    the card against the CPU (ATISS_RTOL), timed (``profile_atiss``'s
+    timings); one AdamW step of ATISS and of MIME against the CPU in float32
+    and in float64 (``_step_gates``); ATISS_STEPS timed steps with their
+    peak memory; ``generate_boxes`` and ``complete_scene`` on the
+    card replaying the CPU's draws (float64: ATISS_GEN_RTOL, equal classes
+    and counts; float32 printed), and the ms a box of a float32 scene on the
+    card; then ``train_atiss``, ``test_atiss``, ``test_mime``,
+    ``test_cf_atiss``, ``generate_scenes`` and ``get_next_obj_class`` on a
+    synthetic split on ``dev``.  Returns the launch counts of the phase
+    (``_check_launches("atiss")``: none)."""
+    import numpy as np
+    import torch
+
+    from lsdm_tpu_torch import kernels
+    from lsdm_tpu_torch.data.synthetic import generate
+    from lsdm_tpu_torch.models import atiss as A
+    from lsdm_tpu_torch.profile_atiss import (ATISS_KINDS, atiss_inputs, time_forward,
+                                              time_generation, time_steps)
+    from lsdm_tpu_torch.run import (generate_scenes, get_next_obj_class, test_atiss,
+                                    test_cf_atiss, test_mime, train_atiss)
+    from lsdm_tpu_torch.train.state import create_train_state
+
+    card = _card()
+    kernels.reset_launches()
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    parts = [time.perf_counter()]
+    try:
+        for kind in ATISS_KINDS:
+            model, boxes, _ = atiss_inputs(kind, ATISS_BATCH, SEED)
+            with torch.no_grad():
+                want = model(boxes)
+                db = {k: v.to(dev) for k, v in boxes.items()}
+                model.to(dev)
+                got = model(db)
+                err = max(float(((g.cpu() - w).abs() / w.abs().clamp(min=1.0)).max())
+                          for g, w in zip(got, want))
+            ms = time_forward(model, db, ATISS_REPS)
+            n = sum(p.numel() for p in model.parameters())
+            print(f"ATISS {kind} forward, {ATISS_BATCH} scenes x 9 slots, {n} parameters: "
+                  f"{ms:.3f} ms; max |card - CPU| / max(1, |CPU|) {err:.3g} (tolerance "
+                  f"{ATISS_RTOL}); {card}")
+            if not all(torch.isfinite(g).all() for g in got) or err > ATISS_RTOL:
+                raise AssertionError(f"ATISS {kind} on the card disagrees with the CPU")
+        parts.append(time.perf_counter())
+        for kind in ("atiss", "mime"):
+            for dtype in ("float32", "float64"):
+                errs = atiss_step_check(dev, dtype, kind)
+                gates = _step_gates(dtype)
+                print(f"ATISS {kind} train step in {dtype}, {ATISS_BATCH} scenes: card "
+                      f"against the CPU {errs} (tolerances loss, grad, param {gates})")
+                if any(errs[k] > gate for k, gate in zip(("loss", "grad", "param"),
+                                                         gates)):
+                    raise AssertionError(f"the ATISS {kind} train step in {dtype} on the "
+                                         "card disagrees with the CPU")
+        model, boxes, targets = atiss_inputs("atiss", ATISS_BATCH, SEED)
+        state = create_train_state(model.to(dev), lr=1e-3, weight_decay=0.01)
+        ms, peak, loss = time_steps(state, {k: v.to(dev) for k, v in boxes.items()},
+                                    [t.to(dev) for t in targets], ATISS_STEPS)
+        print(f"ATISS train step, {ATISS_BATCH} scenes x 9 slots: ms/step "
+              f"{[round(x, 3) for x in ms]} (after a warm-up step), peak memory "
+              f"{peak:.3f} GiB, loss {loss:.5f}; {card}")
+        parts.append(time.perf_counter())
+        for dtype in (torch.float64, torch.float32):
+            model, boxes, _ = atiss_inputs("atiss", 1, SEED)
+            model.to(dtype=dtype)
+            room = boxes["room_layout"].to(dtype)
+            rec = A.Draws(torch.Generator().manual_seed(SEED), record=True)
+            want, n_want = A.generate_boxes(model, room, rec, ATISS_GEN_BOXES)
+            given = {k: want[k][:, :2] for k in ("class_labels", "translations",
+                                                  "sizes", "angles")}
+            rec2 = A.Draws(torch.Generator().manual_seed(SEED + 1), record=True)
+            want2, n2_want = A.complete_scene(model, given, room, rec2, 6)
+            model.to(dev)
+            got, n_got = A.generate_boxes(model, room.to(dev), A.Draws(given=rec.taken),
+                                          ATISS_GEN_BOXES)
+            got2, n2_got = A.complete_scene(model, {k: v.to(dev) for k, v in given.items()},
+                                            room.to(dev), A.Draws(given=rec2.taken), 6)
+            err = max(_gen_errors(got, want, n_got, n_want),
+                      _gen_errors(got2, want2, n2_got, n2_want))
+            print(f"ATISS generate_boxes ({n_got} of {ATISS_GEN_BOXES} slots) and "
+                  f"complete_scene (2 + {n2_got - 2}) in {str(dtype)[6:]} on the card, "
+                  f"the CPU's draws: equal classes and counts; max |card - CPU| / "
+                  f"max(1, |CPU|) {err:.3g}"
+                  + (f" (tolerance {ATISS_GEN_RTOL})" if dtype == torch.float64
+                     else " (float32, printed only)"))
+            if dtype == torch.float64 and err > ATISS_GEN_RTOL:
+                raise AssertionError("ATISS generation on the card disagrees with the CPU")
+        ms_box, count = time_generation(model, room.to(dev),
+                                        torch.Generator(device=dev).manual_seed(SEED),
+                                        ATISS_GEN_BOXES)
+        print(f"ATISS generate_boxes in float32 on the card: {count} boxes, "
+              f"{ms_box:.3f} ms a box; {card}")
+        del model, state
+        parts.append(time.perf_counter())
+        with tempfile.TemporaryDirectory() as root:
+            train = generate(root, "proxd", n_scenes=1, n_seqs=4, pnt_size=1024,
+                             seed=SEED, split="train")
+            test = generate(root, "proxd", n_scenes=1, n_seqs=2, pnt_size=1024,
+                            seed=SEED + 1, split="test")
+            common = ["--objs_data_dir", os.path.join(root, "objs"), "--batch_size", "2",
+                      "--device", str(dev)]
+            save = os.path.join(root, "atiss")
+            state = train_atiss.main(["--train_data_dir", train, "--save_dir", save,
+                                      "--epochs", "1"] + common)
+            pt = os.path.join(save, "final_atiss.pt")
+            finals = {"atiss": test_atiss.main([test, "--load_model", pt, "--output_dir",
+                                                os.path.join(root, "e1")] + common),
+                      "mime": test_mime.main([test, "--output_dir",
+                                              os.path.join(root, "e2")] + common),
+                      "cf_atiss": test_cf_atiss.main([test, "--output_dir",
+                                                      os.path.join(root, "e3")] + common)}
+            written = generate_scenes.main(["--load_model", pt, "--n_scenes", "1",
+                                            "--max_boxes", str(ATISS_GEN_BOXES),
+                                            "--output_dir", os.path.join(root, "gen"),
+                                            "--device", str(dev)])
+            nxt = get_next_obj_class.main(["--device", str(dev)])
+            counts = [int(np.load(w)["count"]) for w in written]
+            if (state.step != 2 or len(written) != 1
+                    or not all(np.isfinite(list(f.values())).all() for f in finals.values())
+                    or not all(os.path.exists(os.path.join(root, f"e{i}", "results.txt"))
+                               for i in (1, 2, 3))):
+                raise AssertionError(f"the ATISS CLIs: {state.step} steps, {finals}, "
+                                     f"{written}")
+        parts.append(time.perf_counter())
+        secs = [round(b - a, 1) for a, b in zip(parts, parts[1:])]
+        print(f"CLI train_atiss (1 epoch of 2 steps), test_atiss, test_mime, "
+              f"test_cf_atiss (2 sequences), generate_scenes (count {counts}), "
+              f"get_next_obj_class ({nxt}) on the card: {secs[-1]} s; the phase's "
+              f"forwards, train steps, generation and CLIs took {secs} s")
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    return _launches()
+
+
 def contact_split(root: str, n_seqs: int = 2, frames: int = 96, nv: int = 655,
                   seed: int = SEED) -> str:
     """A synthetic contact split under ``root`` (the layout of
@@ -2796,6 +3020,8 @@ def _check_launches(path: str, launches: dict) -> None:
         raise AssertionError(f"the bf16 step path ran K6: {launches}")
     if path in ("train_sg", "train_bf16_sg") and launches["ball_query"]:
         raise AssertionError(f"the sg train step ran K1: {launches}")
+    if path == "atiss" and any(launches.values()):
+        raise AssertionError(f"the ATISS path launched a port kernel: {launches}")
     if "bf16" in path and any(launches[k] for k in NOT_ON_BF16_PATHS):
         raise AssertionError(f"the {path} path ran a float32 or fused kernel: "
                              f"{launches}")
@@ -2975,6 +3201,7 @@ def main() -> int:
     contactformer_phase(dev)
     path_launches, _ = predict_contact_phase(dev)
     _check_launches("fused", path_launches)
+    _check_launches("atiss", atiss_phase(dev))
     _check_launches("train_cli", train_cli_phase(dev))
     _check_launches("train_cli_bf16", train_cli_phase(
         dev, T=BF16_CLI_STEPS, dtype_args=("--dtype", "bfloat16", "--bn_dtype",

@@ -124,3 +124,7 @@ HUMANISE_CATEGORIES = {
 
 def categories_for(datatype: str) -> dict:
     return PROXD_CATEGORIES if datatype == "proxd" else HUMANISE_CATEGORIES
+
+
+def num_cats_for(datatype: str) -> int:
+    return 13 if datatype == "proxd" else 11

@@ -11,8 +11,11 @@ bounding boxes.
 
 The host draws come from ``np.random.RandomState(seed)``, as the JAX
 module's, so both give the same boxes from the same seed.  ``posa_decode``
-is the port's ``POSA.decode`` (or a stand-in), called on ``device``;
-``atiss_apply`` stays a callable: the ATISS model is not ported yet.
+is the port's ``POSADecoder`` (or a stand-in), called on ``device``;
+``atiss_apply`` is the port's ATISS model (``models/atiss.py``, as
+``run/_baseline_common.py:_make_bridge`` builds it), applied to
+``make_boxes``'s output without gradients, or any callable on those
+boxes.
 """
 
 from __future__ import annotations
@@ -42,11 +45,11 @@ def contact_class_to_category(idx: int, datatype: str) -> int:
 
 class BridgeModel:
     """Callable wrapper pairing a frozen ContactFormer POSA decoder with an
-    ATISS model."""
+    ATISS model (None where only ``make_boxes`` is used, as in training)."""
 
     def __init__(
         self,
-        atiss_apply: Callable[[Dict[str, torch.Tensor]], object],
+        atiss_apply: Optional[Callable[[Dict[str, torch.Tensor]], object]],
         posa_decode: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
         datatype: str,
         num_classes: int,
@@ -64,7 +67,9 @@ class BridgeModel:
                  mask: np.ndarray):
         """given_objs (B, O, N, 3), given_cats (B, O, C), mask (B, O)
         -> the ATISS model's prediction."""
-        return self.atiss_apply(self.make_boxes(given_objs, given_cats, mask))
+        boxes = self.make_boxes(given_objs, given_cats, mask)
+        with torch.no_grad():
+            return self.atiss_apply(boxes)
 
     @torch.no_grad()
     def make_boxes(self, given_objs: np.ndarray, given_cats: np.ndarray,

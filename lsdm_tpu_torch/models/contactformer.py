@@ -24,7 +24,7 @@ run the whole padded sequence forward and backward with no sequence
 lengths, as torch's directions do; flax has no input bias, so
 ``bias_ih`` is zero and takes no gradient (``weights.py`` carries flax's
 hidden bias into ``bias_hh``).  cuDNN runs that LSTM in TF32 unless
-told otherwise; ``cudnn_full_fp32`` turns it off around the forward here
+told otherwise; ``models/cudnn.py:cudnn_full_fp32`` turns it off around the forward here
 and around the backward in ``train/contact.py``, since cuDNN reads the
 setting again when it builds the backward.  Parameter names are the JAX
 modules'.
@@ -32,8 +32,7 @@ modules'.
 
 from __future__ import annotations
 
-import contextlib
-from typing import Iterator, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,21 +40,10 @@ from torch import nn
 import torch.nn.functional as F
 
 from lsdm_tpu_torch.models.atiss import TorchTransformerEncoderLayer
+from lsdm_tpu_torch.models.cudnn import cudnn_full_fp32
 from lsdm_tpu_torch.models.posa import POSA
 from lsdm_tpu_torch.ops.attention import Linear, multihead_attention
 from lsdm_tpu_torch.ops.embeddings import positional_encoding_table
-
-
-@contextlib.contextmanager
-def cudnn_full_fp32() -> Iterator[None]:
-    """TF32 off for cuDNN (decoder mode 4's LSTM) over the block: float32
-    products, as the JAX cell's."""
-    saved = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = saved
 
 
 class TorchTransformerDecoderLayer(nn.Module):

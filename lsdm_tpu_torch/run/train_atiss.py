@@ -1,0 +1,19 @@
+"""Train the atiss baseline (reference ``run/train_atiss.py``): the
+port's ``train_atiss`` entry point, with the JAX CLI's flags
+(``run/_baseline_common.py``).
+
+    python -m lsdm_tpu_torch.run.train_atiss --train_data_dir D [--epochs 100] [--device cuda]
+"""
+
+from typing import Optional, Sequence
+
+from lsdm_tpu_torch.run._baseline_common import train_baseline, make_arg_parser
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    args = make_arg_parser(train=True).parse_args(argv)
+    return train_baseline(args, "atiss")
+
+
+if __name__ == "__main__":
+    main()

@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from lsdm_tpu_torch.models.contactformer import cudnn_full_fp32
+from lsdm_tpu_torch.models.cudnn import cudnn_full_fp32
 from lsdm_tpu_torch.ops.recon_metrics import compute_recon_loss
 
 

@@ -19,6 +19,11 @@ same point.
 (or ``POSA``) across: the port keeps the JAX modules' names, so only the
 norms' ``scale`` and mode 4's LSTM cells change.
 
+:func:`atiss_state_dict_from_jax` carries a JAX ATISS / MIME / PE model
+across to the port's names, the reference torch state_dict's, and
+:func:`atiss_state_dict` readies a reference (or the port's own) state
+dict for a strict load, dropping what the JAX converter drops.
+
 The text towers' bridges: :func:`clip_text_state_dict` (a torch CLIP text
 state dict in OpenAI's or HF's naming, the port's names being OpenAI's)
 and :func:`bert_state_dict` (an HF torch BERT checkpoint) for released
@@ -29,15 +34,18 @@ weights; :func:`clip_text_state_dict_from_jax` and
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from lsdm_tpu_torch.models.atiss import TorchTransformerEncoderLayer
+from lsdm_tpu_torch.models.atiss import (
+    AutoregressiveTransformer, AutoregressiveTransformerPE, MultiheadSelfAttention,
+    TorchTransformerEncoderLayer)
 from lsdm_tpu_torch.models.common import PositionalEncoding
 from lsdm_tpu_torch.models.contactformer import TorchTransformerDecoderLayer
+from lsdm_tpu_torch.models.feature_extractors import _BN
 from lsdm_tpu_torch.models.pointnet2 import Conv1x1
 from lsdm_tpu_torch.models.stgcn import TemporalConv
 from lsdm_tpu_torch.ops.attention import TorchMultiheadAttention
@@ -50,12 +58,15 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
 
     Linear and 1x1 conv weights and biases draw U(-1/sqrt(fan_in),
     1/sqrt(fan_in)) as torch's defaults do; attention projections (the
-    ContactFormer's transformer layers' too) are Xavier-uniform with zero
-    in-projection bias; an LSTM's weights draw U(-1/sqrt(hidden),
-    1/sqrt(hidden)) with zero biases (flax's cell has no input bias);
-    norms start at unit scale and zero shift with zero-mean, unit-variance
-    running statistics; the STGCN's edge importances keep their initial
-    ones, as flax's do.
+    ContactFormer's and ATISS's transformer layers' too) are
+    Xavier-uniform with zero in-projection bias; an LSTM's weights draw
+    U(-1/sqrt(hidden), 1/sqrt(hidden)) with zero biases (flax's cell has
+    no input bias); the ATISS extractors' convolutions draw N(0, 2 /
+    fan_out) (He, as torchvision's) with zero biases, and ATISS's empty
+    token and slot embeddings N(0, 1); norms start at unit scale and zero
+    shift with zero-mean, unit-variance running statistics (a frozen
+    ATISS BatchNorm at 1 + 1e-5, the eps fold); the STGCN's edge
+    importances keep their initial ones, as flax's do.
     """
     g = torch.Generator().manual_seed(seed)
 
@@ -68,8 +79,25 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
             uniform_(m.weight, bound)
             if m.bias is not None:
                 uniform_(m.bias, bound)
+        elif isinstance(m, nn.Conv2d):
+            fan_out = m.weight.shape[0] * m.weight[0, 0].numel()
+            m.weight.copy_(torch.randn(m.weight.shape, generator=g)
+                           * (2.0 / fan_out) ** 0.5)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, _BN):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(m.init_var)
+        elif isinstance(m, AutoregressiveTransformer):
+            m.empty_token_embedding.copy_(torch.randn(
+                m.empty_token_embedding.shape, generator=g))
+            if isinstance(m, AutoregressiveTransformerPE):
+                m.positional_embedding.copy_(torch.randn(
+                    m.positional_embedding.shape, generator=g))
         elif isinstance(m, (TorchMultiheadAttention, TorchTransformerEncoderLayer,
-                            TorchTransformerDecoderLayer)):
+                            TorchTransformerDecoderLayer, MultiheadSelfAttention)):
             for name, w in m.named_parameters(recurse=False):
                 if name.endswith("proj_weight"):
                     uniform_(w, (6.0 / (w.shape[0] + w.shape[1])) ** 0.5)
@@ -362,3 +390,96 @@ def bert_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
         else:
             sd[path] = _f32(v)
     return sd
+
+
+# ---------------------------------------------------------------------------
+# ATISS and MIME (models/atiss.py, models/feature_extractors.py)
+
+_FE = "feature_extractor._feature_extractor"
+# (pattern on the dotted JAX path, replacement, value transform or None);
+# the first that matches applies
+_ATISS_RULES = (
+    (r"layer_(\d+)\.in_proj_(weight|bias)",
+     r"transformer_encoder.layers.\1.self_attn.in_proj_\2", None),
+    (r"layer_(\d+)\.attn_out_proj\.(weight|bias)",
+     r"transformer_encoder.layers.\1.self_attn.out_proj.\2", None),
+    (r"layer_(\d+)\.(norm[12])\.scale", r"transformer_encoder.layers.\1.\2.weight", None),
+    (r"layer_(\d+)\.(.+)", r"transformer_encoder.layers.\1.\2", None),
+    # the simple extractor: flax Conv / Dense kernels
+    (r"feature_extractor\.(conv\d|fc)\.kernel", r"feature_extractor.\1.weight", _kernel),
+    (r"feature_extractor\.(conv\d)\.bias", r"feature_extractor.\1.bias", None),
+    # ResNet18 (names layerN_M, downsample_0/1, fc_0/2) and AlexNet
+    (r"feature_extractor\.(layer\d)_(\d)\.downsample_(\d)\.scale",
+     _FE + r".\1.\2.downsample.\3.weight", None),
+    (r"feature_extractor\.(layer\d)_(\d)\.downsample_(\d)\.(.+)",
+     _FE + r".\1.\2.downsample.\3.\4", None),
+    (r"feature_extractor\.(layer\d)_(\d)\.(bn\d)\.scale", _FE + r".\1.\2.\3.weight", None),
+    (r"feature_extractor\.(layer\d)_(\d)\.(.+)", _FE + r".\1.\2.\3", None),
+    (r"feature_extractor\.bn1\.scale", _FE + ".bn1.weight", None),
+    (r"feature_extractor\.(conv1|bn1)\.(.+)", _FE + r".\1.\2", None),
+    (r"feature_extractor\.fc_(\d)\.(.+)", _FE + r".fc.\1.\2", None),
+    (r"feature_extractor\.features_(\d+)\.(.+)", _FE + r".features.\1.\2", None),
+    # tokens, projections and the property head: the dotted path is the key
+    (r"(.+)", r"\1", None),
+)
+
+
+def _jax_to_port(path: str, rules) -> str:
+    for pattern, repl, fn in rules:
+        if re.fullmatch(pattern, path):
+            return re.sub(pattern, repl, path), fn
+    raise KeyError(f"unmapped JAX parameter: {path}")
+
+
+def atiss_state_dict_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None,
+                              dtype: torch.dtype = torch.float32
+                              ) -> Dict[str, torch.Tensor]:
+    """The port's ATISS / MIME / PE state dict (reference torch names, the
+    simple extractor's own) from a JAX ``AutoregressiveTransformer``'s
+    ``variables["params"]`` and ``variables["batch_stats"]`` (numpy
+    arrays): flax Conv / Dense kernels of the simple extractor reordered,
+    norms' ``scale`` renamed ``weight``, the ResNet's ``mean`` / ``var``
+    statistics renamed ``running_mean`` / ``running_var``; the rest
+    crosses as it is (JAX keeps torch's layouts).  The inverse of
+    ``lsdm_tpu/train/checkpoint.py:convert_atiss_state_dict`` where that
+    covers the model (not the simple extractor).  ``dtype``: the tensors'
+    (float64 keeps a float64 tree's values, or its gradients)."""
+
+    def tensor(v):
+        return torch.tensor(np.asarray(v), dtype=dtype)  # a copy
+
+    sd: Dict[str, torch.Tensor] = {}
+    flat = _flatten(params)
+    alexnet = "feature_extractor.fc.weight" in flat  # the simple one's is a kernel
+    for path, v in flat.items():
+        if alexnet and path.startswith("feature_extractor.fc."):
+            path = "feature_extractor._fc." + path.rsplit(".", 1)[1]
+        key, fn = _jax_to_port(path, _ATISS_RULES)
+        sd[key] = tensor(v if fn is None else fn(v))
+    for path, v in _flatten(batch_stats or {}).items():
+        key, _ = _jax_to_port(path, _ATISS_RULES)
+        sd[re.sub(r"\.(mean|var)$", r".running_\1", key)] = tensor(v)
+    return sd
+
+
+# reference keys the port's ATISS has no place for, dropped as the JAX
+# converter drops them: the unused start token, AlexNet's pooling and
+# classifier, BatchNorm's step counter
+_ATISS_DROPPED = re.compile(r"start_token_embedding|" + re.escape(_FE)
+                            + r"\.(avgpool|classifier)\..*|.*\.num_batches_tracked")
+
+
+def atiss_state_dict(state_dict: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
+    """A reference ATISS / MIME state dict (or the port's own) made ready
+    for ``model.load_state_dict(..., strict=True)``: the keys the JAX
+    converter drops are dropped, and a key ``model`` has no place for
+    raises ``KeyError``, as that converter raises."""
+    own = model.state_dict()
+    out = {}
+    for key, v in state_dict.items():
+        if _ATISS_DROPPED.fullmatch(key):
+            continue
+        if key not in own:
+            raise KeyError(f"unmapped ATISS parameter: {key} {tuple(v.shape)}")
+        out[key] = v
+    return out

@@ -395,3 +395,212 @@ def test_contact_clis_refuse_platform_and_a_missing_gpu(tmp_path, monkeypatch, c
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="--device cpu"):
         mod.main(argv)
+
+
+# ---------------------------------------------------------------- ATISS / MIME
+
+
+def _reference_atiss_pt(path, contact: bool) -> str:
+    """A reference-format ATISS (or MIME) ``.pt`` at the CLIs' widths
+    (20 = 13 proxd categories + 7 classes, 4 layers, 8 heads, ff 1024,
+    ResNet18 features of 64, scalar heads over 10 mixtures), from the torch
+    replica of ``tests/test_atiss_conversion.py``."""
+    from test_atiss_conversion import TATISS
+
+    torch.manual_seed(3)
+    tm = TATISS(20, n_layers=4, n_heads=8, dim_ff=1024, fs=64, contact=contact,
+                n_mix=10)
+    torch.save({"model_state_dict": tm.state_dict(), "epoch": 0}, path)
+    return str(path)
+
+
+def _numbers(path):
+    return [float(line.rsplit(":", 1)[1]) for line in open(path)]
+
+
+@pytest.mark.parametrize("kind", ["atiss", "mime"])
+def test_baseline_eval_cli_equals_jax_on_a_reference_pt(tmp_path, monkeypatch, kind):
+    """One reference-format ``.pt`` through the JAX package's and the port's
+    ``test_{kind}`` on the same synthetic split (3 sequences, batch 2):
+    both pick ResNet18 and the batch-axis quirk for a reference checkpoint;
+    every number of ``results.txt`` within 2e-4 (printed at 4 decimals)
+    and every ``predictions/*.npy`` within 1e-4."""
+    import importlib
+    import sys
+
+    root = str(tmp_path)
+    data = generate(root, "proxd", n_scenes=1, n_seqs=3, pnt_size=1024, seed=2,
+                    split="test")
+    pt = _reference_atiss_pt(tmp_path / "ref.pt", kind == "mime")
+    common = [data, "--objs_data_dir", os.path.join(root, "objs"), "--load_model", pt,
+              "--batch_size", "2"]
+    jax_cli = importlib.import_module(f"lsdm_tpu.run.test_{kind}")
+    monkeypatch.setattr(sys, "argv", [f"test_{kind}"] + common
+                        + ["--output_dir", os.path.join(root, "jax")])
+    jax_cli.main()
+    port_cli = importlib.import_module(f"lsdm_tpu_torch.run.test_{kind}")
+    final = port_cli.main(common + ["--output_dir", os.path.join(root, "port"),
+                                    "--device", "cpu"])
+    assert set(final) == {"cfd", "emd", "f1", "acc", "top3"}
+    got = _numbers(os.path.join(root, "port", "results.txt"))
+    want = _numbers(os.path.join(root, "jax", "results.txt"))
+    assert len(got) == len(want) == 3 + 5
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-4)
+    names = sorted(os.listdir(os.path.join(root, "jax", "predictions")))
+    assert names == sorted(os.listdir(os.path.join(root, "port", "predictions")))
+    for name in names:
+        np.testing.assert_allclose(np.load(os.path.join(root, "port", "predictions", name)),
+                                   np.load(os.path.join(root, "jax", "predictions", name)),
+                                   rtol=0, atol=1e-4)
+
+
+def test_train_atiss_and_generate_scenes_clis_on_cpu(tmp_path):
+    """``train_atiss`` (1 epoch, batch 2) writes a ``.pt`` with its graph
+    flags that ``test_atiss`` reads back; ``generate_scenes`` reads a
+    reference ``.pt`` (ResNet18 and the quirk chosen for it) and the
+    trained one, from scratch and from ``--complete_from``."""
+    from lsdm_tpu_torch.run import generate_scenes, test_atiss, train_atiss
+
+    root = str(tmp_path)
+    train = generate(root, "proxd", n_scenes=1, n_seqs=4, pnt_size=1024, seed=1,
+                     split="train")
+    test = generate(root, "proxd", n_scenes=1, n_seqs=2, pnt_size=1024, seed=2,
+                    split="test")
+    objs = os.path.join(root, "objs")
+    train_atiss.main(["--train_data_dir", train, "--objs_data_dir", objs, "--save_dir",
+                      os.path.join(root, "out"), "--epochs", "1", "--batch_size", "2",
+                      "--device", "cpu"])
+    ckpt = torch.load(os.path.join(root, "out", "final_atiss.pt"), weights_only=False)
+    assert ckpt["atiss_flags"] == {"feature_extractor": "simple", "freeze_bn": True,
+                                   "torch_seq_axis_quirk": False, "pe": False}
+    final = test_atiss.main([test, "--objs_data_dir", objs, "--load_model",
+                             os.path.join(root, "out", "final_atiss.pt"), "--output_dir",
+                             os.path.join(root, "eval"), "--device", "cpu"])
+    assert np.isfinite(list(final.values())).all()
+    for pt in (_reference_atiss_pt(tmp_path / "ref.pt", False),
+               os.path.join(root, "out", "best_model_atiss.pt")):
+        out = os.path.join(root, "gen", os.path.basename(pt))
+        written = generate_scenes.main(["--load_model", pt, "--n_scenes", "2",
+                                        "--max_boxes", "5", "--output_dir", out,
+                                        "--device", "cpu"])
+        assert len(written) == 2
+        d = np.load(written[0])
+        assert d["class_labels"].shape == (5, 20) and 1 <= int(d["count"]) <= 5
+        assert int(d["valid_mask"].sum()) == int(d["count"])
+    np.savez(tmp_path / "partial.npz", **{k: d[k][:1] for k in (
+        "class_labels", "translations", "sizes", "angles")})
+    written = generate_scenes.main([
+        "--load_model", pt, "--n_scenes", "1", "--max_boxes", "3", "--complete_from",
+        str(tmp_path / "partial.npz"), "--output_dir", os.path.join(root, "gen2"),
+        "--device", "cpu"])
+    d2 = np.load(written[0])
+    assert d2["class_labels"].shape == (4, 20)
+    np.testing.assert_array_equal(d2["translations"][0], d["translations"][0])
+
+
+@pytest.mark.parametrize("cli", ["train_atiss", "train_mime", "train_cf_atiss",
+                                 "test_atiss", "test_mime", "test_cf_atiss",
+                                 "generate_scenes", "get_next_obj_class",
+                                 "scene_completion"])
+def test_atiss_clis_refuse_platform_flax_checkpoints_and_a_missing_gpu(
+        tmp_path, monkeypatch, cli):
+    """``--platform`` is refused with its reason, a flax ``.ckpt`` too (for
+    ``--load_model``, ``--cf_ckpt``, ``--path_to_model``), and no CLI runs
+    on the CPU unless ``--device cpu`` is asked for."""
+    import importlib
+
+    mod = importlib.import_module(f"lsdm_tpu_torch.run.{cli}")
+    argv = (["--train_data_dir", str(tmp_path)] if cli.startswith("train")
+            else [str(tmp_path)] if cli.startswith("test")
+            else ["--load_model", str(tmp_path / "m.pt")] if cli == "generate_scenes"
+            else ["--fitting_results_path", str(tmp_path), "--obj_dataset_path",
+                  str(tmp_path)] if cli == "scene_completion" else [])
+    with pytest.raises(SystemExit, match="--platform .*not ported"):
+        mod.main(argv + ["--platform", "cpu"])
+    flag = {"generate_scenes": None, "scene_completion": "--path_to_model"}.get(
+        cli, None if cli.startswith("train") else "--load_model")
+    for f in ([flag] if flag else []) + (["--cf_ckpt"] if cli.startswith("test") else []):
+        with pytest.raises(SystemExit, match="flax .ckpt"):
+            mod.main(argv + [f, str(tmp_path / "m.ckpt")])
+    if cli == "generate_scenes":
+        with pytest.raises(SystemExit, match="flax .ckpt"):
+            mod.main(["--load_model", str(tmp_path / "m.ckpt")])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="--device cpu"):
+        mod.main(argv)
+
+
+def test_scene_completion_cli_equals_jax(tmp_path, monkeypatch, capsys):
+    """JAX's and the port's ``scene_completion`` on two copies of one
+    fitting directory (a fitted table, 16 human meshes of which every 8th
+    counts, 12 of the 23 classes with 4 candidate meshes each), with the
+    same ``--seed`` and two iterations: JAX's CLI seeds its model from
+    ``--seed``, the port reads those weights from a ``.pt``
+    (``atiss_state_dict_from_jax``).  The same classes are drawn, the same
+    meshes written under the same paths, and their vertices agree within
+    1e-6 (float32 ``.obj`` text, written by each package)."""
+    import json
+    import shutil
+    import sys
+
+    from lsdm_tpu.run import scene_completion as jax_cli
+    from lsdm_tpu.train import state as jax_state
+    from lsdm_tpu_torch.fitting.meshio import load_obj, write_obj
+    from lsdm_tpu_torch.run import scene_completion
+    from lsdm_tpu_torch.weights import atiss_state_dict_from_jax
+
+    seed = 5
+    create_train_state = jax_state.create_train_state
+    rs = np.random.RandomState(0)
+    box = np.array([[x, y, z] for x in (-0.3, 0.3) for y in (-0.2, 0.2)
+                    for z in (0.0, 0.7)], np.float32)
+    faces = np.array([[0, 1, 2], [1, 3, 2], [4, 6, 5], [5, 6, 7]])
+
+    def obj(path, verts):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        write_obj(str(path), verts, faces)
+
+    fit = tmp_path / "fit"
+    obj(fit / "fit_best_obj" / "table" / "0" / "box" / "opt_best.obj", box)
+    (fit / "fit_best_obj" / "table" / "0" / "best_obj_id.json").write_text(
+        json.dumps({"best_obj_id": "box"}))
+    for i in range(16):
+        obj(fit / "human" / "mesh" / f"{i:03d}.obj", box * 0.5 + [1.0 + 0.1 * i, 0.5, 0.0])
+    for name in scene_completion.OBJECT_TYPES[::2]:
+        for j in range(4):
+            obj(tmp_path / "lib" / name / f"m{j}.obj",
+                (box * rs.uniform(0.2, 0.6, 3)).astype(np.float32))
+    shutil.copytree(fit, tmp_path / "fit_port")
+
+    common = ["--obj_dataset_path", str(tmp_path / "lib"), "--seed", str(seed),
+              "--num_iter", "2"]
+    monkeypatch.setattr(sys, "argv", ["scene_completion", "--fitting_results_path",
+                                      str(fit)] + common)
+    seeded = []  # the weights JAX's CLI seeds, as it hands them to its train state
+    monkeypatch.setattr(jax_state, "create_train_state",
+                        lambda variables, *a, **kw: seeded.append(variables)
+                        or create_train_state(variables, *a, **kw))
+    capsys.readouterr()
+    jax_cli.main()
+    jax_log = capsys.readouterr().out
+    sd = atiss_state_dict_from_jax(jax.tree.map(np.asarray, seeded[0]["params"]))
+    torch.save({"model_state_dict": sd}, tmp_path / "atiss.pt")
+    written = scene_completion.main(["--fitting_results_path", str(tmp_path / "fit_port"),
+                                     "--path_to_model", str(tmp_path / "atiss.pt"),
+                                     "--device", "cpu"] + common)
+    port_log = capsys.readouterr().out
+
+    def sampled(log):
+        return [line.split()[-1] for line in log.splitlines() if "sampled class" in line]
+
+    assert sampled(port_log) == sampled(jax_log) and len(sampled(jax_log)) == 2
+    rel = sorted(os.path.relpath(p, tmp_path / "fit_port") for p in written)
+    want = sorted(str(p.relative_to(fit)) for p in fit.glob("fit_best_obj/*/*/*/opt_best.obj")
+                  if json.loads((p.parent.parent / "best_obj_id.json").read_text()
+                                ).get("no_contact"))
+    assert rel == want and len(want) == 2, (rel, want)
+    for r in rel:
+        got_v, got_f = load_obj(str(tmp_path / "fit_port" / r))
+        want_v, want_f = load_obj(str(fit / r))
+        np.testing.assert_allclose(got_v, want_v, rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(got_f, want_f)

@@ -1501,3 +1501,107 @@ def test_contactformer_grad_gate_sees_tf32_products(dev, monkeypatch):
     errs = chip_smoke.contactformer_step_check(dev, 32, "float32")
     print(f"mode 1 train step, TF32 products: {errs}")
     assert errs["grad"] > chip_smoke.CF_GRAD_RTOL, errs
+
+@pytest.mark.parametrize("kind", ["atiss", "quirk", "pe", "mime"])
+def test_atiss_forward_on_cuda_matches_the_cpu(dev, kind):
+    """Each ATISS kind at the reference widths (2 scenes of 9 slots) on the
+    card against the CPU within chip_smoke's ATISS_RTOL, launching no port
+    kernel."""
+    import chip_smoke
+    from lsdm_tpu_torch.profile_atiss import atiss_inputs
+
+    model, boxes, _ = atiss_inputs(kind, 2)
+    with torch.no_grad():
+        want = model(boxes)
+        before = dict(kernels.LAUNCHES)
+        got = model.to(dev)({k: v.to(dev) for k, v in boxes.items()})
+        torch.cuda.synchronize()
+    assert kernels.LAUNCHES == before
+    for name, g_, w in zip(want._fields, got, want):
+        err = ((g_.cpu() - w).abs() / w.abs().clamp(min=1.0)).max()
+        assert float(err) <= chip_smoke.ATISS_RTOL, (name, float(err))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("kind", ["atiss", "quirk", "pe", "mime"])
+def test_atiss_train_step_on_cuda_matches_the_cpu(dev, monkeypatch, kind, dtype):
+    """One ``train_baseline`` step (AdamW) of each kind on the card against
+    the CPU from the same weights and batch, by chip_smoke's gates for
+    ``dtype``."""
+    import chip_smoke
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    errs = chip_smoke.atiss_step_check(dev, dtype, kind)
+    print(f"ATISS {kind} train step in {dtype}: {errs}")
+    for key, gate in zip(("loss", "grad", "param"), chip_smoke._step_gates(dtype)):
+        assert errs[key] <= gate, errs
+
+
+def test_atiss_resnet_keeps_float32_with_cudnn_tf32_on(dev, monkeypatch):
+    """ATISS over ResNet18 as a user runs it, cuDNN's TF32 setting at its
+    default (on): the forward on the card against the CPU within
+    ATISS_RTOL, and one AdamW step in float32 on the card against the CPU's
+    float64 step within the train gates (TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL by
+    each leaf's relative 2-norm, TRAIN_PARAM_ATOL); the setting is restored
+    after."""
+    import chip_smoke
+    from lsdm_tpu_torch.profile_atiss import atiss_inputs
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    model, boxes, _ = atiss_inputs("atiss", 2)
+    with torch.no_grad():
+        want = model(boxes)
+        got = model.to(dev)({k: v.to(dev) for k, v in boxes.items()})
+        torch.cuda.synchronize()
+    for name, g_, w in zip(want._fields, got, want):
+        err = ((g_.cpu() - w).abs() / w.abs().clamp(min=1.0)).max()
+        assert float(err) <= chip_smoke.ATISS_RTOL, (name, float(err))
+    errs = chip_smoke.atiss_step_check(dev, "float32", cpu_dtype="float64")
+    print(f"ATISS train step, cuDNN TF32 on, against float64: {errs}")
+    gates = (chip_smoke.TRAIN_LOSS_RTOL, chip_smoke.TRAIN_GRAD_RTOL,
+             chip_smoke.TRAIN_PARAM_ATOL)
+    for key, gate in zip(("loss", "grad", "param"), gates):
+        assert errs[key] <= gate, errs
+    assert torch.backends.cudnn.allow_tf32
+
+
+def test_atiss_rtol_sees_tf32_convolutions(dev, monkeypatch):
+    """The ATISS_RTOL gate rejects the forward when the extractor's
+    convolutions run in TF32 (``cudnn_full_fp32`` taken out, cuDNN's
+    setting on)."""
+    import contextlib
+
+    import chip_smoke
+    from lsdm_tpu_torch.models import atiss, feature_extractors
+    from lsdm_tpu_torch.profile_atiss import atiss_inputs
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    for mod in (atiss, feature_extractors):
+        monkeypatch.setattr(mod, "cudnn_full_fp32", contextlib.nullcontext)
+    model, boxes, _ = atiss_inputs("atiss", 2)
+    with torch.no_grad():
+        want = model.feature_extractor(boxes["room_layout"])
+        got = model.to(dev).feature_extractor(boxes["room_layout"].to(dev))
+    err = float(((got.cpu() - want).abs() / want.abs().clamp(min=1.0)).max())
+    print(f"ResNet18 features with TF32 convolutions: {err:.3g}")
+    assert err > chip_smoke.ATISS_RTOL
+
+
+def test_atiss_grad_gate_sees_tf32_convolutions(dev, monkeypatch):
+    """The float32 step's gradient gate (CF_GRAD_RTOL, each leaf's relative
+    2-norm) rejects an ATISS train step whose ResNet18 convolutions run in
+    TF32 forward and backward (``cudnn_full_fp32`` taken out of the
+    extractors and the trainer, cuDNN's setting on).  H100 readings: 3.97e-2
+    with TF32, 1.63e-6 without."""
+    import contextlib
+
+    import chip_smoke
+    from lsdm_tpu_torch.models import atiss, cudnn, feature_extractors
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    for mod in (cudnn, atiss, feature_extractors):
+        monkeypatch.setattr(mod, "cudnn_full_fp32", contextlib.nullcontext)
+    errs = chip_smoke.atiss_step_check(dev, "float32")
+    print(f"ATISS train step, TF32 convolutions: {errs}")
+    assert errs["grad"] > chip_smoke.CF_GRAD_RTOL, errs

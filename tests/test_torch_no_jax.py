@@ -155,6 +155,82 @@ print("ok")
 """
 
 
+_ATISS_SCRIPT = r"""
+import json, os, sys, tempfile
+import numpy as np
+import torch
+import chip_smoke
+from lsdm_tpu_torch.data.synthetic import generate
+from lsdm_tpu_torch.fitting.meshio import write_obj
+from lsdm_tpu_torch.run import (generate_scenes, get_next_obj_class, scene_completion,
+                                test_cf_atiss, train_atiss, train_contactformer)
+with tempfile.TemporaryDirectory() as d:
+    train = generate(d, "proxd", n_scenes=1, n_seqs=4, pnt_size=1024, split="train")
+    test = generate(d, "proxd", n_scenes=1, n_seqs=2, pnt_size=1024, split="test")
+    objs = os.path.join(d, "objs")
+    train_atiss.main(["--train_data_dir", train, "--objs_data_dir", objs, "--save_dir",
+                      os.path.join(d, "atiss"), "--epochs", "1", "--batch_size", "2",
+                      "--device", "cpu"])
+    contact = chip_smoke.contact_split(os.path.join(d, "contact"), n_seqs=1, frames=24,
+                                       nv=16)
+    train_contactformer.main(["--train_data_dir", contact, "--save_dir",
+                              os.path.join(d, "cf"), "--epochs", "1", "--steps_per_epoch",
+                              "1", "--max_frame", "8", "--mesh_ds_dir",
+                              os.path.join(d, "none"), "--device", "cpu"])
+    final = test_cf_atiss.main([test, "--objs_data_dir", objs, "--output_dir",
+                                os.path.join(d, "cf_eval"), "--cf_ckpt",
+                                os.path.join(d, "cf", "best_model_recon_acc.pt"),
+                                "--device", "cpu"])
+    assert np.isfinite(list(final.values())).all(), final
+    written = generate_scenes.main(["--load_model", os.path.join(d, "atiss",
+                                    "final_atiss.pt"), "--n_scenes", "1", "--max_boxes",
+                                    "4", "--output_dir", os.path.join(d, "gen"),
+                                    "--device", "cpu"])
+    assert len(written) == 1
+    out = get_next_obj_class.main(["--device", "cpu"])
+    assert 0 <= out["class"] < 23 and len(out["translation"]) == 3
+    # a fitted table and a short human sequence; chair / sofa / table candidates
+    box = np.array([[x, y, z] for x in (-0.3, 0.3) for y in (-0.2, 0.2)
+                    for z in (0.0, 0.7)], np.float32)
+
+    def obj(path, verts):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        write_obj(path, verts)
+
+    fit = os.path.join(d, "fit", "fit_best_obj", "table", "0")
+    obj(os.path.join(fit, "box", "opt_best.obj"), box)
+    json.dump({"best_obj_id": "box"}, open(os.path.join(fit, "best_obj_id.json"), "w"))
+    for i in range(3):
+        obj(os.path.join(d, "fit", "human", "mesh", f"{i:03d}.obj"), box * 0.5 + 1.0)
+    for name in ("chair", "sofa", "table", "desk", "stool", "wardrobe"):
+        obj(os.path.join(d, "lib", name, "a.obj"), box * 0.3)
+    placed = scene_completion.main(["--fitting_results_path", os.path.join(d, "fit"),
+                                    "--obj_dataset_path", os.path.join(d, "lib"),
+                                    "--num_iter", "2", "--device", "cpu"])
+    assert len(placed) == 2 and all(os.path.exists(p) for p in placed), placed
+frameworks = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+assert not frameworks, frameworks
+ours = sorted(m for m in sys.modules if m.split(".")[0] == "lsdm_tpu")
+assert not ours, ours
+print("ok")
+"""
+
+
+def test_atiss_entry_points_run_without_jax():
+    """The ATISS / MIME entry points on the CPU with no JAX module loaded:
+    ``train_atiss`` on a synthetic split, ``test_cf_atiss`` with a
+    ContactFormer ``.pt`` of ``train_contactformer`` as ``--cf_ckpt``,
+    ``generate_scenes`` from the trained ``.pt``, ``get_next_obj_class``,
+    and ``scene_completion`` on a tiny fitting directory (two objects
+    placed)."""
+    root = Path(__file__).resolve().parent.parent
+    res = subprocess.run([sys.executable, "-c", _ATISS_SCRIPT], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
 def test_port_imports_and_samples_without_jax():
     root = Path(__file__).resolve().parent.parent
     res = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=root,
