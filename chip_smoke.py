@@ -188,7 +188,23 @@ Run from the repository root:  python3 chip_smoke.py
    ``train_atiss``, ``test_atiss``, ``test_mime``, ``test_cf_atiss``,
    ``generate_scenes`` and ``get_next_obj_class`` on a synthetic split on
    the card.
-17. Prints one JSON line of kernel records, then, as its last line,
+18. The (data, model) mesh (``parallel_phase``): two ranks, one a card with
+   NCCL where there are two cards, else sharing the one card over gloo
+   (never on the CPU); the sharded train step of ``sdm_proxd()`` at
+   TRAIN_BATCH scenes with per-scene masks at meshes 2x1 and 1x2 against
+   the single-rank step (MESH_LOSS_RTOL, MESH_PARAM_ATOL, every gradient
+   leaf to MESH_GRAD_RTOL), the ranks' parameters bitwise equal, K1-K5
+   launched on every rank, ms/step beside the single rank's; the same step
+   with each of MESH_FAULTS planted must fail the gradient gate; sharded
+   sampling at 2x1, MESH_SAMPLE_BATCH scenes,
+   T=1000, on the fused path against the single-rank sample (CHAIN_ATOL).
+   The ``kernels`` line's K1-K5 records carry each rank's launches as
+   ``train_mesh``, the fused path's as ``sample_mesh``.
+19. ``train_atiss_3dfront`` on the card (``threed_front_phase``): the
+   default ResNet18 ATISS for THREED_FRONT_STEPS steps on a synthetic
+   3D-FRONT cache, cuDNN's TF32 setting on, against the same run on the
+   CPU (THREED_FRONT_RTOL); no port kernel may launch.
+20. Prints one JSON line of kernel records, then, as its last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is non-zero and no result line is
@@ -387,6 +403,30 @@ ATISS_GEN_BOXES = 12  # slots of a generated scene
 # K9 against its plain version, one step: float32 sums in another order
 # (FMA loops against cuBLAS) and erff against torch's erf.  H100 reading
 # 2.4e-07 at b1 and b8, clip off and on.
+# parallel_phase: the sharded train step at these (data, model) meshes, two
+# ranks, against the single-rank step at JAX's float32 bounds
+# (tests/test_parallel.py:134,137): the loss to MESH_LOSS_RTOL, the
+# parameters to MESH_PARAM_ATOL where the single-rank gradient is at least
+# parallel/dryrun.py:WELL_CONDITIONED (below it Adam's first step moves an
+# entry by a share of the learning rate whatever the gradient's rounding).
+# Adam's first step moves an entry by about lr * sign(g), so no error in a
+# gradient's size shows in the parameters: every gradient leaf is held to
+# MESH_GRAD_RTOL of its 2-norm as well, and the same step with each fault of
+# MESH_FAULTS planted (parallel/dryrun.py:planted) must fail that gate.
+# H100 readings (flagship, B=6): 1.37e-3 sound, the mask read per rank
+# 1.69e-2, every gradient counted once a model rank 1.0 (PERF.md).
+# Sharded sampling at 2x1 against the single-rank sample at CHAIN_ATOL.
+MESH_SHAPES = ((2, 1), (1, 2))
+MESH_FAULTS = ((2, 1, "local_mask"), (1, 2, "model_axis"))
+MESH_LOSS_RTOL = 1e-5
+MESH_PARAM_ATOL = 1e-5
+MESH_GRAD_RTOL = 5e-3
+MESH_SAMPLE_BATCH = 2
+# threed_front_phase: train_atiss_3dfront on the card against the same run
+# on the CPU, per-epoch losses (the bound the port's CLI meets against
+# JAX's, tests/test_torch_threed_front.py)
+THREED_FRONT_RTOL = 1e-4
+THREED_FRONT_STEPS = 3
 STEP_ATOL = 1e-6
 STEP_REPS = 200  # launches timed per K9 case
 ENCODE_REPS = 50  # launches timed per K7 / K8 stage
@@ -519,7 +559,15 @@ PATH_KERNELS = {"pallas": ("ball_query", "three_nn", "fps", "denoise_chain"),
                 "backbones_step": ("rank1_attn", "denoise_step"),
                 "backbones_train": ("rank1_attn", "rank1_attn_bwd"),
                 # ATISS / MIME: plain convolutions and attention, no kernel
-                "atiss": ()}
+                "atiss": (),
+                # the sharded train step, on every rank: its part of the
+                # clouds through K1-K5
+                "train_mesh": ("ball_query", "three_nn", "fps", "rank1_attn",
+                               "rank1_attn_bwd"),
+                # sharded sampling, on every rank: the fused encode and the
+                # chain over its scenes
+                "sample_mesh": ("fps", "sa_fused", "fp_fused", "rank1_attn",
+                                "denoise_chain")}
 # the PointNet++ kernels, which no path of the alternate backbones launches
 POINTNET2_KERNELS = ("ball_query", "three_nn", "fps", "sa_fused", "fp_fused",
                      "select_gather")
@@ -1322,18 +1370,6 @@ def bf16_kernel_checks(dev, model, batch: int = TRAIN_BATCH) -> dict:
     return rec
 
 
-def _dropout_draws(cfg, batch: int, g, dev):
-    """The object backbone's dropout keep-masks for a train step:
-    PointNet++'s head (rate 0.5), or DGCNN's two (rate 0.1)."""
-    import torch
-
-    clouds = batch * cfg.max_objs
-    if cfg.pcd_backbone_type == "DGCNN":
-        return [torch.rand(clouds, n, generator=g, device=dev) < 0.9
-                for n in (512, 256)]
-    return torch.rand(clouds, cfg.pcd_points, 128, generator=g, device=dev) < 0.5
-
-
 def train_step_check(dev, cfg, label: str, chamfer_impl: str = "xla",
                      batch: int = TRAIN_BATCH, T: int = T_STEPS,
                      noise_leaves=(), **impls):
@@ -1355,16 +1391,20 @@ def train_step_check(dev, cfg, label: str, chamfer_impl: str = "xla",
     from lsdm_tpu_torch import kernels
     from lsdm_tpu_torch.diffusion.schedule import make_schedule
     from lsdm_tpu_torch.profile_train import build, seeded_batch
-    from lsdm_tpu_torch.train.trainer import make_train_step
+    from lsdm_tpu_torch.train.trainer import dropout_draws, make_train_step
 
     inputs = seeded_batch(cfg, batch, SEED, dev)
     schedule = make_schedule("cosine", T, device=dev)
     step = make_train_step(schedule, chamfer_impl=chamfer_impl)
+    cfg = dataclasses.replace(cfg, **impls)
+    kstate, pstate = (build(cfg, cfg.ball_impl, cfg.attn_impl, SEED, dev)
+                      for _ in range(2))
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    # the object backbone's keep-masks: PointNet++'s head or DGCNN's two
     draws = dict(
         t=torch.randint(0, T, (batch,), generator=g, device=dev),
         noise=torch.randn(batch, cfg.pcd_points, 3, generator=g, device=dev),
-        dropout_mask=_dropout_draws(cfg, batch, g, dev))
+        dropout_mask=dropout_draws(kstate.model, batch * cfg.max_objs, g, dev))
 
     def run(state):
         metrics = step(state, *inputs, **draws)
@@ -1372,9 +1412,6 @@ def train_step_check(dev, cfg, label: str, chamfer_impl: str = "xla",
         params = {n: p.detach().clone() for n, p in state.model.named_parameters()}
         return float(metrics["loss"]), grads, params
 
-    cfg = dataclasses.replace(cfg, **impls)
-    kstate, pstate = (build(cfg, cfg.ball_impl, cfg.attn_impl, SEED, dev)
-                      for _ in range(2))
     _sync(dev)
     kernels.reset_launches()
     loss_k, grads_k, params_k = run(kstate)
@@ -2820,6 +2857,46 @@ def atiss_step_check(dev, dtype: str = "float32", kind: str = "atiss",
     return _step_errors(runs, dtype, CF_PARAM_CUT)
 
 
+def threed_front_step_check(dev, dtype: str = "float32") -> dict:
+    """One ``train_atiss_3dfront`` step (``run/train_atiss_3dfront.py:
+    train_step``: the default ResNet18 ATISS with DMLL heads, AdamW, lr 1e-3,
+    weight decay 0) on a batch of 4 rooms of :func:`threed_front_cache`
+    through the CLI's ``make_boxes``, in ``dtype`` on ``dev`` and on the CPU
+    from the same weights: the errors of ``_step_errors`` (the parameters
+    where the gradient exceeds CF_PARAM_CUT of its leaf's max)."""
+    import numpy as np
+    import torch
+
+    from lsdm_tpu_torch.data.threed_front_dataset import get_dataset_raw_and_encoded
+    from lsdm_tpu_torch.models.atiss import AutoregressiveTransformer
+    from lsdm_tpu_torch.run.train_atiss_3dfront import make_boxes, train_step
+    from lsdm_tpu_torch.train.state import create_train_state
+    from lsdm_tpu_torch.weights import init_weights
+
+    with tempfile.TemporaryDirectory() as root:
+        base, split = threed_front_cache(root)
+        np.random.seed(SEED)
+        raw, enc = get_dataset_raw_and_encoded(
+            {"dataset_type": "cached_threedfront",
+             "encoding_type": "cached_autoregressive_wocm",
+             "dataset_directory": base, "annotation_file": split,
+             "train_stats": "stats.json", "room_layout_size": "64,64"},
+            split=["train", "val"])
+        C = len(raw.class_labels)
+        boxes = make_boxes(enc, [enc[i] for i in range(4)], C, 12, "cpu")
+    runs = []
+    for d, dt in ((torch.device("cpu"), torch.float32), (dev, getattr(torch, dtype))):
+        model = init_weights(AutoregressiveTransformer(
+            n_classes=C, n_mixtures=4, scalar_head=False,
+            feature_extractor_name="resnet18"), SEED).to(d, dt).eval()
+        state = create_train_state(model, lr=1e-3, weight_decay=0.0)
+        loss = train_step(state, {k: v.to(d, dt) for k, v in boxes.items()}, False)
+        runs.append((float(loss), {
+            n: (p.grad.cpu() if p.grad is not None else torch.zeros_like(p).cpu(),
+                p.detach().cpu()) for n, p in model.named_parameters()}))
+    return _step_errors(runs, dtype, CF_PARAM_CUT)
+
+
 def _gen_errors(got, want, count_got, count_want) -> float:
     """max |got - want| / max(1, |want|) over a generated scene's boxes;
     raises unless the counts and the classes are equal."""
@@ -2972,6 +3049,213 @@ def atiss_phase(dev) -> dict:
     return _launches()
 
 
+def parallel_phase(dev, cfg_kw=None, batch: int = TRAIN_BATCH,
+                   T: int = T_STEPS) -> dict:
+    """Phase 18: the (data, model) mesh at the flagship width
+    (``sdm_proxd()``, TRAIN_BATCH scenes of 9 clouds of 1024 points, masks
+    that differ from scene to scene).  Two ranks (``parallel/mesh.py:spawn``),
+    one a card with NCCL where there are two cards, else both on the one
+    card over gloo (its CUDA all-reduce and all-gather stage through the
+    host); no rank runs on the CPU.  Each rank
+    (``parallel/dryrun.py:train_and_sample_check``) runs the single-rank
+    train step, then the sharded step at each of MESH_SHAPES from the same
+    weights and draws (MESH_LOSS_RTOL, MESH_PARAM_ATOL, MESH_GRAD_RTOL), with
+    its own launch counts (K1-K5 on every rank) and a digest of its
+    parameters and statistics (equal on every rank); TRAIN_STEPS more steps
+    of each are timed (the single-rank step on the first rank alone).  The
+    step with each of MESH_FAULTS planted must fail the gradient gate.  Then sharded
+    sampling at 2x1, MESH_SAMPLE_BATCH scenes, T=1000, on the fused path,
+    against the single-rank sample at CHAIN_ATOL.  Returns the launch
+    records {path: {mesh: [rank 0's, rank 1's]}}.  Rehearse on the CPU with
+    ``cfg_kw=parallel.dryrun.TINY``, ``batch=8``, ``T=8`` and
+    ``_check_launches`` stubbed (nothing launches there)."""
+    import torch
+
+    from lsdm_tpu_torch.config import sdm_proxd
+    from lsdm_tpu_torch.parallel import dryrun
+    from lsdm_tpu_torch.parallel.mesh import backend_for, spawn
+
+    world = 2
+    backend = backend_for(dev.type, world)
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    print(f"parallel phase: {world} ranks on {dev.type} ({min(cards, world)} card(s)) "
+          f"over {backend}" + ("" if cards >= world or dev.type != "cuda" else
+                               " (the ranks share the card; gloo stages through "
+                               "the host)"))
+    if cfg_kw is None:  # the train CLI resolves attn_impl on CUDA to K4/K5
+        cfg_kw = {k: v for k, v in dataclasses.asdict(sdm_proxd()).items()
+                  if k != "attn_impl"}
+    t0 = time.perf_counter()
+    res = spawn(dryrun.train_and_sample_check, world, (
+        dict(cfg_kw=cfg_kw, meshes=MESH_SHAPES + MESH_FAULTS, dtype="float32",
+             device=dev.type,
+             seed=SEED, batch=batch, T=T, reps=TRAIN_STEPS),
+        dict(cfg_kw=cfg_kw, shape=(2, 1), device=dev.type, seed=SEED,
+             batch=MESH_SAMPLE_BATCH, T=T)), backend=backend, timeout=600)
+    sec = time.perf_counter() - t0
+    records = {"train_mesh": {}, "sample_mesh": {}}
+    single = res[0]["train"]["single"]
+    for d, m in MESH_SHAPES:
+        label = f"{d}x{m}"
+        runs = [r["train"][label] for r in res]
+        launches = [run["launches"] for run in runs]
+        for rank_launches in launches:
+            _check_launches("train_mesh", rank_launches)
+        records["train_mesh"][label] = launches
+        if len({run["digest"] for run in runs}) != 1:
+            raise AssertionError(f"mesh {label}: the ranks' parameters differ")
+        for rank, (r, run) in enumerate(zip(res, runs)):
+            ref = r["train"]["single"]["metrics"]["loss"]
+            err = abs(run["metrics"]["loss"] - ref) / abs(ref)
+            if (err > MESH_LOSS_RTOL or run["param_err"] > MESH_PARAM_ATOL
+                    or run["grad_err"] > MESH_GRAD_RTOL):
+                raise AssertionError(
+                    f"mesh {label} rank {rank}: loss error {err:.3g} (tolerance "
+                    f"{MESH_LOSS_RTOL}), parameter error {run['param_err']:.3g} "
+                    f"(tolerance {MESH_PARAM_ATOL}), gradient error "
+                    f"{run['grad_err']:.3g} (tolerance {MESH_GRAD_RTOL})")
+        print(f"train step mesh {label}, B={batch} ({batch * 9} clouds), {backend}: loss {runs[0]['metrics']['loss']:.6f} (single rank "
+              f"{single['metrics']['loss']:.6f}); parameters within "
+              f"{max(run['param_err'] for run in runs):.3g} where well conditioned "
+              f"({runs[0]['ill_conditioned']} entries left out), all entries "
+              f"{max(run['param_err_all'] for run in runs):.3g}; gradients "
+              f"{max(run['grad_err'] for run in runs):.3g} of a leaf "
+              f"({runs[0]['grad_worst']}; tolerance {MESH_GRAD_RTOL}); ranks bitwise "
+              f"equal; {runs[0]['ms']:.1f} "
+              f"ms/step (single rank in this call {single['ms']:.1f} ms/step); "
+              f"launches {[_nonzero(x) for x in launches]}")
+    for d, m, fault in MESH_FAULTS:  # the gradient gate must see each
+        label = f"{d}x{m} {fault}"
+        grad_err = min(r["train"][label]["grad_err"] for r in res)
+        loss_err = max(abs(r["train"][label]["metrics"]["loss"]
+                           - r["train"]["single"]["metrics"]["loss"]) for r in res)
+        param_err = max(r["train"][label]["param_err"] for r in res)
+        print(f"train step mesh {label} (a planted fault): gradients "
+              f"{grad_err:.3g} of a leaf (must exceed {MESH_GRAD_RTOL}), loss "
+              f"{loss_err:.3g} off, parameters within {param_err:.3g} where well "
+              f"conditioned")
+        if not grad_err > MESH_GRAD_RTOL:
+            raise AssertionError(f"the gradient gate does not see the fault {fault}")
+    sample_err = 0.0
+    for rank, r in enumerate(res):
+        got = r["sample"]
+        _check_launches("sample_mesh", got["launches"])
+        records["sample_mesh"].setdefault("2x1", []).append(got["launches"])
+        err = float((got["sharded"] - got["single"]).abs().max())
+        cat = float((got["cat"] - got["single_cat"]).abs().max())
+        if not torch.isfinite(got["sharded"]).all() or max(err, cat) > CHAIN_ATOL:
+            raise AssertionError(f"sharded sampling rank {rank}: max |sharded - single| "
+                                 f"{err:.3g}, category {cat:.3g} (tolerance {CHAIN_ATOL})")
+        sample_err = max(sample_err, err, cat)
+    print(f"sharded sampling 2x1, B={MESH_SAMPLE_BATCH}, T={T}, path "
+          f"{res[0]['sample']['path']}: max |sharded - single| {sample_err:.3g} "
+          f"(sample and category; tolerance {CHAIN_ATOL}); "
+          f"{res[0]['sample']['ms']:.1f} ms; launches "
+          f"{[_nonzero(x) for x in records['sample_mesh']['2x1']]}; phase {sec:.1f} s")
+    return records
+
+
+def _nonzero(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if v}
+
+
+def threed_front_cache(root: str, rooms: int = 6, classes: int = 5,
+                       splits=None, seed: int = SEED):
+    """A cached 3D-FRONT split under ``root``, the layout of
+    ``tests/test_threed_front_stack.py::test_cached_rooms_path``: ``rooms``
+    bedrooms (``cache/Bedroom_NNN/boxes.npz``) of 3-5 boxes of ``classes``
+    classes (start and end included), 64 x 64 layouts, ``stats.json``, and
+    a split csv with each room's split from ``splits`` (default: the last
+    room ``val``, the rest ``train``); the data from ``seed``.  The tests
+    build theirs with it too.  Returns (cache directory, split csv)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    C = classes
+    if splits is None:
+        splits = ["train"] * (rooms - 1) + ["val"]
+    base = os.path.join(root, "cache")
+    for i in range(rooms):
+        tag = f"Bedroom_{i:03d}"
+        os.makedirs(os.path.join(base, tag))
+        L = 3 + i % 3
+        np.savez(os.path.join(base, tag, "boxes.npz"), scene_id=tag,
+                 room_layout=(rng.rand(64, 64, 1) * 255).astype(np.uint8),
+                 floor_plan_vertices=rng.rand(4, 3),
+                 floor_plan_faces=np.array([[0, 1, 2], [0, 2, 3]]),
+                 floor_plan_centroid=np.zeros(3),
+                 class_labels=np.eye(C)[rng.randint(0, C - 2, L)].astype(np.float32),
+                 translations=rng.randn(L, 3).astype(np.float32),
+                 sizes=rng.rand(L, 3).astype(np.float32),
+                 angles=rng.randn(L, 1).astype(np.float32))
+    labels = [f"c{i}" for i in range(C - 2)]
+    with open(os.path.join(base, "stats.json"), "w") as f:
+        json.dump({"bounds_translations": [-2, -1, -2, 2, 1, 2],
+                   "bounds_sizes": [0.01, 0.01, 0.01, 2, 2, 2],
+                   "bounds_angles": [-math.pi, math.pi],
+                   "class_labels": labels + ["start", "end"], "object_types": labels,
+                   "class_frequencies": {k: 1 / len(labels) for k in labels},
+                   "class_order": {k: i for i, k in enumerate(labels)},
+                   "count_furniture": {k: 10 for k in labels}}, f)
+    split = os.path.join(root, "splits.csv")
+    with open(split, "w") as f:
+        f.writelines(f"{i:03d},{name}\n" for i, name in enumerate(splits))
+    return base, split
+
+
+def threed_front_phase(dev) -> dict:
+    """Phase 19: ``train_atiss_3dfront`` with ``--device cuda`` at its
+    default widths (ResNet18 features, 4 layers of 512, DMLL heads) for
+    THREED_FRONT_STEPS steps of batch 4 on a synthetic cache
+    (:func:`threed_front_cache`), cuDNN's TF32 setting left on (the trainer
+    turns it off for its step), against the same run on the CPU: per-epoch
+    losses within THREED_FRONT_RTOL, both checkpoints written.  Returns the
+    launch counts (``_check_launches("atiss")``: none)."""
+    import torch
+
+    from lsdm_tpu_torch import kernels
+    from lsdm_tpu_torch.run import train_atiss_3dfront
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    losses = {}
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            base, split = threed_front_cache(root)
+            common = ["--dataset_directory", base, "--annotation_file", split,
+                      "--train_stats", "stats.json", "--batch_size", "4", "--epochs",
+                      "1", "--steps_per_epoch", str(THREED_FRONT_STEPS), "--seed",
+                      str(SEED)]
+            for label, d in (("card", str(dev)), ("cpu", "cpu")):
+                out = os.path.join(root, label)
+                kernels.reset_launches()
+                _sync(dev)
+                t0 = time.perf_counter()
+                state = train_atiss_3dfront.main(common + ["--save_dir", out,
+                                                           "--device", d])
+                _sync(dev)
+                sec = time.perf_counter() - t0
+                if label == "card":
+                    launches, card_sec = _launches(), sec
+                if state.step != THREED_FRONT_STEPS or not {
+                        "best_model_3dfront.pt", "final_3dfront.pt"} <= set(os.listdir(out)):
+                    raise AssertionError(f"train_atiss_3dfront on {d}: {state.step} "
+                                         f"steps, wrote {sorted(os.listdir(out))}")
+                with open(os.path.join(out, "logs", "events.jsonl")) as f:
+                    losses[label] = [json.loads(line)["train/loss"] for line in f]
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    card, cpu = losses["card"], losses["cpu"]
+    err = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    print(f"train_atiss_3dfront on {dev} (ResNet18, 4 x 512, batch 4, "
+          f"{THREED_FRONT_STEPS} steps, cuDNN TF32 setting on): losses {card}, CPU "
+          f"{cpu}, relative error {err:.3g} (tolerance {THREED_FRONT_RTOL}); "
+          f"{card_sec:.1f} s for the run; launches {_nonzero(launches)}")
+    if not all(math.isfinite(x) for x in card) or err > THREED_FRONT_RTOL:
+        raise AssertionError("train_atiss_3dfront on the card disagrees with the CPU")
+    return launches
+
+
 def contact_split(root: str, n_seqs: int = 2, frames: int = 96, nv: int = 655,
                   seed: int = SEED) -> str:
     """A synthetic contact split under ``root`` (the layout of
@@ -3020,6 +3304,8 @@ def _check_launches(path: str, launches: dict) -> None:
         raise AssertionError(f"the bf16 step path ran K6: {launches}")
     if path in ("train_sg", "train_bf16_sg") and launches["ball_query"]:
         raise AssertionError(f"the sg train step ran K1: {launches}")
+    if path == "sample_mesh" and launches["ball_query"] + launches["three_nn"]:
+        raise AssertionError(f"sharded sampling ran K1/K2: {launches}")
     if path == "atiss" and any(launches.values()):
         raise AssertionError(f"the ATISS path launched a port kernel: {launches}")
     if "bf16" in path and any(launches[k] for k in NOT_ON_BF16_PATHS):
@@ -3206,6 +3492,16 @@ def main() -> int:
     _check_launches("train_cli_bf16", train_cli_phase(
         dev, T=BF16_CLI_STEPS, dtype_args=("--dtype", "bfloat16", "--bn_dtype",
                                            "bfloat16")))
+    mesh_launches = parallel_phase(dev)
+    for name in PATH_KERNELS["train_mesh"]:
+        records[name]["train_mesh"] = {
+            label: [rank[name] for rank in ranks]
+            for label, ranks in mesh_launches["train_mesh"].items()}
+    for name in PATH_KERNELS["sample_mesh"]:
+        records[name]["sample_mesh"] = {
+            label: [rank[name] for rank in ranks]
+            for label, ranks in mesh_launches["sample_mesh"].items()}
+    _check_launches("atiss", threed_front_phase(dev))
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

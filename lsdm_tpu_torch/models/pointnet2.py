@@ -63,6 +63,7 @@ from lsdm_tpu_torch.ops.pointcloud import (
     farthest_point_sample, index_points, query_ball_point, three_nn_interpolate)
 from lsdm_tpu_torch.ops.sa_fused import fold_conv_bn, sa_stage_fused_kernel
 from lsdm_tpu_torch.ops.sg_fused import select_gather_grouped
+from lsdm_tpu_torch.parallel.mesh import all_reduce_sum, batch_stats_group
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # flax's: running = 0.9 * running + 0.1 * batch
@@ -113,11 +114,26 @@ def bn_train(bn: nn.BatchNorm1d, x: torch.Tensor,
     returns ``out_dtype`` (None: as computed).  A bf16 ``x`` is widened to
     float32 for the statistics and, apart, for the normalisation, as flax
     promotes it, so its gradient is the two paths' gradients each rounded
-    to bf16 and summed in bf16, as JAX's is."""
+    to bf16 and summed in bf16, as JAX's is.  Inside
+    ``parallel.mesh.batch_stats_over(group)`` the statistics are those of
+    every rank's rows of ``group`` (a sharded batch), each rank's running
+    statistics updated alike."""
     xs = wide(x)
     dims = tuple(range(x.dim() - 1))
-    mean = xs.mean(dim=dims)
-    var = torch.clamp_min((xs * xs).mean(dim=dims) - mean * mean, 0.0)
+    group = batch_stats_group()
+    if group is None:
+        mean = xs.mean(dim=dims)
+        var = torch.clamp_min((xs * xs).mean(dim=dims) - mean * mean, 0.0)
+    else:
+        # the batch split over ranks (parallel/mesh.py:batch_stats_over):
+        # the moments of every rank's rows, as flax takes them over every
+        # shard; one differentiable sum of [sum x, sum x^2, count]
+        count = xs.new_full((1,), float(xs.numel() // xs.shape[-1]))
+        sums = all_reduce_sum(torch.cat([xs.sum(dim=dims), (xs * xs).sum(dim=dims),
+                                         count]), group)
+        C = xs.shape[-1]
+        mean = sums[:C] / sums[-1]
+        var = torch.clamp_min(sums[C:2 * C] / sums[-1] - mean * mean, 0.0)
     with torch.no_grad():
         bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean
                               + (1 - BN_MOMENTUM) * mean)

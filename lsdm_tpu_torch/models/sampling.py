@@ -27,6 +27,8 @@ from lsdm_tpu_torch.diffusion.schedule import Schedule
 from lsdm_tpu_torch.models.sdm import CondCache, SceneDiffusionModel
 from lsdm_tpu_torch.ops.denoise import (
     fused_denoise_chain, make_denoise_step_loop, step_params, step_params_key)
+from lsdm_tpu_torch.parallel.mesh import (
+    BatchShard, Mesh, all_gather, batch_sharding, shard_batch)
 
 # the step sampler's loops (on CUDA, captured CUDA graphs), per model: key
 # (factory, B, N, T, clip, compute dtype, weights) -> the loop
@@ -95,8 +97,12 @@ def resolve_train_attn_impl(attn_impl: str = "auto",
 
 
 def _encode(model: SceneDiffusionModel, mask, given_objs, given_cats,
-            text_emb, cond_chunk: Optional[int]) -> CondCache:
+            text_emb, cond_chunk: Optional[int],
+            shard: Optional[BatchShard] = None) -> CondCache:
     B = given_objs.shape[0]
+    if shard is not None:  # this rank's scenes, in one piece
+        return model.encode_conditioning(mask, given_objs, given_cats, text_emb,
+                                         shard=shard)
     if not cond_chunk or B <= cond_chunk:
         return model.encode_conditioning(mask, given_objs, given_cats, text_emb)
     # bounds the backbone's grouped activations, which peak per scene
@@ -155,6 +161,7 @@ def sample_sdm(
     fused_step: Optional[str] = None,
     x_init: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[torch.Tensor, DenoiserOutput]:
     """Returns (sample (B, N, 3), DenoiserOutput of the last step).
 
@@ -162,6 +169,14 @@ def sample_sdm(
     what is not given comes from ``generator``.  ``timestep_map`` maps
     loop timesteps to the model's (respaced schedules).  ``cond_chunk``
     encodes the conditioning in batch chunks of that size.
+
+    With a ``mesh`` (``parallel/mesh.py``) every rank of it calls this with
+    the global batch and the same generator (or draws): the draws are taken
+    for the global batch, each rank samples its data index's scenes on the
+    path it would take alone (a ``BatchShard`` without a cloud split keeps
+    the global batch's mask reading; ``cond_chunk`` does not apply), and
+    the results are gathered over the data axis, so every rank returns the
+    global batch's sample.
     """
     if model.training:  # JAX samples with train=False
         raise ValueError("sample_sdm needs the model in eval mode (model.eval()): "
@@ -170,13 +185,35 @@ def sample_sdm(
     B, _, N, _ = given_objs.shape
     dev = given_objs.device
     T = schedule.num_timesteps
-    cond = _encode(model, mask, given_objs, given_cats, text_emb, cond_chunk)
-    ts_model = (timestep_map if timestep_map is not None
-                else torch.arange(T, device=dev))
     if x_init is None:
         x_init = torch.randn((B, N, 3), generator=generator, device=dev)
     if noise is None:
         noise = torch.randn((T, B, N, 3), generator=generator, device=dev)
+    if mesh is not None:
+        mask, given_objs, given_cats, text_emb, x_init = shard_batch(
+            mesh, (mask, given_objs, given_cats, text_emb, x_init))
+        sample, last = _sample(
+            model, schedule, mask, given_objs, given_cats, text_emb,
+            clip_denoised, use_ddim, timestep_map, None, fused_step, x_init,
+            noise[:, batch_sharding(mesh, B)], BatchShard(mesh, split_clouds=False))
+        gather = lambda t: all_gather(t, mesh.data_group)  # noqa: E731
+        return gather(sample), DenoiserOutput(
+            x0=gather(last.x0), cat=gather(last.cat), guiding=gather(last.guiding))
+    return _sample(model, schedule, mask, given_objs, given_cats, text_emb,
+                   clip_denoised, use_ddim, timestep_map, cond_chunk, fused_step,
+                   x_init, noise, None)
+
+
+def _sample(model, schedule, mask, given_objs, given_cats, text_emb,
+            clip_denoised, use_ddim, timestep_map, cond_chunk, fused_step,
+            x_init, noise, shard) -> Tuple[torch.Tensor, DenoiserOutput]:
+    B, _, N, _ = given_objs.shape
+    dev = given_objs.device
+    T = schedule.num_timesteps
+    cond = _encode(model, mask, given_objs, given_cats, text_emb, cond_chunk,
+                   shard)
+    ts_model = (timestep_map if timestep_map is not None
+                else torch.arange(T, device=dev))
 
     if fused_step in ("chain", "step"):
         t_seq = torch.arange(T - 1, -1, -1, device=dev)

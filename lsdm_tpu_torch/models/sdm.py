@@ -39,6 +39,7 @@ JAX's ``stop_gradient`` has it.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import torch
@@ -54,6 +55,8 @@ from lsdm_tpu_torch.models.pointnet2 import PointNet2Backbone
 from lsdm_tpu_torch.models.posa import POSADecoderBackbone
 from lsdm_tpu_torch.models.stgcn import STGCN
 from lsdm_tpu_torch.ops.attention import TorchMultiheadAttention, wide
+from lsdm_tpu_torch.parallel.mesh import (
+    BatchShard, batch_stats_over, cloud_shard_map)
 
 
 class CondCache(NamedTuple):
@@ -62,6 +65,26 @@ class CondCache(NamedTuple):
     enc_text: torch.Tensor  # (B, 1, D)
     out_cat: torch.Tensor  # (B, 1, max_cats) softmax probabilities
     cond_pcd: torch.Tensor  # (B, N, 3): (weighted object features + human) / 2
+
+
+def _stats(shard: Optional[BatchShard], clouds: bool):
+    """Where a sharded forward's train-mode BatchNorms take statistics: over
+    the mesh for the split clouds of the object backbone, over the data
+    axis for what the ranks of a data index share (the human backbone, or
+    unsplit clouds)."""
+    if shard is None:
+        return contextlib.nullcontext()
+    m = shard.mesh
+    return batch_stats_over(m.group if clouds and shard.split_clouds
+                            else m.data_group)
+
+
+def _per_cloud(shard: Optional[BatchShard], fn, *arrays):
+    """``fn`` over the clouds: this rank's part of them under a split
+    (``cloud_shard_map``), else all of them."""
+    if shard is None or not shard.split_clouds:
+        return fn(*arrays)
+    return cloud_shard_map(fn, shard.mesh, *arrays)
 
 
 class SceneDiffusionModel(nn.Module):
@@ -114,15 +137,30 @@ class SceneDiffusionModel(nn.Module):
         text_emb: torch.Tensor,  # (B, clip_dim) frozen text features
         dropout_mask: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        shard: Optional[BatchShard] = None,
     ) -> CondCache:
         """Reference ``model/sdm.py`` :145-161 (text/category embeddings,
         category head) and :169-204 (backbones, attentions, translation).
         ``dropout_mask`` / ``generator``: the object backbone's dropout in
         training (``PointNet2Backbone.forward``: one keep-mask;
-        ``DGCNN.forward``: a pair)."""
+        ``DGCNN.forward``: a pair).  ``shard``: the inputs are this rank's
+        slice of a global batch (``parallel/mesh.py:BatchShard``), and the
+        result is that slice of the global batch's result: the mask is read
+        where the global batch's indices point, the train-mode BatchNorms
+        take the global batch's statistics and, with ``split_clouds``, the
+        rank runs its part of its clouds through the object backbone and
+        ``pcd_attention`` (K1-K5 per shard), gathered over the model axis;
+        a given ``dropout_mask`` covers this rank's data slice of the
+        clouds."""
         cfg = self.cfg
         B, num_obj, num_points, xyz = given_objs.shape
         D = cfg.latent_dim
+        if shard is not None and shard.split_clouds and getattr(
+                self.pcd_backbone, "impl", None) in ("fused", "sg"):
+            raise ValueError(
+                f"ball_impl={cfg.ball_impl!r} under an object sharding: JAX "
+                "resolves it to 'auto' there (lsdm_tpu/models/sdm.py:141-143); "
+                "build the model with parallel.mesh.sharded_config(cfg)")
 
         # float32 text features, as JAX casts them, in the weights' dtype
         w = self.embed_text[0].weight
@@ -132,13 +170,24 @@ class SceneDiffusionModel(nn.Module):
         out_cat = torch.softmax(wide(self.predict_cat(enc_text.detach())), dim=2)
         emb_cat = self.embed_cat(given_cats)  # (B, num_obj, cat_emb)
 
-        hm_out = self.human_backbone(given_objs[:, 0].detach())  # (B, N, 3)
+        with _stats(shard, clouds=False):
+            hm_out = self.human_backbone(given_objs[:, 0].detach())  # (B, N, 3)
         objs_flat = given_objs.reshape(B * num_obj, num_points, xyz).contiguous()
-        pcd_out = self.pcd_backbone(objs_flat, dropout_mask, generator)
+        with _stats(shard, clouds=True):
+            pcd_out = _per_cloud(
+                shard, lambda o, m: self.pcd_backbone(o, m, generator),
+                objs_flat, dropout_mask)
         pcd_out = pcd_out.reshape(B, num_obj, num_points * cfg.pcd_dim)
 
-        # text x category x cloud attention with the additive float mask
-        attn_mask = mask[:, None, :].float().repeat(cfg.n_head, 1, 1)
+        # text x category x cloud attention with the additive float mask,
+        # tiled head-major and read batch-major: scene b's head h takes the
+        # mask row (b * H + h) mod B of the global batch (unsharded: this
+        # batch, whose first scene is 0)
+        gmask, first = ((mask.float(), 0) if shard is None
+                        else (shard.global_mask(mask), shard.offset(B)))
+        H = cfg.n_head
+        rows = torch.arange(first * H, (first + B) * H, device=mask.device)
+        attn_mask = gmask[rows % gmask.shape[0]][:, None, :]
         _, attn_w = self.attn_layer(enc_text, emb_cat, pcd_out,
                                     attn_mask=attn_mask)  # (B, 1, num_obj)
 
@@ -156,15 +205,22 @@ class SceneDiffusionModel(nn.Module):
         pcd_trans = pcd_out.reshape(B * num_obj, cfg.pcd_points, cfg.xyz_dim)
         # head_dim 1: with ball_impl "fused" the K4 kernel in eval, with
         # attn_impl "pallas" the K4/K5 pair in training
-        pcd_trans, _ = self.pcd_attention(
-            translation, pcd_trans, pcd_trans, need_weights=False,
+        pcd_trans = _per_cloud(shard, lambda q, kv: self.pcd_attention(
+            q, kv, kv, need_weights=False,
             fused=(cfg.ball_impl == "fused" and not self.training),
-            fused_train=(cfg.attn_impl == "pallas" and self.training))
+            fused_train=(cfg.attn_impl == "pallas" and self.training))[0],
+            translation, pcd_trans.contiguous())
         pcd_trans = pcd_trans.reshape(B, num_obj, num_points,
                                       cfg.translation_params)
         pcd_out = self.point_wise_trans_layer(
             torch.cat([pcd_out, pcd_trans], dim=-1))  # (B, num_obj, N, 3)
-        pcd_out = pcd_out.reshape(num_points, -1, B, num_obj) * mask.to(pcd_out.dtype)
+        # the reference's (B, O, N, 3) -> (N, 3, B, O) times the mask: each
+        # entry takes the mask entry at its flat index mod B * O, of the
+        # global batch
+        start = first * pcd_out[0].numel()
+        flat = torch.arange(start, start + pcd_out.numel(), device=mask.device)
+        pcd_out = pcd_out * gmask.reshape(-1)[flat % gmask.numel()].reshape(
+            pcd_out.shape).to(pcd_out.dtype)
         pcd_out = pcd_out.reshape(B, num_obj, num_points, -1).sum(dim=1)
         cond_pcd = (pcd_out + hm_out) / 2  # (reference :203)
         return CondCache(enc_text=enc_text, out_cat=out_cat, cond_pcd=cond_pcd)
@@ -221,8 +277,8 @@ class SceneDiffusionModel(nn.Module):
                 timesteps: torch.Tensor, given_objs: torch.Tensor,
                 given_cats: torch.Tensor, text_emb: torch.Tensor,
                 dropout_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None
-                ) -> DenoiserOutput:
+                generator: Optional[torch.Generator] = None,
+                shard: Optional[BatchShard] = None) -> DenoiserOutput:
         cond = self.encode_conditioning(mask, given_objs, given_cats, text_emb,
-                                        dropout_mask, generator)
+                                        dropout_mask, generator, shard)
         return self.denoise_from_cond(cond, x, timesteps)

@@ -8,7 +8,7 @@ Counterpart of ``lsdm_tpu/run/train_sdm.py`` (reference
         [--save_dir training_output] [--epochs N] [--batch_size 6] \\
         [--ball_impl auto|pallas|topk|sg] [--attn_impl auto|xla|pallas] \\
         [--dtype float32|bfloat16] [--bn_dtype float32|bfloat16] \\
-        [--load_ckpt ckpt.pt] [--device cuda]
+        [--load_ckpt ckpt.pt] [--device cuda] [--mesh DxM]
 
 On CUDA ``--ball_impl auto`` runs the selection kernels (K1, K2, K3) and
 ``--attn_impl auto`` resolves to the rank-1 attention pair (K4, K5)
@@ -26,12 +26,24 @@ no silent CPU run: without a GPU the CLI refuses unless ``--device cpu``
 is given.  Checkpoints are reference ``.pt`` files (``train/checkpoint.py``),
 which the port's ``run/test_sdm.py --load_model`` and the JAX package's
 ``load_torch_checkpoint`` read.
+
+``--mesh DxM`` trains on a (data, model) mesh of D*M ranks
+(``parallel/mesh.py``; ``train/trainer.py:make_train_step``): the batch
+split over D, each data slice's object clouds over M (K1-K5 per shard),
+the update equal to the single-process one on every rank.  One command
+runs it: it builds the kernels, then starts the D*M ranks itself, one a
+card with NCCL where there are D*M cards, else with gloo (ranks on the
+CPU with ``--device cpu``, or sharing cards); under torchrun (``WORLD_SIZE``
+set) each process is one rank.  The first rank alone writes logs and
+checkpoints.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import sys
 from typing import Optional, Sequence
 
 import torch
@@ -40,7 +52,6 @@ from lsdm_tpu_torch.run import jax_flags
 
 # flags of the JAX CLI whose feature the port does not have (ROADMAP.md)
 _NOT_PORTED = {
-    "mesh": "multi-GPU training is ROADMAP.md queue 1 item 15",
     "steps_per_dispatch": "a TPU dispatch workaround (ROADMAP.md, 'Not ported')",
     "sa_hoist": "a TPU-only formulation (ROADMAP.md, 'Not ported')",
     "gather_bwd": "one-hot matmul gathers are a TPU workaround (ROADMAP.md, "
@@ -85,7 +96,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "K5 backward; 'auto' = pallas on CUDA, xla on the CPU")
     ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
                     help="denoiser/backbone compute dtype (parameters stay float32)")
-    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--mesh", default=None,
+                    help="DxM: train on a (data, model) mesh of D*M ranks, "
+                         "started by this command (or by torchrun)")
     ap.add_argument("--steps_per_dispatch", type=int, default=1)
     ap.add_argument("--sa_hoist", action="store_true")
     ap.add_argument("--gather_bwd", default=None)
@@ -102,10 +115,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def main(argv: Optional[Sequence[str]] = None):
-    """Train; returns the final ``TrainState``."""
+    """Train; returns the final ``TrainState`` (with ``--mesh``, the state of
+    this process's rank under torchrun, and None where this command
+    started the ranks itself)."""
     args = parse_args(argv)
-    given = {"mesh": args.mesh is not None,
-             "steps_per_dispatch": args.steps_per_dispatch != 1,
+    given = {"steps_per_dispatch": args.steps_per_dispatch != 1,
              "sa_hoist": args.sa_hoist, "gather_bwd": args.gather_bwd is not None}
     for flag, why in _NOT_PORTED.items():
         if given[flag]:
@@ -114,6 +128,50 @@ def main(argv: Optional[Sequence[str]] = None):
         raise SystemExit(f"--load_ckpt {args.load_ckpt}: only .pt checkpoints "
                          "load into the port")
     dev = jax_flags.device(args, "train_sdm")
+    if args.mesh is None:
+        return _train(args, dev)
+    shape = _mesh_shape(args.mesh)
+    if not os.path.isdir(args.train_data_dir):  # before any rank starts
+        raise FileNotFoundError(f"--train_data_dir {args.train_data_dir}: no such "
+                                "directory")
+    from lsdm_tpu_torch.parallel import mesh as mesh_lib
+
+    world = shape[0] * shape[1]
+    backend = mesh_lib.backend_for(dev.type, world)
+    rank_argv = list(argv if argv is not None else sys.argv[1:])
+    if mesh_lib.initialize_distributed(backend):  # under torchrun
+        return _rank(int(os.environ.get("LOCAL_RANK", os.environ["RANK"])),
+                     rank_argv, shape)
+    if dev.type == "cuda":
+        from lsdm_tpu_torch import kernels
+
+        kernels.load()  # built once, before the ranks start
+    mesh_lib.spawn(_rank, world, (rank_argv, shape), backend=backend,
+                   timeout=7 * 24 * 3600.0, results=False)
+    return None
+
+
+def _mesh_shape(text: str):
+    try:
+        d, m = (int(v) for v in text.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh {text}: expected DxM, e.g. 2x1") from None
+    if d < 1 or m < 1:
+        raise SystemExit(f"--mesh {text}: both sizes must be positive")
+    return d, m
+
+
+def _rank(rank: int, argv, shape):
+    """One rank of a ``--mesh`` run: the same arguments, its own device
+    (card ``rank % device_count`` on CUDA), the mesh's place."""
+    from lsdm_tpu_torch.parallel.mesh import make_mesh, rank_device
+
+    args = parse_args(argv)
+    dev = rank_device(torch.device(args.device).type, rank, shape[0] * shape[1])
+    return _train(args, dev, make_mesh(shape))
+
+
+def _train(args: argparse.Namespace, dev: torch.device, mesh=None):
     # JAX sums a bf16 product in float32: no bf16 split-K reductions
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
@@ -156,15 +214,18 @@ def main(argv: Optional[Sequence[str]] = None):
                                dim=model_cfg.clip_dim, bpe_path=args.bpe_path,
                                device=dev)
     trainer = Trainer(model_cfg, diff_cfg, train_cfg, text_encoder=text_encoder,
-                      save_dir=args.save_dir, device=dev)
+                      save_dir=args.save_dir, device=dev, mesh=mesh)
     trainer.init_state(args.seed)
     if args.load_ckpt:
         extra = load_checkpoint(args.load_ckpt, trainer.state)
-        print(f"resumed from {args.load_ckpt} at step {trainer.state.step}: {extra}")
-    print(f"train_sdm on {dev}: {len(train_ds)} sequences, bs={args.batch_size}, "
-          f"{args.epochs} epochs, ball_impl={model_cfg.ball_impl}, "
-          f"attn_impl={model_cfg.attn_impl}, dtype={model_cfg.dtype}, "
-          f"bn_dtype={model_cfg.bn_dtype}")
+        if trainer.writes:
+            print(f"resumed from {args.load_ckpt} at step {trainer.state.step}: {extra}")
+    if trainer.writes:
+        on = dev if mesh is None else f"a {mesh.shape[0]}x{mesh.shape[1]} mesh ({dev.type})"
+        print(f"train_sdm on {on}: {len(train_ds)} sequences, bs={args.batch_size}, "
+              f"{args.epochs} epochs, ball_impl={trainer.model_cfg.ball_impl}, "
+              f"attn_impl={model_cfg.attn_impl}, dtype={model_cfg.dtype}, "
+              f"bn_dtype={model_cfg.bn_dtype}")
     return trainer.fit(train_loader, valid_loader, epochs=args.epochs,
                        seed=args.seed)
 

@@ -23,20 +23,25 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lsdm_tpu_torch.config import DiffusionConfig, SDMConfig, TrainConfig
 from lsdm_tpu_torch.data.dataset import Batch, DataLoader
 from lsdm_tpu_torch.diffusion.gaussian import training_losses
 from lsdm_tpu_torch.diffusion.schedule import Schedule, make_schedule
+from lsdm_tpu_torch.models import dgcnn, pointnet2
+from lsdm_tpu_torch.models.dgcnn import DGCNN
 from lsdm_tpu_torch.models.sampling import resolve_fast_path, sample_sdm
 from lsdm_tpu_torch.models.sdm import SceneDiffusionModel
 from lsdm_tpu_torch.models.text import TextEncoder
 from lsdm_tpu_torch.ops.metrics import topk_accuracy
 from lsdm_tpu_torch.ops.pointcloud import chamfer_distance
+from lsdm_tpu_torch.parallel.mesh import (
+    BatchShard, Mesh, batch_sharding, replicated, shard_batch, sharded_config)
 from lsdm_tpu_torch.train.checkpoint import save_checkpoint
 from lsdm_tpu_torch.train.state import (
     TrainState, apply_gradients, create_train_state)
@@ -48,15 +53,62 @@ BATCH_FIELDS = ("mask", "given_objs", "given_cats", "target_verts",
                 "target_cat")
 
 
+def dropout_draws(model: SceneDiffusionModel, clouds: int,
+                  generator: Optional[torch.Generator], device) -> Any:
+    """The object backbone's dropout keep-masks for ``clouds`` clouds, drawn
+    from ``generator`` as its forward draws them: PointNet++'s head (rate
+    0.5, one (clouds, N, 128) mask) or DGCNN's two (rate 0.1, (clouds, 512)
+    then (clouds, 256))."""
+    bb = model.pcd_backbone
+    if isinstance(bb, DGCNN):
+        keep = 1.0 - dgcnn.DROPOUT_RATE
+        return [torch.rand(clouds, lin.out_features, generator=generator,
+                           device=device) < keep
+                for lin in (bb.linear1, bb.linear2)]
+    keep = 1.0 - pointnet2.DROPOUT_RATE
+    return torch.rand(clouds, model.cfg.pcd_points, bb.conv1.weight.shape[0],
+                      generator=generator, device=device) < keep
+
+
+def _rows(a, rows: slice):
+    return [m[rows] for m in a] if isinstance(a, (list, tuple)) else a[rows]
+
+
+def reduce_gradients(model: torch.nn.Module, mesh: Mesh) -> None:
+    """Sum every parameter's gradient over the mesh's ranks (zeros where a
+    rank has none), in one buffer: the same sum on every rank."""
+    params = list(model.parameters())
+    flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                      for p in params])
+    dist.all_reduce(flat, group=mesh.group)
+    i = 0
+    for p in params:
+        p.grad = flat[i:i + p.numel()].view_as(p).clone()
+        i += p.numel()
+
+
 def make_train_step(schedule: Schedule, lambda_cat: float = 0.1,
-                    ema_rate: float = 0.0, chamfer_impl: str = "xla"
+                    ema_rate: float = 0.0, chamfer_impl: str = "xla",
+                    mesh: Optional[Mesh] = None
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """``step(state, mask, objs, cats, target, target_cat, text_emb,
     generator=None, t=None, noise=None, dropout_mask=None) -> metrics``:
     one optimizer step of ``state`` in place.  ``t`` (B,), ``noise``
     (B, N, 3) and ``dropout_mask`` (bool, the backbone head's activations)
     are drawn from ``generator`` where they are not given.  The metrics
-    (loss, mse, cat_loss, grad_norm) stay on the device."""
+    (loss, mse, cat_loss, grad_norm) stay on the device.
+
+    With a ``mesh`` (``parallel/mesh.py``) every rank of it calls the step
+    with the global batch and the same generator (or the same draws): the
+    draws are taken for the global batch, the backbone's keep-masks before
+    the forward, then each rank takes its slice (its data index's scenes
+    and their clouds) and runs the model on it under a
+    ``BatchShard`` (the object clouds split over the model axis too: K1-K5
+    per shard).  Its backward is that of its share of the global mean loss,
+    divided by the ranks of its model-axis line, which all compute that
+    share: so every parameter's gradient summed over the mesh
+    (:func:`reduce_gradients`) is the single-process step's, and the update
+    is the same on every rank.  The metrics are the global batch's."""
 
     def step(state: TrainState, mask, objs, cats, target, target_cat,
              text_emb, generator: Optional[torch.Generator] = None,
@@ -66,20 +118,42 @@ def make_train_step(schedule: Schedule, lambda_cat: float = 0.1,
              ) -> Dict[str, torch.Tensor]:
         model = state.model.train()
         dev = target.device
+        B = target.shape[0]
         if t is None:
-            t = torch.randint(0, schedule.num_timesteps, (target.shape[0],),
+            t = torch.randint(0, schedule.num_timesteps, (B,),
                               generator=generator, device=dev)
         if noise is None:
             noise = torch.randn(target.shape, generator=generator, device=dev)
         state.optimizer.zero_grad(set_to_none=True)
+        shard, share = None, 1.0
+        if mesh is not None:
+            if dropout_mask is None:
+                dropout_mask = dropout_draws(model, B * objs.shape[1], generator, dev)
+            rows = batch_sharding(mesh, B)
+            O = objs.shape[1]  # the keep-masks are per cloud
+            dropout_mask = _rows(dropout_mask, slice(rows.start * O, rows.stop * O))
+            mask, objs, cats, target, target_cat, text_emb, t, noise = shard_batch(
+                mesh, (mask, objs, cats, target, target_cat, text_emb, t, noise))
+            shard = BatchShard(mesh)
+            share = target.shape[0] / B / mesh.shape[1]
 
         def model_fn(x_t, tt):
             return model(x_t, mask, tt, objs, cats, text_emb,
-                         dropout_mask=dropout_mask, generator=generator)
+                         dropout_mask=dropout_mask, generator=generator,
+                         shard=shard)
 
         terms = training_losses(schedule, model_fn, target, t, target_cat,
                                 noise, lambda_cat, chamfer_impl)
-        terms["loss"].backward()
+        if mesh is None:
+            terms["loss"].backward()
+        else:
+            (terms["loss"] * share).backward()
+            reduce_gradients(model, mesh)
+            keys = list(terms)
+            dt = terms["loss"].dtype
+            sums = torch.stack([terms[k].detach().to(dt) for k in keys]) * share
+            dist.all_reduce(sums, group=mesh.group)
+            terms = dict(zip(keys, sums))
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         gnorm = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g) for g in grads]))
@@ -90,24 +164,30 @@ def make_train_step(schedule: Schedule, lambda_cat: float = 0.1,
 
 
 def make_eval_step(model_cfg: SDMConfig, schedule: Schedule,
-                   device: torch.device, clip_denoised: bool = False):
+                   device: torch.device, clip_denoised: bool = False,
+                   mesh: Optional[Mesh] = None):
     """``(sampler, eval_step)``: ``sampler`` is the model on the
     configuration ``resolve_fast_path`` gives for ``device`` (in the
     model's compute dtype), into which
     the caller loads the trained weights once per validation;
     ``eval_step(mask, objs, cats, target, text_emb, generator) -> (sample,
     cfd, cat_probs, guiding)`` samples with it and scores the chamfer
-    distance to the target (reference ``run/train_sdm.py:110-183``)."""
+    distance to the target (reference ``run/train_sdm.py:110-183``).  With
+    a ``mesh`` the batch is sampled over its data axis
+    (``sample_sdm(mesh=...)``)."""
     ball_impl, fused_step = resolve_fast_path("auto", None, device)
     sampler = SceneDiffusionModel(dataclasses.replace(
         model_cfg, ball_impl=ball_impl)).to(device).eval()
 
     @torch.no_grad()
     def eval_step(mask, objs, cats, target, text_emb, generator):
+        # a last batch that does not split over the data axis is sampled
+        # whole on every rank
+        split = mesh if mesh is not None and mask.shape[0] % mesh.shape[0] == 0 else None
         sample, last = sample_sdm(sampler, schedule, mask, objs, cats,
                                   text_emb, generator=generator,
                                   clip_denoised=clip_denoised,
-                                  fused_step=fused_step)
+                                  fused_step=fused_step, mesh=split)
         return sample, chamfer_distance(sample, target), last.cat, last.guiding
 
     return sampler, eval_step
@@ -117,33 +197,48 @@ class Trainer:
     """Epoch loop with validation and best-checkpoint tracking (reference
     ``run/train_sdm.py:186-337``).  Checkpoints (``.pt`` with a ``.json``
     sidecar) go to ``save_dir``: ``best_model_train_loss``,
-    ``best_model_cfd``, ``epoch_NNNN`` after each validation, ``final``."""
+    ``best_model_cfd``, ``epoch_NNNN`` after each validation, ``final``.
+
+    With a ``mesh`` (``parallel/mesh.py``; JAX's ``Trainer(mesh=...)``)
+    every rank of it runs the loop on the same batches: the train step is
+    the sharded one (the model's configuration as ``sharded_config``
+    resolves it), the first weights are broadcast from the mesh's first
+    rank, validation samples over the data axis, and the first rank alone
+    writes logs and checkpoints."""
 
     def __init__(self, model_cfg: SDMConfig,
                  diff_cfg: DiffusionConfig = DiffusionConfig(),
                  train_cfg: TrainConfig = TrainConfig(), text_encoder=None,
                  save_dir: str = "training_output",
-                 device: torch.device = torch.device("cuda")):
+                 device: torch.device = torch.device("cuda"),
+                 mesh: Optional[Mesh] = None):
+        if mesh is not None:
+            model_cfg = sharded_config(model_cfg)
         self.model_cfg, self.diff_cfg, self.train_cfg = model_cfg, diff_cfg, train_cfg
+        self.mesh = mesh
+        self.writes = mesh is None or mesh.is_first
         self.save_dir = save_dir
-        os.makedirs(save_dir, exist_ok=True)
+        if self.writes:
+            os.makedirs(save_dir, exist_ok=True)
         self.device = torch.device(device)
         self.schedule = make_schedule(diff_cfg.noise_schedule, diff_cfg.steps,
                                       device=self.device)
         self.text_encoder = text_encoder or TextEncoder("HASH", dim=model_cfg.clip_dim)
-        self.logger = KVLogger(os.path.join(save_dir, "logs"))
+        self.logger = KVLogger(os.path.join(save_dir, "logs") if self.writes else None)
         self._train_step = make_train_step(self.schedule, diff_cfg.lambda_cat,
-                                           train_cfg.ema_rate)
+                                           train_cfg.ema_rate, mesh=mesh)
         self._sampler, self._eval_step = make_eval_step(
-            model_cfg, self.schedule, self.device)
+            model_cfg, self.schedule, self.device, mesh=mesh)
         self.state: Optional[TrainState] = None
 
     def init_state(self, seed: int = 0) -> TrainState:
         """Seeded weights (``weights.init_weights``) and a fresh AdamW."""
         cfg = self.train_cfg
-        model = init_weights(SceneDiffusionModel(self.model_cfg), seed)
+        model = init_weights(SceneDiffusionModel(self.model_cfg), seed).to(self.device)
+        if self.mesh is not None:
+            replicated(self.mesh, model)
         self.state = create_train_state(
-            model.to(self.device), cfg.lr, cfg.weight_decay,
+            model, cfg.lr, cfg.weight_decay,
             cfg.lr_anneal_steps, ema=cfg.ema_rate > 0)
         return self.state
 
@@ -189,6 +284,8 @@ class Trainer:
         return out
 
     def _save(self, name: str, **extra) -> None:
+        if not self.writes:
+            return
         save_checkpoint(os.path.join(self.save_dir, name + ".pt"), self.state,
                         extra)
 
@@ -206,7 +303,9 @@ class Trainer:
             t0 = time.time()
             means = self.train_epoch(train_loader, epoch, gen)
             self.logger.log("train/epoch_seconds", time.time() - t0, step=epoch)
-            print(f"epoch {epoch}: " + ", ".join(f"{k} {v:.5f}" for k, v in means.items()))
+            if self.writes:
+                print(f"epoch {epoch}: " + ", ".join(f"{k} {v:.5f}"
+                                                     for k, v in means.items()))
             if means["loss"] < best_train:
                 best_train = means["loss"]
                 self._save("best_model_train_loss", epoch=epoch,
@@ -215,7 +314,8 @@ class Trainer:
                 val_gen = torch.Generator(device=self.device).manual_seed(
                     seed + 0x7FFFFFFF - epoch)
                 val = self.validate(valid_loader, epoch, val_gen)
-                print(f"epoch {epoch} validation: {val}")
+                if self.writes:
+                    print(f"epoch {epoch} validation: {val}")
                 if val["cfd"] < best_cfd:
                     best_cfd = val["cfd"]
                     self._save("best_model_cfd", epoch=epoch, cfd=val["cfd"])

@@ -1605,3 +1605,47 @@ def test_atiss_grad_gate_sees_tf32_convolutions(dev, monkeypatch):
     errs = chip_smoke.atiss_step_check(dev, "float32")
     print(f"ATISS train step, TF32 convolutions: {errs}")
     assert errs["grad"] > chip_smoke.CF_GRAD_RTOL, errs
+
+
+def test_device_memory_stats_and_trace_on_the_card(dev, tmp_path):
+    """``utils/profiling.py`` on the card: the allocator's statistics of
+    every visible card, and a Chrome trace holding the card's kernels."""
+    import json
+
+    from lsdm_tpu_torch.utils.profiling import device_memory_stats, trace
+
+    x = torch.randn(512, 512, device=dev)
+    with trace(str(tmp_path)) as prof:
+        y = x @ x
+        torch.cuda.synchronize(dev)
+    stats = device_memory_stats()
+    assert sorted(stats) == [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    assert stats[f"cuda:{dev.index}"]["allocated_bytes.all.current"] >= y.numel() * 4
+    with open(tmp_path / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events), "no kernel in the trace"
+    assert sum(e.device_time_total for e in prof.key_averages()) > 0
+
+
+def test_threed_front_step_holds_the_gradient_gate_with_tf32_on(dev, monkeypatch):
+    """``train_atiss_3dfront``'s float32 step (ResNet18 ATISS, DMLL heads)
+    on the card with cuDNN's TF32 setting on, against the CPU: within the
+    gradient gate of ``test_atiss_grad_gate_sees_tf32_convolutions``
+    (CF_GRAD_RTOL), since the step runs its forward and backward under
+    ``cudnn_full_fp32``; with that taken out of the extractors and the
+    trainer, the same gate rejects it."""
+    import contextlib
+
+    import chip_smoke
+    from lsdm_tpu_torch.models import atiss, cudnn, feature_extractors
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    errs = chip_smoke.threed_front_step_check(dev, "float32")
+    print(f"3D-FRONT train step, cuDNN TF32 setting on: {errs}")
+    assert errs["grad"] <= chip_smoke.CF_GRAD_RTOL, errs
+    assert errs["loss"] <= chip_smoke.TRAIN_LOSS_RTOL, errs
+    for mod in (cudnn, atiss, feature_extractors):
+        monkeypatch.setattr(mod, "cudnn_full_fp32", contextlib.nullcontext)
+    errs = chip_smoke.threed_front_step_check(dev, "float32")
+    print(f"3D-FRONT train step, TF32 convolutions: {errs}")
+    assert errs["grad"] > chip_smoke.CF_GRAD_RTOL, errs

@@ -217,6 +217,66 @@ print("ok")
 """
 
 
+_FINISHED_SCRIPT = r"""
+import importlib, os, sys, tempfile
+import numpy as np
+import torch
+import chip_smoke
+NEW = ["lsdm_tpu_torch.parallel", "lsdm_tpu_torch.parallel.mesh",
+       "lsdm_tpu_torch.parallel.dryrun", "lsdm_tpu_torch.data.threed_front",
+       "lsdm_tpu_torch.data.threed_front_dataset", "lsdm_tpu_torch.data.threed_front_scene",
+       "lsdm_tpu_torch.run.train_atiss_3dfront", "lsdm_tpu_torch.utils.fixseed",
+       "lsdm_tpu_torch.utils.profiling", "lsdm_tpu_torch.tools.pickle_amass_vertices",
+       "lsdm_tpu_torch.data.npy_native"]
+for name in NEW:
+    importlib.import_module(name)
+from lsdm_tpu_torch.data import npy_native
+from lsdm_tpu_torch.parallel import dryrun, mesh
+from lsdm_tpu_torch.run import train_atiss_3dfront
+from lsdm_tpu_torch.utils.fixseed import fixseed
+from lsdm_tpu_torch.utils.profiling import device_memory_stats, trace
+g = fixseed(0)
+with tempfile.TemporaryDirectory() as d:
+    np.save(os.path.join(d, "a.npy"), np.arange(6, dtype=np.float32))
+    assert (npy_native.load(os.path.join(d, "a.npy")) == np.arange(6)).all()
+    with trace(os.path.join(d, "trace")):
+        torch.randn(8, 8, generator=g).sum()
+    assert os.path.exists(os.path.join(d, "trace", "trace.json"))
+    # a cached 3D-FRONT split: 3 rooms of 3-5 boxes of 5 classes
+    chip_smoke.threed_front_cache(d, rooms=3)
+    state = train_atiss_3dfront.main([
+        "--dataset_directory", os.path.join(d, "cache"), "--annotation_file",
+        os.path.join(d, "splits.csv"), "--train_stats", "stats.json",
+        "--room_layout_size", "32,32", "--feature_extractor", "simple",
+        "--n_layers", "1", "--dim_ff", "32", "--batch_size", "2", "--epochs", "1",
+        "--steps_per_epoch", "1", "--save_dir", os.path.join(d, "out"),
+        "--device", "cpu"])
+    assert state.step == 1
+# the sharded train step on two gloo ranks
+res = mesh.spawn(dryrun.train_check, 2, (dryrun.TINY, [(2, 1)]), timeout=480)
+assert res[0]["2x1"]["digest"] == res[1]["2x1"]["digest"]
+assert device_memory_stats() == {} or torch.cuda.is_available()
+frameworks = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+assert not frameworks, frameworks
+ours = sorted(m for m in sys.modules if m.split(".")[0] == "lsdm_tpu")
+assert not ours, ours
+print("ok")
+"""
+
+
+def test_finished_port_runs_without_jax():
+    """The last modules of the port with no JAX module loaded: each of the
+    eleven imported by name, ``fixseed``, ``npy_native``, ``trace``,
+    ``train_atiss_3dfront`` for one step on a cached 3D-FRONT split, and
+    the sharded train step on two CPU gloo ranks."""
+    root = Path(__file__).resolve().parent.parent
+    res = subprocess.run([sys.executable, "-c", _FINISHED_SCRIPT], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
 def test_atiss_entry_points_run_without_jax():
     """The ATISS / MIME entry points on the CPU with no JAX module loaded:
     ``train_atiss`` on a synthetic split, ``test_cf_atiss`` with a

@@ -5,7 +5,8 @@ learning-rate anneal and the EMA), both starting from the same moments
 through ``weights.load_adamw_state_from_optax``; the ``.pt`` checkpoint
 read back by the JAX package's ``load_torch_checkpoint`` and by
 ``--load_ckpt``; the CLI on a tiny synthetic split, its ``final.pt`` in the
-port's ``test_sdm``; and a tiny overfit.
+port's ``test_sdm``; ``--mesh 2x1`` as one command (two CPU gloo ranks)
+against the same run in one process; and a tiny overfit.
 """
 
 import dataclasses
@@ -301,7 +302,7 @@ def test_train_cli_on_cpu(tmp_path):
     assert np.isfinite(final["cfd"])
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "4x2"], ["--steps_per_dispatch", "4"],
+@pytest.mark.parametrize("flag", [["--steps_per_dispatch", "4"],
                                   ["--sa_hoist"], ["--gather_bwd", "matmul"],
                                   ["--platform", "cpu"]])
 def test_train_cli_refuses_what_is_not_ported(flag):
@@ -310,12 +311,35 @@ def test_train_cli_refuses_what_is_not_ported(flag):
 
 
 @pytest.mark.parametrize("flag", [["--fps_batched"], ["--bn_dtype", "float32"],
-                                  ["--dtype", "bfloat16"], ["--bn_dtype", "bfloat16"]])
+                                  ["--dtype", "bfloat16"], ["--bn_dtype", "bfloat16"],
+                                  ["--mesh", "2x1"]])
 def test_train_cli_takes_jax_flags_it_runs_as_is(tmp_path, flag):
     # past the flag checks, the run stops at the missing split
     with pytest.raises(FileNotFoundError):
         train_sdm.main(["--train_data_dir", str(tmp_path / "none"), "--device", "cpu",
                         "--save_dir", str(tmp_path / "out"), *flag])
+
+
+def test_train_cli_mesh_equals_single_process(tmp_path):
+    """``train_sdm --mesh 2x1`` as one command on the CPU (two gloo ranks
+    started by the CLI) against the same run in one process: the same
+    per-epoch losses; the first rank alone writes the checkpoints."""
+    root = str(tmp_path)
+    train = generate(root, "proxd", n_scenes=1, n_seqs=4, pnt_size=32, split="train")
+    common = ["--train_data_dir", train, "--objs_data_dir", os.path.join(root, "objs"),
+              "--pcd_points", "32", "--diffusion_steps", "4", "--epochs", "1",
+              "--batch_size", "2", "--device", "cpu"]
+    logs = {}
+    for name, extra in (("single", []), ("mesh", ["--mesh", "2x1"])):
+        out = os.path.join(root, name)
+        train_sdm.main(common + ["--save_dir", out] + extra)
+        assert "final.pt" in os.listdir(out)
+        with open(os.path.join(out, "logs", "events.jsonl")) as f:
+            logs[name] = {k: v for line in f for k, v in json.loads(line).items()
+                          if k.startswith("train/") and k != "train/epoch_seconds"}
+    assert sorted(logs["mesh"]) == sorted(logs["single"])
+    for k, v in logs["single"].items():
+        np.testing.assert_allclose(logs["mesh"][k], v, rtol=1e-5, err_msg=k)
 
 
 def test_train_cli_in_bf16_on_cpu(tmp_path):
