@@ -79,7 +79,9 @@ Run from the repository root:  python3 chip_smoke.py
    ``baddbmm`` yardstick and the bytes its tables move, pass 2 with its
    TFLOP/s and its plan's warps a tile, and its tables emb and g held to
    their plain bf16 versions) and of K9
-   at b1 and b8, clip off and on, each against its plain bf16 version by
+   at b1 and b8, clip off and on, on the loop's last step and a mid-loop
+   step (u2 and the tile launch also timed apart, with the tile launch's
+   m16 tiles a block), each against its plain bf16 version by
    the BF16 gate (BF16_RTOL, BF16_GAP_SHARE), its bound its bytes or its
    products over BF16_TC_OPS_PER_S; then the bf16 model sampled at b1,
    T=1000, on the chain path (K3 and K7, K8, K4, K6 in their bf16 modes)
@@ -511,7 +513,7 @@ KERNELS = {  # name: (source, the TPU kernel it replaces, path it is counted on)
                       "lsdm_tpu/ops/fp_fused_pallas.py:93", "fused_bf16"),
     "denoise_chain_bf16": ("lsdm_tpu_torch/csrc/denoise_chain_bf16.cu",
                            "lsdm_tpu/ops/denoise_pallas.py:278", "fused_bf16"),
-    "denoise_step_bf16": ("lsdm_tpu_torch/csrc/denoise_step.cu",
+    "denoise_step_bf16": ("lsdm_tpu_torch/csrc/denoise_step_bf16.cu",
                           "lsdm_tpu/ops/denoise_pallas.py:173", "step_bf16"),
 }
 PATH_KERNELS = {"pallas": ("ball_query", "three_nn", "fps", "denoise_chain"),
@@ -1687,23 +1689,24 @@ def encode_large_phase(dev, points: int = LARGE_POINTS) -> dict:
     return launches
 
 
-def step_part_calls(p, args, clip: bool, dev):
+def step_part_calls(p, args, clip: bool, dev, compute_dtype=None):
     """The two launches of one K9 call on ``args`` (x, noise, cond_pcd, e2,
-    coefs), each alone, through the bound step's methods (which count
-    nothing: these launches time the parts): (u2, tiles, the tile
-    launch's cluster size)."""
+    coefs) in ``compute_dtype``'s mode, each alone, through the bound
+    step's methods (which count nothing: these launches time the parts):
+    (u2, tiles, the tile launch's plan: its cluster size, or in the bf16
+    mode its m16 tiles a block)."""
     import torch
 
     from lsdm_tpu_torch import kernels
     from lsdm_tpu_torch.ops import denoise
 
     x, noise, cpcd, e2, coef = args
-    bound = denoise.BoundStep(p, x.shape[1], dev, clip)
+    bound = denoise.bind_step(p, x.shape[1], dev, clip, compute_dtype)
     stream = kernels.stream(dev)
     scratch, out = bound.scratch(x.shape[0]), torch.empty_like(x)
     return (lambda: bound.launch_u2(e2, scratch, stream),
             lambda: bound.launch_tiles(x, noise, cpcd, coef, out, scratch, stream),
-            bound.cluster(x.shape[0]))
+            bound.plan(x.shape[0]))
 
 
 def step_kernel_checks(dev, model, batches=(1, 8)) -> dict:
@@ -1992,36 +1995,54 @@ def bf16_kernel_checks_fused(dev, model, T: int = T_STEPS) -> dict:
 
     rows = sum(w.numel() for w in (p.wc_t, p.wp0_t, p.wp2_t, p.wx0_t, p.wx2_t,
                                    p.wo0_t, p.wo2_t))  # on N rows
+    # K9 bf16's bound moves its weights as it reads them: the product
+    # weights bf16 (2 bytes an element), w_up0 and the biases float32;
+    # beside it the float32 basis of earlier records, every weight 4 bytes
+    weight_bytes = sum(w.numel() * (2 if f in denoise.PRODUCT_WEIGHTS else 4)
+                       for f, w in zip(p._fields, p))
     parts = {}
     for B in (1, 8):
+        x, noise, cpcd = (torch.randn(B, N, 3, generator=g, device=dev) for _ in range(3))
+        e2 = torch.randn(B, 2 * D, generator=g, device=dev)
         # the loop's last step (t = 0: c1 = 1, c2 = c3 = 0), whose output is
-        # x0 itself, so the bf16 gap is that of the whole tail
-        args = [torch.randn(B, N, 3, generator=g, device=dev),
-                torch.randn(B, N, 3, generator=g, device=dev),
-                torch.randn(B, N, 3, generator=g, device=dev),
-                torch.randn(B, 2 * D, generator=g, device=dev), coef[T - 1]]
-        for clip in (False, True):
-            step = denoise.make_denoise_step(p, N, dev, clip, bf)  # bound once
-            got = step(*args)
-            line = f"K9 denoise step bf16 B={B} N={N} D={D} clip={clip}"
-            r = _bf16_gate(got, denoise.denoise_step_plain(*args, p, clip, bf),
-                           denoise.denoise_step_plain(*args, p, clip), line)
-            ms = _time_queued_ms(lambda: step(*args), STEP_REPS, dev)[0]
-            ops = 2 * B * (2 * D * up + N * rows)
-            nbytes = _nbytes(*args, *p, got)
-            if not clip:
-                parts[f"b{B}"] = {"ms": ms, "bound_ms": max(
-                    nbytes / HBM_BYTES_PER_S, ops / BF16_TC_OPS_PER_S) * 1e3, **r}
-            if B != 1 or clip:  # not the path's case: its error counts
-                print(f"{line}: {_bf16_text(r)}; kernel {ms:.4f} ms per launch")
-                rec["denoise_step_bf16"]["max_abs_err"] = max(
-                    rec["denoise_step_bf16"]["max_abs_err"], r["max_abs_err"])
-                continue
-            _record(rec, "denoise_step_bf16", r["max_abs_err"], ms,
-                    _time_ms(lambda: denoise.denoise_step_plain(*args, p, False, bf),
-                             20, dev),
-                    f"{line}: {_bf16_text(r)}; per launch queued", nbytes, ops,
-                    bf16=True)
+        # x0 itself, so the bf16 gap is that of the whole tail; and a
+        # mid-loop step, which weighs x0 by c1 ~ 0.004
+        for row in (T - 1, T // 2):
+            args = [x, noise, cpcd, e2, coef[row]]
+            for clip in (False, True):
+                step = denoise.make_denoise_step(p, N, dev, clip, bf)  # bound once
+                got = step(*args)
+                line = f"K9 denoise step bf16 B={B} N={N} D={D} step {row + 1}/{T} clip={clip}"
+                r = _bf16_gate(got, denoise.denoise_step_plain(*args, p, clip, bf),
+                               denoise.denoise_step_plain(*args, p, clip), line)
+                ms = _time_queued_ms(lambda: step(*args), STEP_REPS, dev)[0]
+                u2_ms = tiles_ms = float("nan")  # the launches exist on the card only
+                plan = None
+                if dev.type == "cuda":
+                    u2, tiles, plan = step_part_calls(p, args, clip, dev, bf)
+                    u2_ms = _time_queued_ms(u2, STEP_REPS, dev)[0]
+                    tiles_ms = _time_queued_ms(tiles, STEP_REPS, dev)[0]
+                ops = 2 * B * (2 * D * up + N * rows)
+                nbytes = _nbytes(*args, got) + weight_bytes
+                bound, bound_f32 = (max(n / HBM_BYTES_PER_S, ops / BF16_TC_OPS_PER_S) * 1e3
+                                    for n in (nbytes, _nbytes(*args, *p, got)))
+                case = {"ms": ms, "u2_ms": u2_ms, "tiles_ms": tiles_ms, "plan_mt": plan,
+                        "bound_ms": bound, "bound_ms_f32_weights": bound_f32,
+                        "tflop_s": ops / ms / 1e9, **r}
+                parts.setdefault(f"b{B}", {})[f"step{row + 1}_clip{int(clip)}"] = case
+                line = (f"{line} ({plan} m16 tiles a block): {_bf16_text(r)}; u2 "
+                        f"{u2_ms:.4f} ms, tiles {tiles_ms:.4f} ms; bound {bound:.5f} ms "
+                        f"(float32 weights {bound_f32:.5f})")
+                if B != 1 or clip or row != T - 1:  # not the path's case: its error counts
+                    print(f"{line}; kernel {ms:.4f} ms per launch")
+                    rec["denoise_step_bf16"]["max_abs_err"] = max(
+                        rec["denoise_step_bf16"]["max_abs_err"], r["max_abs_err"])
+                    continue
+                _record(rec, "denoise_step_bf16", r["max_abs_err"], ms,
+                        _time_ms(lambda: denoise.denoise_step_plain(*args, p, False, bf),
+                                 20, dev),
+                        f"{line}; per launch queued", nbytes, ops, bf16=True)
+                rec["denoise_step_bf16"]["bound_ms_f32_weights"] = bound_f32
     rec["denoise_step_bf16"].update(parts)
     return rec
 

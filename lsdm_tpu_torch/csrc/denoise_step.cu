@@ -74,15 +74,8 @@
 // device ([c1, c2, c3], a row of the sampler's (T, 3) table), so a step
 // needs no host synchronisation and T steps capture into one CUDA graph.
 //
-// The bf16 mode (the _bf16 entries; the TPU kernel at
-// compute_dtype=bfloat16, whose dot() rounds both operands to bf16 and sums
-// in float32, denoise_pallas.py:136-141) is each kernel's kBf16 instance
-// with the weights (w_up2, w_up4^T and the tail's) rounded to bf16 by the
-// wrapper: u0 is rounded as it is staged, u2 as it is stored, x + cond_pcd
-// as the operand of the first layer, and every layer's output as it is
-// stored into the cluster's buffers (all of them feed products).  The
-// update, the biases, the activations and the last layer's x0 stay
-// float32.  Same plans, tiles and shared memory.
+// The bf16 mode (the TPU kernel at compute_dtype=bfloat16) is its own
+// design on the bf16 tensor cores, denoise_step_bf16.cu.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -94,7 +87,6 @@
 namespace {
 
 namespace cg = cooperative_groups;
-using denoise::bf16r;
 using denoise::gelu;
 using denoise::sigmoid;
 
@@ -106,8 +98,7 @@ constexpr int kU2Threads = 256;
 // + b_up0).  Block (x, y, b) owns columns 32x..32x+31 and rows
 // 32y..32y+31; thread (ty, tx) of 8 x 32 owns rows ty*4..ty*4+3 of column
 // tx, so a warp reads one weight row (a broadcast) and 32 consecutive u0
-// columns.  kBf16: u0 and u2 rounded to bf16.
-template <bool kBf16>
+// columns.
 __global__ void __launch_bounds__(kU2Threads)
 step_u2_kernel(const float* __restrict__ e2, const float* __restrict__ w_up0,
                const float* __restrict__ b_up0,
@@ -128,7 +119,7 @@ step_u2_kernel(const float* __restrict__ e2, const float* __restrict__ w_up0,
       const int k = k0 + kk, j = j0 + jj;
       const float u0 = (k < u0_dim && j < d2)
                            ? gelu(w_up0[k] * e2b[j] + b_up0[k]) : 0.0f;
-      u0s[kk][jj] = kBf16 ? bf16r(u0) : u0;
+      u0s[kk][jj] = u0;
     }
     for (int e = threadIdx.x; e < kU2Tile * kU2K; e += kU2Threads) {
       const int ii = e / kU2K, kk = e - ii * kU2K;
@@ -152,7 +143,7 @@ step_u2_kernel(const float* __restrict__ e2, const float* __restrict__ w_up0,
     const int i = i0 + ty * 4 + q;
     if (i < u2_dim) {
       const float v = gelu(acc[q] + b_up2[i]);
-      u2[((size_t)b * u2_dim + i) * d2 + j] = kBf16 ? bf16r(v) : v;
+      u2[((size_t)b * u2_dim + i) * d2 + j] = v;
     }
   }
 }
@@ -350,8 +341,7 @@ __device__ __forceinline__ float act(int a, float v) {
 
 // The step for tile blockIdx.x / cluster of scene blockIdx.y, as rank
 // blockIdx.x % cluster of its cluster.  u2: the scenes' (U2, 2D) tables
-// from step_u2_kernel; w4t: w_up4^T (U2, N).  kBf16: the bf16 mode.
-template <bool kBf16>
+// from step_u2_kernel; w4t: w_up4^T (U2, N).
 __global__ void __launch_bounds__(kTileThreads, 1)
 step_tile_kernel(const float* __restrict__ x, const float* __restrict__ noise,
                  const float* __restrict__ cpcd, const float* __restrict__ u2,
@@ -415,7 +405,6 @@ step_tile_kernel(const float* __restrict__ x, const float* __restrict__ noise,
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         a[c] = x[off + c] + cpcd[off + c];
-        if constexpr (kBf16) a[c] = bf16r(a[c]);
       }
     }
     constexpr int kWarpsP1 = kTileThreads / kTileRows - 1;
@@ -425,7 +414,7 @@ step_tile_kernel(const float* __restrict__ x, const float* __restrict__ noise,
       v = fmaf(a[1], __ldg(w.wp0 + d.DH + o), v);
       v = fmaf(a[2], __ldg(w.wp0 + 2 * d.DH + o), v);
       const float p1 = sigmoid(v + __ldg(w.bp0 + o));
-      sm[L.p1 + o * kTileRows + r] = kBf16 ? bf16r(p1) : p1;
+      sm[L.p1 + o * kTileRows + r] = p1;
     }
   }
   __syncthreads();
@@ -453,10 +442,7 @@ step_tile_kernel(const float* __restrict__ x, const float* __restrict__ noise,
     auto store_out = [&](float4 v, int n) {
       const float bc = J.bias ? __ldg(J.bias + n) : 0.0f;
       const float* br = sm + L.brow + 4 * rg;
-      auto out1 = [&](float u) {
-        const float a = act(J.act, u);
-        return kBf16 ? bf16r(a) : a;
-      };
+      auto out1 = [&](float u) { return act(J.act, u); };
       const float4 val = make_float4(out1(v.x + (J.bias ? bc : br[0])),
                                      out1(v.y + (J.bias ? bc : br[1])),
                                      out1(v.z + (J.bias ? bc : br[2])),
@@ -570,17 +556,15 @@ step_tile_kernel(const float* __restrict__ x, const float* __restrict__ noise,
   }
 }
 
-template <bool kBf16>
 cudaError_t launch_u2(const float* e2, const float* const* w, float* scratch,
                       const StepDims& d, cudaStream_t st) {
   const dim3 grid((d.D2 + kU2Tile - 1) / kU2Tile,
                   (d.U2 + kU2Tile - 1) / kU2Tile, d.B);
-  step_u2_kernel<kBf16><<<grid, kU2Threads, 0, st>>>(
+  step_u2_kernel<<<grid, kU2Threads, 0, st>>>(
       e2, w[0], w[1], w[2], w[3], d.D2, d.U0, d.U2, scratch);
   return cudaGetLastError();
 }
 
-template <bool kBf16>
 cudaError_t launch_tiles(const float* x, const float* noise, const float* cpcd,
                          const float* coef, const float* const* w,
                          const float* w4t, float* out, const float* scratch,
@@ -599,7 +583,7 @@ cudaError_t launch_tiles(const float* x, const float* noise, const float* cpcd,
     if (make_jobs(d, L, sw, scratch, cluster, r, probe) < 0)
       return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      step_tile_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      step_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const int tiles = (d.N + kTileRows - 1) / kTileRows;
@@ -615,7 +599,7 @@ cudaError_t launch_tiles(const float* x, const float* noise, const float* cpcd,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, step_tile_kernel<kBf16>, x, noise, cpcd,
+  err = cudaLaunchKernelEx(&cfg, step_tile_kernel, x, noise, cpcd,
                            scratch, w4t, coef, sw, d, cluster, clip, out);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -651,7 +635,7 @@ int lsdm_denoise_step_u2(const float* e2, const float* const* w,
                          float* scratch, const int* dims, void* stream) {
   const StepDims d = dims_of(dims);
   if (!dims_ok(d, 1)) return (int)cudaErrorInvalidValue;
-  return (int)launch_u2<false>(e2, w, scratch, d, (cudaStream_t)stream);
+  return (int)launch_u2(e2, w, scratch, d, (cudaStream_t)stream);
 }
 
 int lsdm_denoise_step_tiles(const float* x, const float* noise,
@@ -661,40 +645,17 @@ int lsdm_denoise_step_tiles(const float* x, const float* noise,
                             int cluster, int clip, void* stream) {
   const StepDims d = dims_of(dims);
   if (!dims_ok(d, cluster)) return (int)cudaErrorInvalidValue;
-  return (int)launch_tiles<false>(x, noise, cpcd, coef, w, w4t, out, scratch,
+  return (int)launch_tiles(x, noise, cpcd, coef, w, w4t, out, scratch,
                                   d, cluster, clip, (cudaStream_t)stream);
 }
 
-// The two launches in the bf16 mode: the same arguments, the product
-// weights of w and w4t rounded to bf16 by the caller (float32 tensors).
-int lsdm_denoise_step_u2_bf16(const float* e2, const float* const* w,
-                              float* scratch, const int* dims, void* stream) {
-  const StepDims d = dims_of(dims);
-  if (!dims_ok(d, 1)) return (int)cudaErrorInvalidValue;
-  return (int)launch_u2<true>(e2, w, scratch, d, (cudaStream_t)stream);
-}
-
-int lsdm_denoise_step_tiles_bf16(const float* x, const float* noise,
-                                 const float* cpcd, const float* coef,
-                                 const float* const* w, const float* w4t,
-                                 float* out, const float* scratch,
-                                 const int* dims, int cluster, int clip,
-                                 void* stream) {
-  const StepDims d = dims_of(dims);
-  if (!dims_ok(d, cluster)) return (int)cudaErrorInvalidValue;
-  return (int)launch_tiles<true>(x, noise, cpcd, coef, w, w4t, out, scratch,
-                                 d, cluster, clip, (cudaStream_t)stream);
-}
-
-// Clusters of `cluster` tile blocks (of the bf16 instance if bf16) the
-// device runs at once for these dims (cudaOccupancyMaxActiveClusters), or
-// a negative CUDA error.
-int lsdm_denoise_step_max_clusters(const int* dims, int cluster, int bf16) {
+// Clusters of `cluster` tile blocks the device runs at once for these dims
+// (cudaOccupancyMaxActiveClusters), or a negative CUDA error.
+int lsdm_denoise_step_max_clusters(const int* dims, int cluster) {
   const StepDims d = dims_of(dims);
   if (!dims_ok(d, cluster)) return -(int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (size_t)TileLayout(d).total;
-  const void* kernel = bf16 ? (const void*)step_tile_kernel<true>
-                            : (const void*)step_tile_kernel<false>;
+  const void* kernel = (const void*)step_tile_kernel;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return -(int)err;
@@ -714,6 +675,9 @@ int lsdm_denoise_step_max_clusters(const int* dims, int cluster, int bf16) {
   return err != cudaSuccess ? -(int)err : n;
 }
 
+// K9 bf16's kernels (denoise_step_bf16.cu): 1 u2, 2 tiles, 0 neither
+int lsdm_denoise_step_bf16_kind(const void* func);
+
 // The kernel nodes of a captured CUDA graph (a cudaGraph_t): counts[0] all
 // of them, counts[1] K9's u2 launches, counts[2] its tile launches (either
 // mode's).
@@ -731,12 +695,9 @@ int lsdm_graph_kernel_nodes(void* graph, int* counts) {
     ++counts[0];
     cudaKernelNodeParams p;
     if (cudaGraphKernelNodeGetParams(nodes[i], &p) != cudaSuccess) continue;
-    if (p.func == (void*)step_u2_kernel<false> ||
-        p.func == (void*)step_u2_kernel<true>)
-      ++counts[1];
-    if (p.func == (void*)step_tile_kernel<false> ||
-        p.func == (void*)step_tile_kernel<true>)
-      ++counts[2];
+    const int bf16 = lsdm_denoise_step_bf16_kind(p.func);
+    if (p.func == (void*)step_u2_kernel || bf16 == 1) ++counts[1];
+    if (p.func == (void*)step_tile_kernel || bf16 == 2) ++counts[2];
   }
   delete[] nodes;
   return (int)err;

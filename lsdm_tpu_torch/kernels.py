@@ -85,15 +85,20 @@ _SIGNATURES = {
     "lsdm_denoise_chain_tables_bf16": (_P, _P, _P, _P, _P),
     # K9's two launches: (e2, weights[20], scratch, dims[9], stream)
     "lsdm_denoise_step_u2": (_P, _P, _P, _P, _P),
-    "lsdm_denoise_step_u2_bf16": (_P, _P, _P, _P, _P),
     # (x, noise, cond_pcd, coefs, weights[20], w_up4^T, out, scratch,
     #  dims[9], cluster, clip, stream)
     "lsdm_denoise_step_tiles": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
-    "lsdm_denoise_step_tiles_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                     _P),
-    # (dims[9], cluster, bf16) -> clusters of K9's tile kernel (its bf16
-    #  instance if bf16) the device runs at once
-    "lsdm_denoise_step_max_clusters": (_P, _I, _I),
+    # (dims[9], cluster) -> clusters of K9's tile kernel the device runs at
+    #  once
+    "lsdm_denoise_step_max_clusters": (_P, _I),
+    # K9 bf16's two launches: (e2, operands[13], scratch, dims[9], stream)
+    # and (x, noise, cond_pcd, coefs, operands[13], out, scratch, dims[9],
+    # m16 tiles a block, clip, stream)
+    "lsdm_denoise_step_bf16_u2": (_P, _P, _P, _P, _P),
+    "lsdm_denoise_step_bf16_tiles": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # (m16 tiles a block) -> blocks of K9 bf16's tile kernel the device
+    #  runs at once
+    "lsdm_denoise_step_bf16_max_blocks": (_I,),
     # (cudaGraph_t, counts[3]): kernel nodes, K9's u2 and tile nodes
     "lsdm_graph_kernel_nodes": (_P, _P),
     # (q, k, v, B, L, S, H, out, denom or null, stream); the _bf16 entry

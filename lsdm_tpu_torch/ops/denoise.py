@@ -36,7 +36,12 @@ of that body per call, for the step-by-step sampler
 (``csrc/denoise_step.cu``) is two launches on the stream: the scene's u2
 table, then a cluster of blocks per tile of 32 point rows that carries its
 rows from u4 to the update, each block a slice of every layer's columns
-(:func:`step_plan` picks the cluster size).  On CUDA the sampler captures
+(:func:`step_plan` picks the cluster size).  Its bf16 mode is its own
+design (``csrc/denoise_step_bf16.cu``), the same two launches on the bf16
+tensor cores: u2^T as bf16 on ``mma.sync``, then one block per tile of 16,
+32 or 64 point rows (:func:`step_bf16_plan`) that carries them through the
+eight products on ``mma.sync``, every layer's weights streamed through one
+ring from the bf16 copies of :class:`Bf16StepOperands`.  On CUDA the sampler captures
 its T calls into one CUDA graph (:class:`DenoiseStepGraph`) and replays
 it; on the CPU it loops on the host.  The two plain versions share the
 step body, :func:`denoise_step_plain`.
@@ -51,12 +56,13 @@ that layer takes bf16(emb).  Every input is float32, as the Pallas
 wrappers cast them, so the mode is an argument and not the inputs' dtype.
 The CUDA kernels' bf16 modes take the product weights rounded once
 (:func:`bf16_step_params`; :func:`step_params` keeps them per model) and
-round each activation where it becomes a product's operand; K6 runs
-both passes on the bf16 tensor cores from bf16 copies of its weights
-(:class:`Bf16Operands`, made once per kept weights): its first pass on
-wgmma, keeping its tables u0, u2 and u4^T as bf16 and handing emb^T to g's
-product in shared memory, its second on mma.sync.  Their launches count as
-``denoise_chain_bf16`` and ``denoise_step_bf16``.
+round each activation where it becomes a product's operand; both run on
+the bf16 tensor cores from bf16 copies of the weights made once per kept
+weights: K6 (:class:`Bf16Operands`) its first pass on wgmma, keeping its
+tables u0, u2 and u4^T as bf16 and handing emb^T to g's product in shared
+memory, its second on mma.sync; K9 (:class:`Bf16StepOperands`) both
+launches on mma.sync.  Their launches count as ``denoise_chain_bf16`` and
+``denoise_step_bf16``.
 """
 
 from __future__ import annotations
@@ -222,8 +228,13 @@ class Bf16StepParams(DenoiseStepParams):
     """:class:`DenoiseStepParams` whose :data:`PRODUCT_WEIGHTS` are rounded
     to bf16 (float32 tensors): the operands of the kernels' bf16 mode, made
     by :func:`bf16_step_params`.  ``operands`` holds K6's bf16 copies of
-    them (:class:`Bf16Operands`), made at the first use and kept with these
-    weights."""
+    them (:class:`Bf16Operands`), ``step_operands`` K9's
+    (:class:`Bf16StepOperands`), each made at its first use and kept with
+    these weights."""
+
+    @functools.cached_property
+    def step_operands(self) -> "Bf16StepOperands":
+        return _step_bf16_operands(self)
 
     @functools.cached_property
     def operands(self) -> Bf16Operands:
@@ -243,6 +254,101 @@ def bf16_step_params(p: DenoiseStepParams) -> Bf16StepParams:
     return Bf16StepParams(**{
         f: kernels.bf16_exact(w).contiguous() if f in PRODUCT_WEIGHTS else w
         for f, w in zip(p._fields, p)})
+
+
+# K9 bf16 (csrc/denoise_step_bf16.cu) is compiled for these widths; a
+# narrower model runs on operands padded with zeros, a wider one is refused
+STEP_BF16_CAPS = {"U0": 128, "U2": 512, "D": 128, "DH": 64, "D15": 192, "DH2": 64}
+_STEP_BF16_CAPS_TEXT = ("K9 bf16 takes D <= 128, DH <= 64, D15 <= 192, DH2 <= 64, "
+                        "U0 <= 128 and U2 <= 512: the widths csrc/denoise_step_bf16.cu "
+                        "is compiled for (the bf16 chain's cap of D = 128)")
+# its packed float32 biases, each padded with zeros to its width
+_STEP_BF16_BIASES = (("b_up2", 512), ("bc", 128), ("bp0", 64), ("bp2", 128),
+                     ("bx0", 192), ("bx2", 128), ("bo0", 64), ("bo2", 8))
+# its tail layers' weights (in (in, out) layout) as bf16 (out, k) rows of
+# these (out, k), zeros past the model's (wx0_t apart: two halves)
+_STEP_BF16_LAYERS = (("wc_t", 128, 256), ("wp0_t", 64, 16), ("wp2_t", 128, 64),
+                     ("wx0_t", 192, 256), ("wx2_t", 128, 192), ("wo0_t", 64, 128),
+                     ("wo2_t", 8, 64))
+
+
+class Bf16StepOperands(NamedTuple):
+    """K9's weights in the bf16 mode (``csrc/denoise_step_bf16.cu``): bf16
+    copies of the rounded product weights as (out, k) rows, k contiguous
+    (the B operand of ``mma.sync.m16n8k16.row.col``; w_up4's rows are the
+    A operand of u4), each padded with zeros to the widths the kernel is
+    compiled for (:data:`STEP_BF16_CAPS`), and the biases packed into one
+    float32 vector.  The pose features' half of wx0 takes k 0 to D - 1 and
+    emb's half k 128 to 127 + D, where the kernel keeps them.  What the
+    tile kernel streams (w4 and the tail's seven) is cut into chunks of 64
+    k, (chunks, out, 72): each chunk contiguous, its rows padded to 72
+    (nine 16-byte pieces), as the kernel's ring stages hold them
+    (:func:`_bf16_chunks`); w4's rows padded with zeros to a multiple of 64."""
+
+    w2: torch.Tensor    # (512, 128)        w_up2
+    w4: torch.Tensor    # (8, N up to 64, 72)  w_up4
+    bias: torch.Tensor  # (1224,)           b_up2, bc, bp0, bp2, bx0, bx2, bo0, bo2
+    wc: torch.Tensor    # (4, 128, 72)      wc_t^T (128, 256)
+    wp0: torch.Tensor   # (1, 64, 72)       wp0_t^T (64, 16)
+    wp2: torch.Tensor   # (1, 128, 72)      wp2_t^T (128, 64)
+    wx0: torch.Tensor   # (4, 192, 72)      wx0_t^T (192, 256), halves at k 0 and 128
+    wx2: torch.Tensor   # (3, 128, 72)      wx2_t^T (128, 192)
+    wo0: torch.Tensor   # (2, 64, 72)       wo0_t^T (64, 128)
+    wo2: torch.Tensor   # (1, 8, 72)        wo2_t^T (8, 64)
+
+
+# k of a chunk of K9 bf16's streamed operands, and the padded row of one
+STEP_BF16_CHUNK, STEP_BF16_CHUNK_ROW = 64, 72
+
+
+def _bf16_chunks(w: torch.Tensor) -> torch.Tensor:
+    """Rows ``w`` (n, k) as K9 bf16's chunks: (ceil(k / 64), n, 72) bf16,
+    chunk c holding k [64 c, 64 c + 64) of every row, zeros past k and in
+    each row's last 8."""
+    n, k = w.shape
+    c = -(-k // STEP_BF16_CHUNK)
+    rows = torch.zeros(n, c * STEP_BF16_CHUNK, dtype=torch.bfloat16, device=w.device)
+    rows[:, :k] = w
+    out = torch.zeros(c, n, STEP_BF16_CHUNK_ROW, dtype=torch.bfloat16, device=w.device)
+    out[..., :STEP_BF16_CHUNK] = rows.view(n, c, STEP_BF16_CHUNK).transpose(0, 1)
+    return out
+
+
+def _step_bf16_operands(p: DenoiseStepParams) -> Bf16StepOperands:
+    """:class:`Bf16StepOperands` of ``p``, whose product weights are
+    bf16-exact; raises ``ValueError`` past :data:`STEP_BF16_CAPS`."""
+    D = p.wc_t.shape[1]
+    widths = {"U0": p.w_up0.shape[0], "U2": p.w_up2.shape[0], "D": D,
+              "DH": p.wp0_t.shape[1], "D15": p.wx0_t.shape[1], "DH2": p.wo0_t.shape[1]}
+    over = {k: v for k, v in widths.items() if v > STEP_BF16_CAPS[k]}
+    if over:
+        raise ValueError(f"a model of widths {over} exceeds {_STEP_BF16_CAPS_TEXT}")
+
+    def rows(w, n, k, at=0):
+        out = torch.zeros(n, k, dtype=torch.bfloat16, device=w.device)
+        out[:w.shape[0], at:at + w.shape[1]] = w
+        return out
+
+    tail = []
+    for f, n, k in _STEP_BF16_LAYERS:
+        w_t = getattr(p, f)
+        if f == "wx0_t":  # the pose features' half at k 0, emb's at k 128
+            w = rows(w_t[:D].t(), n, k)
+            w[:, k // 2:k // 2 + D] = rows(w_t[D:].t(), n, D)
+        else:
+            w = rows(w_t.t(), n, k)
+        tail.append(_bf16_chunks(w))
+    bias = torch.zeros(sum(n for _, n in _STEP_BF16_BIASES), dtype=torch.float32,
+                       device=p.bc.device)
+    at = 0
+    for f, n in _STEP_BF16_BIASES:
+        b = getattr(p, f).reshape(-1)
+        bias[at:at + b.numel()] = b
+        at += n
+    npad = -(-p.w_up4.shape[0] // 64) * 64
+    return Bf16StepOperands(rows(p.w_up2, STEP_BF16_CAPS["U2"], STEP_BF16_CAPS["U0"]),
+                            _bf16_chunks(rows(p.w_up4, npad, STEP_BF16_CAPS["U2"])),
+                            bias, *tail)
 
 
 # per model: (step_params_key, compute dtype) -> its DenoiseStepParams
@@ -343,21 +449,62 @@ def step_plan(B: int, N: int, max_clusters: Mapping[int, int]) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def step_occupancy(dims: Tuple[int, ...], device_index: int,
-                   bf16: bool = False) -> Dict[int, int]:
-    """Clusters of K9's tile kernel (its bf16 instance if ``bf16``) that
-    CUDA device ``device_index`` runs at once, for each size of
-    ``STEP_CLUSTERS``, at the dims {N, 2D, U0, U2, D, DH, D15, DH2}
-    (cudaOccupancyMaxActiveClusters, which the block's shared memory and the
-    GPCs decide), asked once per dims, device and mode."""
+def step_occupancy(dims: Tuple[int, ...], device_index: int) -> Dict[int, int]:
+    """Clusters of K9's tile kernel that CUDA device ``device_index`` runs
+    at once, for each size of ``STEP_CLUSTERS``, at the dims {N, 2D, U0,
+    U2, D, DH, D15, DH2} (cudaOccupancyMaxActiveClusters, which the block's
+    shared memory and the GPCs decide), asked once per dims and device."""
     lib = kernels.load()
     occupancy = {}
     with torch.cuda.device(device_index):
         for c in STEP_CLUSTERS:
-            n = lib.lsdm_denoise_step_max_clusters((ctypes.c_int * 9)(1, *dims), c,
-                                                   int(bf16))
+            n = lib.lsdm_denoise_step_max_clusters((ctypes.c_int * 9)(1, *dims), c)
             kernels.check(-min(n, 0), "denoise_step")
             occupancy[c] = n
+    return occupancy
+
+
+# K9 bf16's tile kernel: m16 tiles a block (a block carries 16 MT point
+# rows) it is compiled for
+STEP_BF16_MTILES = (1, 2, 4)
+
+
+def step_bf16_plan(B: int, N: int, max_blocks: Mapping[int, int]) -> int:
+    """m16 tiles a block, mt, of K9 bf16's tile launch for B scenes of N
+    points, whose grid is then (ceil(N / (16 mt)), B), given
+    ``max_blocks``: for each of ``STEP_BF16_MTILES``, the blocks of that
+    instance the device runs at once (:func:`step_bf16_occupancy`; 0 where
+    it runs none).  The fewest waves of blocks, ceil(B tiles / max_blocks),
+    then the fewest rows a block: every block streams the same weights and
+    its scene's u2 from L2 whatever its rows, so a block of more rows costs
+    little more while it saves a wave, and one of fewer rows spreads a
+    small batch over more SMs."""
+    if B < 1 or N < 1:
+        raise ValueError(f"step plan needs scenes and points, got {B} and {N}")
+    sizes = [mt for mt in STEP_BF16_MTILES if max_blocks.get(mt, 0) > 0]
+    if not sizes:
+        raise ValueError(f"the device runs no block of K9 bf16's tile kernel: "
+                         f"{dict(max_blocks)}")
+
+    def waves(mt):
+        return -(-B * -(-N // (16 * mt)) // max_blocks[mt])
+
+    return min(sizes, key=lambda m: (waves(m), m))
+
+
+@functools.lru_cache(maxsize=None)
+def step_bf16_occupancy(device_index: int) -> Dict[int, int]:
+    """Blocks of K9 bf16's tile kernel that CUDA device ``device_index``
+    runs at once, for each of ``STEP_BF16_MTILES`` (its occupancy an SM,
+    which the block's shared memory decides, times the SMs), asked once
+    per device."""
+    lib = kernels.load()
+    occupancy = {}
+    with torch.cuda.device(device_index):
+        for mt in STEP_BF16_MTILES:
+            n = lib.lsdm_denoise_step_bf16_max_blocks(mt)
+            kernels.check(-min(n, 0), "denoise_step_bf16")
+            occupancy[mt] = n
     return occupancy
 
 
@@ -393,36 +540,37 @@ def fused_denoise_step(
 
 
 class BoundStep:
-    """K9's weights for N points on a CUDA device, checked and their
-    addresses taken once (in the bf16 mode rounded first,
-    :func:`bf16_step_params`), with w_up4^T (the layout in which the tile
-    kernel copies a tile's rows of w_up4), which it keeps alive, and the
-    device's occupancy of the tile kernel, from which :meth:`cluster`
-    plans a launch.  ``name`` is the mode's count in ``kernels.LAUNCHES``."""
+    """K9's weights for N points on a CUDA device in the float32 mode,
+    checked and their addresses taken once, with w_up4^T (the layout in
+    which the tile kernel copies a tile's rows of w_up4) and the device's
+    occupancy of its tile kernel, from which :meth:`plan` plans a launch.
+    :class:`BoundStepBf16` is the bf16 mode, :func:`bind_step` binds the
+    mode of a compute dtype.  ``name`` is the mode's count in
+    ``kernels.LAUNCHES``."""
+
+    name = "denoise_step"
 
     def __init__(self, p: DenoiseStepParams, N: int, device: torch.device,
-                 clip_denoised: bool, compute_dtype: Optional[torch.dtype] = None):
-        bf16 = kernels.bf16_mode(compute_dtype)
-        if bf16:
-            p = bf16_step_params(p)
+                 clip_denoised: bool):
         self.dims = _check(p, N, {}, device)
         self.N, self.D2, self.U2 = N, self.dims[1], self.dims[3]
         self.device = device
         self.p = p
-        self.w4t = p.w_up4.t().contiguous()
-        self.ptrs = _pointers(p)
         self.clip = int(bool(clip_denoised))
         self.lib = kernels.load()
-        self.name = "denoise_step_bf16" if bf16 else "denoise_step"
-        self._u2 = (self.lib.lsdm_denoise_step_u2_bf16 if bf16
-                    else self.lib.lsdm_denoise_step_u2)
-        self._tiles = (self.lib.lsdm_denoise_step_tiles_bf16 if bf16
-                       else self.lib.lsdm_denoise_step_tiles)
-        index = device.index if device.index is not None else torch.cuda.current_device()
-        self.occupancy = step_occupancy(self.dims, index, bf16)
+        self._bind(device.index if device.index is not None
+                   else torch.cuda.current_device())
 
-    def cluster(self, B: int) -> int:
-        """Blocks a cluster of the tile launch for B scenes (:func:`step_plan`)."""
+    def _bind(self, device_index: int) -> None:
+        """The mode's weight addresses, u2 entry and tile occupancy."""
+        self.w4t = self.p.w_up4.t().contiguous()
+        self.ptrs = _pointers(self.p)
+        self._u2 = self.lib.lsdm_denoise_step_u2
+        self.occupancy = step_occupancy(self.dims, device_index)
+
+    def plan(self, B: int) -> int:
+        """The tile launch's plan for B scenes: blocks a cluster
+        (:func:`step_plan`)."""
         return step_plan(B, self.N, self.occupancy)
 
     def check(self, x, noise, cond_pcd, e2, coefs) -> int:
@@ -437,7 +585,7 @@ class BoundStep:
         return B
 
     def scratch(self, B: int) -> torch.Tensor:
-        """u2 of B scenes, the scratch of one step."""
+        """u2 of B scenes, the scratch of one step: float32 (B, U2, 2D)."""
         return torch.empty(B * self.U2 * self.D2, dtype=torch.float32,
                            device=self.device)
 
@@ -459,17 +607,68 @@ class BoundStep:
         kernels.check(rc, self.name)
 
     def launch_tiles(self, x, noise, cond_pcd, coefs, out, scratch, stream,
-                     cluster: Optional[int] = None) -> None:
+                     plan: Optional[int] = None) -> None:
         """The second launch of a K9 call, reading u2 from scratch (not
-        counted), on clusters of ``cluster`` blocks (by default the plan's)."""
+        counted), by ``plan`` (by default :meth:`plan`'s)."""
         B = x.shape[0]
         with torch.cuda.device(self.device):
-            rc = self._tiles(
-                x.data_ptr(), noise.data_ptr(), cond_pcd.data_ptr(),
-                coefs.data_ptr(), self.ptrs, self.w4t.data_ptr(), out.data_ptr(),
-                scratch.data_ptr(), (ctypes.c_int * 9)(B, *self.dims),
-                cluster or self.cluster(B), self.clip, stream)
+            rc = self.lib.lsdm_denoise_step_tiles(
+                x.data_ptr(), noise.data_ptr(), cond_pcd.data_ptr(), coefs.data_ptr(),
+                self.ptrs, self.w4t.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                (ctypes.c_int * 9)(B, *self.dims), plan or self.plan(B), self.clip,
+                stream)
         kernels.check(rc, self.name)
+
+
+class BoundStepBf16(BoundStep):
+    """:class:`BoundStep` in the bf16 mode (``csrc/denoise_step_bf16.cu``):
+    the weights rounded (:func:`bf16_step_params`) and their bf16 copies
+    (:class:`Bf16StepOperands`, which raise past the kernel's caps), kept
+    alive here; the plan is m16 tiles a block and the scratch bf16."""
+
+    name = "denoise_step_bf16"
+
+    def __init__(self, p: DenoiseStepParams, N: int, device: torch.device,
+                 clip_denoised: bool):
+        super().__init__(bf16_step_params(p), N, device, clip_denoised)
+
+    def _bind(self, device_index: int) -> None:
+        self.ptrs = _step_bf16_pointers(self.p)
+        self._u2 = self.lib.lsdm_denoise_step_bf16_u2
+        self.occupancy = step_bf16_occupancy(device_index)
+
+    def plan(self, B: int) -> int:
+        """The tile launch's plan for B scenes: m16 tiles a block
+        (:func:`step_bf16_plan`)."""
+        return step_bf16_plan(B, self.N, self.occupancy)
+
+    def scratch(self, B: int) -> torch.Tensor:
+        """u2 of B scenes as bf16 u2^T (B, 256, 512) at the kernel's caps, in
+        chunks of 64 columns with rows padded to 72 (B, 8, 256, 72)."""
+        caps = STEP_BF16_CAPS
+        return torch.empty(B * caps["U2"] // STEP_BF16_CHUNK * 2 * caps["D"]
+                           * STEP_BF16_CHUNK_ROW, dtype=torch.bfloat16,
+                           device=self.device)
+
+    def launch_tiles(self, x, noise, cond_pcd, coefs, out, scratch, stream,
+                     plan: Optional[int] = None) -> None:
+        B = x.shape[0]
+        with torch.cuda.device(self.device):
+            rc = self.lib.lsdm_denoise_step_bf16_tiles(
+                x.data_ptr(), noise.data_ptr(), cond_pcd.data_ptr(), coefs.data_ptr(),
+                self.ptrs, out.data_ptr(), scratch.data_ptr(),
+                (ctypes.c_int * 9)(B, *self.dims), plan or self.plan(B), self.clip,
+                stream)
+        kernels.check(rc, self.name)
+
+
+def bind_step(p: DenoiseStepParams, N: int, device: torch.device,
+              clip_denoised: bool = False,
+              compute_dtype: Optional[torch.dtype] = None) -> BoundStep:
+    """K9 bound in the mode of ``compute_dtype``: :class:`BoundStepBf16`
+    for bf16, else :class:`BoundStep`."""
+    mode = BoundStepBf16 if kernels.bf16_mode(compute_dtype) else BoundStep
+    return mode(p, N, device, clip_denoised)
 
 
 def make_denoise_step(p: DenoiseStepParams, N: int, device: torch.device,
@@ -491,7 +690,7 @@ def make_denoise_step(p: DenoiseStepParams, N: int, device: torch.device,
             return plain(x, noise, cond_pcd, e2, coefs)
         return step
 
-    bound = BoundStep(p, N, device, clip_denoised, compute_dtype)
+    bound = bind_step(p, N, device, clip_denoised, compute_dtype)
 
     def step(x, noise, cond_pcd, e2, coefs):
         if kernels.on_cpu(x, noise, cond_pcd, e2, coefs):
@@ -546,7 +745,7 @@ class DenoiseStepGraph:
             raise ValueError(f"a CUDA graph needs a CUDA device, got {device}")
         if T < 1:
             raise ValueError("the step loop needs at least one step")
-        bound = BoundStep(p, N, device, clip_denoised, compute_dtype)
+        bound = bind_step(p, N, device, clip_denoised, compute_dtype)
         self.T = T
         f32 = dict(dtype=torch.float32, device=device)
         self.x = torch.zeros(2, B, N, 3, **f32)
@@ -874,6 +1073,14 @@ def _pointers(p: DenoiseStepParams, operands: bool = False):
     of its :class:`Bf16Operands` (``p`` a :class:`Bf16StepParams`): pass
     1's four, then pass 2's six."""
     ws = list(p) + (list(p.operands) if operands else [])
+    return (ctypes.c_void_p * len(ws))(*[w.data_ptr() for w in ws])
+
+
+def _step_bf16_pointers(p: Bf16StepParams):
+    """The 13 addresses K9 bf16's C entries take (``csrc/denoise_step_bf16.cu``):
+    w_up0, b_up0, then ``p.step_operands`` with b_up4 after w4."""
+    ops = p.step_operands
+    ws = (p.w_up0, p.b_up0, ops.w2, ops.w4, p.b_up4, ops.bias, *ops[3:])
     return (ctypes.c_void_p * len(ws))(*[w.data_ptr() for w in ws])
 
 

@@ -8,6 +8,7 @@ the card, queued behind a sleep so that only the device's time counts.
                                              [--bq_sweep] [--nn_sweep]
                                              [--sg_sweep] [--step_sweep]
                                              [--chain_sweep]
+                                             [--step_stamps]
                                              [--only step sg ...]
                                              [--csrc DIR]
 
@@ -34,7 +35,8 @@ version's; K9 per launch at b1 and b8 (N = 1024, D = 128, seeded weights
 at the flagship widths), clip off, with its error against the plain
 version, through the bound step a sampler calls (``make_denoise_step``),
 and the same in its bf16 mode (``denoise_step_bf16``, the error against
-the plain bf16 version); K6 in its bf16 mode (``denoise_chain_bf16``) at b1
+the plain bf16 version), each with the sha256 of its output's bytes (so
+two trees' outputs can be held bit for bit); K6 in its bf16 mode (``denoise_chain_bf16``) at b1
 and b8, T = 1000 (N = 1024, D = 128, the cosine schedule's DDPM
 coefficients) in an event loop, with its first pass alone over the
 chain's chunks, the second pass as the rest, the second pass's product
@@ -57,10 +59,20 @@ were chosen; ``--sg_sweep`` every plan (centers a warp 1, 2 or 4) of the
 select-gather entry at K10's shapes; ``--step_sweep`` K9's two launches
 apart, u2 and the tile kernel at every cluster size the card runs (1 to
 8), with the card's occupancy of the tile kernel at each, at b1 to b8,
-against which ``ops/denoise.py:step_plan`` was chosen; ``--chain_sweep``
+against which ``ops/denoise.py:step_plan`` was chosen, and K9 bf16's two
+launches apart, its tile kernel at 1, 2 and 4 m16 tiles a block, with the
+blocks of each the card runs at once, against which
+``ops/denoise.py:step_bf16_plan`` was chosen; ``--chain_sweep``
 K6 bf16 at every plan of its second pass (``chain_plans``, each forced by
 standing in for ``ops/denoise.py:chain_bf16_plan``) at b1 to b8 and b16,
-against which that planner was chosen.  ``--only`` times those
+against which that planner was chosen.  ``--step_stamps`` builds the
+kernels with ``-DLSDM_STEP_STAMPS`` (a library of its own) and times
+nothing else: K9 bf16's tile launch at b1 and b8 (u2 launched once
+before), then where one launch's time goes, from the ``%globaltimer``
+and ``clock64`` stamps each block's thread 0 records
+(``csrc/denoise_step_bf16.cu``): the blocks' start spread and span, and
+the median over the blocks of the prologue, each layer, and each layer's
+waits for its copies and at the barrier.  ``--only`` times those
 kernels alone (names: attn, fps, bq, nn, chamfer, sg, step, chain).
 ``--csrc DIR`` builds the kernels from another copy of
 ``csrc/`` (an edited copy for an ablation, such as another
@@ -73,11 +85,14 @@ wrappers take the same arguments.
 from __future__ import annotations
 
 import argparse
+import ctypes
+import hashlib
 import json
 import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from lsdm_tpu_torch import kernels
@@ -267,21 +282,82 @@ def step_case(B: int, N: int = 1024, D: int = 128, seed: int = 0):
 
 
 def step_sweep(B: int, card: str) -> None:
-    """K9's u2 launch and its tile launch at every cluster size, at B
-    scenes, through the bound step's launches, beside the device's
-    occupancy of the tile kernel at each size and the plan it gives."""
+    """K9's u2 launch and its tile launch at every plan, at B scenes,
+    through the bound step's launches, beside the device's occupancy of
+    the tile kernel at each plan and the plan the host picks: in the
+    float32 mode every cluster size, in the bf16 mode every count of m16
+    tiles a block."""
     args, p = step_case(B)
     x, noise, cpcd, e2, coefs = args
-    bound = denoise.BoundStep(p, x.shape[1], x.device, False)
-    stream = kernels.stream(x.device)
-    scratch, out = bound.scratch(B), torch.empty_like(x)
-    u2 = queued_ms(lambda: bound.launch_u2(e2, scratch, stream))
-    tiles = {c: queued_ms(lambda: bound.launch_tiles(x, noise, cpcd, coefs, out,
-                                                     scratch, stream, c))
-             for c in denoise.STEP_CLUSTERS if bound.occupancy[c] > 0}
-    print(json.dumps({"kernel": "denoise_step", "sweep": True, "batch": B,
-                      "u2_ms": u2, "tiles_ms": tiles, "max_clusters": bound.occupancy,
-                      "plan": bound.cluster(B), "card": card}))
+    for dtype, name, plans in ((None, "denoise_step", denoise.STEP_CLUSTERS),
+                               (torch.bfloat16, "denoise_step_bf16",
+                                denoise.STEP_BF16_MTILES)):
+        bound = denoise.bind_step(p, x.shape[1], x.device, False, dtype)
+        stream = kernels.stream(x.device)
+        scratch, out = bound.scratch(B), torch.empty_like(x)
+        u2 = queued_ms(lambda: bound.launch_u2(e2, scratch, stream))
+        tiles = {c: queued_ms(lambda: bound.launch_tiles(x, noise, cpcd, coefs, out,
+                                                         scratch, stream, c))
+                 for c in plans if bound.occupancy[c] > 0}
+        print(json.dumps({"kernel": name, "sweep": True, "batch": B, "u2_ms": u2,
+                          "tiles_ms": tiles, "occupancy": bound.occupancy,
+                          "plan": bound.plan(B), "card": card}))
+
+
+# K9 bf16's layers in the tile kernel's order, and a block's stamp slots
+STEP_BF16_LAYERS = ("u4", "emb", "p1", "p2", "h1", "h2", "h3", "x0")
+STAMP_SLOTS = 32
+
+
+def step_stamps(card: str) -> None:
+    """K9 bf16's tile launch, from a build with ``-DLSDM_STEP_STAMPS``, at
+    b1 and b8 (N = 1024, D = 128): its queued time in that build, and the
+    last launch's stamps in µs, as medians over the blocks (each layer
+    from the end of the one before; the waits converted from cycles by
+    each block's ns a cycle)."""
+    lib = kernels.load()
+    read = lib.lsdm_denoise_step_bf16_stamps
+    read.argtypes, read.restype = (ctypes.c_void_p, ctypes.c_int), ctypes.c_int
+    for B in (1, 8):
+        args, p = step_case(B)
+        x, noise, cpcd, e2, coefs = args
+        bound = denoise.bind_step(p, x.shape[1], x.device, False, torch.bfloat16)
+        stream = kernels.stream(x.device)
+        scratch, out = bound.scratch(B), torch.empty_like(x)
+        bound.launch_u2(e2, scratch, stream)
+        mt = bound.plan(B)
+
+        def tiles():
+            bound.launch_tiles(x, noise, cpcd, coefs, out, scratch, stream, mt)
+
+        ms = queued_ms(tiles)
+        tiles()
+        torch.cuda.synchronize()
+        blocks = B * -(-x.shape[1] // (16 * mt))
+        buf = np.zeros(blocks * STAMP_SLOTS, dtype=np.uint64)
+        kernels.check(read(buf.ctypes.data, blocks), "denoise_step_bf16")
+        s = buf.reshape(blocks, STAMP_SLOTS).astype(np.int64)
+        per_cycle = (s[:, 1] - s[:, 0]) / (s[:, 12] - s[:, 3])  # ns a cycle
+        ends = (s[:, 4:13] - s[:, 3:4]) * per_cycle[:, None]  # prologue, layers
+
+        def med(v):
+            return round(float(np.median(v)) / 1e3, 3)
+
+        layers = np.diff(ends, axis=1)
+        print(json.dumps({
+            "kernel": "denoise_step_bf16", "stamps": True, "batch": B, "mt": mt,
+            "blocks": blocks, "sms": int(len(np.unique(s[:, 2]))),
+            "tiles_ms_stamped_build": ms,
+            "start_spread_us": round(float(s[:, 0].max() - s[:, 0].min()) / 1e3, 3),
+            "span_us": round(float(s[:, 1].max() - s[:, 0].min()) / 1e3, 3),
+            "block_us": med(s[:, 1] - s[:, 0]),
+            "prologue_us": med(ends[:, 0]),
+            "layer_us": {n: med(layers[:, i]) for i, n in enumerate(STEP_BF16_LAYERS)},
+            "copy_wait_us": {n: med(s[:, 13 + i] * per_cycle)
+                             for i, n in enumerate(STEP_BF16_LAYERS)},
+            "barrier_wait_us": {n: med(s[:, 21 + i] * per_cycle)
+                                for i, n in enumerate(STEP_BF16_LAYERS)},
+            "ns_per_cycle": round(float(np.median(per_cycle)), 4), "card": card}))
 
 
 def event_ms(fn, reps: int = 3) -> float:
@@ -385,6 +461,8 @@ def main() -> None:
     ap.add_argument("--sg_sweep", action="store_true")
     ap.add_argument("--step_sweep", action="store_true")
     ap.add_argument("--chain_sweep", action="store_true")
+    ap.add_argument("--step_stamps", action="store_true",
+                    help="K9 bf16's stamps, from a build with -DLSDM_STEP_STAMPS")
     ap.add_argument("--only", nargs="+",
                     choices=["attn", "fps", "bq", "nn", "chamfer", "sg", "step", "chain"])
     ap.add_argument("--csrc", help="build the kernels from this copy of csrc/")
@@ -397,9 +475,14 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card)
+    if args.step_stamps:
+        kernels.NVCC_FLAGS = (*kernels.NVCC_FLAGS, "-DLSDM_STEP_STAMPS")
     t0 = time.perf_counter()
     kernels.load()
     print(f"build {time.perf_counter() - t0:.1f} s")
+    if args.step_stamps:
+        step_stamps(card)
+        return
 
     def on(name):
         return args.only is None or name in args.only
@@ -428,11 +511,13 @@ def main() -> None:
                 step = denoise.make_denoise_step(p, step_args[0].shape[1],
                                                  step_args[0].device,
                                                  compute_dtype=dtype)
-                err = (step(*step_args) - denoise.denoise_step_plain(
+                got = step(*step_args)
+                err = (got - denoise.denoise_step_plain(
                     *step_args, p, compute_dtype=dtype)).abs().max().item()
+                sha = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()[:16]
                 print(json.dumps({"kernel": name, "batch": B, "points": 1024,
                                   "ms": queued_ms(lambda: step(*step_args)),
-                                  "max_abs_err": err, "card": card}))
+                                  "max_abs_err": err, "sha256": sha, "card": card}))
         if args.step_sweep:
             for B in range(1, 9):
                 step_sweep(B, card)

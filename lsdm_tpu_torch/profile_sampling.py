@@ -23,7 +23,9 @@ the conditioning encode alone; with ``--fused_step step`` also the
 warm-up's wall, which captured the graph, and the capture's and the
 instantiation's own times.  For the first batch size it then traces
 one more sample with ``torch.profiler`` and prints the device time of
-each kernel and the busy share: summed kernel time over the traced wall.
+each kernel and the busy share: summed kernel time over the traced wall;
+on the step path also K9's timeline (:func:`step_timeline`): where each
+step's tile launch waits, and for how much of it on its u2.
 The last line is one JSON object with all of it.  ``--csrc DIR`` builds
 the kernels from another copy of ``csrc/`` (an edited copy for an
 ablation, kept in a git-ignored directory), so that a variant's sample is
@@ -35,6 +37,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import statistics
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -78,6 +81,45 @@ def _kernel_times(prof) -> dict:
             out[e.name][0] += e.device_time_total / 1e3
             out[e.name][1] += 1
     return dict(out)
+
+
+def step_timeline(prof) -> dict:
+    """K9's launches on a traced step path's device timeline, in µs:
+    medians over the steps of the tile launch, the u2 launch, the gap
+    from one step's tile launch to the next, the part of that gap in
+    which the next step's u2 was still running (the tiles waiting on
+    it), u2's start after the tile launch it runs beside, and the share
+    of u2's time that overlaps a tile launch; and the gaps' total.  Step
+    t's u2 is the t-th u2 launch; it runs beside step t - 1's tiles.
+    Empty if the trace holds no K9 launch."""
+    u2, tiles = [], []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        if "u2_bf16_kernel" in e.name or "step_u2_kernel" in e.name:
+            u2.append(span)
+        elif "step_bf16_tile_kernel" in e.name or "step_tile_kernel" in e.name:
+            tiles.append(span)
+    if not tiles or len(u2) != len(tiles):
+        return {}
+    u2.sort()
+    tiles.sort()
+    gap, wait, start, overlap = [], [], [], []
+    for t in range(1, len(tiles)):
+        (_, prev_end), (nxt, _), (u0, u1) = tiles[t - 1], tiles[t], u2[t]
+        gap.append(nxt - prev_end)
+        wait.append(min(max(u1 - prev_end, 0.0), nxt - prev_end))
+        start.append(u0 - tiles[t - 1][0])
+        overlap.append(max(min(u1, prev_end) - max(u0, tiles[t - 1][0]), 0.0)
+                       / max(u1 - u0, 1e-9))
+
+    med = statistics.median
+    return {"steps": len(tiles), "tiles_us": med([b - a for a, b in tiles]),
+            "u2_us": med([b - a for a, b in u2]), "gap_us": med(gap),
+            "gap_total_ms": sum(gap) / 1e3, "u2_wait_us": med(wait),
+            "u2_wait_total_ms": sum(wait) / 1e3, "u2_start_after_tiles_us": med(start),
+            "u2_overlap_share": med(overlap)}
 
 
 def profile(batches, steps: int, repeats: int, seed: int,
@@ -150,6 +192,9 @@ def profile(batches, steps: int, repeats: int, seed: int,
                        "busy_share": busy / wall_ms,
                        "kernels": {n: {"ms": ms, "calls": c}
                                    for n, (ms, c) in kernels}}
+    if step == "step":
+        result["trace"]["step_timeline"] = timeline = step_timeline(prof)
+        print(f"traced batch {b}: K9 timeline {timeline}")
     return result
 
 

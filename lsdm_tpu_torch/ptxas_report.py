@@ -6,7 +6,8 @@ loads sit, and which units their instructions use, from the compiler
 
 Compiles each source of ``csrc/`` named (default: the row-MLP kernels K7
 and K8, the ball query and 3-NN kernels K1 and K2, the chamfer nearest
-neighbour K11, FPS, K3, and K6's pass 2 in both modes) with the package's
+neighbour K11, FPS, K3, K6's pass 2 in both modes and K9 in both modes)
+with the package's
 ``NVCC_FLAGS`` plus ``-Xptxas -v`` to a cubin under the build directory and
 prints, per function (each instance of a template), what ptxas reports:
 registers, stack frame, spill stores and spill loads.  For every source it
@@ -33,7 +34,7 @@ from pathlib import Path
 from lsdm_tpu_torch import kernels
 
 SOURCES = ("sa_fused", "fp_fused", "ballquery", "chamfer", "fps", "denoise_chain",
-           "denoise_chain_bf16")
+           "denoise_chain_bf16", "denoise_step", "denoise_step_bf16")
 SASS_SOURCES = ("sa_fused", "fp_fused")
 # the opcodes counted per function of the SASS
 OPCODES = ("HMMA", "HGMMA", "FFMA", "LDSM", "MUFU", "BAR", "BRA")

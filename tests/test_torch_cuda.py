@@ -381,7 +381,7 @@ def test_step_occupancy_at_the_flagship_width(dev):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert bound.occupancy[1] == sms
     assert all(0 <= n * c <= sms for c, n in bound.occupancy.items())
-    assert bound.occupancy[bound.cluster(1)] > 0
+    assert bound.occupancy[bound.plan(1)] > 0
 
 
 @pytest.mark.parametrize("b,n,d,t,clip", [
@@ -1236,7 +1236,13 @@ def test_denoise_chain_tables_bf16_are_stored_as_bf16(dev, b, t, n, d):
 
 
 @pytest.mark.parametrize("b,n,d,clip", [
-    (1, 1024, 128, False), (8, 1024, 128, True), (3, 37, 16, True), (1, 5, 16, False)])
+    (1, 1024, 128, False), (8, 1024, 128, True), (3, 37, 16, True), (1, 5, 16, False),
+    (1, 1000, 128, False), (1, 1000, 128, True),   # N not a multiple of the row tile
+    (8, 1000, 128, True),                          # 64-row tiles, the last of 40 rows
+    (1, 4096, 128, True), (8, 4096, 128, False),   # 4096 points: 2 and 4 waves
+    (2, 1024, 64, False), (2, 1024, 64, True),     # D = 64, b2
+    (3, 1024, 128, False),                         # 32-row tiles
+])
 def test_denoise_step_bf16_kernel_matches_plain(dev, b, n, d, clip):
     args = _step_args(dev, b, n, d)
     before = {k: kernels.LAUNCHES[k] for k in ("denoise_step", "denoise_step_bf16")}
@@ -1249,6 +1255,50 @@ def test_denoise_step_bf16_kernel_matches_plain(dev, b, n, d, clip):
     torch.cuda.synchronize()
     _bf16_gate(got, want, denoise.denoise_step_plain(*args, clip_denoised=clip),
                "K9 bf16")
+
+
+@pytest.mark.parametrize("mt", [1, 2, 4])
+@pytest.mark.parametrize("b,n,d", [(2, 1000, 128), (3, 37, 16)])
+def test_denoise_step_bf16_kernel_at_every_plan(dev, mt, b, n, d, monkeypatch):
+    """Each instance of the tile kernel (16, 32 or 64 rows a block), forced
+    past the planner, on ragged last tiles."""
+    monkeypatch.setattr(denoise, "step_bf16_plan", lambda B, N, _: mt)
+    args = _step_args(dev, b, n, d)
+    got = denoise.fused_denoise_step(*args, clip_denoised=True, compute_dtype=torch.bfloat16)
+    want = denoise.denoise_step_plain(*args, clip_denoised=True, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    _bf16_gate(got, want, denoise.denoise_step_plain(*args, clip_denoised=True),
+               f"K9 bf16 mt={mt}")
+
+
+def test_denoise_step_bf16_refuses_a_model_past_its_caps(dev):
+    """D = 144 (2D = 288, DH = 72, D15 = 216) exceeds the widths
+    csrc/denoise_step_bf16.cu is compiled for: binding the weights raises,
+    naming them, and launches nothing; the float32 mode runs it."""
+    args = _step_args(dev, 1, 40, 144)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="K9 bf16 takes D <= 128"):
+        denoise.make_denoise_step(args[-1], 40, dev, compute_dtype=torch.bfloat16)
+    assert kernels.LAUNCHES == before
+    got = denoise.fused_denoise_step(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, denoise.denoise_step_plain(*args), atol=1e-5, rtol=0)
+
+
+def test_float32_step_keeps_its_bits_beside_a_bound_bf16_step(dev):
+    """The float32 K9 gives the same bits before and after a bf16 step is
+    bound and run in the same process (the two modes share no state)."""
+    args = _step_args(dev, 2, 1000, 128)
+    f32 = denoise.make_denoise_step(args[-1], 1000, dev, clip_denoised=True)
+    before = f32(*args[:5])
+    bf = denoise.make_denoise_step(args[-1], 1000, dev, True, torch.bfloat16)
+    bf(*args[:5])
+    graph = denoise.DenoiseStepGraph(args[-1], 2, 1000, 2, dev, True, torch.bfloat16)
+    del graph
+    after = f32(*args[:5])
+    again = denoise.make_denoise_step(args[-1], 1000, dev, clip_denoised=True)(*args[:5])
+    torch.cuda.synchronize()
+    assert torch.equal(before, after) and torch.equal(before, again)
 
 
 def test_bf16_step_graph_replays_the_host_loop_bit_for_bit(dev):
