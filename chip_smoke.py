@@ -337,6 +337,7 @@ BF16_CLI_STEPS = 100
 # near a bf16 boundary can flip and travel through the later layers.
 BF16_RTOL = 3e-2
 BF16_GAP_SHARE = 0.5
+ENCODE_BF16_CLOUDS = (9, 72)  # K7 / K8 bf16 checked and timed at b1 and b8
 TRAIN_BATCH = 6
 TRAIN_STEPS = 3  # timed steps of each train configuration
 # the alternate backbones of backbones_phase (JAX models/sdm.py:96-118)
@@ -507,9 +508,9 @@ KERNELS = {  # name: (source, the TPU kernel it replaces, path it is counted on)
                             "lsdm_tpu/ops/attn_pallas.py:138", "train_bf16"),
     "select_gather_bf16": ("lsdm_tpu_torch/csrc/sg_fused.cu",
                            "lsdm_tpu/ops/sg_fused_pallas.py:128", "train_bf16_sg"),
-    "sa_fused_bf16": ("lsdm_tpu_torch/csrc/sa_fused.cu",
+    "sa_fused_bf16": ("lsdm_tpu_torch/csrc/sa_fused_bf16.cu",
                       "lsdm_tpu/ops/sa_fused_pallas.py:134", "fused_bf16"),
-    "fp_fused_bf16": ("lsdm_tpu_torch/csrc/fp_fused.cu",
+    "fp_fused_bf16": ("lsdm_tpu_torch/csrc/fp_fused_bf16.cu",
                       "lsdm_tpu/ops/fp_fused_pallas.py:93", "fused_bf16"),
     "denoise_chain_bf16": ("lsdm_tpu_torch/csrc/denoise_chain_bf16.cu",
                            "lsdm_tpu/ops/denoise_pallas.py:278", "fused_bf16"),
@@ -1854,12 +1855,10 @@ def _bf16_gate(got, want, want32, line: str) -> dict:
     the bound on the max, the gap, and the share of entries that differ."""
     import torch
 
-    got, want, want32 = got.float(), want.float(), want32.float()
-    diff = (got - want).abs()
-    r = {"max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item(),
-         "bound": BF16_RTOL * max(1.0, want.abs().max().item()),
-         "gap": (want - want32).abs().mean().item(),
-         "differ": (diff > 0).float().mean().item()}
+    from lsdm_tpu_torch.profile_encode import bf16_readings
+
+    r = {**bf16_readings(got, want, want32),
+         "bound": BF16_RTOL * max(1.0, want.float().abs().max().item())}
     if not (torch.isfinite(got).all() and r["max_abs_err"] <= r["bound"]
             and r["gap"] > 0 and r["mean_abs_err"] <= BF16_GAP_SHARE * r["gap"]):
         raise AssertionError(f"{line}: {r}")
@@ -1874,49 +1873,68 @@ def _bf16_text(r: dict) -> str:
 
 def bf16_kernel_checks_fused(dev, model, T: int = T_STEPS) -> dict:
     """Phase 8b, kernels: the bf16 modes of K7 (sa1-sa4) and K8 (fp4-fp1,
-    fp1 with the head) at 9 clouds, their features bf16 as the bf16 stages
-    hand them on; of K6 at b1 and CHAIN_BATCH (clip on), pass 1 timed apart
+    fp1 with the head) at each of ENCODE_BF16_CLOUDS (9 the path's call,
+    recorded; the rest as ``stages_b8``), their features bf16 as the bf16
+    stages hand them on, each stage's TFLOP/s and bound beside its time;
+    of K6 at b1 and CHAIN_BATCH (clip on), pass 1 timed apart
     beside its bf16 ``baddbmm`` yardstick and the bytes its tables move,
     pass 2 (the rest) with its TFLOP/s and its plan (warps a tile, tiles a
     block), and pass 1's tables alone (emb, g) at b1; of K9 at b1 and b8,
     clip off and on.  Each against its plain bf16 version by the BF16 gate,
     each kernel timed (K7, K8 and K9 queued behind a sleep), its bound its bytes over
     HBM_BYTES_PER_S or its products over BF16_TC_OPS_PER_S.  The kernels get
-    the weights rounded once (``bf16_step_params``), as the sampler hands
-    them over.  Returns {kernel: record}."""
+    the weights rounded once (K7, K8: each stage's ``rowmlp.bf16_operands``;
+    K6, K9: ``bf16_step_params``), as the sampler hands them over.  Returns
+    {kernel: record}."""
     import torch
 
     from lsdm_tpu_torch.diffusion.schedule import make_schedule
     from lsdm_tpu_torch.models.sampling import chain_coefficients
-    from lsdm_tpu_torch.ops import denoise, fp_fused, sa_fused
-    from lsdm_tpu_torch.profile_encode import encode_levels, stage_cases
+    from lsdm_tpu_torch.ops import denoise, fp_fused, rowmlp, sa_fused
+    from lsdm_tpu_torch.profile_encode import bf16_args, encode_levels, stage_cases
 
     bf = torch.bfloat16
     bb = model.pcd_backbone
     N, D = model.cfg.pcd_points, model.cfg.latent_dim
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
     rec: dict = {}
-    for case in stage_cases(bb, encode_levels(bb, 9, g, dev), g, bf):
-        args = case["args"]
-        mod = sa_fused if case["kind"] == "sa" else fp_fused
-        name = "sa_fused_bf16" if case["kind"] == "sa" else "fp_fused_bf16"
-        wrapper = (mod.sa_stage_fused_kernel if case["kind"] == "sa"
-                   else mod.fp_stage_fused_kernel)
-        plain = (mod.sa_stage_fused_plain if case["kind"] == "sa"
-                 else mod.fp_stage_fused_plain)
-        got = wrapper(*args, bf)
-        line = (f"{'K7 fused SA' if case['kind'] == 'sa' else 'K8 fused FP'} bf16 "
-                f"{case['name']} 9 clouds {case['desc']}")
-        r = _bf16_gate(got, plain(*args, bf), plain(*args), line)
-        if got.dtype != bf:
-            raise AssertionError(f"{line}: output {got.dtype}")
-        ms = _time_queued_ms(lambda: wrapper(*args, bf), ENCODE_REPS, dev)[0]
-        _record(rec, name, r["max_abs_err"], ms, _time_ms(lambda: plain(*args, bf), 5, dev),
-                f"{line}: {_bf16_text(r)}; wrapper queued", case["nbytes"],
-                case["products"], bf16=True)
-        rec[name].setdefault("stages_b1", []).append(
-            {"stage": case["name"], "ms": ms, **r,
-             "tflop_s": case["products"] / ms / 1e9})
+    for clouds in ENCODE_BF16_CLOUDS:
+        for case in stage_cases(bb, encode_levels(bb, clouds, g, dev), g, bf):
+            # the stage's bf16 weights made once, as the sampler keeps them
+            args = bf16_args(rowmlp, case)
+            sa = case["kind"] == "sa"
+            name = "sa_fused_bf16" if sa else "fp_fused_bf16"
+            wrapper = sa_fused.sa_stage_fused_kernel if sa else fp_fused.fp_stage_fused_kernel
+            plain = sa_fused.sa_stage_fused_plain if sa else fp_fused.fp_stage_fused_plain
+            got = wrapper(*args, bf)
+            plan = (rowmlp.plan_sa_bf16(clouds, args[2].shape[1], args[3].shape[1],
+                                        args[1], tuple(w.shape[1] for w, _ in args[5]))
+                    if sa else rowmlp.plan_fp_bf16(
+                        clouds, args[0].shape[1], args[1].shape[1],
+                        (args[4][0][0].shape[0], *(w.shape[1] for w, _ in args[4]))))
+            line = (f"{'K7 fused SA' if sa else 'K8 fused FP'} bf16 {case['name']} "
+                    f"{clouds} clouds {case['desc']} ({plan.blocks} blocks of "
+                    f"{plan.rows} {'centres' if sa else 'targets'}, {plan.smem} B)")
+            r = _bf16_gate(got, plain(*args, bf), plain(*args), line)
+            if got.dtype != bf:
+                raise AssertionError(f"{line}: output {got.dtype}")
+            ms = _time_queued_ms(lambda: wrapper(*args, bf), ENCODE_REPS, dev)[0]
+            bound = max(case["nbytes"] / HBM_BYTES_PER_S,
+                        case["products"] / BF16_TC_OPS_PER_S) * 1e3
+            st = {"stage": case["name"], "ms": ms, **r, "bound_ms": bound,
+                  "tflop_s": case["products"] / ms / 1e9, "rows": plan.rows,
+                  "blocks": plan.blocks, "smem": plan.smem}
+            if clouds != ENCODE_BF16_CLOUDS[0]:  # not the path's call: its error counts
+                print(f"{line}: {_bf16_text(r)}; wrapper {ms:.4f} ms queued, "
+                      f"{st['tflop_s']:.2f} TFLOP/s, bound {bound:.4f} ms")
+                rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], r["max_abs_err"])
+                rec[name].setdefault(f"stages_b{clouds // 9}", []).append(st)
+                continue
+            _record(rec, name, r["max_abs_err"], ms,
+                    _time_ms(lambda: plain(*args, bf), 5, dev),
+                    f"{line}: {_bf16_text(r)}; {st['tflop_s']:.2f} TFLOP/s; wrapper "
+                    f"queued", case["nbytes"], case["products"], bf16=True)
+            rec[name].setdefault("stages_b1", []).append(st)
 
     p = denoise.extract_step_params(model)
     pb = denoise.bf16_step_params(p)  # rounded once, as the sampler's are

@@ -27,106 +27,25 @@
 // The plan (rows, cluster, tiles, layout) comes from
 // lsdm_tpu_torch/ops/rowmlp.py:plan_fp.
 //
-// The bf16 instance (lsdm_fp_fused_bf16) is the TPU kernel at
-// compute_dtype=bfloat16 (fp_fused_pallas.py:71-87, :146): points1 and
-// points2 come in bf16, the normalised inverse-distance weights are rounded
-// to bf16 (so they no longer sum to 1), the interpolation sums their exact
-// products with points2 in float32 and is rounded to bf16, each layer's
-// output is rounded to bf16 as it is stored (rowmlp.cuh), and the output is
-// bf16.  The distances and the 3-NN are float32 and unchanged.
+// The bf16 mode (lsdm_fp_fused_bf16) is its own design on the bf16 tensor
+// cores, fp_fused_bf16.cu; the 3-NN is shared (stage_select.cuh).
 
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "pointdist.cuh"
 #include "rowmlp.cuh"
+#include "stage_select.cuh"
 
 namespace {
 
 using namespace rowmlp;
 
-constexpr float kEps = 1e-8f;
-
-// A lane's three smallest (distance, index) of the sources it scanned, in
-// ascending index order: strict < keeps the lower index of equal distances.
-struct Top3 {
-  float d0, d1, d2;
-  int i0, i1, i2;
-  __device__ void init(int s) {
-    d0 = d1 = d2 = INFINITY;
-    i0 = i1 = i2 = s;
-  }
-  __device__ void insert(float d, int j) {
-    if (d < d2) {
-      if (d < d1) {
-        d2 = d1; i2 = i1;
-        if (d < d0) {
-          d1 = d0; i1 = i0;
-          d0 = d; i0 = j;
-        } else {
-          d1 = d; i1 = j;
-        }
-      } else {
-        d2 = d; i2 = j;
-      }
-    }
-  }
-};
-
-// k rounds of the warp's smallest (distance, index) head, popped from the
-// lane that holds it (the same selection as K2's in-order scan); lane 0
-// writes target r's inverse-distance weights (kBf16: rounded to bf16) and
-// indices.
-template <bool kBf16>
-__device__ void nn_weights(Top3& t, int k, int s, int lane, int r,
-                           float* nn_w, int* nn_i) {
-  float dk[3];
-  int ik[3];
-  for (int kk = 0; kk < k; ++kk) {
-    float md = t.d0;
-    int mi = t.i0;
-    for (int off = 16; off > 0; off >>= 1) {
-      const float od = __shfl_xor_sync(0xffffffffu, md, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, mi, off);
-      if (od < md || (od == md && oi < mi)) {
-        md = od;
-        mi = oi;
-      }
-    }
-    if (t.i0 == mi) {
-      t.d0 = t.d1; t.i0 = t.i1;
-      t.d1 = t.d2; t.i1 = t.i2;
-      t.d2 = INFINITY; t.i2 = s;
-    }
-    dk[kk] = md;
-    ik[kk] = mi < s ? mi : s - 1;  // (only NaN distances leave none)
-  }
-  if (lane == 0) {
-    float rc[3];
-    float norm = 0.0f;
-    for (int kk = 0; kk < k; ++kk) {
-      rc[kk] = __fdiv_rn(1.0f, __fadd_rn(dk[kk], kEps));
-      norm = kk == 0 ? rc[0] : __fadd_rn(norm, rc[kk]);
-    }
-    for (int kk = 0; kk < k; ++kk) {
-      const float wk = __fdiv_rn(rc[kk], norm);
-      nn_w[3 * r + kk] = kBf16 ? bf16r(wk) : wk;
-      nn_i[3 * r + kk] = ik[kk];
-    }
-  }
-}
-
-// T: float, or __nv_bfloat16 in the bf16 instance (p1, p2 and out).
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 fp_fused_kernel(const float* __restrict__ xyz1, const float* __restrict__ xyz2,
-                const T* __restrict__ p1, const T* __restrict__ p2,
+                const float* __restrict__ p1, const float* __restrict__ p2,
                 Layers layers, Plan p, int n, int s, int k, int d1, int d2,
-                T* __restrict__ out) {
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+                float* __restrict__ out) {
   extern __shared__ float4 smem4[];
   const int ldm = p.ldm;
   float* buf0 = reinterpret_cast<float*>(smem4);
@@ -144,40 +63,18 @@ fp_fused_kernel(const float* __restrict__ xyz1, const float* __restrict__ xyz2,
   stage_cloud(xyz2 + (size_t)b * s * 3, s, cloud);
   __syncthreads();
 
-  // 3-NN: one warp per pair of targets (r, r + 8), which share the loads of
-  // the sources and run two independent insertion chains
-  constexpr int kWarps = kThreads / 32;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < nr; r += 2 * kWarps) {
-    const int r2 = r + kWarps;
-    const bool two = r2 < nr;  // warp-uniform
-    const float* qa = xyz1 + ((size_t)b * n + n0 + r) * 3;
-    const float* qb = two ? qa + 3 * kWarps : qa;
-    const float a0 = qa[0], a1 = qa[1], a2 = qa[2], aa = sq_norm(a0, a1, a2);
-    const float b0 = qb[0], b1 = qb[1], b2 = qb[2], bb = sq_norm(b0, b1, b2);
-    Top3 ta, tb;
-    ta.init(s);
-    tb.init(s);
-    for (int j = lane; j < s; j += 32) {
-      const float x = cloud[j], y = cloud[s + j], z = cloud[2 * s + j],
-                  w = cloud[3 * s + j];
-      ta.insert(sq_dist(a0, a1, a2, aa, x, y, z, w), j);
-      if (two) tb.insert(sq_dist(b0, b1, b2, bb, x, y, z, w), j);
-    }
-    nn_weights<kBf16>(ta, k, s, lane, r, nn_w, nn_i);
-    if (two) nn_weights<kBf16>(tb, k, s, lane, r2, nn_w, nn_i);
-  }
+  stage_select::nearest3<false, kThreads / 32>(cloud, s, k, xyz1, b, n, n0, nr,
+                                               nn_w, nn_i);
   __syncthreads();
 
   // input rows [points1, sum_i w_i * points2[idx_i]] into buffer 0,
-  // channel-major, summed in order i; in bf16 the interpolation rounded
+  // channel-major, summed in order i
   const int f0 = d1 + d2;
-  auto rnd = [](float v) { return kBf16 ? bf16r(v) : v; };
   if ((d1 & 3) == 0 && (d2 & 3) == 0 && aligned16(p1) && aligned16(p2)) {
     // four channels a load: a group never straddles points1 | interpolation
     fill_rows4(buf0, ldm, nr, f0, [&](int r, int c) {
       if (c < d1) return load4(p1 + ((size_t)b * n + n0 + r) * d1 + c);
-      const T* src = p2 + (size_t)b * s * d2 + (c - d1);
+      const float* src = p2 + (size_t)b * s * d2 + (c - d1);
       float4 v = load4(src + (size_t)nn_i[3 * r] * d2);
       const float w0 = nn_w[3 * r];
       v = make_float4(__fmul_rn(w0, v.x), __fmul_rn(w0, v.y),
@@ -190,17 +87,17 @@ fp_fused_kernel(const float* __restrict__ xyz1, const float* __restrict__ xyz2,
                         __fadd_rn(v.z, __fmul_rn(w, x.z)),
                         __fadd_rn(v.w, __fmul_rn(w, x.w)));
       }
-      return make_float4(rnd(v.x), rnd(v.y), rnd(v.z), rnd(v.w));
+      return v;
     });
   } else {
     fill_rows(buf0, ldm, nr, f0, [&](int r, int c) {
-      if (c < d1) return widen(p1[((size_t)b * n + n0 + r) * d1 + c]);
-      const T* src = p2 + (size_t)b * s * d2 + (c - d1);
-      float v = __fmul_rn(nn_w[3 * r], widen(src[(size_t)nn_i[3 * r] * d2]));
+      if (c < d1) return p1[((size_t)b * n + n0 + r) * d1 + c];
+      const float* src = p2 + (size_t)b * s * d2 + (c - d1);
+      float v = __fmul_rn(nn_w[3 * r], src[(size_t)nn_i[3 * r] * d2]);
       for (int kk = 1; kk < k; ++kk)
         v = __fadd_rn(v, __fmul_rn(nn_w[3 * r + kk],
-                                   widen(src[(size_t)nn_i[3 * r + kk] * d2])));
-      return rnd(v);
+                                   src[(size_t)nn_i[3 * r + kk] * d2]));
+      return v;
     });
   }
   // every block of the cluster runs before a peer writes into it
@@ -211,9 +108,9 @@ fp_fused_kernel(const float* __restrict__ xyz1, const float* __restrict__ xyz2,
   for (int l = 0; l + 1 < layers.n; ++l) {
     int lo, hi;
     col_slice(layers.fout[l], C, rank, &lo, &hi);
-    dense_layer<kBf16>(p.tile[l], cur, ldm, nr, layers.w[l], layers.b[l],
-                       layers.fin[l], layers.fout[l], layers.relu[l], lo, hi,
-                       ring, shared_sink(nxt, C));
+    dense_layer(p.tile[l], cur, ldm, nr, layers.w[l], layers.b[l],
+                layers.fin[l], layers.fout[l], layers.relu[l], lo, hi, ring,
+                shared_sink(nxt, C));
     layer_barrier(C);
     float* t = cur;
     cur = nxt;
@@ -224,23 +121,28 @@ fp_fused_kernel(const float* __restrict__ xyz1, const float* __restrict__ xyz2,
   col_slice(layers.fout[l], C, rank, &lo, &hi);
   Sink sink = {};
   sink.mode = kToGlobal;
-  T* dst = out + ((size_t)b * n + n0) * layers.fout[l];
-  if constexpr (kBf16)
-    sink.out16 = dst;
-  else
-    sink.out = dst;
+  sink.out = out + ((size_t)b * n + n0) * layers.fout[l];
   sink.ldo = layers.fout[l];
-  dense_layer<kBf16>(p.tile[l], cur, ldm, nr, layers.w[l], layers.b[l],
-                     layers.fin[l], layers.fout[l], layers.relu[l], lo, hi,
-                     ring, sink);
+  dense_layer(p.tile[l], cur, ldm, nr, layers.w[l], layers.b[l],
+              layers.fin[l], layers.fout[l], layers.relu[l], lo, hi, ring,
+              sink);
 }
 
-// The launch of either instance, after the checks of the C entries.
-template <typename T>
-int fp_fused_entry(const float* xyz1, const float* xyz2, const T* p1,
-                   const T* p2, const float* const* params, const int* widths,
-                   const int* relu, int n_layers, int b, int n, int s, int d1,
-                   int d2, const int* plan, T* out, void* stream) {
+}  // namespace
+
+extern "C" {
+
+// xyz1 (B, N, 3) targets, xyz2 (B, S, 3) sources, p1 (B, N, D1) or null
+// (D1 = 0), p2 (B, S, D2); params = {W1', b1', ..., WL', bL'} with Wl'
+// (F_{l-1}, F_l), F_0 = D1 + D2; widths = {F_1, ..., F_L}; relu[l] = 1
+// for a ReLU after layer l, 0 for none; plan =
+// ops/rowmlp.py:plan_fp(...).ints().  -> out (B, N, F_L), float32.
+// Returns cudaErrorInvalidValue for a plan that cannot carry these shapes.
+int lsdm_fp_fused(const float* xyz1, const float* xyz2, const float* p1,
+                  const float* p2, const float* const* params,
+                  const int* widths, const int* relu, int n_layers, int b,
+                  int n, int s, int d1, int d2, const int* plan, float* out,
+                  void* stream) {
   if (b <= 0 || n <= 0) return 0;
   if (n_layers < 1 || n_layers > kMaxLayers || s < 1 || d2 < 1 || d1 < 0 ||
       (d1 > 0 && p1 == nullptr))
@@ -264,39 +166,8 @@ int fp_fused_entry(const float* xyz1, const float* xyz2, const T* p1,
     return (int)cudaErrorInvalidValue;
   const int k = s < 3 ? s : 3;
   const dim3 grid((n + p.rows - 1) / p.rows * p.cluster, b);
-  return (int)launch(fp_fused_kernel<T>, grid, p, (cudaStream_t)stream, xyz1,
+  return (int)launch(fp_fused_kernel, grid, p, (cudaStream_t)stream, xyz1,
                      xyz2, p1, p2, layers, p, n, s, k, d1, d2, out);
-}
-
-}  // namespace
-
-extern "C" {
-
-// xyz1 (B, N, 3) targets, xyz2 (B, S, 3) sources, p1 (B, N, D1) or null
-// (D1 = 0), p2 (B, S, D2); params = {W1', b1', ..., WL', bL'} with Wl'
-// (F_{l-1}, F_l), F_0 = D1 + D2; widths = {F_1, ..., F_L}; relu[l] = 1
-// for a ReLU after layer l, 0 for none; plan =
-// ops/rowmlp.py:plan_fp(...).ints().  -> out (B, N, F_L), float32.
-// Returns cudaErrorInvalidValue for a plan that cannot carry these shapes.
-int lsdm_fp_fused(const float* xyz1, const float* xyz2, const float* p1,
-                  const float* p2, const float* const* params,
-                  const int* widths, const int* relu, int n_layers, int b,
-                  int n, int s, int d1, int d2, const int* plan, float* out,
-                  void* stream) {
-  return fp_fused_entry(xyz1, xyz2, p1, p2, params, widths, relu, n_layers,
-                        b, n, s, d1, d2, plan, out, stream);
-}
-
-// The bf16 mode: p1, p2 and out bf16, the weights Wl' rounded to bf16 (as
-// float32), the biases float32.
-int lsdm_fp_fused_bf16(const float* xyz1, const float* xyz2,
-                       const __nv_bfloat16* p1, const __nv_bfloat16* p2,
-                       const float* const* params, const int* widths,
-                       const int* relu, int n_layers, int b, int n, int s,
-                       int d1, int d2, const int* plan, __nv_bfloat16* out,
-                       void* stream) {
-  return fp_fused_entry(xyz1, xyz2, p1, p2, params, widths, relu, n_layers,
-                        b, n, s, d1, d2, plan, out, stream);
 }
 
 }  // extern "C"

@@ -31,48 +31,21 @@
 // output is one FMA chain over its input channels in ascending order, the
 // bias added after the sum, ReLU applied last.
 //
-// The bf16 instances (dense_layer<true>, the JAX kernels' compute_dtype
-// bfloat16) keep that engine and its float32 activations in shared memory,
-// so the plans and caps of ops/rowmlp.py hold for them unchanged.  The
-// weights arrive rounded to bf16 (the wrappers round them on the host), and
-// each layer's output is rounded to bf16 (round to nearest even) after its
-// bias and activation, as the TPU kernel rounds h before the next product;
-// so each output is still one float32 FMA chain, over operands that are
-// bf16-exact, whose products are exact in float32 as on the MXU.  A layer
-// that writes device memory stores bf16.
+// The kernels' bf16 modes are their own design on the bf16 tensor cores
+// (rowmma.cuh).
 
 #pragma once
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
 namespace rowmlp {
 
-// x rounded to bf16 (nearest even, as torch and XLA round), as a float
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-// Four consecutive values from global memory as floats: one 16-byte load
-// of floats, or one 8-byte load of bf16 (p on 8 bytes).
+// Four consecutive floats from global memory: one 16-byte load.
 __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
 }
 
 constexpr int kThreads = 256;
@@ -242,9 +215,8 @@ struct Sink {
   // rows, as int bits of the non-negative ReLU outputs
   int* red;
   int group;
-  // kToGlobal: out[row * ldo + n], float32, or out16 in the bf16 instance
+  // kToGlobal: out[row * ldo + n]
   float* out;
-  __nv_bfloat16* out16;
   int ldo;
 };
 
@@ -263,10 +235,9 @@ __device__ __forceinline__ int tile_col(int c0, int j) {
 
 // out[row, n] = act(in[row] . w[:, n] + b[n]) for rows < m and columns
 // [lo, hi), `in` channel-major in shared memory (fin channels, stride
-// ldm, at least round_up(m, BM) rows allocated), sent to `sink`; with
-// kBf16 each output rounded to bf16.
+// ldm, at least round_up(m, BM) rows allocated), sent to `sink`.
 // Not inlined: each tile shape gets its own register allocation.
-template <int T, bool kBf16>
+template <int T>
 __device__ __noinline__ void dense_tiles(const float* in, int ldm, int m,
                                          const float* __restrict__ w,
                                          const float* __restrict__ bias,
@@ -361,7 +332,6 @@ __device__ __noinline__ void dense_tiles(const float* in, int ldm, int m,
         for (int i = 0; i < TM; ++i) {
           const float v = __fadd_rn(acc[i][j], bj);
           acc[i][j] = relu ? fmaxf(v, 0.0f) : v;
-          if constexpr (kBf16) acc[i][j] = bf16r(acc[i][j]);
         }
       }
       if (sink.mode == kToShared) {
@@ -411,27 +381,6 @@ __device__ __noinline__ void dense_tiles(const float* in, int ldm, int m,
             }
           }
         }
-      } else if constexpr (kBf16) {  // four bf16 an 8-byte store
-        const bool vec_out = (sink.ldo & 3) == 0;
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const int r = m0 + tile_row<T>(ty, i);
-          if (r >= m) continue;
-          __nv_bfloat16* row = sink.out16 + (size_t)r * sink.ldo;
-#pragma unroll
-          for (int g = 0; g < TN / 4; ++g) {
-            const int n = n0 + tile_col<T>(tx, 4 * g);
-            if (vec_out && n + 4 <= hi) {
-              __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(row + n);
-              dst[0] = __floats2bfloat162_rn(acc[i][4 * g], acc[i][4 * g + 1]);
-              dst[1] = __floats2bfloat162_rn(acc[i][4 * g + 2], acc[i][4 * g + 3]);
-            } else {
-#pragma unroll
-              for (int j = 0; j < 4; ++j)
-                if (n + j < hi) store1(row + n + j, acc[i][4 * g + j]);
-            }
-          }
-        }
       } else {
         const bool vec_out = (sink.ldo & 3) == 0;
 #pragma unroll
@@ -458,9 +407,7 @@ __device__ __noinline__ void dense_tiles(const float* in, int ldm, int m,
   }
 }
 
-// One layer with the plan's tile `tile` (0 <= tile < kTiles); kBf16: the
-// bf16 instance (outputs rounded to bf16, a global sink's out16).
-template <bool kBf16>
+// One layer with the plan's tile `tile` (0 <= tile < kTiles).
 __device__ inline void dense_layer(int tile, const float* in, int ldm, int m,
                                    const float* w, const float* bias, int fin,
                                    int fout, int relu, int lo, int hi,
@@ -468,8 +415,8 @@ __device__ inline void dense_layer(int tile, const float* in, int ldm, int m,
   switch (tile) {
 #define ROWMLP_TILE(T)                                                    \
   case T:                                                                 \
-    dense_tiles<T, kBf16>(in, ldm, m, w, bias, fin, fout, relu, lo, hi,   \
-                          ring, sink);                                    \
+    dense_tiles<T>(in, ldm, m, w, bias, fin, fout, relu, lo, hi, ring,   \
+                   sink);                                                 \
     break;
     ROWMLP_TILE(0) ROWMLP_TILE(1) ROWMLP_TILE(2) ROWMLP_TILE(3)
     ROWMLP_TILE(4) ROWMLP_TILE(5) ROWMLP_TILE(6) ROWMLP_TILE(7)

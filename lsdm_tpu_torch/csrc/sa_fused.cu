@@ -28,36 +28,25 @@
 // that region holds the centre terms of layer 1.  The plan (rows,
 // cluster, tiles, layout) comes from lsdm_tpu_torch/ops/rowmlp.py:plan_sa.
 //
-// The bf16 instance (lsdm_sa_fused_bf16) is the TPU kernel at
-// compute_dtype=bfloat16 (sa_fused_pallas.py:81-87, :121, :187): Z1 comes
-// in bf16 (the wrapper rounds base @ W1' + b1' after the bias), the centre
-// term takes the centres rounded to bf16 against W1'[:3] rounded by the
-// wrapper (the ball query keeps the float32 centres), layer 1 and each
-// later layer are rounded to bf16 as they are stored (rowmlp.cuh), and the
-// output is bf16.  Rounding is monotone and commutes with ReLU and max, so
-// the float32 atomicMax over rounded values, stored once as bf16, is the
-// TPU kernel's max over bf16 rows.  Same plans, same shared memory.
+// The bf16 mode (lsdm_sa_fused_bf16) is its own design on the bf16 tensor
+// cores, sa_fused_bf16.cu; the ball query is shared (stage_select.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "pointdist.cuh"
 #include "rowmlp.cuh"
+#include "stage_select.cuh"
 
 namespace {
 
 using namespace rowmlp;
 
-// T: float, or __nv_bfloat16 in the bf16 instance (z1 and out).
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 sa_fused_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz,
-                const T* __restrict__ z1, const float* __restrict__ w1x,
+                const float* __restrict__ z1, const float* __restrict__ w1x,
                 Layers layers, Plan p, int n, int s, int f1, float radius2,
-                int nsample, T* __restrict__ out, int f_out) {
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+                int nsample, float* __restrict__ out, int f_out) {
   extern __shared__ float4 smem4[];
   const int ldm = p.ldm;
   float* buf0 = reinterpret_cast<float*>(smem4);
@@ -77,61 +66,24 @@ sa_fused_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz
   __syncthreads();
 
   // the centre terms q . W1'[:3] of layer 1, in the order (q0 w0 + q1 w1)
-  // + q2 w2, kept in the (not yet used) red region; in bf16 the centres
-  // rounded to bf16 (the products are then exact)
+  // + q2 w2, kept in the (not yet used) red region
   float* cterm = red;
-  auto cq = [](float v) { return kBf16 ? bf16r(v) : v; };
   for (int e = threadIdx.x; e < nq * f1; e += kThreads) {
     const int g = e / f1, f = e - g * f1;
     const float* qp = new_xyz + ((size_t)b * s + q0 + g) * 3;
-    cterm[e] = __fadd_rn(__fadd_rn(__fmul_rn(cq(qp[0]), w1x[f]),
-                                   __fmul_rn(cq(qp[1]), w1x[f1 + f])),
-                         __fmul_rn(cq(qp[2]), w1x[2 * f1 + f]));
+    cterm[e] = __fadd_rn(__fadd_rn(__fmul_rn(qp[0], w1x[f]),
+                                   __fmul_rn(qp[1], w1x[f1 + f])),
+                         __fmul_rn(qp[2], w1x[2 * f1 + f]));
   }
 
-  // ball query: one warp per centre, in index order, as in K1; four chunks
-  // of 32 points a step, their distances computed together
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const unsigned lower = (1u << lane) - 1u;  // lanes below this one
-  for (int r = warp; r < nq; r += kThreads / 32) {
-    const float* qp = new_xyz + ((size_t)b * s + q0 + r) * 3;
-    const float a0 = qp[0], a1 = qp[1], a2 = qp[2];
-    const float qq = sq_norm(a0, a1, a2);
-    int* row = sel + r * nsample;
-    int count = 0;   // warp-uniform
-    int first = -1;  // warp-uniform
-    for (int base = 0; base < n && count < nsample; base += 128) {
-      bool in[4];
-#pragma unroll
-      for (int h = 0; h < 4; ++h) {
-        const int i = base + 32 * h + lane;
-        in[h] = i < n && sq_dist(a0, a1, a2, qq, cloud[i], cloud[n + i],
-                                 cloud[2 * n + i], cloud[3 * n + i]) <= radius2;
-      }
-#pragma unroll
-      for (int h = 0; h < 4; ++h) {
-        if (count >= nsample) break;
-        const unsigned mask = __ballot_sync(0xffffffffu, in[h]);
-        if (mask == 0u) continue;
-        if (first < 0) first = base + 32 * h + __ffs(mask) - 1;
-        const int pos = count + __popc(mask & lower);
-        if (in[h] && pos < nsample) row[pos] = base + 32 * h + lane;
-        count += __popc(mask);
-      }
-    }
-    const int fill = first < 0 ? 0 : first;  // an empty row gathers point 0
-    for (int j = count + lane; j < nsample; j += 32) row[j] = fill;
-  }
+  stage_select::ball_select<kThreads / 32>(cloud, n, new_xyz, b, s, q0, nq,
+                                           radius2, nsample, sel);
   __syncthreads();
 
-  // layer 1 into buffer 0, channel-major: relu(Z1[p] - q . W1'[:3]) (in
-  // bf16 rounded), four channels a load where the rows of Z1 allow 16-byte
-  // (8-byte in bf16) loads
-  const T* z1b = z1 + (size_t)b * n * f1;
-  auto h1 = [](float g, float c) {
-    const float v = fmaxf(__fsub_rn(g, c), 0.0f);
-    return kBf16 ? bf16r(v) : v;
-  };
+  // layer 1 into buffer 0, channel-major: relu(Z1[p] - q . W1'[:3]), four
+  // channels a load where the rows of Z1 allow 16-byte loads
+  const float* z1b = z1 + (size_t)b * n * f1;
+  auto h1 = [](float g, float c) { return fmaxf(__fsub_rn(g, c), 0.0f); };
   if ((f1 & 3) == 0 && aligned16(z1)) {
     fill_rows4(buf0, ldm, m, f1, [&](int row, int f) {
       const float4 g = load4(z1b + (size_t)sel[row] * f1 + f);
@@ -142,8 +94,7 @@ sa_fused_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz
     });
   } else {
     fill_rows(buf0, ldm, m, f1, [&](int row, int f) {
-      return h1(widen(z1b[(size_t)sel[row] * f1 + f]),
-                cterm[(row / nsample) * f1 + f]);
+      return h1(z1b[(size_t)sel[row] * f1 + f], cterm[(row / nsample) * f1 + f]);
     });
   }
   // every block of the cluster runs before a peer writes into it
@@ -155,16 +106,16 @@ sa_fused_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz
   for (int l = 0; l + 1 < layers.n; ++l) {
     int lo, hi;
     col_slice(layers.fout[l], C, rank, &lo, &hi);
-    dense_layer<kBf16>(p.tile[l], cur, ldm, m, layers.w[l], layers.b[l],
-                       layers.fin[l], layers.fout[l], 1, lo, hi, ring,
-                       shared_sink(nxt, C));
+    dense_layer(p.tile[l], cur, ldm, m, layers.w[l], layers.b[l],
+                layers.fin[l], layers.fout[l], 1, lo, hi, ring,
+                shared_sink(nxt, C));
     layer_barrier(C);
     float* t = cur;
     cur = nxt;
     nxt = t;
   }
 
-  T* dst = out + ((size_t)b * s + q0) * f_out;
+  float* dst = out + ((size_t)b * s + q0) * f_out;
   if (layers.n > 0) {  // layer L straight into the max over each centre
     const int l = layers.n - 1;
     int lo, hi;
@@ -176,12 +127,12 @@ sa_fused_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz
     sink.mode = kToMax;
     sink.red = reinterpret_cast<int*>(red);
     sink.group = nsample;
-    dense_layer<kBf16>(p.tile[l], cur, ldm, m, layers.w[l], layers.b[l],
-                       layers.fin[l], f_out, 1, lo, hi, ring, sink);
+    dense_layer(p.tile[l], cur, ldm, m, layers.w[l], layers.b[l],
+                layers.fin[l], f_out, 1, lo, hi, ring, sink);
     __syncthreads();
     for (int e = threadIdx.x; e < nq * width; e += kThreads) {
       const int g = e / width, j = e - g * width;
-      store1(dst + (size_t)g * f_out + lo + j, red[e]);
+      dst[(size_t)g * f_out + lo + j] = red[e];
     }
   } else if (rank == 0) {  // a one-layer MLP: the max of layer 1
     for (int e = threadIdx.x; e < nq * f_out; e += kThreads) {
@@ -189,18 +140,26 @@ sa_fused_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz
       float best = 0.0f;
       for (int k = 0; k < nsample; ++k)
         best = fmaxf(best, cur[(size_t)j * ldm + g * nsample + k]);
-      store1(dst + (size_t)g * f_out + j, best);
+      dst[(size_t)g * f_out + j] = best;
     }
   }
 }
 
-// The launch of either instance, after the checks of the C entries.
-template <typename T>
-int sa_fused_entry(const float* xyz, const float* new_xyz, const T* z1,
-                   const float* w1x, const float* const* params,
-                   const int* widths, int n_layers, int b, int n, int s,
-                   float radius2, int nsample, const int* plan, T* out,
-                   void* stream) {
+}  // namespace
+
+extern "C" {
+
+// xyz (B, N, 3), new_xyz (B, S, 3), z1 (B, N, F1) = base @ W1' + b1',
+// w1x (3, F1) = W1'[:3]; params = {W2', b2', ..., WL', bL'} with Wl'
+// (F_{l-1}, F_l) and bl' (F_l,); widths = {F1, ..., FL}; n_layers = L;
+// plan = ops/rowmlp.py:plan_sa(...).ints().  -> out (B, S, FL), all
+// float32.  Returns cudaErrorInvalidValue for a plan that cannot carry
+// these shapes.
+int lsdm_sa_fused(const float* xyz, const float* new_xyz, const float* z1,
+                  const float* w1x, const float* const* params,
+                  const int* widths, int n_layers, int b, int n, int s,
+                  float radius2, int nsample, const int* plan, float* out,
+                  void* stream) {
   if (b <= 0 || s <= 0) return 0;
   if (n_layers < 1 || n_layers - 1 > kMaxLayers || nsample < 1 || n < 1)
     return (int)cudaErrorInvalidValue;
@@ -223,40 +182,9 @@ int sa_fused_entry(const float* xyz, const float* new_xyz, const T* z1,
       (layers.n == 0 && p.cluster != 1))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((s + p.rows - 1) / p.rows * p.cluster, b);
-  return (int)launch(sa_fused_kernel<T>, grid, p, (cudaStream_t)stream, xyz,
+  return (int)launch(sa_fused_kernel, grid, p, (cudaStream_t)stream, xyz,
                      new_xyz, z1, w1x, layers, p, n, s, widths[0], radius2,
                      nsample, out, widths[n_layers - 1]);
-}
-
-}  // namespace
-
-extern "C" {
-
-// xyz (B, N, 3), new_xyz (B, S, 3), z1 (B, N, F1) = base @ W1' + b1',
-// w1x (3, F1) = W1'[:3]; params = {W2', b2', ..., WL', bL'} with Wl'
-// (F_{l-1}, F_l) and bl' (F_l,); widths = {F1, ..., FL}; n_layers = L;
-// plan = ops/rowmlp.py:plan_sa(...).ints().  -> out (B, S, FL), all
-// float32.  Returns cudaErrorInvalidValue for a plan that cannot carry
-// these shapes.
-int lsdm_sa_fused(const float* xyz, const float* new_xyz, const float* z1,
-                  const float* w1x, const float* const* params,
-                  const int* widths, int n_layers, int b, int n, int s,
-                  float radius2, int nsample, const int* plan, float* out,
-                  void* stream) {
-  return sa_fused_entry(xyz, new_xyz, z1, w1x, params, widths, n_layers, b,
-                        n, s, radius2, nsample, plan, out, stream);
-}
-
-// The bf16 mode: z1 = bf16(bf16(base) @ bf16(W1') + b1') and out are bf16,
-// w1x and the weights Wl' rounded to bf16 (as float32), the biases float32.
-int lsdm_sa_fused_bf16(const float* xyz, const float* new_xyz,
-                       const __nv_bfloat16* z1, const float* w1x,
-                       const float* const* params, const int* widths,
-                       int n_layers, int b, int n, int s, float radius2,
-                       int nsample, const int* plan, __nv_bfloat16* out,
-                       void* stream) {
-  return sa_fused_entry(xyz, new_xyz, z1, w1x, params, widths, n_layers, b,
-                        n, s, radius2, nsample, plan, out, stream);
 }
 
 }  // extern "C"

@@ -106,15 +106,18 @@ _SIGNATURES = {
     "lsdm_rank1_attn": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "lsdm_rank1_attn_bf16": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     # (xyz, new_xyz, z1, w1x, params[2(L-1)], widths[L], L, B, N, S,
-    #  radius2, nsample, plan, out, stream); the _bf16 entry takes a bf16 z1
-    #  and writes a bf16 out
+    #  radius2, nsample, plan, out, stream); the _bf16 entry
+    #  (csrc/sa_fused_bf16.cu) takes a bf16 z1, the weights as bf16 rows
+    #  (ops/rowmlp.py:Bf16Operands) and its own plan (plan_sa_bf16), and
+    #  writes a bf16 out
     "lsdm_sa_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P,
                       _P),
     "lsdm_sa_fused_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P,
                            _P, _P),
     # (xyz1, xyz2, points1, points2, params[2L], widths[L], relu[L], L, B, N,
-    #  S, D1, D2, plan, out, stream); the _bf16 entry takes bf16 points1,
-    #  points2 and writes a bf16 out
+    #  S, D1, D2, plan, out, stream); the _bf16 entry
+    #  (csrc/fp_fused_bf16.cu) takes bf16 points1, points2, the weights as
+    #  bf16 rows and its own plan (plan_fp_bf16), and writes a bf16 out
     "lsdm_fp_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
                       _P, _P),
     "lsdm_fp_fused_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -46,7 +46,10 @@ stage interpolates in float32 from its sources' features.  Under
 ``"fused"`` a bf16 stage is K7's or K8's bf16 mode (the JAX stages pass
 ``compute_dtype=self.dtype``): the stage's input promotes as JAX's
 ``concatenate`` does (float32 ``xyz`` beside bf16 features gives float32),
-and its output is bf16.
+and its output is bf16.  A bf16 fused stage keeps its folded weights and
+their bf16 copies (``ops/rowmlp.py:Bf16Operands``) from one forward to the
+next, made again when a weight or a BatchNorm statistic changes
+(:func:`_fused_layers`).
 """
 
 from __future__ import annotations
@@ -57,6 +60,8 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from lsdm_tpu_torch import kernels
+from lsdm_tpu_torch.ops import rowmlp
 from lsdm_tpu_torch.ops.attention import linear, wide
 from lsdm_tpu_torch.ops.fp_fused import fp_stage_fused_kernel
 from lsdm_tpu_torch.ops.pointcloud import (
@@ -156,6 +161,24 @@ def fold_mlp(stage: nn.Module) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     return [fold_conv_bn(c, b) for c, b in zip(stage.mlp_convs, stage.mlp_bns)]
 
 
+def fold_head(conv1: "Conv1x1", bn1: nn.BatchNorm1d, conv2: "Conv1x1"
+              ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """The backbone's head (conv1 + bn1, BatchNorm folded) and conv2 as
+    (W', b') layers with activations :data:`HEAD_ACTS`."""
+    w2 = conv2.weight
+    return [fold_conv_bn(conv1, bn1),
+            (w2.reshape(w2.shape[0], -1).t().contiguous(), conv2.bias)]
+
+
+def _fused_layers(stage: nn.Module, modules: Sequence[nn.Module], fold, sa: bool):
+    """The folded layers of a fused stage that ``fold()`` folds from
+    ``modules``: in a bf16 compute dtype with their bf16 copies, kept per
+    stage (``rowmlp.kept_bf16_operands``), else ``fold()`` now."""
+    if not kernels.bf16_mode(stage.compute_dtype):
+        return fold()
+    return rowmlp.kept_bf16_operands(stage, modules, fold, sa)
+
+
 def _resolve_impl(ball_impl: str) -> str:
     if ball_impl in ("auto", "pallas"):
         return "pallas"  # kernels for CUDA tensors, plain versions on the CPU
@@ -200,8 +223,9 @@ class PointNetSetAbstraction(nn.Module):
                 and new_xyz.shape[1] % 8 == 0):
             # the whole stage as one kernel (K7): no grouped buffer
             base = torch.cat([xyz, points], dim=-1)
+            folded = _fused_layers(self, (self,), lambda: fold_mlp(self), sa=True)
             return new_xyz, sa_stage_fused_kernel(
-                self.radius, nsample, xyz, new_xyz, base, fold_mlp(self),
+                self.radius, nsample, xyz, new_xyz, base, folded,
                 self.compute_dtype)
         # the gathered columns, in the compute dtype before the gather
         base = None if points is None else self._cast(torch.cat([xyz, points], dim=-1))
@@ -256,19 +280,21 @@ class PointNetFeaturePropagation(nn.Module):
 
     def forward(self, xyz1: torch.Tensor, xyz2: torch.Tensor,
                 points1: Optional[torch.Tensor], points2: torch.Tensor,
-                extra_folded: Sequence[Tuple[torch.Tensor, torch.Tensor]] = (),
-                extra_acts: Sequence[str] = ()) -> torch.Tensor:
-        """``extra_folded``/``extra_acts``: eval-only trailing (W', b')
-        layers and their activations ("relu"/"none"), applied after the
-        stage's own, inside the fused kernel when the stage fuses."""
+                head: Sequence[nn.Module] = ()) -> torch.Tensor:
+        """``head``: eval only, the backbone's (conv1, bn1, conv2), whose
+        layers (:func:`fold_head`, activations :data:`HEAD_ACTS`) follow
+        the stage's own, inside the fused kernel when the stage fuses."""
         S = xyz2.shape[1]
+        acts = ("relu",) * len(self.mlp_convs) + (HEAD_ACTS if head else ())
         if (self.impl == "fused" and not self.training and S > 1
                 and xyz1.shape[1] % 8 == 0):
             # the whole stage as one kernel (K8): no gathered buffer
-            folded = fold_mlp(self)
-            return fp_stage_fused_kernel(
-                xyz1, xyz2, points1, points2, folded + list(extra_folded),
-                ("relu",) * len(folded) + tuple(extra_acts), self.compute_dtype)
+            folded = _fused_layers(
+                self, (self, *head),
+                lambda: fold_mlp(self) + (fold_head(*head) if head else []),
+                sa=False)
+            return fp_stage_fused_kernel(xyz1, xyz2, points1, points2, folded,
+                                         acts, self.compute_dtype)
         if S == 1:
             interpolated = points2.expand(-1, xyz1.shape[1], -1)
         else:
@@ -280,11 +306,11 @@ class PointNetFeaturePropagation(nn.Module):
         for conv, bn in zip(self.mlp_convs, self.mlp_bns):
             new_points = bn_relu(bn, conv(new_points), self.training,
                                  self.bn_dtype)
-        # the trailing layers when the gate above declined, so fused and
+        # the head's layers when the gate above declined, so fused and
         # composed stages stay interchangeable; in a compute dtype JAX's
         # casts: the product in it, the float32 bias, the result cast back
         dt = self.compute_dtype
-        for (w, b), act in zip(extra_folded, extra_acts):
+        for (w, b), act in zip(fold_head(*head) if head else (), HEAD_ACTS):
             if dt is None:
                 new_points = new_points @ w + b
             else:
@@ -327,9 +353,7 @@ class PointNet2Backbone(nn.Module):
     def head_folded(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """The head (conv1 + bn1, BatchNorm folded) and conv2 as (W', b')
         layers with activations :data:`HEAD_ACTS`."""
-        w2 = self.conv2.weight
-        return [fold_conv_bn(self.conv1, self.bn1),
-                (w2.reshape(w2.shape[0], -1).t().contiguous(), self.conv2.bias)]
+        return fold_head(self.conv1, self.bn1, self.conv2)
 
     def forward(self, xyz: torch.Tensor,
                 dropout_mask: Optional[torch.Tensor] = None,
@@ -350,8 +374,7 @@ class PointNet2Backbone(nn.Module):
             # eval: the head and conv2 ride fp1 as two trailing layers
             # (dropout is the identity), so the tail is one launch
             return self.fp1(l0_xyz, l1_xyz, None, l1_points,
-                            extra_folded=self.head_folded(),
-                            extra_acts=HEAD_ACTS)
+                            head=(self.conv1, self.bn1, self.conv2))
         l0_points = self.fp1(l0_xyz, l1_xyz, None, l1_points)
         x = bn_relu(self.bn1, self.conv1(l0_points), self.training,
                     self.bn_dtype)

@@ -2,7 +2,7 @@
 version.
 
 Replaces ``lsdm_tpu/ops/fp_fused_pallas.py:fp_stage_fused``; the kernel
-lives in ``csrc/fp_fused.cu``.
+lives in ``csrc/fp_fused.cu``, its bf16 mode in ``csrc/fp_fused_bf16.cu``.
 
 One stage of the eval backbone without the gathered (B, N, k, C) tensor:
 the k = min(3, S) nearest sources of every target (K2's selection, on the
@@ -21,9 +21,11 @@ with ``points2`` rounded to bf16 in float32 and is rounded to bf16,
 ``points1`` is rounded, each layer's output (the product of bf16 operands
 summed in float32, the bias unrounded, then its activation) is rounded to
 bf16, and the output is bf16; the distances and the 3-NN are float32 and
-unchanged.  The kernel's bf16 instance reads ``points1`` and ``points2`` as
-bf16 (it takes them float32 or bf16 and rounds them here) and counts its
-launches as ``fp_fused_bf16``.
+unchanged.  The kernel's bf16 mode runs its layers on the bf16 tensor
+cores from bf16 weight copies (those an ``ops/rowmlp.py:Bf16Operands``
+``folded`` carries, made once per model, else made here at every call),
+reads ``points1`` and ``points2`` as bf16 (it takes them float32 or bf16 and
+rounds them here) and counts its launches as ``fp_fused_bf16``.
 
 A wrapper runs the kernel for CUDA tensors and the plain version for CPU
 tensors; it never falls back from one to the other.
@@ -42,7 +44,7 @@ from lsdm_tpu_torch.kernels import mode_matmul
 from lsdm_tpu_torch.ops import rowmlp
 from lsdm_tpu_torch.ops.ballquery import three_nn_plain
 from lsdm_tpu_torch.ops.pointcloud import index_points
-from lsdm_tpu_torch.ops.sa_fused import Folded, _check_layers
+from lsdm_tpu_torch.ops.sa_fused import Folded, _check_layers, _with_bf16_copies
 
 EPS = 1e-8
 MAX_LAYERS = rowmlp.MAX_LAYERS
@@ -94,8 +96,10 @@ def fp_stage_fused_kernel(xyz1: torch.Tensor, xyz2: torch.Tensor,
     ``folded`` the layers' (W' (F_{l-1}, F_l), b' (F_l,)) with F_0 =
     D1 + D2, ``acts`` one of "relu"/"none" per layer (default all "relu"),
     all float32 -> (B, N, F_last) float32; in ``compute_dtype`` bf16
-    (points1 and points2 float32 or bf16) the bf16 mode, a bf16 output.
-    CUDA kernel for CUDA tensors, plain version for CPU tensors."""
+    (points1 and points2 float32 or bf16) the bf16 mode, a bf16 output, its
+    weights the bf16 copies ``folded`` carries where it is a
+    :class:`rowmlp.Bf16Operands` (else made here).  CUDA kernel for CUDA
+    tensors, plain version for CPU tensors."""
     acts = _acts(folded, acts)
     flat = [t for wb in folded for t in wb]
     given = [t for t in (points1,) if t is not None]
@@ -125,7 +129,11 @@ def fp_stage_fused_kernel(xyz1: torch.Tensor, xyz2: torch.Tensor,
     widths = _check_layers(folded, D1 + D2, dev)
     if len(folded) > MAX_LAYERS:
         raise ValueError(f"fused FP kernel takes at most {MAX_LAYERS} layers")
-    cap = rowmlp.fp_max_sources((D1 + D2, *widths))
+    if bf16:
+        folded = _with_bf16_copies(folded, False, dev)
+        cap = rowmlp.fp_max_sources_bf16((D1 + D2, *widths))
+    else:
+        cap = rowmlp.fp_max_sources((D1 + D2, *widths))
     if S > cap:  # the sources are staged beside the layers' buffers
         raise ValueError(f"fused FP kernel takes at most {cap} sources at these "
                          f"widths (the sources beside its smallest plan within "
@@ -133,11 +141,11 @@ def fp_stage_fused_kernel(xyz1: torch.Tensor, xyz2: torch.Tensor,
     out = torch.empty((B, N, widths[-1]), dtype=fdt, device=dev)
     if out.numel() == 0:
         return out
-    if bf16:  # the weights rounded to bf16, float32 tensors
-        flat = [kernels.bf16_exact(t).contiguous() if i % 2 == 0 else t
-                for i, t in enumerate(flat)]
+    if bf16:  # the bf16 rows of W'^T, the float32 biases
+        flat = [t for wb in zip(folded.weights, folded.biases) for t in wb]
     L = len(folded)
-    plan = rowmlp.plan_fp(B, N, S, (D1 + D2, *widths)).ints()
+    plan = (rowmlp.plan_fp_bf16 if bf16 else rowmlp.plan_fp)(
+        B, N, S, (D1 + D2, *widths)).ints()
     lib = kernels.load()
     entry = lib.lsdm_fp_fused_bf16 if bf16 else lib.lsdm_fp_fused
     name = "fp_fused_bf16" if bf16 else "fp_fused"

@@ -24,12 +24,13 @@ one rule (:func:`_rule`).  The C side recomputes what it needs from the
 plan, checks it, and refuses one it cannot run with
 ``cudaErrorInvalidValue``: the wrapper then raises.
 
-The kernels' bf16 modes (``compute_dtype=torch.bfloat16``) take the same
-plans and caps: their activations stay float32 in shared memory (each
-rounded to a bf16 value as it is stored) and their weights stream through
-the same ring as float32 values rounded on the host, so no buffer changes
-size; only their device-memory inputs (Z1, the FP features) and outputs
-are bf16.
+The kernels' bf16 modes (``compute_dtype=torch.bfloat16``) are their own
+design on the bf16 tensor cores (``csrc/rowmma.cuh``, ``csrc/sa_fused_bf16.cu``,
+``csrc/fp_fused_bf16.cu``) and take their own plans (:class:`PlanBf16`,
+:func:`plan_sa_bf16`, :func:`plan_fp_bf16`) and caps
+(:func:`sa_max_points_bf16`, :func:`fp_max_sources_bf16`): bf16 activation
+rows, and weights from bf16 copies made once per model
+(:class:`Bf16Operands`, kept per stage module by :func:`kept_bf16_operands`).
 
 What the plans launch at b1 (9 clouds): sa1-sa4 288-1152 blocks, fp2
 288, fp1 144, fp3 72 and fp4 36.  fp3 and fp4 fill fewer SMs because
@@ -46,8 +47,13 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Dict, Sequence, Tuple
+import weakref
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
+import torch
+from torch import nn
+
+from lsdm_tpu_torch import kernels
 from lsdm_tpu_torch.kernels import SMEM_MAX, SMS
 
 THREADS = 256
@@ -224,13 +230,14 @@ def fp_max_sources(widths: Sequence[int]) -> int:
     return (SMEM_MAX - layout_fp(1, 1, 0, widths, FP_ROWS[0], 1).smem) // 16
 
 
-def _rule(plans: Sequence[Plan]) -> Plan:
-    """Of ``plans`` (one a row count, ascending, cluster 1): the most rows
-    whose blocks still fit two to an SM and give every SM two, else the
-    fewest rows.  More rows reuse each weight for more rows; two blocks an
-    SM hide each other's prologue and barriers."""
+def _rule(plans, waves: int = 2):
+    """Of ``plans`` (one a row count, ascending, cluster 1; :class:`Plan`s
+    or :class:`PlanBf16`s): the most rows whose blocks still fit two to an
+    SM and give every SM ``waves`` blocks, else the fewest rows.  More rows
+    reuse each weight for more rows and amortise the cloud a block stages;
+    two blocks an SM hide each other's prologue and barriers."""
     two = [p for p in plans
-           if p.smem + 1024 <= SMEM_SM // 2 and p.blocks >= 2 * SMS]
+           if p.smem + 1024 <= SMEM_SM // 2 and p.blocks >= waves * SMS]
     return two[-1] if two else plans[0]
 
 
@@ -266,3 +273,234 @@ def plan_fp(clouds: int, n: int, s: int, widths: Sequence[int]) -> Plan:
     return _plan(lambda r, c: layout_fp(clouds, n, s, widths, r, c),
                  ("fp", n, s, widths), clouds, FP_ROWS,
                  lambda r: r == FP_ROWS[0] or r // 2 < n)
+
+
+# --- the bf16 modes (csrc/rowmma.cuh) ---------------------------------------
+
+BF16_MT = (2, 4, 8, 16)  # m16 tiles a pass the kernels are compiled for
+BF16_STAGES = 3          # ring depth (csrc/rowmma.cuh:kStages)
+BF16_NB = 64             # weight rows (output columns) of a ring chunk
+BF16_KC = (16, 32, 64, 128)  # k of a ring chunk (csrc/rowmma.cuh:Plan.kc)
+BF16_FP_ROWS = (32, 64)  # targets a block may take
+
+
+def _r16(x: int) -> int:
+    return _round(x, 16)
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanBf16:
+    """A launch plan of K7's or K8's bf16 mode: a block of 8 warps carries
+    ``m`` activation rows through the layers in ``passes`` passes of 16
+    ``mt`` rows (the warps stand mt / 2 down the rows by 16 / mt across a
+    64-column weight chunk), the weights stream through a ring of
+    ``BF16_STAGES`` chunks of 64 rows by ``kc`` k."""
+    rows: int        # SA centres or FP targets a block takes
+    m: int           # activation rows of a block: rows * nsample or rows
+    mt: int          # m16 tiles a pass
+    passes: int
+    kc: int          # k of a ring chunk
+    ld0: int         # row strides of the two bf16 buffers (8 mod 16)
+    ld1: int
+    red: int         # ints of the SA max by atomics (0: in registers)
+    smem: int        # dynamic shared memory of a block, bytes
+    grid: Tuple[int, int]  # (row tiles, clouds)
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+    def ints(self) -> Tuple[int, ...]:
+        """The plan as the C entries read it (csrc/rowmma.cuh:Plan)."""
+        return (self.rows, self.mt, self.passes, self.kc, self.ld0, self.ld1,
+                self.red, self.smem)
+
+
+def layout_sa_bf16(clouds: int, n: int, s: int, nsample: int,
+                   widths: Sequence[int], rows: int,
+                   kc: Optional[int] = None) -> PlanBf16:
+    """K7 bf16's plan with ``rows`` centres a block: ``clouds`` clouds of
+    ``n`` points, ``s`` centres, ``nsample`` rows a centre, layer widths
+    ``widths`` = [F1, ..., FL] (F1 gathered from Z1, the kernel computes F1
+    -> F2 ...); ``kc``: the most k a weight chunk takes (default 64; the
+    chunk takes the widest layer input rounded up, :func:`_kc`)."""
+    fins = list(widths[:-1]) or [widths[0]]
+    if len(widths) - 1 > MAX_LAYERS:
+        raise ValueError(f"at most {MAX_LAYERS + 1} layers")
+    m = rows * nsample
+    regs = nsample <= 32 and nsample & (nsample - 1) == 0
+    red = rows * widths[-1] if len(widths) > 1 and not regs else 0
+    # the cloud (x, y, z, |p|^2), the centre terms, the max's partial
+    # results, the selection
+    extra = 4 * n + _round(rows * widths[0], 4) + _round(red, 4) + _round(m, 4)
+    return _bf16_plan(m, rows, -(-s // rows), clouds, fins, len(widths) - 1,
+                      red, extra, kc)
+
+
+def layout_fp_bf16(clouds: int, n: int, s: int, widths: Sequence[int],
+                   rows: int, kc: Optional[int] = None) -> PlanBf16:
+    """K8 bf16's plan with ``rows`` targets a block: ``clouds`` clouds of
+    ``n`` targets and ``s`` sources, widths = [F0 = D1 + D2, F1, ...,
+    FL]; ``kc`` as :func:`layout_sa_bf16`'s."""
+    if not 1 < len(widths) <= MAX_LAYERS + 1:
+        raise ValueError(f"1 to {MAX_LAYERS} layers")
+    # the sources, then the 3-NN weights and indices
+    extra = 4 * s + 2 * _round(3 * rows, 4)
+    return _bf16_plan(rows, rows, -(-n // rows), clouds, list(widths[:-1]),
+                      len(widths) - 1, 0, extra, kc)
+
+
+def _kc(fins: Sequence[int], most: int = 64) -> int:
+    """The k of a weight chunk: the layers' widest input rounded up to a
+    chunk size (:data:`BF16_KC`), at most ``most``."""
+    return min(most, next((k for k in BF16_KC if k >= max(fins)), BF16_KC[-1]))
+
+
+def _bf16_plan(m: int, rows: int, tiles: int, clouds: int,
+               fins: Sequence[int], layers: int, red: int,
+               extra_words: int, kc: Optional[int]) -> PlanBf16:
+    mt = next((t for t in BF16_MT if 16 * t >= m), BF16_MT[-1])
+    passes = -(-m // (16 * mt))
+    rows_pad = 16 * mt * passes
+    # buffer 0 holds the input and every other layer's input, buffer 1 the
+    # rest: layer l reads fins[l] channels from buffer l % 2
+    ld0 = _r16(max(fins[0::2])) + 8
+    ld1 = _r16(max(fins[1::2], default=0)) + 8
+    if kc is not None and kc not in BF16_KC:
+        raise ValueError(f"a weight chunk takes k in {BF16_KC}, not {kc}")
+    kc = _kc(fins, kc or 64) if layers else BF16_KC[0]
+    ring = 2 * BF16_STAGES * BF16_NB * (kc + 8) if layers else 0
+    smem = ring + 2 * rows_pad * (ld0 + ld1) + 4 * extra_words
+    return PlanBf16(rows, m, mt, passes, kc, ld0, ld1, red, smem,
+                    (tiles, clouds))
+
+
+@functools.lru_cache(maxsize=256)
+def sa_max_points_bf16(nsample: int, widths: Sequence[int]) -> int:
+    """The most points K7's bf16 mode stages for a stage of ``nsample``
+    rows a centre and layer widths ``widths`` (a tuple): the cloud (16
+    bytes a point) beside its smallest plan (one centre a block) within
+    SMEM_MAX."""
+    return (SMEM_MAX - layout_sa_bf16(1, 0, 1, nsample, widths, 1).smem) // 16
+
+
+@functools.lru_cache(maxsize=256)
+def fp_max_sources_bf16(widths: Sequence[int]) -> int:
+    """The most sources K8's bf16 mode stages for widths ``widths`` = (F0,
+    ..., FL): the sources beside its smallest plan (BF16_FP_ROWS[0]
+    targets a block) within SMEM_MAX."""
+    return (SMEM_MAX - layout_fp_bf16(1, 1, 0, widths, BF16_FP_ROWS[0]).smem) // 16
+
+
+def _plan_bf16(layout, row_counts) -> PlanBf16:
+    """The rows by :func:`_rule` with one block an SM (the bf16 layers are
+    short, so a block's fixed cost, staging its cloud, weighs more than a
+    second wave's), then the chunks' k.  ``profile_encode.py --sweep
+    --dtype bfloat16`` times every plan beside this choice (PERF.md §6)."""
+    cands = [p for p in (layout(r, None) for r in row_counts) if p.smem <= SMEM_MAX]
+    if not cands:  # the wrappers refuse such a cloud first, naming the cap
+        raise ValueError("no launch plan fits the shared memory of a block")
+    plan = _rule(cands, waves=1)
+    # chunks of 128 k where a layer reads more than 64 channels and the
+    # larger ring still leaves two blocks an SM, or the grid leaves SMs idle
+    wide = layout(plan.rows, BF16_KC[-1])
+    if wide.kc > plan.kc and wide.smem <= SMEM_MAX and (
+            wide.smem + 1024 <= SMEM_SM // 2 or wide.blocks <= SMS):
+        return wide
+    return plan
+
+
+def sa_rows_bf16(nsample: int) -> Tuple[int, ...]:
+    """The centre counts K7's bf16 plans take: up to 256 rows a block (one
+    pass), at least one centre."""
+    return tuple(r for r in SA_ROWS if r == 1 or r * nsample <= 256)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_sa_bf16(clouds: int, n: int, s: int, nsample: int,
+                 widths: Sequence[int]) -> PlanBf16:
+    """K7 bf16's plan (:func:`layout_sa_bf16`) by :func:`_rule_bf16`.
+    Cached: the sampling path asks for the same few plans at every call."""
+    widths = tuple(widths)
+    return _plan_bf16(lambda r, kc: layout_sa_bf16(clouds, n, s, nsample, widths, r, kc),
+                      [r for r in sa_rows_bf16(nsample) if r == 1 or r // 2 < s])
+
+
+@functools.lru_cache(maxsize=256)
+def plan_fp_bf16(clouds: int, n: int, s: int, widths: Sequence[int]) -> PlanBf16:
+    """K8 bf16's plan (:func:`layout_fp_bf16`) by :func:`_rule_bf16`."""
+    widths = tuple(widths)
+    return _plan_bf16(lambda r, kc: layout_fp_bf16(clouds, n, s, widths, r, kc),
+                      [r for r in BF16_FP_ROWS if r == BF16_FP_ROWS[0] or r // 2 < n])
+
+
+class Bf16Operands(tuple):
+    """A stage's folded layers with what K7's or K8's bf16 mode reads of
+    them, made once per model.  As a tuple it is the stage's ``folded``:
+    its (W' (F_{l-1}, F_l), b' (F_l,)) as ``ops/sa_fused.py:fold_conv_bn``
+    folds them (float32, detached), so the wrappers and the plain versions
+    take it where they take ``folded``.  ``weights``: each layer the kernel
+    computes (K7: 2..L, K8: all) as the bf16 rows of W'^T, (F_l, F_{l-1})
+    padded with zeros to (round16(F_l), round16(F_{l-1})), the B operand's
+    (n, k) layout (the biases stay the float32 b'); for K7 also ``w1``, W1'
+    rounded to bf16 (float32: the plain product of Z1), and ``w1x`` =
+    ``w1[:3]``."""
+
+    def __new__(cls, folded, weights, w1=None, w1x=None):
+        self = super().__new__(cls, folded)
+        self.weights, self.w1, self.w1x = tuple(weights), w1, w1x
+        return self
+
+    @property
+    def biases(self) -> Tuple[torch.Tensor, ...]:
+        """The kernel layers' float32 biases."""
+        return tuple(b for _, b in self[len(self) - len(self.weights):])
+
+
+def bf16_rows(w: torch.Tensor) -> torch.Tensor:
+    """W (F_{l-1}, F_l) as bf16 rows of W^T, zero-padded to (round16(F_l),
+    round16(F_{l-1}))."""
+    fin, fout = w.shape
+    out = torch.zeros(_r16(fout), _r16(fin), dtype=torch.bfloat16, device=w.device)
+    out[:fout, :fin] = w.t()
+    return out
+
+
+def bf16_operands(folded, sa: bool) -> Bf16Operands:
+    """:class:`Bf16Operands` of a stage's ``folded`` layers; ``sa``: K7's
+    (layer 1 is the Z1 product outside the kernel)."""
+    with torch.no_grad():
+        folded = tuple((w.detach().contiguous(), b.detach().contiguous())
+                       for w, b in folded)
+        weights = tuple(bf16_rows(w) for w, _ in folded[1 if sa else 0:])
+        if not sa:
+            return Bf16Operands(folded, weights)
+        w1 = kernels.bf16_exact(folded[0][0]).contiguous()
+        return Bf16Operands(folded, weights, w1, w1[:3].contiguous())
+
+
+def operands_key(modules: Sequence[nn.Module]) -> Tuple:
+    """What identifies the weights a stage folds as they stand: each
+    parameter's and buffer's (the BatchNorms' running statistics) storage
+    and version, which an in-place update (an optimizer step,
+    ``load_state_dict``, a train-mode forward's statistics) advances."""
+    return tuple((t.data_ptr(), t._version)
+                 for m in modules for t in (*m.parameters(), *m.buffers()))
+
+
+# per stage module: (operands_key, its Bf16Operands)
+_KEPT: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def kept_bf16_operands(owner: nn.Module, modules: Sequence[nn.Module],
+                       fold: Callable[[], Sequence], sa: bool) -> Bf16Operands:
+    """:func:`bf16_operands` of ``fold()``, kept per ``owner`` and made
+    again when a weight or a BatchNorm statistic of ``modules`` changes
+    (:func:`operands_key`): a sampler rounds them once per model, not once
+    per call."""
+    key = operands_key(modules)
+    kept = _KEPT.get(owner)
+    if kept is None or kept[0] != key:
+        kept = (key, bf16_operands(fold(), sa))
+        _KEPT[owner] = kept
+    return kept[1]

@@ -1,7 +1,8 @@
 """The fused eval SetAbstraction stage (K7): CUDA kernel and plain version.
 
 Replaces ``lsdm_tpu/ops/sa_fused_pallas.py`` (``fold_conv_bn`` and
-``sa_stage_fused``); the kernel lives in ``csrc/sa_fused.cu``.
+``sa_stage_fused``); the kernel lives in ``csrc/sa_fused.cu``, its bf16 mode
+in ``csrc/sa_fused_bf16.cu``.
 
 One stage of the eval backbone without the grouped (B, S, K, C) tensor:
 ball query around each center, then, per selected point, the stage's MLP
@@ -22,9 +23,12 @@ operands rounded to bf16 and sums in float32, ``Z1 = bf16(base) @
 bf16(W1') + b1'`` is rounded to bf16 after its bias, the center term is
 ``bf16(center) @ bf16(W1'[:3])`` (the ball query keeps the float32
 centers), each layer's ReLU output is rounded to bf16 (its bias added
-unrounded), and the output is bf16.  The kernel's bf16 instance takes
-``Z1`` in bf16 and the weights rounded here; it counts its launches as
-``sa_fused_bf16``.
+unrounded), and the output is bf16.  The kernel's bf16 mode runs its
+layers on the bf16 tensor cores from bf16 weight copies: where ``folded``
+is an ``ops/rowmlp.py:Bf16Operands`` (the folded layers with their copies,
+made once per model: ``models/pointnet2.py`` keeps them per stage), those,
+else made here at every call.  It takes ``Z1`` in bf16 and counts its
+launches as ``sa_fused_bf16``.
 
 A wrapper runs the kernel for CUDA tensors and the plain version for CPU
 tensors; it never falls back from one to the other.
@@ -33,7 +37,7 @@ tensors; it never falls back from one to the other.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -96,8 +100,9 @@ def sa_stage_fused_kernel(radius: float, nsample: int, xyz: torch.Tensor,
     (B, S, 3) centers, base (B, N, Cin) = [xyz, features], ``folded`` the
     stage's (W' (F_{l-1}, F_l), b' (F_l,)) from :func:`fold_conv_bn`, all
     float32 -> (B, S, F_last) float32; in ``compute_dtype`` bf16 the bf16
-    mode, a bf16 output.  CUDA kernel for CUDA tensors, plain version for
-    CPU tensors."""
+    mode, a bf16 output, its weights the bf16 copies ``folded`` carries
+    where it is a :class:`rowmlp.Bf16Operands` (else made here).  CUDA
+    kernel for CUDA tensors, plain version for CPU tensors."""
     flat = [t for wb in folded for t in wb]
     if kernels.on_cpu(xyz, new_xyz, base, *flat):
         return sa_stage_fused_plain(radius, nsample, xyz, new_xyz, base, folded,
@@ -114,7 +119,11 @@ def sa_stage_fused_kernel(radius: float, nsample: int, xyz: torch.Tensor,
         raise ValueError(f"nsample {nsample} must lie in [1, {N}]")
     if len(folded) > MAX_LAYERS:
         raise ValueError(f"fused SA kernel takes at most {MAX_LAYERS} layers")
-    cap = rowmlp.sa_max_points(nsample, tuple(widths))
+    if bf16:
+        folded = _with_bf16_copies(folded, True, dev)
+        cap = rowmlp.sa_max_points_bf16(nsample, tuple(widths))
+    else:
+        cap = rowmlp.sa_max_points(nsample, tuple(widths))
     if N > cap:  # the cloud is staged beside the layers' buffers
         raise ValueError(f"fused SA kernel takes at most {cap} points at these "
                          f"widths (the cloud beside its smallest plan within "
@@ -129,17 +138,18 @@ def sa_operands(base: torch.Tensor, folded: Folded,
                 ) -> Tuple[torch.Tensor, torch.Tensor, Folded]:
     """What K7's launch reads besides the points: layer 1 at the N points,
     ``Z1 = base @ W1' + b1'`` (a plain product, as on the TPU), W1'[:3], and
-    the stage's ``folded`` layers; in the bf16 mode Z1 rounded to bf16 after
-    its bias (from operands rounded to bf16) and the weights rounded to bf16
-    (float32 tensors), the biases as they are."""
-    bf16 = kernels.bf16_mode(compute_dtype)
+    the stage's ``folded`` layers.  In the bf16 mode, from the bf16 copies
+    ``folded`` carries (:class:`rowmlp.Bf16Operands`; made here when it is
+    plain layers): Z1 from bf16-rounded operands, rounded to bf16 after its
+    bias, W1'[:3] rounded, and the kernel's layers as (bf16 rows of W'^T,
+    float32 b') after layer 1's (W1', b1')."""
     w1, b1 = folded[0]
-    z1 = mode_matmul(base, w1, bf16) + b1
-    if not bf16:
-        return z1, w1[:3].contiguous(), folded
-    rest: List[Tuple[torch.Tensor, torch.Tensor]] = [
-        (kernels.bf16_exact(w).contiguous(), b) for w, b in folded]
-    return (z1.to(torch.bfloat16), rest[0][0][:3].contiguous(), rest)
+    if not kernels.bf16_mode(compute_dtype):
+        return base @ w1 + b1, w1[:3].contiguous(), folded
+    ops = folded if isinstance(folded, rowmlp.Bf16Operands) else \
+        rowmlp.bf16_operands(folded, sa=True)
+    z1 = (kernels.bf16_exact(base) @ ops.w1 + b1).to(torch.bfloat16)
+    return z1, ops.w1x, [folded[0], *zip(ops.weights, ops.biases)]
 
 
 def sa_stage_launch(radius: float, nsample: int, xyz: torch.Tensor,
@@ -149,9 +159,10 @@ def sa_stage_launch(radius: float, nsample: int, xyz: torch.Tensor,
                     compute_dtype: Optional[torch.dtype] = None
                     ) -> torch.Tensor:
     """The launch of K7 alone, after :func:`sa_stage_fused_kernel` has
-    checked its inputs and :func:`sa_operands` made ``z1`` (B, N, F1) and
-    ``w1x`` = W1'[:3] (3, F1), CUDA, contiguous: float32, or in the bf16
-    mode a bf16 ``z1`` and rounded weights."""
+    checked its inputs and :func:`sa_operands` made ``z1`` (B, N, F1),
+    ``w1x`` = W1'[:3] (3, F1) and the layers ``folded``, CUDA, contiguous:
+    float32, or in the bf16 mode a bf16 ``z1``, a rounded ``w1x`` and the
+    layers 2..L as bf16 rows of W'^T (:class:`rowmlp.Bf16Operands`)."""
     bf16 = kernels.bf16_mode(compute_dtype)
     B, N, _ = xyz.shape
     S = new_xyz.shape[1]
@@ -162,7 +173,8 @@ def sa_stage_launch(radius: float, nsample: int, xyz: torch.Tensor,
         return out
     if z1.dtype != out.dtype:
         raise ValueError(f"z1: expected {out.dtype}, got {z1.dtype}")
-    plan = rowmlp.plan_sa(B, N, S, nsample, tuple(widths)).ints()
+    plan = (rowmlp.plan_sa_bf16 if bf16 else rowmlp.plan_sa)(
+        B, N, S, nsample, tuple(widths)).ints()
     flat = [t for wb in folded[1:] for t in wb]
     params = (ctypes.c_void_p * max(1, len(flat)))(
         *[t.data_ptr() for t in flat])
@@ -178,6 +190,25 @@ def sa_stage_launch(radius: float, nsample: int, xyz: torch.Tensor,
     kernels.check(rc, name)
     kernels.LAUNCHES[name] += 1
     return out
+
+
+def _with_bf16_copies(folded: Folded, sa: bool, dev: torch.device
+                  ) -> rowmlp.Bf16Operands:
+    """``folded`` with its bf16 copies on ``dev``: checked against the
+    layers' widths where it carries them, made here where it does not."""
+    if not isinstance(folded, rowmlp.Bf16Operands):
+        return rowmlp.bf16_operands(folded, sa)
+    operands, layers = folded, folded[1:] if sa else folded
+    if len(operands.weights) != len(layers):
+        raise ValueError(f"bf16 operands of {len(operands.weights)} layers for "
+                         f"{len(layers)}")
+    for i, (w, (wf, _)) in enumerate(zip(operands.weights, layers)):
+        kernels.require(f"bf16 W{i + 1 + sa}", w, torch.bfloat16,
+                        (-(-wf.shape[1] // 16) * 16, -(-wf.shape[0] // 16) * 16), dev)
+    if sa:
+        kernels.require("bf16 W1", operands.w1, torch.float32,
+                        tuple(folded[0][0].shape), dev)
+    return operands
 
 
 def _check_layers(folded: Folded, c_in: int, dev: torch.device):

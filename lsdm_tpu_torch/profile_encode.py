@@ -4,6 +4,8 @@
     python -m lsdm_tpu_torch.profile_encode [--clouds 9 72] [--reps 50]
         [--dtype float32 bfloat16]
     python -m lsdm_tpu_torch.profile_encode --sweep [--clouds 9 18 36 72]
+        [--dtype float32 bfloat16]
+    ... [--csrc DIR]
 
 Builds the PointNet++ backbone of ``sdm_proxd()`` with seeded random
 weights, and per cloud count (9 = batch 1, 72 = batch 8) seeded random
@@ -13,23 +15,35 @@ stage it holds the kernel wrapper to its plain version (max abs error)
 and times, queued behind a sleep on the card so that the host's pace does
 not count: the wrapper (for K7 with its layer-1 matmul ``Z1 = base @ W1'
 + b1'``) and, for K7, that matmul alone (``z1_ms``); and the host's time
-to enqueue a wrapper call (``host_ms``).  ``--dtype bfloat16`` times the
+to enqueue a wrapper call (``host_ms``), and the sha256 of its output, by
+which two trees' outputs compare bit for bit.  ``--dtype bfloat16`` times the
 bf16 modes instead (bf16 features, as the bf16 stages hand them on; the
-error against the plain bf16 version; K7's ``z1_ms`` its bf16 operands,
-``ops/sa_fused.py:sa_operands``).  It prints a line a
-stage and, as its last line, one JSON object with all of it, the card's
-name and power limit included.  It uses only the wrappers' public
-functions, so the same script times any tree of the package.
+BF16 gate's readings against the plain bf16 version: max and mean error,
+the plain version's own bf16 gap, the share of entries that differ; K7's
+``z1_ms`` its bf16 operands, ``ops/sa_fused.py:sa_operands``), each
+wrapper handed its stage's bf16 weight copies made once
+(``rowmlp.bf16_operands``), as the sampler hands them over, where the tree
+has them.  It prints a line a stage and, as its last line, one JSON object
+with all of it, the card's name and power limit included.  It uses only
+the wrappers' public functions, so the same script times any tree of the
+package.
 
 ``--sweep`` instead times, per stage and cloud count, the kernel under
-every launch plan it can take (``ops/rowmlp.py``: each row count and
-cluster size whose layout fits a block), each held to the plain version,
-and prints the fastest as the entries of ``rowmlp.MEASURED``.
+every launch plan it can take, each held to the plain version: in float32
+each row count and cluster size whose layout fits a block
+(``ops/rowmlp.py:layout_sa`` / ``layout_fp``), printing the fastest as the
+entries of ``rowmlp.MEASURED``; with ``--dtype bfloat16`` each row count of
+the bf16 plans (``layout_sa_bf16`` / ``layout_fp_bf16``), printing the
+fastest beside the rule's choice (``plan_sa_bf16`` / ``plan_fp_bf16``).
+``--csrc DIR`` builds the kernels from another copy of ``csrc/`` (an
+edited copy for an ablation, kept in a git-ignored directory), so that a
+variant is timed by this same script.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import time
@@ -37,6 +51,9 @@ import time
 import torch
 
 DIST_OPS = 10  # a squared distance (6 multiplies, 4 adds) and its compare
+# the BF16 gate (chip_smoke.py's): every entry within BF16_RTOL x max(1,
+# |plain|), the mean error within BF16_GAP_SHARE of the plain version's gap
+BF16_RTOL, BF16_GAP_SHARE = 3e-2, 0.5
 
 
 def time_queued_ms(fn, reps: int, dev=None):
@@ -154,6 +171,34 @@ def stage_cases(backbone, levels, g: torch.Generator, compute_dtype=None):
     return cases
 
 
+def bf16_readings(got, want, want32) -> dict:
+    """The BF16 gate's readings of a bf16 mode's output ``got`` against its
+    plain bf16 version's ``want``, ``want32`` the plain version's float32
+    result on the same inputs: max and mean |got - want|, the gap (mean
+    |want - want32|, the plain version's own bf16 rounding) and the share
+    of entries that differ."""
+    got, want, want32 = got.float(), want.float(), want32.float()
+    diff = (got - want).abs()
+    return {"max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item(),
+            "gap": (want - want32).abs().mean().item(),
+            "differ": (diff > 0).float().mean().item()}
+
+
+def bf16_args(rowmlp, case) -> tuple:
+    """``case["args"]`` for the bf16 mode: the stage's folded layers with
+    their bf16 copies made once (``rowmlp.bf16_operands``), as the sampler
+    keeps them, where the tree has them (a parent tree's wrapper makes its
+    own at every call)."""
+    make = getattr(rowmlp, "bf16_operands", None)
+    if make is None:
+        return case["args"]
+    sa = case["kind"] == "sa"
+    at = 5 if sa else 4
+    args = list(case["args"])
+    args[at] = make(args[at], sa)
+    return tuple(args)
+
+
 def card() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -164,7 +209,7 @@ def card() -> str:
 def profile(clouds_list, reps: int, seed: int, dtype=None) -> dict:
     from lsdm_tpu_torch.config import sdm_proxd
     from lsdm_tpu_torch.models.sdm import SceneDiffusionModel
-    from lsdm_tpu_torch.ops import fp_fused, sa_fused
+    from lsdm_tpu_torch.ops import fp_fused, rowmlp, sa_fused
     from lsdm_tpu_torch.weights import init_weights
 
     dev = torch.device("cuda", 0)
@@ -175,7 +220,7 @@ def profile(clouds_list, reps: int, seed: int, dtype=None) -> dict:
     for clouds in clouds_list:
         rows = []
         for case in stage_cases(bb, encode_levels(bb, clouds, g, dev), g, dtype):
-            args = case["args"]
+            args = case["args"] if dtype is None else bf16_args(rowmlp, case)
             if case["kind"] == "sa":
                 kernel = lambda: sa_fused.sa_stage_fused_kernel(*args, dtype)
                 plain = sa_fused.sa_stage_fused_plain
@@ -184,15 +229,22 @@ def profile(clouds_list, reps: int, seed: int, dtype=None) -> dict:
                 kernel = lambda: fp_fused.fp_stage_fused_kernel(*args, dtype)
                 plain = fp_fused.fp_stage_fused_plain
                 z1 = None
-            err = (kernel().float() - plain(*args, dtype).float()).abs().max().item()
+            got = kernel()
+            if dtype is None:
+                read = {"max_abs_err": (got - plain(*args)).abs().max().item()}
+            else:
+                read = bf16_readings(got, plain(*args, dtype), plain(*args))
             ms, host_ms = time_queued_ms(kernel, reps, dev)
-            rec = {"stage": case["name"], "max_abs_err": err, "ms": ms,
-                   "host_ms": host_ms,
+            rec = {"stage": case["name"], **read, "ms": ms, "host_ms": host_ms,
+                   "sha256": hashlib.sha256(got.float().cpu().numpy().tobytes()
+                                            ).hexdigest()[:16],
                    "z1_ms": None if z1 is None else time_queued_ms(z1, reps, dev)[0],
-                   "layer_gflop": case["layer_flops"] / 1e9}
+                   "layer_gflop": case["layer_flops"] / 1e9,
+                   "tflop_s": case["products"] / ms / 1e9}
             print(f"{clouds} clouds {case['name']} {case['desc']}: wrapper "
-                  f"{ms:.4f} ms on the card, {host_ms:.4f} ms of host a call, "
-                  f"Z1 {rec['z1_ms']} ms, max error {err:.3g}")
+                  f"{ms:.4f} ms on the card ({rec['tflop_s']:.2f} TFLOP/s of its "
+                  f"products), {host_ms:.4f} ms of host a call, Z1 {rec['z1_ms']} ms, "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in read.items()))
             rows.append(rec)
         out[str(clouds)] = rows
     return out
@@ -261,6 +313,80 @@ def sweep(clouds_list, reps: int, seed: int) -> dict:
     return {"measured": measured, "ms": times}
 
 
+def sweep_bf16(clouds_list, reps: int, seed: int) -> dict:
+    """Per cloud count and stage, the bf16 kernel's device ms (queued; K7
+    after its bf16 Z1) under every row count of its plans
+    (``rowmlp.layout_sa_bf16`` / ``layout_fp_bf16``) and, where a layer
+    reads more than 64 channels, also with weight chunks of 128 k, each
+    held to the plain bf16 version by the BF16 gate's readings, beside the
+    rule's choice (``plan_sa_bf16`` / ``plan_fp_bf16``)."""
+    from lsdm_tpu_torch.config import sdm_proxd
+    from lsdm_tpu_torch.models.sdm import SceneDiffusionModel
+    from lsdm_tpu_torch.ops import fp_fused, rowmlp, sa_fused
+    from lsdm_tpu_torch.weights import init_weights
+
+    bf = torch.bfloat16
+    dev = torch.device("cuda", 0)
+    model = init_weights(SceneDiffusionModel(sdm_proxd()), seed).to(dev).eval()
+    bb = model.pcd_backbone
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    chosen_sa, chosen_fp = rowmlp.plan_sa_bf16, rowmlp.plan_fp_bf16
+    out = {}
+    try:
+        for clouds in clouds_list:
+            for case in stage_cases(bb, encode_levels(bb, clouds, g, dev), g, bf):
+                args = bf16_args(rowmlp, case)
+                sa = case["kind"] == "sa"
+                if sa:
+                    r, ns, xyz, q, base, folded = args
+                    z1, w1x, rest = sa_fused.sa_operands(base, folded, bf)
+                    widths = tuple(w.shape[1] for w, _ in folded)
+                    kernel = lambda: sa_fused.sa_stage_launch(
+                        r, ns, xyz, q, z1, w1x, rest, widths, bf)
+                    plain = sa_fused.sa_stage_fused_plain
+                    rule = chosen_sa(clouds, xyz.shape[1], q.shape[1], ns, widths)
+                    layout = lambda rows, kc: rowmlp.layout_sa_bf16(
+                        clouds, xyz.shape[1], q.shape[1], ns, widths, rows, kc)
+                    fins = widths[:-1]
+                    row_counts = rowmlp.sa_rows_bf16(ns)
+                else:
+                    xyz1, xyz2, _, _, folded, _ = args
+                    widths = (folded[0][0].shape[0], *(w.shape[1] for w, _ in folded))
+                    kernel = lambda: fp_fused.fp_stage_fused_kernel(*args, bf)
+                    plain = fp_fused.fp_stage_fused_plain
+                    rule = chosen_fp(clouds, xyz1.shape[1], xyz2.shape[1], widths)
+                    layout = lambda rows, kc: rowmlp.layout_fp_bf16(
+                        clouds, xyz1.shape[1], xyz2.shape[1], widths, rows, kc)
+                    fins = widths[:-1]
+                    row_counts = rowmlp.BF16_FP_ROWS
+                want, want32 = plain(*args, bf), plain(*args)
+                res = {}
+                kcs = [None] + ([128] if max(fins) > 64 else [])
+                for rows, kc in ((r, k) for r in row_counts for k in kcs):
+                    plan = layout(rows, kc)
+                    if plan.smem > rowmlp.SMEM_MAX:
+                        continue
+                    rowmlp.plan_sa_bf16 = rowmlp.plan_fp_bf16 = lambda *a, p=plan: p
+                    read = bf16_readings(kernel(), want, want32)
+                    bound = BF16_RTOL * max(1.0, want.float().abs().max().item())
+                    if not (read["max_abs_err"] <= bound
+                            and read["mean_abs_err"] <= BF16_GAP_SHARE * read["gap"]):
+                        raise AssertionError(f"{case['name']} rows {rows}: {read}")
+                    res[(rows, plan.kc)] = time_queued_ms(kernel, reps, dev)[0]
+                best = min(res, key=res.get)
+                ruled = res[(rule.rows, rule.kc)]
+                print(f"{clouds} clouds {case['name']} bf16: fastest rows/kc {best[0]}/"
+                      f"{best[1]} {res[best]:.4f} ms; rule {rule.rows}/{rule.kc} "
+                      f"{ruled:.4f} ms ({ruled / res[best]:.3f}x); " + ", ".join(
+                          f"{r}/{k} {ms:.4f}" for (r, k), ms in res.items()))
+                out.setdefault(str(clouds), {})[case["name"]] = {
+                    "fastest": list(best), "rule": [rule.rows, rule.kc],
+                    "ms": {f"{r}/{k}": ms for (r, k), ms in res.items()}}
+    finally:
+        rowmlp.plan_sa_bf16, rowmlp.plan_fp_bf16 = chosen_sa, chosen_fp
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--clouds", type=int, nargs="+", default=[9, 72])
@@ -269,15 +395,23 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="time every launch plan of each stage")
     ap.add_argument("--dtype", nargs="+", default=["float32"],
-                    choices=["float32", "bfloat16"],
-                    help="the modes to time (not with --sweep)")
+                    choices=["float32", "bfloat16"], help="the modes to time")
+    ap.add_argument("--csrc", help="build the kernels from this copy of csrc/")
     args = ap.parse_args(argv)
+    if args.csrc:
+        from pathlib import Path
+
+        from lsdm_tpu_torch import kernels
+        kernels.CSRC = Path(args.csrc).resolve()
     if not torch.cuda.is_available():
         raise SystemExit("profile_encode needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     if args.sweep:
-        res = {"sweep": sweep(args.clouds, args.reps, args.seed)}
+        res = {("sweep" if dt == "float32" else "sweep_bf16"):
+               (sweep if dt == "float32" else sweep_bf16)(args.clouds, args.reps,
+                                                          args.seed)
+               for dt in args.dtype}
     else:
         res = {("stages" if dt == "float32" else "stages_bf16"): profile(
             args.clouds, args.reps, args.seed,

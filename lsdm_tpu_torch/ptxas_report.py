@@ -3,10 +3,12 @@ loads sit, and which units their instructions use, from the compiler
 (needs ``nvcc`` and ``cuobjdump``).
 
     python -m lsdm_tpu_torch.ptxas_report [sa_fused fp_fused ...]
+        [--against OTHER_CSRC]
 
 Compiles each source of ``csrc/`` named (default: the row-MLP kernels K7
-and K8, the ball query and 3-NN kernels K1 and K2, the chamfer nearest
-neighbour K11, FPS, K3, K6's pass 2 in both modes and K9 in both modes)
+and K8 in both modes, the ball query and 3-NN kernels K1 and K2, the
+chamfer nearest neighbour K11, FPS, K3, K6's pass 2 in both modes and K9 in
+both modes)
 with the package's
 ``NVCC_FLAGS`` plus ``-Xptxas -v`` to a cubin under the build directory and
 prints, per function (each instance of a template), what ptxas reports:
@@ -19,8 +21,16 @@ targets of its calls (the functions that are not inlined, such as
 ``rowmlp::dense_tiles<T>``, in address order; the kernel body first): per
 part, its FFMA count, its
 spill loads (``LDL``) and those of them inside a loop that holds FFMAs
-and no inner loop (the FMA loops of the layers).  The last line is one
-JSON object with all of it.
+and no inner loop (the FMA loops of the layers).  For every function it
+also counts the spill loads inside an innermost loop that holds tensor-
+core products (HMMA, HGMMA: the bf16 layers' product loops; the bf16
+kernels inline everything, so each template instance is one function) and
+inside one that holds FFMAs.
+``--against DIR`` also compiles each source from another copy of
+``csrc/`` (e.g. a parent tree's ``git archive``) and says, per function of
+this tree, whether the other's cubin holds a function with the same SASS,
+instruction for instruction (names aside: a kernel that stopped being a
+template keeps its code).  The last line is one JSON object with all of it.
 """
 
 from __future__ import annotations
@@ -33,8 +43,9 @@ from pathlib import Path
 
 from lsdm_tpu_torch import kernels
 
-SOURCES = ("sa_fused", "fp_fused", "ballquery", "chamfer", "fps", "denoise_chain",
-           "denoise_chain_bf16", "denoise_step", "denoise_step_bf16")
+SOURCES = ("sa_fused", "fp_fused", "sa_fused_bf16", "fp_fused_bf16", "ballquery",
+           "chamfer", "fps", "denoise_chain", "denoise_chain_bf16", "denoise_step",
+           "denoise_step_bf16")
 SASS_SOURCES = ("sa_fused", "fp_fused")
 # the opcodes counted per function of the SASS
 OPCODES = ("HMMA", "HGMMA", "FFMA", "LDSM", "MUFU", "BAR", "BRA")
@@ -45,10 +56,11 @@ _REGS = re.compile(r"Used (\d+) registers")
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?);")
 
 
-def ptxas(src: str, cubin: str) -> list:
-    """ptxas's report of each function compiled from ``src``."""
+def ptxas(src: str, cubin: str, csrc: Path = kernels.CSRC) -> list:
+    """ptxas's report of each function compiled from ``src`` (in
+    ``csrc``)."""
     cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v",
-           "-cubin", str(kernels.CSRC / f"{src}.cu"), "-o", cubin]
+           "-cubin", str(Path(csrc) / f"{src}.cu"), "-o", cubin]
     res = subprocess.run(cmd, capture_output=True, text=True, check=True)
     funcs, cur = [], None
     for line in res.stderr.splitlines():
@@ -88,6 +100,63 @@ def sass_counts(cubin: str) -> dict:
     return out
 
 
+def _innermost_loops(body, ops) -> list:
+    """(start, end) of the innermost loops of ``body`` ((address, text)
+    pairs; a backward branch closes a loop) that hold an opcode of ``ops``."""
+    loops = []
+    for a, t in body:
+        m = re.search(r"BRA (0x[0-9a-f]+)", t)
+        if m and body[0][0] <= int(m.group(1), 16) < a:
+            loops.append((int(m.group(1), 16), a))
+    return [(s, e) for s, e in loops
+            if any(op in t for a, t in body if s <= a <= e for op in ops)
+            and not any(s < s2 and e2 < e for s2, e2 in loops)]
+
+
+def loop_spills(cubin: str) -> dict:
+    """Per function of the cubin's SASS: its spill loads (``LDL``) and those
+    of them inside an innermost loop that holds tensor-core products (HMMA,
+    HGMMA) or FFMAs."""
+    out, name, body = {}, None, []
+
+    def close():
+        if name is None:
+            return
+        ldl = [a for a, t in body if re.search(r"\bLDL\b", t)]
+        out[name] = {"ldl": len(ldl)}
+        for key, ops in (("ldl_in_mma_loops", ("HMMA", "HGMMA")),
+                         ("ldl_in_ffma_loops", ("FFMA",))):
+            loops = _innermost_loops(body, ops)
+            out[name][key] = sum(any(s <= a <= e for s, e in loops) for a in ldl)
+
+    for line in _sass(cubin).splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            close()
+            name, body = m.group(1), []
+            continue
+        m = _INSTR.search(line)
+        if m:
+            body.append((int(m.group(1), 16), m.group(2)))
+    close()
+    return out
+
+
+def sass_bodies(cubin: str) -> dict:
+    """Per function of the cubin's SASS, its instructions (address and
+    text) as a tuple."""
+    out, cur = {}, None
+    for line in _sass(cubin).splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), [])
+            continue
+        m = _INSTR.search(line)
+        if m and cur is not None:
+            cur.append(m.groups())
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def sass_parts(cubin: str) -> list:
     """The SASS split at its call targets: per part, its FFMAs, spill loads
     and spill loads inside an innermost loop that holds FFMAs."""
@@ -117,6 +186,8 @@ def sass_parts(cubin: str) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("sources", nargs="*", default=list(SOURCES))
+    ap.add_argument("--against", type=Path, default=None,
+                    help="another csrc/ whose SASS each function is compared with")
     args = ap.parse_args(argv)
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = {}
@@ -125,18 +196,33 @@ def main(argv=None) -> int:
         funcs = ptxas(src, cubin)
         # one kernel and its out-of-line tiles: the split reads one address space
         parts = sass_parts(cubin) if src in SASS_SOURCES else []
-        counts = sass_counts(cubin)
+        counts, spills = sass_counts(cubin), loop_spills(cubin)
         for f in funcs:
             ops = ", ".join(f"{n} {op}" for op, n in
                             counts.get(f["function"], {}).items())
+            sp = spills.get(f["function"])
+            loops = ("" if sp is None else f"; {sp['ldl']} LDL, "
+                     f"{sp['ldl_in_mma_loops']} of them in MMA loops, "
+                     f"{sp['ldl_in_ffma_loops']} in FFMA loops")
             print(f"{src} {f['function']}: {f.get('registers', '-')} registers, "
                   f"{f['stack']} B stack, {f['spill_stores']} B spill stores, "
-                  f"{f['spill_loads']} B spill loads; SASS {ops or 'not found'}")
+                  f"{f['spill_loads']} B spill loads; SASS {ops or 'not found'}"
+                  f"{loops}")
         for p in parts:
             print(f"{src} SASS part at {p['at']}: {p['instructions']} "
                   f"instructions, {p['ffma']} FFMA, {p['ldl']} LDL, "
                   f"{p['ldl_in_fma_loops']} of them in FMA loops")
-        out[src] = {"ptxas": funcs, "sass": parts, "opcodes": counts}
+        out[src] = {"ptxas": funcs, "sass": parts, "opcodes": counts,
+                    "loop_spills": spills}
+        if args.against is not None and (args.against / f"{src}.cu").exists():
+            other = str(kernels.BUILD_DIR / f"{src}.against.cubin")
+            ptxas(src, other, args.against)
+            theirs = set(sass_bodies(other).values())
+            same = {f: body in theirs for f, body in sass_bodies(cubin).items()}
+            for f, eq in same.items():
+                print(f"{src} {f}: SASS {'equal to' if eq else 'differs from'} "
+                      f"a function of {args.against}")
+            out[src]["same_sass_as_against"] = same
     print(json.dumps(out))
     return 0
 

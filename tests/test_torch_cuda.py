@@ -1047,7 +1047,15 @@ def _bf16_gate(got, want, want32, what):
     (9, 256, 64, 0.4, 32, (128, 128, 256), 0),
     (9, 64, 16, 0.8, 32, (256, 256, 512), 0),
     (2, 37, 5, 0.3, 8, (8,), 0),                 # one layer: the max of layer 1
-    (3, 100, 37, 0.5, 16, (64, 67, 20), 4),      # ragged, clusters of 4
+    (3, 100, 37, 0.5, 16, (64, 67, 20), 4),      # ragged (the cluster forces only
+                                                 # the float32 plan)
+    # the bf16 design's max: in registers for nsample 8 and 4, by atomics for
+    # 5 and 64; 300 rows a centre take two passes of 256
+    (2, 50, 7, 0.6, 8, (12, 10, 3), 0),
+    (2, 64, 16, 0.8, 4, (16, 32), 0),
+    (2, 30, 3, 0.9, 5, (12, 10), 0),
+    (2, 100, 24, 0.5, 64, (16, 16, 24), 0),
+    (2, 600, 3, 2.0, 300, (8, 16, 24), 0),
 ])
 def test_sa_fused_bf16_kernel_matches_plain(dev, b, n, s, radius, nsample, mlp, cluster,
                                             monkeypatch):
@@ -1075,6 +1083,7 @@ def test_sa_fused_bf16_kernel_matches_plain(dev, b, n, s, radius, nsample, mlp, 
     (9, 1024, 1024, 0, 128, (128, 128, 128, 128, 3), HEAD, 0),
     (2, 64, 2, 6, 10, (8, 16), None, 0),         # S = 2: k = 2
     (2, 45, 11, 30, 37, (36, 5), ("relu", "none"), 2),  # ragged, odd widths
+    (2, 100, 40, 0, 20, (24, 16, 3), ("relu", "relu", "none"), 0),  # 4 row tiles
 ])
 def test_fp_fused_bf16_kernel_matches_plain(dev, b, n, s, d1, d2, mlp, acts, cluster,
                                             monkeypatch):
@@ -1096,6 +1105,111 @@ def test_fp_fused_bf16_kernel_matches_plain(dev, b, n, s, d1, d2, mlp, acts, clu
     _bf16_gate(got, want, fp_fused.fp_stage_fused_plain(*args), "K8 bf16")
     with pytest.raises(ValueError):  # the float32 mode takes float32 features
         fp_fused.fp_stage_fused_kernel(*args)
+
+
+# the flagship stages' widths: K7 (points, centres, widths F1..FL), K8
+# (targets, sources, D1, layer widths, activations; fp1 with the head)
+SA_FLAGSHIP = {"sa1": (1024, 1024, (32, 32, 64)), "sa2": (1024, 256, (64, 64, 128)),
+               "sa3": (256, 64, (128, 128, 256)), "sa4": (64, 16, (256, 256, 512))}
+FP_FLAGSHIP = {"fp4": (64, 16, 256, (768, 256, 256), None),
+               "fp3": (256, 64, 128, (384, 256, 256), None),
+               "fp2": (1024, 256, 64, (320, 256, 128), None),
+               "fp1": (1024, 1024, 0, (128, 128, 128, 128, 128, 3), HEAD)}
+
+
+def _sa_bf16_case(dev, b, n, s, widths, radius=0.2, seed=0):
+    xyz = _cloud(seed + n, b, n, 3).to(dev)
+    new_xyz = xyz[:, :s].contiguous()
+    base = torch.cat([xyz, _cloud(seed + n + 1, b, n, 5).to(dev)], -1).contiguous()
+    return (radius, 32, xyz, new_xyz, base, _layers(dev, (8,) + widths, seed))
+
+
+def _fp_bf16_case(dev, b, n, s, d1, widths, acts, seed=0):
+    xyz1 = _cloud(seed + n, b, n, 3).to(dev)
+    xyz2 = _cloud(seed + s + 3, b, s, 3).to(dev)
+    p1 = _cloud(seed + n + 5, b, n, d1).to(dev).bfloat16() if d1 else None
+    p2 = _cloud(seed + s + 9, b, s, widths[0] - d1).to(dev).bfloat16()
+    return xyz1, xyz2, p1, p2, _layers(dev, widths, seed), acts
+
+
+def _check_bf16_stage(kind, args, what):
+    mod = sa_fused if kind == "sa" else fp_fused
+    wrapper = mod.sa_stage_fused_kernel if kind == "sa" else mod.fp_stage_fused_kernel
+    plain = mod.sa_stage_fused_plain if kind == "sa" else mod.fp_stage_fused_plain
+    name = "sa_fused" if kind == "sa" else "fp_fused"
+    before = {k: kernels.LAUNCHES[k] for k in (name, name + "_bf16")}
+    got = wrapper(*args, torch.bfloat16)
+    assert (kernels.LAUNCHES[name + "_bf16"], kernels.LAUNCHES[name]) == (
+        before[name + "_bf16"] + 1, before[name])
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    _bf16_gate(got, plain(*args, torch.bfloat16), plain(*args), what)
+
+
+@pytest.mark.parametrize("stage,rows,kc", [
+    *((st, r, None) for st in ("sa2", "sa3") for r in rowmlp.sa_rows_bf16(32)),
+    *((st, r, None) for st in ("fp2", "fp1") for r in rowmlp.BF16_FP_ROWS),
+    ("sa4", 1, 128), ("sa4", 4, 128), ("fp4", 32, 128), ("fp2", 64, 128)])
+def test_row_mlp_bf16_kernels_under_every_plan(dev, stage, rows, kc, monkeypatch):
+    """K7 / K8 bf16 at flagship widths (3 clouds) under each row count of
+    their plans (m16 tiles a pass 2, 4, 8, 16: every warp layout) and with
+    weight chunks of 128 k, by the BF16 gate against the plain bf16
+    version."""
+    if stage in SA_FLAGSHIP:
+        n, s, widths = SA_FLAGSHIP[stage]
+        args = _sa_bf16_case(dev, 3, n, s, widths, radius=0.2 if s > 64 else 0.8)
+        monkeypatch.setattr(rowmlp, "plan_sa_bf16",
+                            lambda *a: rowmlp.layout_sa_bf16(*a, rows, kc))
+    else:
+        n, s, d1, widths, acts = FP_FLAGSHIP[stage]
+        args = _fp_bf16_case(dev, 3, n, s, d1, widths, acts)
+        monkeypatch.setattr(rowmlp, "plan_fp_bf16",
+                            lambda *a: rowmlp.layout_fp_bf16(*a, rows, kc))
+    _check_bf16_stage(stage[:2], args, f"{stage} bf16, {rows} rows a block, k {kc}")
+
+
+@pytest.mark.parametrize("stage", sorted(SA_FLAGSHIP) + sorted(FP_FLAGSHIP))
+def test_row_mlp_bf16_kernels_at_their_caps(dev, stage):
+    """K7 bf16 with as many points, K8 bf16 with as many sources, as the
+    bf16 design stages beside its smallest plan at the flagship widths
+    (``rowmlp.sa_max_points_bf16`` / ``fp_max_sources_bf16``), by the BF16
+    gate; one more raises, naming the cap."""
+    if stage in SA_FLAGSHIP:
+        _, s, widths = SA_FLAGSHIP[stage]
+        cap = rowmlp.sa_max_points_bf16(32, widths)
+        case = lambda n: _sa_bf16_case(dev, 1, n, min(s, 64), widths, radius=0.1)
+    else:
+        n, _, d1, widths, acts = FP_FLAGSHIP[stage]
+        cap = rowmlp.fp_max_sources_bf16(widths)
+        case = lambda s: _fp_bf16_case(dev, 1, 64, s, d1, widths, acts)
+    _check_bf16_stage(stage[:2], case(cap), f"{stage} bf16 at its cap {cap}")
+    over = case(cap + 1)
+    wrapper = (sa_fused.sa_stage_fused_kernel if stage in SA_FLAGSHIP
+               else fp_fused.fp_stage_fused_kernel)
+    with pytest.raises(ValueError, match=f"at most {cap} "):
+        wrapper(*over, torch.bfloat16)
+
+
+def test_bf16_model_hands_its_kept_operands_to_the_kernels(dev, monkeypatch):
+    """A bf16 fused SA stage on the card makes its bf16 weight copies once
+    across forwards (``rowmlp.kept_bf16_operands``) and the wrapper uses
+    them: no copy is made at a call."""
+    from lsdm_tpu_torch.models.pointnet2 import PointNetSetAbstraction
+
+    stage = PointNetSetAbstraction(64, 0.4, 32, 3 + 5, (32, 48), impl="fused",
+                                   dtype=torch.bfloat16).to(dev).eval()
+    made = []
+    real = rowmlp.bf16_operands
+    monkeypatch.setattr(rowmlp, "bf16_operands",
+                        lambda *a: made.append(1) or real(*a))
+    xyz, feats = _cloud(1, 2, 256, 3).to(dev), _cloud(2, 2, 256, 5).to(dev)
+    before = kernels.LAUNCHES["sa_fused_bf16"]
+    with torch.no_grad():
+        first = stage(xyz, feats)[1]
+        again = stage(xyz, feats)[1]
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sa_fused_bf16"] == before + 2 and made == [1]
+    assert torch.equal(first, again)
 
 
 @pytest.mark.parametrize("b,n,d,t,chunked,clip,plan", [
@@ -1365,9 +1479,10 @@ def test_failed_bf16_build_raises_without_a_plain_fallback(dev, tmp_path, monkey
     csrc.mkdir()
     for f in kernels.CSRC.glob("*.cuh"):
         shutil.copy(f, csrc)
-    broken = (kernels.CSRC / "sa_fused.cu").read_text().replace(
+    broken = (kernels.CSRC / "sa_fused_bf16.cu").read_text().replace(
         "int lsdm_sa_fused_bf16(", "int lsdm_sa_fused_bf16(undeclared_type t, ")
-    (csrc / "sa_fused.cu").write_text(broken)
+    assert broken != (kernels.CSRC / "sa_fused_bf16.cu").read_text()
+    (csrc / "sa_fused_bf16.cu").write_text(broken)
     monkeypatch.setattr(kernels, "CSRC", csrc)
     monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(kernels, "_lib", None)

@@ -86,3 +86,34 @@ def test_sass_counts_count_each_functions_opcodes(monkeypatch):
         "_Z15emb_g_kernel8EmbGArgs": {
             "HMMA": 0, "HGMMA": 1, "FFMA": 1, "LDSM": 0, "MUFU": 0, "BAR": 0,
             "BRA": 0}}
+
+
+# a kernel whose product loop (0x0020-0x0050) holds HMMAs and one spill
+# load, and whose FFMA loop (0x0070-0x0090) holds another; then a second
+# function of one instruction
+SASS_MMA = """\
+        Function : _Z6kernelv
+        /*0000*/                   LDL R2, [R1] ;
+        /*0010*/                   MOV R5, RZ ;
+        /*0020*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0030*/                   LDL R9, [R1+0x4] ;
+        /*0040*/                   LDSM.16.M88.4 R8, [R3] ;
+        /*0050*/              @P0 BRA 0x20 ;
+        /*0060*/                   MOV R6, RZ ;
+        /*0070*/                   FFMA R6, R7, R8, R6 ;
+        /*0080*/                   LDL R10, [R1+0x8] ;
+        /*0090*/              @P1 BRA 0x70 ;
+        /*00a0*/                   EXIT ;
+        Function : _Z5otherv
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_loop_spills_tell_mma_loops_from_ffma_loops(monkeypatch):
+    monkeypatch.setattr(kernels, "_nvcc", lambda: "/cuda/bin/nvcc")
+    monkeypatch.setattr(subprocess, "run", _fake_run(stdout=SASS_MMA))
+    assert ptxas_report.loop_spills("out.cubin") == {
+        "_Z6kernelv": {"ldl": 3, "ldl_in_mma_loops": 1, "ldl_in_ffma_loops": 1},
+        "_Z5otherv": {"ldl": 0, "ldl_in_mma_loops": 0, "ldl_in_ffma_loops": 0}}
+    bodies = ptxas_report.sass_bodies("out.cubin")
+    assert len(bodies["_Z6kernelv"]) == 11 and bodies["_Z5otherv"] == (("0000", "EXIT "),)
