@@ -504,9 +504,9 @@ KERNELS = {  # name: (source, the TPU kernel it replaces, path it is counted on)
     # the bf16 modes (the JAX kernels at compute_dtype=bfloat16)
     "rank1_attn_bf16": ("lsdm_tpu_torch/csrc/rank1_attn.cu",
                         "lsdm_tpu/ops/attn_pallas.py:60", "train_bf16"),
-    "rank1_attn_bwd_bf16": ("lsdm_tpu_torch/csrc/rank1_attn_bwd.cu",
+    "rank1_attn_bwd_bf16": ("lsdm_tpu_torch/csrc/rank1_attn_bwd_bf16.cu",
                             "lsdm_tpu/ops/attn_pallas.py:138", "train_bf16"),
-    "select_gather_bf16": ("lsdm_tpu_torch/csrc/sg_fused.cu",
+    "select_gather_bf16": ("lsdm_tpu_torch/csrc/sg_fused_bf16.cu",
                            "lsdm_tpu/ops/sg_fused_pallas.py:128", "train_bf16_sg"),
     "sa_fused_bf16": ("lsdm_tpu_torch/csrc/sa_fused_bf16.cu",
                       "lsdm_tpu/ops/sa_fused_pallas.py:134", "fused_bf16"),

@@ -1,16 +1,18 @@
 // Device code shared by the rank-1 attention kernels: the forward (K4,
-// rank1_attn.cu) and its backward (K5, rank1_attn_bwd.cu).
+// rank1_attn.cu) and its backward (K5, rank1_attn_bwd.cu and, in bf16,
+// rank1_attn_bwd_bf16.cu).
 //
 // One definition of each pair's exponential, so that the row denominators
 // K4 keeps and the weights K5 recomputes from them come from the same
-// instruction sequence, and of the warp reduction both use to sum per-row
-// partials across the lanes that hold the keys.
+// instruction sequence, and of the warp reduction both float32 kernels use
+// to sum per-row partials across the lanes that hold the keys.
 //
 // Both kernels have a bf16 mode (the JAX kernels' compute_dtype=bfloat16,
 // lsdm_tpu/ops/attn_pallas.py:43-56 and :86-134): q, k and v are bf16 in
 // memory and read as float32, and each softmax weight w = e / Z is rounded
-// to bf16 (round to nearest even) before every product, by bf16_weight,
-// the same sequence in both kernels, so the backward differentiates the
+// to bf16 (round to nearest even) before every product, as bf16_weight
+// rounds it (K5 bf16 rounds the same product e * (1 / Z) two weights at a
+// time, by one packed conversion), so the backward differentiates the
 // weights the forward used.
 
 #pragma once
@@ -24,10 +26,6 @@ namespace rank1 {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
 }
 
 // The bf16 mode's weight: e times the row's 1 / Z (rz = __frcp_rn(Z)),

@@ -123,7 +123,8 @@ _SIGNATURES = {
     "lsdm_fp_fused_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _P, _P, _P),
     # (q, k, v, out, g, denom, B, L, S, H, dq, dk, dv, scratch, stream);
-    # the _bf16 entry takes bf16 q, k, v and writes bf16 dq, dk, dv
+    # the _bf16 entry (csrc/rank1_attn_bwd_bf16.cu) takes bf16 q, k, v and
+    # writes bf16 dq, dk, dv
     "lsdm_rank1_attn_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                             _P, _P),
     "lsdm_rank1_attn_bwd_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
@@ -131,11 +132,12 @@ _SIGNATURES = {
     # (S) -> key tiles of one (cloud, head)
     "lsdm_rank1_attn_bwd_tiles": (_I,),
     # (xyz, new_xyz, base, B, N, S, C, radius2, nsample, centers a warp,
-    #  out, idx, stream); the _bf16 entry takes a bf16 base and writes a
-    #  bf16 out
+    #  out, idx, stream); the _bf16 entry (csrc/sg_fused_bf16.cu) takes a
+    #  bf16 base, the warps a slab after the centers a warp
+    #  (ops/sg_fused.py:select_gather_bf16_plan), and writes a bf16 out
     "lsdm_select_gather": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P),
-    "lsdm_select_gather_bf16": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P,
-                                _P),
+    "lsdm_select_gather_bf16": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P,
+                                _P, _P),
     # (x, y, B, N, M, lanes a point, points a lane, min, argmin, stream)
     "lsdm_chamfer_nn": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
 }

@@ -18,7 +18,11 @@ bf16; the plain versions also take float64).  bf16 is the JAX kernels'
 read as float32, each weight ``w = e / sum(e)`` rounded to bf16 before
 every product, the sums float32; K4's output and row denominators stay
 float32, K5's dq, dk and dv come back bf16, as the JAX custom VJP casts
-them.  The kernels count their bf16 launches apart (``rank1_attn_bf16``,
+them.  K5's bf16 mode is its own design on the tensor cores
+(``csrc/rank1_attn_bwd_bf16.cu``: the sums split by linearity into
+products of the bf16 weight plane with exact bf16 parts of a few vectors,
+on ``mma.sync``), so it sums in another order than the plain version.
+The kernels count their bf16 launches apart (``rank1_attn_bf16``,
 ``rank1_attn_bwd_bf16``).
 
 A wrapper runs the kernel for CUDA tensors and the plain version for CPU

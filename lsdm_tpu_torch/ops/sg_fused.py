@@ -23,8 +23,10 @@ grouped output is bf16, the gather exact, each xyz column ``g - qc`` with
 the center ``qc`` rounded to bf16, computed in float32 and rounded once to
 bf16; the backward sums the bf16 cotangent into ``grad_base`` in float32
 and rounds once to bf16, as ``onehot_segment_sum`` does (its
-``:190-201``).  The kernel counts its bf16 launches as
-``select_gather_bf16``.
+``:190-201``).  Its kernel is its own source (``csrc/sg_fused_bf16.cu``:
+the same scan, then slabs of C >= 8 columns copied a source row at a time)
+with its own plan (:func:`select_gather_bf16_plan`), and counts its
+launches as ``select_gather_bf16``.
 
 A wrapper runs the kernel for CUDA tensors and the plain version for CPU
 tensors; it never falls back from one to the other.
@@ -63,6 +65,34 @@ def select_gather_plan(clouds: int, s: int, slab: int) -> int:
     if slab <= SG_SELECT_SLAB:
         return ball_query_plan(clouds, s)
     return 1
+
+
+# warps of the card the bf16 plan fills before it shares slabs between warps:
+# 4 blocks of 4 warps an SM
+SG_BF16_FILL = kernels.SMS * 16
+# the most warps a bf16 slab is shared by (csrc/sg_fused_bf16.cu)
+SG_BF16_MAX_SPLIT = 8
+
+
+def select_gather_bf16_plan(clouds: int, s: int, slab: int) -> Tuple[int, int]:
+    """(centers a warp, warps a slab) of K10's bf16 mode for ``clouds``
+    clouds of ``s`` centers whose slabs are ``slab`` = nsample x C values.
+    Small slabs (sa1's) take the float32 mode's plan, one warp a slab.
+    Larger ones take one center a warp, and where the centers are too few
+    to fill the card (sa4's 864 at 54 clouds, sa3's 576 and sa4's 144 at
+    9) the fewest warps a slab (2, 4 or 8) that give SG_BF16_FILL warps,
+    each warp at least one 16-byte chunk a lane.  From the sweep of every
+    plan at sa1-sa4 at 9, 54 and 72 clouds (``profile_kernels.py
+    --sg_sweep``; PERF.md §6): at sa2-sa4 the fastest plan, or one within
+    2%, in each of the 9 cells; at sa1 the float32 mode's plan, within 4%
+    of the fastest."""
+    if slab <= SG_SELECT_SLAB:
+        return select_gather_plan(clouds, s, slab), 1
+    split = 1
+    while (split < SG_BF16_MAX_SPLIT and clouds * s * split < SG_BF16_FILL
+           and slab // 8 >= 2 * 32 * split):
+        split *= 2
+    return 1, split
 
 
 def select_gather_smem(n: int, nsample: int, queries: int) -> int:
@@ -112,7 +142,13 @@ def select_gather_kernel(radius: float, nsample: int, xyz: torch.Tensor,
         raise ValueError(f"nsample {nsample} must lie in [1, min({N}, 128)]")
     if C < 3:
         raise ValueError(f"base must lead with the 3 xyz columns, has {C}")
-    queries = select_gather_plan(B, S, nsample * C) if S > 0 else 1
+    bf16 = dt == torch.bfloat16
+    if S == 0:
+        queries, split = 1, 1
+    elif bf16:
+        queries, split = select_gather_bf16_plan(B, S, nsample * C)
+    else:
+        queries, split = select_gather_plan(B, S, nsample * C), 1
     cap = select_gather_max_points(nsample, queries)
     if N > cap:  # the cloud is staged in shared memory
         raise ValueError(f"select-gather kernel takes at most {cap} points at "
@@ -125,11 +161,12 @@ def select_gather_kernel(radius: float, nsample: int, xyz: torch.Tensor,
     if idx.numel() == 0:
         return out, idx
     lib = kernels.load()
-    name = "select_gather_bf16" if dt == torch.bfloat16 else "select_gather"
+    name = "select_gather_bf16" if bf16 else "select_gather"
+    plan = (queries, split) if bf16 else (queries,)
     with torch.cuda.device(dev):
         rc = getattr(lib, "lsdm_" + name)(
             xyz.data_ptr(), new_xyz.data_ptr(), base.data_ptr(), B, N, S, C,
-            _radius2(radius), nsample, queries, out.data_ptr(), idx.data_ptr(),
+            _radius2(radius), nsample, *plan, out.data_ptr(), idx.data_ptr(),
             kernels.stream(dev))
     kernels.check(rc, name)
     kernels.LAUNCHES[name] += 1

@@ -6,44 +6,48 @@ the card, queued behind a sleep so that only the device's time counts.
     python -m lsdm_tpu_torch.profile_kernels [--clouds 9 54 72]
                                              [--fps_sweep [--ppt 1 2 4]]
                                              [--bq_sweep] [--nn_sweep]
-                                             [--sg_sweep] [--step_sweep]
+                                             [--sg_sweep] [--sg_ablation]
+                                             [--step_sweep]
                                              [--chain_sweep]
                                              [--step_stamps]
                                              [--only step sg ...]
                                              [--csrc DIR]
 
-K5 at the train step's shape (54 clouds, 1024 points, 12 heads), from the
-forward's row denominators; K4 at a b1 sample's (9, 1024, 12) and, with
-the row denominators the training forward keeps, at (54, 1024, 12),
-beside SDPA's forward on the same inputs; K3 at the SA stages sa2..sa4 of
-seeded clouds of 1024 points (1024 -> 256 -> 64 -> 16), every cloud from
-index 0, K1 at sa1..sa4 (radii 0.1, 0.2, 0.4, 0.8, 32 samples) and K2 at
-fp4..fp1 (targets 64, 256, 1024, 1024 against sources 16, 64, 256 and, at
-fp1, the targets themselves) on those point sets, at each cloud count (9:
-a b1 sample; 54: a batch-6 train step; 72: a b8 sample); K11 at an ICP
-iteration's (64, 1024) against (64, 1024) and at the chamfer train step's
-(6, 1024), both ways.  K5's and K4's lines also carry their largest errors
-against the plain versions, on these inputs and with k and v offset by +8
-(K5: the same ``out`` on both sides; K4: and the row denominators'
-relative error); K1's, K2's and K11's, whether their outputs equal the
-plain versions' (K2's and K11's distances bit for bit) at every stage;
-K3's, at 1024 points, the time of one round and the fixed cost of a
-launch, fitted from 16 and 256 rounds.  K10 at sa1..sa4 of those point
-sets (the stages' widths 6, 67, 131, 259 columns, 32 samples) at each
-cloud count, with whether its indices and values equal the plain
-version's; K9 per launch at b1 and b8 (N = 1024, D = 128, seeded weights
-at the flagship widths), clip off, with its error against the plain
-version, through the bound step a sampler calls (``make_denoise_step``),
-and the same in its bf16 mode (``denoise_step_bf16``, the error against
-the plain bf16 version), each with the sha256 of its output's bytes (so
-two trees' outputs can be held bit for bit); K6 in its bf16 mode (``denoise_chain_bf16``) at b1
-and b8, T = 1000 (N = 1024, D = 128, the cosine schedule's DDPM
-coefficients) in an event loop, with its first pass alone over the
-chain's chunks, the second pass as the rest, the second pass's product
-TFLOP/s and bound at 989 TFLOP/s, the plan (warps a tile, tiles a block)
-and the sample's BF16 gate readings against the
-plain bf16 version (``chip_smoke._bf16_gate``'s), beside the float32
-mode's time.
+K5 in both modes at the train step's shape (54 clouds, 1024 points, 12
+heads), from the forward's row denominators, beside SDPA's backward in the
+same dtype, with the sha256 of its outputs (so two trees' float32 K5 can
+be held bit for bit) and whether a second call gives the same bits; K4 at
+a b1 sample's (9, 1024, 12) and, with the row denominators the training
+forward keeps, at (54, 1024, 12), beside SDPA's forward on the same
+inputs; K3 at the SA stages sa2..sa4 of seeded clouds of 1024 points (1024
+-> 256 -> 64 -> 16), every cloud from index 0, K1 at sa1..sa4 (radii 0.1,
+0.2, 0.4, 0.8, 32 samples) and K2 at fp4..fp1 (targets 64, 256, 1024, 1024
+against sources 16, 64, 256 and, at fp1, the targets themselves) on those
+point sets, at each cloud count (9: a b1 sample; 54: a batch-6 train step;
+72: a b8 sample); K11 at an ICP iteration's (64, 1024) against (64, 1024)
+and at the chamfer train step's (6, 1024), both ways. K5's and K4's lines
+also carry their largest errors against the plain versions, on these
+inputs and with k and v offset by +8 (K5: the same ``out`` on both sides,
+and each gradient's error over max(1, its largest entry), what the bf16
+gate bounds; K4: and the row denominators' relative error); K1's, K2's and
+K11's, whether their outputs equal the plain versions' (K2's and K11's
+distances bit for bit) at every stage; K3's, at 1024 points, the time of
+one round and the fixed cost of a launch, fitted from 16 and 256 rounds.
+K10 in both modes at sa1..sa4 of those point sets (the stages' widths 6,
+67, 131, 259 columns, 32 samples) at each cloud count, with whether its
+indices and values equal the plain version's and their sha256; K9 per
+launch at b1 and b8 (N = 1024, D = 128, seeded weights at the flagship
+widths), clip off, with its error against the plain version, through the
+bound step a sampler calls (``make_denoise_step``), and the same in its
+bf16 mode (``denoise_step_bf16``, the error against the plain bf16
+version), each with the sha256 of its output's bytes (so two trees'
+outputs can be held bit for bit); K6 in its bf16 mode
+(``denoise_chain_bf16``) at b1 and b8, T = 1000 (N = 1024, D = 128, the
+cosine schedule's DDPM coefficients) in an event loop, with its first pass
+alone over the chain's chunks, the second pass as the rest, the second
+pass's product TFLOP/s and bound at 989 TFLOP/s, the plan (warps a tile,
+tiles a block) and the sample's BF16 gate readings against the plain bf16
+version (``chip_smoke._bf16_gate``'s), beside the float32 mode's time.
 Prints one JSON line per case and the card's name and power limit.
 
 ``--fps_sweep`` times every launch plan (warps a cloud, points a lane,
@@ -55,8 +59,14 @@ every plan of the 3-NN and chamfer entries at K2's and K11's shapes
 (lanes a target 1-32; K11 also 1, 2 or 4 targets a lane, K2 one),
 against which ``ops/ballquery.py:three_nn_plan`` and
 ``ops/chamfer.py:chamfer_nn_plan``
-were chosen; ``--sg_sweep`` every plan (centers a warp 1, 2 or 4) of the
-select-gather entry at K10's shapes; ``--step_sweep`` K9's two launches
+were chosen; ``--sg_sweep`` every plan of K10 at its shapes (float32:
+centers a warp 1, 2 or 4, by the C entry; bf16: centers a warp and warps
+a slab, forced by standing in for ``ops/sg_fused.py:
+select_gather_bf16_plan``, against which that rule was chosen);
+``--sg_ablation`` K10 bf16 from libraries built with
+``-DLSDM_SG_ABLATE=1`` (its body's stores of a constant, no loads) and
+``=2`` (its loads and assembly, no body stores), beside the kernel as it
+is; ``--step_sweep`` K9's two launches
 apart, u2 and the tile kernel at every cluster size the card runs (1 to
 8), with the card's occupancy of the tile kernel at each, at b1 to b8,
 against which ``ops/denoise.py:step_plan`` was chosen, and K9 bf16's two
@@ -135,19 +145,42 @@ def fps_levels(clouds: int, g: torch.Generator):
     return levels
 
 
-def k5_call(C: int, N: int = 1024, H: int = 12, seed: int = 0, offset: float = 0.0):
-    """(K5's call, its plain version's result) on seeded inputs, k and v
-    shifted by ``offset``; both from the kernel's forward ``out``."""
+def k5_inputs(C: int, N: int = 1024, H: int = 12, seed: int = 0, offset: float = 0.0,
+              dtype=torch.float32):
+    """Seeded (q, k, v, out, g, den) of K5 at (C, N, H): k and v shifted by
+    ``offset``, q, k, v in ``dtype`` (bf16: the bf16 mode), out and den
+    from the kernel's forward."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, gout = (torch.randn(C, N, H, generator=g, device="cuda") for _ in range(4))
-    k, v = k + offset, v + offset
+    q, k, v = q.to(dtype), (k + offset).to(dtype), (v + offset).to(dtype)
     out, den = attn.rank1_mha_kernel(q, k, v, denominator=True)
+    return q, k, v, out, gout, den
+
+
+def k5_call(*args, **kwargs):
+    """(K5's call, its plain version's result) on ``k5_inputs(...)``."""
+    q, k, v, out, gout, den = k5_inputs(*args, **kwargs)
     fn = lambda: attn.rank1_mha_bwd_kernel(q, k, v, out, gout, den)
     return fn, attn.rank1_mha_bwd_plain(q, k, v, out, gout)
 
 
 def k5_err(fn, want) -> float:
-    return max((a - b).abs().max().item() for a, b in zip(fn(), want))
+    return max((a.float() - b.float()).abs().max().item() for a, b in zip(fn(), want))
+
+
+def k5_rel_errs(fn, want) -> list:
+    """Each gradient's largest error over max(1, its largest entry): the
+    measure the bf16 gate (chip_smoke.ATTN_BWD_BF16_ATOL) bounds."""
+    return [(a.float() - b.float()).abs().max().item()
+            / max(1.0, b.float().abs().max().item()) for a, b in zip(fn(), want)]
+
+
+def sha(tensors) -> str:
+    """The first 16 hex digits of the sha256 of the tensors' bytes."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def k4_case(C: int, N: int = 1024, H: int = 12, seed: int = 0,
@@ -221,8 +254,11 @@ def chamfer_nn_call(x: torch.Tensor, y: torch.Tensor, plan=None):
 
 def same_bits(got, want) -> bool:
     """Outputs (floats, indices) equal, the floats bit for bit."""
-    return all(torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
-                           b.view(torch.int32) if b.is_floating_point() else b)
+    def bits(t):
+        if not t.is_floating_point():
+            return t
+        return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+    return all(a.dtype == b.dtype and torch.equal(bits(a), bits(b))
                for a, b in zip(got, want))
 
 
@@ -243,10 +279,21 @@ SG_WIDTHS = (6, 67, 131, 259)  # base columns of sa1..sa4 at the flagship
 
 def sg_call(r: float, xyz, new_xyz, base, plan=None):
     """One K10 launch at radius r, 32 samples: the wrapper, or with
-    ``plan`` (centers a warp) the C entry."""
+    ``plan`` (centers a warp; for a bf16 base (centers a warp, warps a
+    slab), forced by standing in for ``select_gather_bf16_plan``) the C
+    entry."""
     ns = min(NSAMPLE, xyz.shape[1])
     if plan is None:
         return lambda: sg_fused.select_gather_kernel(r, ns, xyz, new_xyz, base)
+    if base.dtype == torch.bfloat16:
+        def forced():
+            rule = sg_fused.select_gather_bf16_plan
+            sg_fused.select_gather_bf16_plan = lambda *_: plan
+            try:
+                return sg_fused.select_gather_kernel(r, ns, xyz, new_xyz, base)
+            finally:
+                sg_fused.select_gather_bf16_plan = rule
+        return forced
     B, N, C = base.shape
     S = new_xyz.shape[1]
     lib = kernels.load()
@@ -459,6 +506,8 @@ def main() -> None:
     ap.add_argument("--bq_sweep", action="store_true")
     ap.add_argument("--nn_sweep", action="store_true")
     ap.add_argument("--sg_sweep", action="store_true")
+    ap.add_argument("--sg_ablation", action="store_true",
+                    help="K10 bf16 built without its loads, then without its stores")
     ap.add_argument("--step_sweep", action="store_true")
     ap.add_argument("--chain_sweep", action="store_true")
     ap.add_argument("--step_stamps", action="store_true",
@@ -501,6 +550,8 @@ def main() -> None:
             nn_cases(sets, clouds, args, card)
         if on("sg"):
             sg_cases(sets, clouds, args, card, g)
+            if args.sg_ablation:
+                sg_ablation(sets, clouds, card, g)
     if on("chamfer"):
         chamfer_all(g, args, card)
     if on("step"):
@@ -526,16 +577,43 @@ def main() -> None:
             chain_cases(B, args.chain_sweep, card)
 
 
+def sdpa_bwd_ms(q, k, v, gout) -> float:
+    """SDPA's backward (head_dim 1, scale 1) on K5's inputs, in their dtype,
+    by an event loop (autograd's host work does not queue behind a
+    sleep)."""
+    q4, k4, v4 = (t.transpose(1, 2)[..., None].contiguous().requires_grad_()
+                  for t in (q, k, v))
+    out4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+    g4 = gout.to(q.dtype).transpose(1, 2)[..., None].contiguous()
+    return event_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), g4,
+                                                retain_graph=True), 5)
+
+
 def attn_cases(card: str) -> None:
-    fn, want = k5_call(54)
-    err = k5_err(fn, want)
-    ms = queued_ms(fn)
-    del want
-    fn, want = k5_call(54, offset=8.0)
-    print(json.dumps({"kernel": "rank1_attn_bwd", "shape": [54, 1024, 12], "ms": ms,
-                      "max_abs_err": err, "offset_max_abs_err": k5_err(fn, want),
-                      "card": card}))
-    del fn, want
+    """K5 in both modes at (54, 1024, 12): its queued time, its errors
+    against the plain version on these inputs and with k and v offset by
+    +8 (largest, and over max(1, the gradient's largest entry): what the
+    bf16 gate bounds), the sha256 of its outputs and whether a second call
+    gives the same bits, the plain version's and SDPA's backward's time in
+    the same dtype; then K4."""
+    for dtype, name in ((torch.float32, "rank1_attn_bwd"),
+                        (torch.bfloat16, "rank1_attn_bwd_bf16")):
+        q, k, v, out, gout, den = k5_inputs(54, dtype=dtype)
+        fn = lambda: attn.rank1_mha_bwd_kernel(q, k, v, out, gout, den)
+        want = attn.rank1_mha_bwd_plain(q, k, v, out, gout)
+        err, rel = k5_err(fn, want), k5_rel_errs(fn, want)
+        digest = sha(fn())
+        rec = {"kernel": name, "shape": [54, 1024, 12], "ms": queued_ms(fn),
+               "max_abs_err": err, "err_over_max1": rel, "sha256": digest,
+               "same_bits_twice": sha(fn()) == digest,
+               "plain_ms": event_ms(lambda: attn.rank1_mha_bwd_plain(q, k, v, out, gout), 1),
+               "sdpa_bwd_ms": sdpa_bwd_ms(q, k, v, gout)}
+        del want
+        fo, want = k5_call(54, offset=8.0, dtype=dtype)
+        rec.update(offset_max_abs_err=k5_err(fo, want),
+                   offset_err_over_max1=k5_rel_errs(fo, want), card=card)
+        print(json.dumps(rec))
+        del fn, fo, want, q, k, v, out, gout, den
     for C, denominator in ((9, False), (54, True)):
         q, k, v = k4_case(C)
         err, den_err = k4_errors(q, k, v)
@@ -611,28 +689,61 @@ def nn_cases(sets, clouds: int, args, card: str) -> None:
                       "ms": sum(stages), "equal": equal, "card": card}))
 
 
+# every plan of K10's bf16 mode: (centers a warp, warps a slab)
+SG_BF16_PLANS = ((1, 1), (2, 1), (4, 1), (1, 2), (1, 4), (1, 8))
+
+
 def sg_cases(sets, clouds: int, args, card: str, g: torch.Generator) -> None:
-    """K10 at sa1..sa4: equal indices and values, and its queued time."""
-    stages, equal = [], True
-    for r, c, xyz, new_xyz in zip(RADII, SG_WIDTHS, sets[:4], sets[1:5]):
-        base = torch.cat([xyz, torch.randn(clouds, xyz.shape[1], c - 3, generator=g,
-                                           device="cuda")], -1).contiguous()
-        fn = sg_call(r, xyz, new_xyz, base)
-        want = sg_fused.select_gather_plain(r, min(NSAMPLE, xyz.shape[1]), xyz,
-                                            new_xyz, base)
-        equal = equal and same_bits(fn(), want)
-        stages.append(queued_ms(fn))
-        if args.sg_sweep:
-            for plan in (1, 2, 4):
-                fw = sg_call(r, xyz, new_xyz, base, plan)
-                if not same_bits(fw(), want):
-                    raise AssertionError(f"select-gather plan {plan}: outputs differ")
-                print(json.dumps({"kernel": "select_gather", "clouds": clouds,
-                                  "points": xyz.shape[1], "queries": new_xyz.shape[1],
-                                  "plan": plan, "ms": queued_ms(fw)}))
-        del want
-    print(json.dumps({"kernel": "select_gather", "clouds": clouds, "stages_ms": stages,
-                      "ms": sum(stages), "equal": equal, "card": card}))
+    """K10 at sa1..sa4 in both modes: equal indices and values, the sha256
+    of the outputs, and the queued time per stage; with ``--sg_sweep``
+    every plan of each mode (the bf16 plans forced by standing in for
+    ``select_gather_bf16_plan``)."""
+    for dtype, name in ((torch.float32, "select_gather"),
+                        (torch.bfloat16, "select_gather_bf16")):
+        stages, equal, digests = [], True, []
+        for r, c, xyz, new_xyz in zip(RADII, SG_WIDTHS, sets[:4], sets[1:5]):
+            base = torch.cat([xyz, torch.randn(clouds, xyz.shape[1], c - 3, generator=g,
+                                               device="cuda")], -1).to(dtype).contiguous()
+            fn = sg_call(r, xyz, new_xyz, base)
+            want = sg_fused.select_gather_plain(r, min(NSAMPLE, xyz.shape[1]), xyz,
+                                                new_xyz, base)
+            equal = equal and same_bits(fn(), want)
+            digests.append(sha(fn()))
+            stages.append(queued_ms(fn))
+            if args.sg_sweep:
+                sweep = SG_BF16_PLANS if dtype == torch.bfloat16 else (1, 2, 4)
+                for plan in sweep:
+                    fw = sg_call(r, xyz, new_xyz, base, plan)
+                    if not same_bits(fw(), want):
+                        raise AssertionError(f"{name} plan {plan}: outputs differ")
+                    print(json.dumps({"kernel": name, "clouds": clouds,
+                                      "points": xyz.shape[1], "queries": new_xyz.shape[1],
+                                      "plan": plan, "ms": queued_ms(fw)}))
+            del want
+        print(json.dumps({"kernel": name, "clouds": clouds, "stages_ms": stages,
+                          "ms": sum(stages), "equal": equal, "sha256": digests,
+                          "card": card}))
+
+
+def sg_ablation(sets, clouds: int, card: str, g: torch.Generator) -> None:
+    """K10 bf16 at sa1..sa4 from libraries built with -DLSDM_SG_ABLATE=1
+    (the body's stores of a constant, no loads) and =2 (loads and
+    assembly, no body stores), each beside the kernel as it is (from the
+    same inputs); the library of the build flags is restored after."""
+    flags, lib = kernels.NVCC_FLAGS, kernels._lib
+    bases = []
+    for c, xyz in zip(SG_WIDTHS, sets[:4]):
+        bases.append(torch.cat([xyz, torch.randn(clouds, xyz.shape[1], c - 3, generator=g,
+                                                 device="cuda")], -1).bfloat16().contiguous())
+    out = {"kernel": "select_gather_bf16_ablation", "clouds": clouds, "card": card}
+    for variant, define in (("as_is", None), ("stores_no_loads", 1), ("loads_no_stores", 2)):
+        kernels.NVCC_FLAGS = flags if define is None else (*flags, f"-DLSDM_SG_ABLATE={define}")
+        kernels._lib = None
+        kernels.load()
+        out[variant] = [queued_ms(sg_call(r, xyz, new_xyz, base)) for r, xyz, new_xyz, base
+                        in zip(RADII, sets[:4], sets[1:5], bases)]
+    kernels.NVCC_FLAGS, kernels._lib = flags, lib
+    print(json.dumps(out))
 
 
 def chamfer_all(g: torch.Generator, args, card: str) -> None:

@@ -7,8 +7,9 @@ loads sit, and which units their instructions use, from the compiler
 
 Compiles each source of ``csrc/`` named (default: the row-MLP kernels K7
 and K8 in both modes, the ball query and 3-NN kernels K1 and K2, the
-chamfer nearest neighbour K11, FPS, K3, K6's pass 2 in both modes and K9 in
-both modes)
+chamfer nearest neighbour K11, FPS, K3, K6's pass 2 in both modes, K9 in
+both modes, the attention backward K5 and the select-gather K10 in both
+modes)
 with the package's
 ``NVCC_FLAGS`` plus ``-Xptxas -v`` to a cubin under the build directory and
 prints, per function (each instance of a template), what ptxas reports:
@@ -45,7 +46,8 @@ from lsdm_tpu_torch import kernels
 
 SOURCES = ("sa_fused", "fp_fused", "sa_fused_bf16", "fp_fused_bf16", "ballquery",
            "chamfer", "fps", "denoise_chain", "denoise_chain_bf16", "denoise_step",
-           "denoise_step_bf16")
+           "denoise_step_bf16", "rank1_attn_bwd", "rank1_attn_bwd_bf16", "sg_fused",
+           "sg_fused_bf16")
 SASS_SOURCES = ("sa_fused", "fp_fused")
 # the opcodes counted per function of the SASS
 OPCODES = ("HMMA", "HGMMA", "FFMA", "LDSM", "MUFU", "BAR", "BRA")

@@ -792,10 +792,14 @@ def test_rank1_attention_bf16_kernel_matches_plain(dev, b, l, s, h):
 
 
 @pytest.mark.parametrize("b,l,s,h", [(2, 300, 77, 12), (1, 1024, 1024, 12), (3, 8, 5, 2),
-                                     (2, 100, 2500, 3)])  # three key tiles
+                                     (2, 100, 2500, 3),   # three key tiles
+                                     (1, 600, 1100, 5)])  # three row chunks, two key tiles
 def test_rank1_attention_bwd_bf16_kernel_matches_plain(dev, b, l, s, h):
     """K5's bf16 mode from K4's bf16 output: bf16 dq, dk, dv within
-    ATTN_BF16_ATOL of each one's largest entry of the plain version's."""
+    ATTN_BF16_ATOL of each one's largest entry of the plain version's, and
+    the same bits from a second run.  L and S that are not multiples of the
+    kernel's 16-row and 16-key tiles, more than one 256-row chunk and one
+    1024-key tile."""
     q, k, v = _bf16_case(dev, b, l, s, h, seeds=(4, 5, 6))
     g = _cloud(7, b, l, h).to(dev)
     out, den = attn.rank1_mha_kernel(q, k, v, denominator=True)
@@ -810,6 +814,26 @@ def test_rank1_attention_bwd_bf16_kernel_matches_plain(dev, b, l, s, h):
                                    atol=ATTN_BF16_ATOL * max(1.0, w.abs().max().item()))
     again = attn.rank1_mha_bwd_kernel(q, k, v, out, g, den)
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+@pytest.mark.parametrize("b,l,s,h", [(4, 1024, 1024, 12), (2, 300, 77, 12),
+                                     (1, 100, 2500, 3)])
+def test_rank1_attention_bwd_bf16_kernel_on_offset_inputs(dev, b, l, s, h):
+    """k and v offset by +8 on unit-scale bf16 inputs: the split form's dq
+    (g sum w v k - D sum w k) and dk (v sum w g q - sum w D q) cancel two
+    sums of ~8 |g|, held within ATTN_BF16_ATOL of each gradient's largest
+    entry of the plain version's."""
+    q = _cloud(4, b, l, h).to(dev).bfloat16()
+    k, v = ((_cloud(i, b, s, h) + 8.0).to(dev).bfloat16() for i in (5, 6))
+    g = _cloud(7, b, l, h).to(dev)
+    out, den = attn.rank1_mha_kernel(q, k, v, denominator=True)
+    got = attn.rank1_mha_bwd_kernel(q, k, v, out, g, den)
+    want = attn.rank1_mha_bwd_plain(q, k, v, out, g)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a.float(), w.float(), rtol=0,
+                                   atol=ATTN_BF16_ATOL * max(1.0, w.abs().max().item()))
 
 
 def test_rank1_attention_bf16_autograd_runs_both_kernels(dev):
@@ -898,6 +922,61 @@ def test_select_gather_bf16_kernel_equals_plain(dev, n, s, radius, nsample, c):
     assert torch.equal(gi, wi) and torch.equal(got, want)
     assert torch.equal(gi, sg_fused.select_gather_kernel(radius, nsample, xyz, new_xyz,
                                                          base.float())[1])
+
+
+# every plan of K10's bf16 mode: (centers a warp, warps a slab)
+SG_BF16_PLANS = [(1, 1), (2, 1), (4, 1), (1, 2), (1, 4), (1, 8)]
+
+
+@pytest.mark.parametrize("plan", SG_BF16_PLANS)
+def test_select_gather_bf16_every_plan_at_the_flagship_stages(dev, plan, monkeypatch):
+    """K10's bf16 mode at sa1-sa4 of 9 clouds (centres by FPS, the stages'
+    widths 6, 67, 131, 259) under each plan, forced by standing in for
+    ``select_gather_bf16_plan``: indices and values equal the plain
+    version's bit for bit, and the indices K1's."""
+    monkeypatch.setattr(sg_fused, "select_gather_bf16_plan", lambda *_: plan)
+    xyz = _cloud(9, 9, 1024, 3).to(dev)
+    levels = [xyz, xyz]
+    for npoint in (256, 64, 16):
+        idx = fps.farthest_point_sample_plain(levels[-1], npoint)
+        levels.append(torch.gather(levels[-1], 1, idx.long()[..., None].expand(-1, -1, 3))
+                      .contiguous())
+    for i, (r, c) in enumerate(zip((0.1, 0.2, 0.4, 0.8), (6, 67, 131, 259))):
+        pts, centres = levels[i], levels[i + 1]
+        base = torch.cat([pts, _cloud(i, 9, pts.shape[1], c - 3).to(dev)],
+                         -1).bfloat16().contiguous()
+        got, gi = sg_fused.select_gather_kernel(r, 32, pts, centres, base)
+        want, wi = sg_fused.select_gather_plain(r, 32, pts, centres, base)
+        torch.cuda.synchronize()
+        assert torch.equal(gi, wi) and torch.equal(got, want), (plan, i)
+        assert torch.equal(gi, ballquery.query_ball_point_kernel(r, 32, pts, centres))
+
+
+@pytest.mark.parametrize("plan", SG_BF16_PLANS)
+@pytest.mark.parametrize("nsample,c", [(31, 6), (7, 3), (5, 7), (33, 67),
+                                      (13, 10), (3, 8)])  # two rows' first values a chunk
+def test_select_gather_bf16_unaligned_slabs_every_plan(dev, plan, nsample, c, monkeypatch):
+    """Slabs of nsample x C values that are not a multiple of 8: each starts
+    at another offset mod 8 from a 16-byte boundary, so its head and tail
+    (one value a lane) span slots where C < 8, and the body's chunks hold
+    up to four pieces of rows; equal to the plain version at every plan."""
+    monkeypatch.setattr(sg_fused, "select_gather_bf16_plan", lambda *_: plan)
+    xyz = _cloud(nsample, 3, 200, 3).to(dev)
+    new_xyz = xyz[:, :37].clone()
+    new_xyz[1, 2] = 50.0
+    base = torch.cat([xyz, _cloud(c, 3, 200, c - 3).to(dev)], -1).bfloat16().contiguous()
+    got, gi = sg_fused.select_gather_kernel(0.4, nsample, xyz, new_xyz, base)
+    want, wi = sg_fused.select_gather_plain(0.4, nsample, xyz, new_xyz, base)
+    torch.cuda.synchronize()
+    assert torch.equal(gi, wi) and torch.equal(got, want)
+    # a base that starts 2 bytes past a 16-byte boundary: every source row
+    # at another offset
+    wide = torch.zeros(3 * 200 * c + 1, dtype=torch.bfloat16, device=dev)
+    shifted = wide[1:].view(3, 200, c)
+    shifted.copy_(base)
+    got2, _ = sg_fused.select_gather_kernel(0.4, nsample, xyz, new_xyz, shifted)
+    torch.cuda.synchronize()
+    assert torch.equal(got2, want)
 
 
 @pytest.mark.parametrize("clouds", [9, 54])
